@@ -9,20 +9,31 @@ It imports the port only (never JAX or the JAX package) and runs, each
 phase printing one line:
 
   1. the card's name and power limit (nvidia-smi), then the build of every
-     kernel of the main path from `monst3r_slam_torch/csrc/` with nvcc;
+     kernel from `monst3r_slam_torch/csrc/` with nvcc, one process per
+     source, with each kernel's registers and spills, and a check in the
+     SASS that every phase instantiation of kernel B keeps its staging;
   2. kernel A (attention) against its plain version at the encoder
-     (1, 16, 768, 64) and decoder (1, 12, 768, 64) shapes in bf16, with the
-     kernel's, the plain version's and scaled_dot_product_attention's times;
+     (1, 16, 768, 64) and decoder (1, 12, 768, 64) shapes, on both routes:
+     the bf16 tensor-core kernel (the main path's) and the f32 CUDA-core
+     kernel, with the kernel's, the plain version's and
+     scaled_dot_product_attention's times (`time_ms`: calls back to back,
+     what a host-bound caller sees), and the kernel's and SDPA's device
+     times (`device_ms`);
   3. kernel B (tile matcher) against its plain version on one 384x512 pair
-     from `--seed`, placed by the matcher's own tile and corner pipeline,
-     then the model and the matcher on the card against the port's plain
-     CPU path on a small pair (MAST3R_512 widths, cut depth, f32);
-  4. the main path: the port's synchronous SLAMSystem at MAST3R_512 full
+     from `--seed`, placed by the matcher's own tile and corner pipeline;
+     then the phase split of kernel B on the same input (the counterpart of
+     the TPU profiler `scripts/profile_pallas_phases.py`): each of the four
+     instantiations (stage, ray, stencil, full) against its plain version,
+     then the four timed, with the phase counter zeroed just before and
+     read just after;
+  4. the model and the matcher on the card against the port's plain CPU
+     path on a small pair (MAST3R_512 widths, cut depth, f32);
+  5. the main path: the port's synchronous SLAMSystem at MAST3R_512 full
      width with random bf16 weights from `--seed`, on `--frames` 384x512
      frames, one of them forced to be a keyframe so that a keyframe event
      decodes and matches the new graph edge and runs the global
      Gauss-Newton. The launch counters are zeroed just before and read just
-     after.
+     after; every attention launch must take the bf16 tensor-core route.
 
 Random weights carry no geometry: two views of one scene, even one shifted
 by a pixel, decode to pointmaps that do not match, and every frame would be
@@ -42,6 +53,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import pathlib
 import subprocess
 import sys
 import time
@@ -53,6 +65,7 @@ import numpy as np
 PEAK_BF16 = 989e12
 PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
+SM_CLOCK_HZ = 1.98e9  # H100 SXM boost clock: cycles per second of a spin kernel, at most
 
 H, W = 384, 512
 
@@ -62,13 +75,10 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of one call, from CUDA events around `iters` calls."""
+def _events_ms(fn, iters: int) -> float:
+    """CUDA events around `iters` calls enqueued back to back, per call."""
     import torch
 
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(iters):
@@ -76,6 +86,37 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean time of one call, from CUDA events around `iters` calls enqueued
+    back to back from an idle device: the larger of the device time and the
+    host's cost per call (the Python wrapper, the launch), which is what a
+    host-bound caller sees. Every `ms` this script reports."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    return _events_ms(fn, iters)
+
+
+def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean device time of one call: the calls are enqueued while the device
+    sleeps on a spin kernel 1.5x as long as the host takes to enqueue them,
+    so that the host's cost per call does not stretch the window."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(warmup):
+        fn()
+    host_s = (time.perf_counter() - t0) / warmup
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(min(1.5 * host_s * iters * SM_CLOCK_HZ, SM_CLOCK_HZ)))
+    return _events_ms(fn, iters)
 
 
 def bound_ms(n_bytes: float, op_times_s: float) -> tuple:
@@ -95,8 +136,32 @@ def phase_card() -> str:
     return out[0].strip()
 
 
+def staging_instructions(lib: str, fd: int = 24) -> dict:
+    """{phase: (global loads, shared stores)} in the SASS of kernel B's
+    phase instantiations for `fd` channels: a cut phase whose staging the
+    compiler dropped would show none."""
+    from monst3r_slam_torch.ops import build
+    from monst3r_slam_torch.ops.matching_pallas import PHASES
+
+    tool = pathlib.Path(build.nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", lib], capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    counts, cur = {}, None
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            cur = next((ph for i, ph in enumerate(PHASES)
+                        if f"tile_match_kernelILi{fd}ELi{i}E" in ln), None)
+            if cur is not None:
+                counts[cur] = [0, 0]
+        elif cur is not None:
+            counts[cur][0] += "LDG" in ln
+            counts[cur][1] += "STS" in ln
+    return {ph: tuple(c) for ph, c in counts.items()}
+
+
 def phase_build() -> None:
     from monst3r_slam_torch.ops import build
+    from monst3r_slam_torch.ops.matching_pallas import PHASES
 
     t0 = time.perf_counter()
     logs = build.build(force=True)
@@ -105,14 +170,20 @@ def phase_build() -> None:
     for name, log in logs.items():
         regs = [ln.split("info    :")[-1].strip() for ln in log.splitlines() if "Used" in ln or "spill" in ln]
         usage.append(f"{name}: " + "; ".join(regs))
-    print(f"build: {sorted(logs)} in {secs:.1f} s | " + " | ".join(usage), flush=True)
+    print(f"build: {sorted(logs)} in {secs:.1f} s (one nvcc per source, in parallel) | "
+          + " | ".join(usage), flush=True)
+    staged = staging_instructions(str(build.lib_path("tile_match")))
+    if sorted(staged) != sorted(PHASES) or not all(ld > 0 and st > 0 for ld, st in staged.values()):
+        fail(f"kernel B's phase instantiations lost their staging (LDG, STS in SASS): {staged}")
+    print("tile_match phase instantiations keep their staging (LDG, STS in SASS): "
+          + ", ".join(f"{ph} {ld}/{st}" for ph, (ld, st) in staged.items()), flush=True)
 
 
 def phase_attention(seed: int) -> dict:
-    """Kernel A against the plain version computed in f32 from the same bf16
-    inputs. Bound on the error: the kernel rounds its f32 output to bf16
-    (half an ulp is 2^-9 of the value), so |err| <= 2^-8 * max|ref| leaves a
-    factor of two for the f32 summation order."""
+    """Kernel A on both routes against the plain version computed in f32
+    from the same inputs, within `attention.error_bound` (bf16 tensor-core
+    route: from its two bf16 roundings, of the probabilities and of the
+    output; f32 CUDA-core route: 2e-5)."""
     import torch
     import torch.nn.functional as F
 
@@ -120,30 +191,40 @@ def phase_attention(seed: int) -> dict:
 
     rng = np.random.default_rng(seed)
     rows = {}
-    for name, heads in (("encoder", 16), ("decoder", 12)):
-        q, k, v = (
-            torch.from_numpy(rng.standard_normal((1, heads, 768, 64), dtype=np.float32))
-            .to("cuda").to(torch.bfloat16)
-            for _ in range(3)
-        )
-        out = attention.fused_attention(q, k, v)
-        torch.cuda.synchronize()
-        ref = attention.sdpa_plain(q.float(), k.float(), v.float())
-        err = float((out.float() - ref).abs().max())
-        tol = 2.0**-8 * float(ref.abs().max())
-        if not (np.isfinite(err) and err <= tol):
-            fail(f"attention {name}: max abs err {err} > {tol}")
-        ms = time_ms(lambda: attention.fused_attention(q, k, v))
-        plain = time_ms(lambda: attention.sdpa_plain(q, k, v))
-        lib = time_ms(lambda: F.scaled_dot_product_attention(q, k, v))
-        n_bytes = 4 * q.numel() * q.element_size()  # q, k, v read, o written
-        flops = 4.0 * heads * 768 * 768 * 64  # QK^T and PV
-        b_ms, b_by = bound_ms(n_bytes, flops / PEAK_BF16)
-        rows[name] = dict(shape=[1, heads, 768, 64], max_abs_err=err, tol=tol, ms=ms,
-                          plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by)
-        print(f"attention {name} (1,{heads},768,64) bf16: err {err:.3e} <= {tol:.3e}; "
-              f"kernel {ms:.4f} ms, plain {plain:.4f} ms, sdpa {lib:.4f} ms, "
-              f"bound {b_ms:.5f} ms ({b_by})", flush=True)
+    for route, dtype, peak in (("bf16_tc", torch.bfloat16, PEAK_BF16),
+                               ("f32", torch.float32, PEAK_F32)):
+        for name, heads in (("encoder", 16), ("decoder", 12)):
+            q, k, v = (
+                torch.from_numpy(rng.standard_normal((1, heads, 768, 64), dtype=np.float32))
+                .to("cuda").to(dtype)
+                for _ in range(3)
+            )
+            before = attention.fused_attention.route_launches[route]
+            out = attention.fused_attention(q, k, v)
+            torch.cuda.synchronize()
+            if attention.fused_attention.route_launches[route] != before + 1:
+                fail(f"attention {name} {dtype} did not take the {route} route")
+            ref = attention.sdpa_plain(q.float(), k.float(), v.float())
+            err = float((out.float() - ref).abs().max())
+            tol = attention.error_bound(q, k, v, ref)
+            if not (np.isfinite(err) and err <= tol):
+                fail(f"attention {route} {name}: max abs err {err} > {tol}")
+            ms = time_ms(lambda: attention.fused_attention(q, k, v))
+            plain = time_ms(lambda: attention.sdpa_plain(q, k, v))
+            lib = time_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+            dev = device_ms(lambda: attention.fused_attention(q, k, v))
+            lib_dev = device_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+            n_bytes = 4 * q.numel() * q.element_size()  # q, k, v read, o written
+            flops = 4.0 * heads * 768 * 768 * 64  # QK^T and PV
+            b_ms, b_by = bound_ms(n_bytes, flops / peak)
+            rows[route, name] = dict(
+                shape=[1, heads, 768, 64], dtype=str(dtype).split(".")[-1], max_abs_err=err,
+                tol=tol, ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by,
+                device_ms=dev, library_device_ms=lib_dev)
+            print(f"attention {route} {name} (1,{heads},768,64) {rows[route, name]['dtype']}: "
+                  f"err {err:.3e} <= {tol:.3e}; ms: kernel {ms:.4f}, plain {plain:.4f}, "
+                  f"sdpa {lib:.4f}, bound {b_ms:.5f} ({b_by}); device ms: kernel {dev:.4f}, "
+                  f"sdpa {lib_dev:.4f}", flush=True)
     return rows
 
 
@@ -181,16 +262,13 @@ def window_positions(ti, window: int) -> int:
     return total
 
 
-def phase_tile_match(seed: int) -> dict:
-    """Kernel B against its plain version on the same inputs; both do the
-    same f32 and bf16 arithmetic in the same order, so they must agree on at
-    least 99.9% of (u, v, converged)."""
+def tile_match_inputs(seed: int):
+    """Kernel B's arguments on the 384x512 pair from `seed`, placed by the
+    matcher's own tile and corner pipeline, with what bounds the call."""
     import torch
 
     from monst3r_slam_torch.ops import matching, matching_tiled
-    from monst3r_slam_torch.ops.matching_pallas import (
-        quantize_corners, tile_match_kernel, tile_match_plain,
-    )
+    from monst3r_slam_torch.ops.matching_pallas import quantize_corners
 
     X11, X21, D11, D21 = (torch.from_numpy(a).to("cuda")
                           for a in synthetic_pointmap_pair(seed))
@@ -203,6 +281,30 @@ def phase_tile_match(seed: int) -> dict:
         quantize_corners(ti.corners, H, W, ti.crop),
         ti.crop, window, mcfg.convergence_thresh,
     )
+    T, tsz = ti.q_rays.shape[:2]
+    out_bytes = 3 * T * tsz * 4  # u, v, conv as int32
+    image_bytes = sum(a.numel() * a.element_size() for a in (args[0], args[1], args[4]))
+    ray_flops = 5.0 * T * tsz * ti.crop**2  # 3 mul + 2 add per target ray
+    desc_flops = 2.0 * args[1].shape[-1] * window_positions(ti, window)
+    bounds = {  # phase: (bytes it must move, operation time at the peak rates)
+        "stage": (image_bytes + out_bytes, 0.0),
+        "ray": (image_bytes + args[2].numel() * 4 + out_bytes, ray_flops / PEAK_F32),
+    }
+    bounds["stencil"] = bounds["ray"]  # a handful of operations per query
+    bounds["full"] = (bounds["ray"][0] + args[3].numel() * 2,
+                      ray_flops / PEAK_F32 + desc_flops / PEAK_BF16)
+    return args, ti, bounds
+
+
+def phase_tile_match(seed: int) -> dict:
+    """Kernel B against its plain version on the same inputs; both do the
+    same f32 and bf16 arithmetic in the same order, so they must agree on at
+    least 99.9% of (u, v, converged)."""
+    import torch
+
+    from monst3r_slam_torch.ops.matching_pallas import tile_match_kernel, tile_match_plain
+
+    args, ti, bounds = tile_match_inputs(seed)
     u, v, conv = tile_match_kernel(*args)
     torch.cuda.synchronize()
     u0, v0, conv0 = tile_match_plain(*args)
@@ -212,19 +314,58 @@ def phase_tile_match(seed: int) -> dict:
     T, tsz = u.shape
     ms = time_ms(lambda: tile_match_kernel(*args))
     plain = time_ms(lambda: tile_match_plain(*args), iters=5)
-    fd = D11.shape[-1]
-    n_bytes = sum(a.numel() * a.element_size() for a in args[:5]) + 3 * u.numel() * 4
-    ray_flops = 5.0 * T * tsz * ti.crop**2  # 3 mul + 2 add per target ray
-    desc_flops = 2.0 * fd * window_positions(ti, window)
-    b_ms, b_by = bound_ms(n_bytes, ray_flops / PEAK_F32 + desc_flops / PEAK_BF16)
+    b_ms, b_by = bound_ms(*bounds["full"])
     err = float(torch.maximum((u - u0).abs().max(), (v - v0).abs().max()))
     row = dict(shape=[T, tsz, ti.crop], max_abs_err=err, agree=agree, ms=ms, plain_ms=plain,
                library_ms=None, bound_ms=b_ms, bound_by=b_by,
                converged=float(conv.float().mean()))
     print(f"tile_match {T} tiles x {tsz} queries, crop {ti.crop}: agreement {agree:.6f}, "
-          f"max |du|,|dv| {err}, converged {row['converged']:.3f}; kernel {ms:.4f} ms, "
-          f"plain {plain:.4f} ms, bound {b_ms:.5f} ms ({b_by})", flush=True)
+          f"max |du|,|dv| {err}, converged {row['converged']:.3f}; ms: kernel {ms:.4f}, "
+          f"plain {plain:.4f}, bound {b_ms:.5f} ({b_by})", flush=True)
     return row
+
+
+def phase_tile_match_phases(seed: int) -> dict:
+    """Kernel B's phase split on the input of `phase_tile_match`, at the main
+    path's crop of 48 (the TPU profiler's crop of 64 needs 245,760 B of
+    shared memory, more than a block may use). Each instantiation must equal
+    its plain version (the same arithmetic in the same order); then the four
+    are timed, which is the phase profiler's own path: its launch counter is
+    zeroed just before and read just after. A phase's time less the previous
+    one's is that step's time."""
+    import torch
+
+    from monst3r_slam_torch.ops.matching_pallas import (
+        PHASES, tile_match_phase_kernel, tile_match_plain,
+    )
+
+    args, ti, bounds = tile_match_inputs(seed)
+    phases, err = {}, 0.0
+    for ph in PHASES:
+        got = tile_match_phase_kernel(*args, phase=ph)
+        torch.cuda.synchronize()
+        ref = tile_match_plain(*args, phase=ph)
+        if not all(torch.equal(a, r) for a, r in zip(got, ref)):
+            fail(f"tile_match phase {ph}: the kernel differs from its plain version")
+        err = max(err, float(torch.maximum((got[0] - ref[0]).abs().max(),
+                                           (got[1] - ref[1]).abs().max())))
+        phases[ph] = dict(plain_ms=time_ms(lambda: tile_match_plain(*args, phase=ph),
+                                           iters=3, warmup=1))
+    tile_match_phase_kernel.launches = 0
+    for ph in PHASES:
+        phases[ph]["ms"] = time_ms(lambda: tile_match_phase_kernel(*args, phase=ph))
+    launches = tile_match_phase_kernel.launches
+    prev = 0.0
+    for ph in PHASES:
+        row = phases[ph]
+        row["delta_ms"] = row["ms"] - prev
+        prev = row["ms"]
+        row["bound_ms"], row["bound_by"] = bound_ms(*bounds[ph])
+        print(f"tile_match phase {ph:8s} {row['ms']:.4f} ms (+{row['delta_ms']:.4f} ms over the "
+              f"previous phase), plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.5f} ms "
+              f"({row['bound_by']}); equal to its plain version", flush=True)
+    T, tsz = ti.q_rays.shape[:2]
+    return dict(shape=[T, tsz, ti.crop], launches=launches, max_abs_err=err, phases=phases)
 
 
 def phase_reference(seed: int) -> None:
@@ -356,16 +497,19 @@ def phase_slice(seed: int, n_frames: int) -> dict:
     counters = (fused_attention, tile_match_kernel)
     for fn in counters:
         fn.launches = 0
+    for route in fused_attention.route_launches:
+        fused_attention.route_launches[route] = 0
     t0 = time.perf_counter()
     res = run_slice(params, MAST3R_512, (H, W), n_frames, seed, "cuda", torch.bfloat16,
                     force_kf_at=n_frames // 2)
     secs = time.perf_counter() - t0
     launches = {fn.__name__: fn.launches for fn in counters}
+    routes = dict(fused_attention.route_launches)
     slam = res["slam"]
     print(f"slice MAST3R_512 {H}x{W}, {n_frames} frames in {secs:.2f} s: per-frame ms "
           f"{[round(t, 1) for t in res['wall_ms']]}; modes {res['modes']}; keyframes "
           f"{res['kf_ids']}; edges {slam.graph.n_edges // 2}, global solves "
-          f"{slam.graph.n_solves}; launches {launches}", flush=True)
+          f"{slam.graph.n_solves}; launches {launches}, attention by route {routes}", flush=True)
     n_tracked = sum(m == "TRACKING" for m in res["modes"][1:])
     hw = H * W
     X0 = slam.mem.X_canon[0]
@@ -375,6 +519,8 @@ def phase_slice(seed: int, n_frames: int) -> dict:
         fail("no global solve ran")
     if min(launches.values()) < 1:
         fail(f"a kernel of the main path never launched: {launches}")
+    if routes["bf16_tc"] != launches["fused_attention"] or routes["f32"] != 0:
+        fail(f"an attention launch of the main path left the bf16 tensor-core route: {routes}")
     if not (np.isfinite(res["poses"]).all() and np.isfinite(res["kf_poses"]).all()):
         fail("non-finite pose")
     if tuple(X0.shape) != (hw, 3) or not bool(torch.isfinite(X0).all()):
@@ -402,23 +548,36 @@ def main() -> int:
     phase_build()
     attn = phase_attention(args.seed)
     tm = phase_tile_match(args.seed)
+    tmp = phase_tile_match_phases(args.seed)
     phase_reference(args.seed)
     launches = phase_slice(args.seed, args.frames)
 
-    enc = attn["encoder"]
+    enc = attn["bf16_tc", "encoder"]
+    full = tmp["phases"]["full"]
     kernels = [
         dict(name="attention", route="cuda", source="monst3r_slam_torch/csrc/attention.cu",
              replaces="monst3r_slam_tpu/ops/attention.py:43",
              launches=launches["fused_attention"], max_abs_err=enc["max_abs_err"],
              ms=enc["ms"], plain_ms=enc["plain_ms"], bound_ms=enc["bound_ms"],
              bound_by=enc["bound_by"], library_ms=enc["library_ms"], shape=enc["shape"],
-             decoder_shape=attn["decoder"]),
+             tol=enc["tol"], device_ms=enc["device_ms"],
+             library_device_ms=enc["library_device_ms"],
+             kernel="attn_fwd_bf16_tc (wgmma, TMA)",
+             decoder_shape=attn["bf16_tc", "decoder"],
+             f32_route=dict(kernel="attn_fwd_f32 (CUDA cores)", encoder=attn["f32", "encoder"],
+                            decoder=attn["f32", "decoder"])),
         dict(name="tile_match", route="cuda", source="monst3r_slam_torch/csrc/tile_match.cu",
              replaces="monst3r_slam_tpu/ops/matching_pallas.py:213",
              launches=launches["tile_match_kernel"], max_abs_err=tm["max_abs_err"],
              ms=tm["ms"], plain_ms=tm["plain_ms"], bound_ms=tm["bound_ms"],
              bound_by=tm["bound_by"], library_ms=None, shape=tm["shape"],
              agree=tm["agree"]),
+        dict(name="tile_match_phases", route="cuda", source="monst3r_slam_torch/csrc/tile_match.cu",
+             replaces="scripts/profile_pallas_phases.py:107",
+             launches=tmp["launches"], max_abs_err=tmp["max_abs_err"],
+             ms=full["ms"], plain_ms=full["plain_ms"], bound_ms=full["bound_ms"],
+             bound_by=full["bound_by"], library_ms=None, shape=tmp["shape"],
+             phases=tmp["phases"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {card}", flush=True)

@@ -1,50 +1,93 @@
-// Kernel A: fused softmax attention forward, O = softmax(Q K^T d^-1/2) V.
+// Kernel A: fused softmax attention forward, O = softmax(Q K^T d^-1/2) V, d = 64.
 //
 // Replaces the JAX package's Pallas kernel in `ops/attention.py`
-// (`fused_attention`, body `_attn_kernel`), which holds one (batch, head)'s
-// whole 768x768 f32 logit matrix in VMEM. That does not fit a Hopper SM, so
-// this is a flash-style forward instead: one CTA per (batch*head, 64-query
-// tile); K/V stream through shared memory in 64-key tiles; the softmax is
-// online, with f32 running max, f32 running sum and f32 accumulation. The
-// logit matrix never reaches device memory.
+// (`fused_attention`, body `_attn_kernel`): f32 logits and an f32 softmax,
+// probabilities rounded to v's type before the PV product, output in the
+// input's type. The Pallas body holds one (batch, head)'s whole 768x768 f32
+// logit matrix in VMEM; a Hopper SM has 227 KB, so both routes here are
+// flash-style forwards instead: one CTA per (batch*head, 64-query tile), K/V
+// streamed in 64-key tiles, an online softmax with an f32 running max and sum
+// per row, the logit matrix never in device memory.
 //
-// Bound on this card: at the MASt3R encoder shape (16 heads x 768 tokens x
-// d=64, bf16) the call does ~2.4 GFLOP and moves ~6.3 MB, so it is bound by
-// operations (~2.4 us at the bf16 tensor-core peak). This first version does
-// its products with plain f32 FMAs on the CUDA cores (no mma/wgmma), so it
-// runs far from that bound; each warp owns 8 queries and each lane two keys
-// (scores) or two output dims (PV), with Q, K, V and P staged in shared
-// memory so every inner-loop read is a broadcast or conflict-free.
+// Bound on this card: at the MASt3R encoder shape (1 x 16 heads x 768 tokens
+// x d=64, bf16) one call does 4*16*768*768*64 = ~2.4 GFLOP and moves ~6.3 MB,
+// so it is bound by operations: 2.44 us at the 989 TFLOP/s bf16 tensor-core
+// peak (1.9 us for the bytes at 3.35 TB/s).
 //
-// Inputs q (BH, Nq, 64), k and v (BH, Nk, 64), all contiguous, f32 or bf16;
-// output in the input type. Launches on the caller's stream and returns the
-// launch's cudaGetLastError().
+// bf16 route (every call of the model on the card): tensor cores.
+//   - S = Q K^T is a chain of four wgmma m64n64k16 (bf16 x bf16 -> f32); Q and
+//     the K tile come from shared memory, both K-major.
+//   - O += P V takes P from registers, rounded to bf16 (the reference's
+//     rounding point), and the V tile from shared memory (B transposed,
+//     MN-major): the S accumulator's register layout is the A fragment's.
+//   - A CTA owns 64 query rows, the m64 of one wgmma. At 768 tokens the grid
+//     is 12 x 16 = 192 CTAs (encoder) or 12 x 12 = 144 (decoder); a CTA holds
+//     ~73 KB of shared memory, so two fit on an SM and the grid runs in one
+//     wave on the 132 SMs. So small a grid leaves the SM's units mostly idle
+//     while one CTA walks its chain of key tiles: two warpgroups share the
+//     CTA's query rows and take every other key tile, each with its own ring
+//     and softmax state, and merge at the end, which halves the chain.
+//   - TMA loads Q once and K/V through a 2-stage ring per warpgroup, completing on
+//     mbarriers, with the 128-byte swizzle (64 bf16 values are exactly one
+//     128-byte row); the wgmma descriptors name the same swizzle. The tensor
+//     maps are encoded on the host with cuTensorMapEncodeTiled, reached
+//     through cudaGetDriverEntryPoint, so the library needs no -lcuda, and
+//     cached on what the encoding reads, so a call whose buffers recur
+//     (the model's, frame after frame) does not encode them again.
+//   - The softmax works in log2 units: each probability is one FFMA (scale
+//     by d^-1/2 log2(e), minus the running max) and one MUFU ex2, the unit
+//     whose rate bounds this kernel's CUDA-core half as the tensor cores
+//     bound the other; the O accumulator is rescaled when a row's max moves
+//     and divided by the sum once at the end.
+//   - Keys at or past nk are masked to -inf (TMA fills rows past the end with
+//     zeros); query rows past nq are not stored.
+//   - Each operand comes with its own (batch, head, row) strides, the last
+//     dimension contiguous, so a transposed view of the projection's output
+//     is read in place; O is written through strides as well.
+// The earlier design of this kernel did its products as f32 FMAs on the CUDA
+// cores, 61x slower than this bound; the tensor-core route moves both
+// products onto wgmma and the loads onto TMA. What is left is the softmax
+// (the MUFU ex2 rate and the FP32 pipe, about as busy as the tensor cores at
+// d = 64), the prologue before the first product, and the SMs that hold two
+// CTAs, which set the time of the wave.
+//
+// f32 route (the reference checks on the card): the CUDA-core design, f32
+// FMAs with f32 probabilities, kept so that an f32 model on the card stays
+// within 1e-3 of the CPU path (TF32 tensor cores would not). Each warp owns
+// 8 queries and each lane two keys (scores) or two output dims (PV), with Q,
+// K, V and P staged in shared memory so every inner-loop read is a broadcast
+// or conflict-free.
+//
+// Launches on the caller's stream and returns the launch's cudaGetLastError().
 
+#include <cuda.h>  // CUtensorMap and its enums only: libcuda is looked up at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+#include <string.h>
+
+#include <mutex>
 
 namespace {
 
-constexpr int D = 64;        // head dim
-constexpr int BQ = 64;       // queries per CTA
-constexpr int BK = 64;       // keys per shared-memory tile
-constexpr int NWARP = 8;
-constexpr int NTHREAD = NWARP * 32;
-constexpr int QPW = BQ / NWARP;  // queries per warp (8)
-constexpr int KPAD = D + 1;      // K row stride: conflict-free column reads
+constexpr int D = 64;  // head dim
 
-constexpr size_t SMEM_BYTES =
-    sizeof(float) * (D * BQ + BK * KPAD + BK * D + NWARP * BK * QPW);
+struct Strides {  // in elements
+  long long b, h, r;
+};
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+// ------------------------------------------------------------------ f32 route
 
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
+constexpr int F_BQ = 64;   // queries per CTA
+constexpr int F_BK = 64;   // keys per shared-memory tile
+constexpr int F_NWARP = 8;
+constexpr int F_NTHREAD = F_NWARP * 32;
+constexpr int F_QPW = F_BQ / F_NWARP;  // queries per warp (8)
+constexpr int F_KPAD = D + 1;          // K row stride: conflict-free column reads
+
+constexpr size_t F_SMEM_BYTES =
+    sizeof(float) * (D * F_BQ + F_BK * F_KPAD + F_BK * D + F_NWARP * F_BK * F_QPW);
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -58,70 +101,70 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(NTHREAD)
-attn_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-         T* __restrict__ o, int nq, int nk, float scale) {
+__global__ void __launch_bounds__(F_NTHREAD)
+attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
+             const float* __restrict__ v, float* __restrict__ o, Strides sq, Strides sk,
+             Strides sv, Strides so, int heads, int nq, int nk, float scale) {
   extern __shared__ float smem[];
-  float* Qt = smem;              // [D][BQ]: d-major, a warp's 8 queries contiguous
-  float* Ks = Qt + D * BQ;       // [BK][KPAD]
-  float* Vs = Ks + BK * KPAD;    // [BK][D]
-  float* Ps = Vs + BK * D;       // [NWARP][BK][QPW]: probabilities of the tile
+  float* Qt = smem;                // [D][F_BQ]: d-major, a warp's 8 queries contiguous
+  float* Ks = Qt + D * F_BQ;       // [F_BK][F_KPAD]
+  float* Vs = Ks + F_BK * F_KPAD;  // [F_BK][D]
+  float* Ps = Vs + F_BK * D;       // [F_NWARP][F_BK][F_QPW]: probabilities of the tile
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  const int q0 = blockIdx.x * BQ;
-  const size_t bh = blockIdx.y;
-  const T* qb = q + bh * nq * D;
-  const T* kb = k + bh * nk * D;
-  const T* vb = v + bh * nk * D;
-  T* ob = o + bh * nq * D;
+  const int q0 = blockIdx.x * F_BQ;
+  const int b = blockIdx.y / heads, h = blockIdx.y % heads;
+  const float* qb = q + b * sq.b + h * sq.h;
+  const float* kb = k + b * sk.b + h * sk.h;
+  const float* vb = v + b * sv.b + h * sv.h;
+  float* ob = o + b * so.b + h * so.h;
 
-  for (int i = tid; i < BQ * D; i += NTHREAD) {
+  for (int i = tid; i < F_BQ * D; i += F_NTHREAD) {
     const int r = i / D, c = i % D;
     const int qi = q0 + r;
-    Qt[c * BQ + r] = qi < nq ? to_f(qb[(size_t)qi * D + c]) : 0.f;
+    Qt[c * F_BQ + r] = qi < nq ? qb[qi * sq.r + c] : 0.f;
   }
 
-  float m[QPW], l[QPW], acc0[QPW], acc1[QPW];
+  float m[F_QPW], l[F_QPW], acc0[F_QPW], acc1[F_QPW];
 #pragma unroll
-  for (int i = 0; i < QPW; ++i) {
+  for (int i = 0; i < F_QPW; ++i) {
     m[i] = -INFINITY;
     l[i] = 0.f;
     acc0[i] = 0.f;
     acc1[i] = 0.f;
   }
-  const float* Qw = Qt + warp * QPW;
-  float* Pw = Ps + warp * BK * QPW;
+  const float* Qw = Qt + warp * F_QPW;
+  float* Pw = Ps + warp * F_BK * F_QPW;
 
-  for (int k0 = 0; k0 < nk; k0 += BK) {
+  for (int k0 = 0; k0 < nk; k0 += F_BK) {
     __syncthreads();  // Q staged / previous tile fully consumed
-    for (int i = tid; i < BK * D; i += NTHREAD) {
+    for (int i = tid; i < F_BK * D; i += F_NTHREAD) {
       const int r = i / D, c = i % D;
       const int ki = k0 + r;
       const bool ok = ki < nk;
-      Ks[r * KPAD + c] = ok ? to_f(kb[(size_t)ki * D + c]) : 0.f;
-      Vs[r * D + c] = ok ? to_f(vb[(size_t)ki * D + c]) : 0.f;
+      Ks[r * F_KPAD + c] = ok ? kb[ki * sk.r + c] : 0.f;
+      Vs[r * D + c] = ok ? vb[ki * sv.r + c] : 0.f;
     }
     __syncthreads();
 
     // Scores of this warp's 8 queries against keys k0+lane and k0+lane+32.
-    float s0[QPW], s1[QPW];
+    float s0[F_QPW], s1[F_QPW];
 #pragma unroll
-    for (int i = 0; i < QPW; ++i) {
+    for (int i = 0; i < F_QPW; ++i) {
       s0[i] = 0.f;
       s1[i] = 0.f;
     }
 #pragma unroll 8
     for (int d = 0; d < D; ++d) {
-      const float4 qa = *reinterpret_cast<const float4*>(Qw + d * BQ);
-      const float4 qc = *reinterpret_cast<const float4*>(Qw + d * BQ + 4);
-      const float qv[QPW] = {qa.x, qa.y, qa.z, qa.w, qc.x, qc.y, qc.z, qc.w};
-      const float ka = Ks[lane * KPAD + d];
-      const float kc = Ks[(lane + 32) * KPAD + d];
+      const float4 qa = *reinterpret_cast<const float4*>(Qw + d * F_BQ);
+      const float4 qc = *reinterpret_cast<const float4*>(Qw + d * F_BQ + 4);
+      const float qv[F_QPW] = {qa.x, qa.y, qa.z, qa.w, qc.x, qc.y, qc.z, qc.w};
+      const float ka = Ks[lane * F_KPAD + d];
+      const float kc = Ks[(lane + 32) * F_KPAD + d];
 #pragma unroll
-      for (int i = 0; i < QPW; ++i) {
+      for (int i = 0; i < F_QPW; ++i) {
         s0[i] = fmaf(qv[i], ka, s0[i]);
         s1[i] = fmaf(qv[i], kc, s1[i]);
       }
@@ -130,32 +173,32 @@ attn_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__
     const bool ok0 = k0 + lane < nk;
     const bool ok1 = k0 + lane + 32 < nk;
 #pragma unroll
-    for (int i = 0; i < QPW; ++i) {
+    for (int i = 0; i < F_QPW; ++i) {
       const float a = ok0 ? s0[i] * scale : -INFINITY;
-      const float b = ok1 ? s1[i] * scale : -INFINITY;
-      const float m_new = fmaxf(m[i], warp_max(fmaxf(a, b)));  // finite: key k0 is valid
+      const float c = ok1 ? s1[i] * scale : -INFINITY;
+      const float m_new = fmaxf(m[i], warp_max(fmaxf(a, c)));  // finite: key k0 is valid
       const float corr = expf(m[i] - m_new);
       const float pa = expf(a - m_new);
-      const float pb = expf(b - m_new);
-      l[i] = l[i] * corr + warp_sum(pa + pb);
+      const float pc = expf(c - m_new);
+      l[i] = l[i] * corr + warp_sum(pa + pc);
       acc0[i] *= corr;
       acc1[i] *= corr;
       m[i] = m_new;
-      Pw[lane * QPW + i] = pa;
-      Pw[(lane + 32) * QPW + i] = pb;
+      Pw[lane * F_QPW + i] = pa;
+      Pw[(lane + 32) * F_QPW + i] = pc;
     }
     __syncwarp();
 
     // O += P V: lane owns output dims lane and lane+32 of the 8 queries.
 #pragma unroll 4
-    for (int j = 0; j < BK; ++j) {
-      const float4 pa = *reinterpret_cast<const float4*>(Pw + j * QPW);
-      const float4 pc = *reinterpret_cast<const float4*>(Pw + j * QPW + 4);
-      const float pv[QPW] = {pa.x, pa.y, pa.z, pa.w, pc.x, pc.y, pc.z, pc.w};
+    for (int j = 0; j < F_BK; ++j) {
+      const float4 pa = *reinterpret_cast<const float4*>(Pw + j * F_QPW);
+      const float4 pc = *reinterpret_cast<const float4*>(Pw + j * F_QPW + 4);
+      const float pv[F_QPW] = {pa.x, pa.y, pa.z, pa.w, pc.x, pc.y, pc.z, pc.w};
       const float va = Vs[j * D + lane];
       const float vc = Vs[j * D + lane + 32];
 #pragma unroll
-      for (int i = 0; i < QPW; ++i) {
+      for (int i = 0; i < F_QPW; ++i) {
         acc0[i] = fmaf(pv[i], va, acc0[i]);
         acc1[i] = fmaf(pv[i], vc, acc1[i]);
       }
@@ -163,42 +206,515 @@ attn_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__
   }
 
 #pragma unroll
-  for (int i = 0; i < QPW; ++i) {
-    const int qi = q0 + warp * QPW + i;
+  for (int i = 0; i < F_QPW; ++i) {
+    const int qi = q0 + warp * F_QPW + i;
     if (qi < nq) {
       const float inv = 1.f / l[i];
-      ob[(size_t)qi * D + lane] = from_f<T>(acc0[i] * inv);
-      ob[(size_t)qi * D + lane + 32] = from_f<T>(acc1[i] * inv);
+      ob[qi * so.r + lane] = acc0[i] * inv;
+      ob[qi * so.r + lane + 32] = acc1[i] * inv;
     }
   }
 }
 
-template <typename T>
-int launch(const void* q, const void* k, const void* v, void* o, int bh, int nq,
-           int nk, cudaStream_t stream) {
+int launch_f32(const void* q, const void* k, const void* v, void* o, const Strides* st,
+               int batch, int heads, int nq, int nk, cudaStream_t stream) {
   static bool configured = false;
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
-        attn_fwd<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
+        attn_fwd_f32, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)F_SMEM_BYTES);
     if (err != cudaSuccess) return (int)err;
     configured = true;
   }
-  const dim3 grid((nq + BQ - 1) / BQ, bh);
-  attn_fwd<T><<<grid, NTHREAD, SMEM_BYTES, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), nq, nk, 1.0f / sqrtf((float)D));
+  const dim3 grid((nq + F_BQ - 1) / F_BQ, batch * heads);
+  attn_fwd_f32<<<grid, F_NTHREAD, F_SMEM_BYTES, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), st[0], st[1], st[2], st[3], heads, nq, nk,
+      1.0f / sqrtf((float)D));
+  return (int)cudaGetLastError();
+}
+
+// ----------------------------------------------------------- bf16 route (TC)
+
+constexpr int BM = 64;          // query rows per CTA: wgmma m64
+constexpr int BN = 64;          // keys per tile: n of S = Q K^T, k-extent of P V
+constexpr int NWG = 2;          // warpgroups per CTA, each over every other key tile
+constexpr int NTHREAD = 128 * NWG;
+constexpr int STAGES = 2;       // K/V ring of each warpgroup
+constexpr int TILE_ELEMS = 64 * D;
+constexpr int TILE_BYTES = TILE_ELEMS * 2;  // 8 KB: 64 rows of one 128-byte swizzled line
+constexpr int NBAR = 1 + NWG * STAGES;      // Q, then one per (warpgroup, stage)
+constexpr int SMEM_TC = (1 + 2 * NWG * STAGES) * TILE_BYTES + 8 * NBAR + 1024;  // + align slack
+constexpr int MERGE_FLOATS = 36;  // per thread: 32 accumulators, 2 maxima, 2 partial sums
+static_assert(MERGE_FLOATS * 128 * 4 <= 2 * STAGES * TILE_BYTES, "merge fits one ring");
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One 64-row x 64-column box of a (batch, head, row, d) tensor into shared
+// memory, 128-byte swizzled; completes `bytes` on `bar`.
+__device__ __forceinline__ void tma_load_tile(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                              int row, int head, int batch) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4, %5}], [%6];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(0), "r"(row), "r"(head), "r"(batch),
+      "r"(smem_u32(bar))
+      : "memory");
+}
+
+// wgmma shared-memory matrix descriptor for a 64-row tile of 128-byte rows
+// in the 128-byte swizzle: start address, leading offset 16 B (unused: the
+// operand's 64-element width is one swizzle atom), stride offset 1024 B
+// between groups of 8 rows, layout type 1 (128-byte swizzle). The tile base
+// is 1024-byte aligned, so advancing the start by 32 B steps 16 columns
+// (K-major) and by 2048 B steps 16 rows (MN-major).
+__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
+  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) | (uint64_t(1) << 16) |
+         (uint64_t(1024 >> 4) << 32) | (uint64_t(1) << 62);
+}
+
+// Barrier among the 128 threads of one warpgroup (ids 1 and 2; 0 is
+// __syncthreads). Constant ids, so the CTA reserves three barriers, not all 16.
+__device__ __forceinline__ void warpgroup_sync(int wg) {
+  if (wg == 0)
+    asm volatile("bar.sync 1, 128;" ::: "memory");
+  else
+    asm volatile("bar.sync 2, 128;" ::: "memory");
+}
+
+// 2^x in one MUFU operation (ex2.approx, ~2 ulp; -inf gives 0).
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+
+// Keeps the compiler from moving accumulator reads or writes across the
+// asynchronous wgmma boundary.
+__device__ __forceinline__ void fence_regs(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define WG_D32                                                                               \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
+  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+#define WG_ACC32(d)                                                                          \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),     \
+      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),           \
+      "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),        \
+      "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),        \
+      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),        \
+      "+f"(d[31])
+
+// d (+)= A B, A and B both from shared memory, both K-major.
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_D32
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : WG_ACC32(d)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d += A B, A from registers (four bf16x2 per thread), B from shared memory
+// MN-major (transposed).
+__device__ __forceinline__ void wgmma_rs_bt(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_D32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : WG_ACC32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// Register layout of a wgmma m64nN f32 accumulator: thread t of the
+// warpgroup holds rows r0 = 16 (t/32) + (t%32)/4 and r1 = r0 + 8; element
+// d[4i + e] (e = 0, 1) is (r0, 8i + 2 (t%4) + e) and d[4i + 2 + e] is
+// (r1, 8i + 2 (t%4) + e). The bf16 A fragment of an m64k16 product has the
+// same layout over its 16 columns, so P is passed to the PV product without
+// leaving registers.
+//
+// The problem is small (12 key tiles per 64 queries at 768 tokens, one or
+// two CTAs per SM), so a CTA's serial chain of tiles leaves the SM's units
+// idle between its steps. Two warpgroups therefore share the CTA's 64 query
+// rows and split its key tiles (warpgroup g takes tiles g, g + 2, ...), each
+// with its own K/V ring, running max, sum and accumulator; at the end
+// warpgroup 1 hands its state to warpgroup 0 through shared memory, which
+// merges the two and stores O.
+__global__ void __launch_bounds__(NTHREAD, 2)
+attn_fwd_bf16_tc(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
+                 Strides so, int heads, int nq, int nk, float scale_log2) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(base);
+  // Warpgroup g's ring: K tiles at ring(g), V tiles at ring(g) + STAGES tiles.
+  auto ring = [&](int g) { return sQ + (1 + 2 * STAGES * g) * TILE_ELEMS; };
+  uint64_t* bar = reinterpret_cast<uint64_t*>(sQ + (1 + 2 * NWG * STAGES) * TILE_ELEMS);
+
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7;
+  const int wtid = tid & 127;
+  const int warp = wtid >> 5;
+  const int lane = tid & 31;
+  const int b = blockIdx.y / heads, h = blockIdx.y % heads;
+  const int q0 = blockIdx.x * BM;
+  const int ntiles = (nk + BN - 1) / BN;
+  const int mine = (ntiles - wg + NWG - 1) / NWG;  // tiles of this warpgroup
+  __nv_bfloat16* sK = ring(wg);
+  __nv_bfloat16* sV = sK + STAGES * TILE_ELEMS;
+  uint64_t* kv_bar = bar + 1 + STAGES * wg;
+
+  if (tid == 0) {
+    for (int i = 0; i < NBAR; ++i) mbar_init(&bar[i], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    mbar_expect_tx(&bar[0], TILE_BYTES);
+    tma_load_tile(sQ, &tq, &bar[0], q0, h, b);
+    for (int g = 0; g < NWG; ++g) {
+      for (int s = 0; s < STAGES; ++s) {
+        const int j = NWG * s + g;
+        if (j >= ntiles) break;
+        __nv_bfloat16* kg = ring(g);
+        mbar_expect_tx(&bar[1 + STAGES * g + s], 2 * TILE_BYTES);
+        tma_load_tile(kg + s * TILE_ELEMS, &tk, &bar[1 + STAGES * g + s], j * BN, h, b);
+        tma_load_tile(kg + (STAGES + s) * TILE_ELEMS, &tv, &bar[1 + STAGES * g + s], j * BN, h,
+                      b);
+      }
+    }
+  }
+  __syncthreads();
+
+  float acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY;  // running max of rows r0, r1 (log2 units)
+  float l0 = 0.f, l1 = 0.f;              // this thread's share of the running sums
+  const uint64_t dq = sw128_desc(sQ);
+  const int col0 = 2 * (lane & 3);
+  mbar_wait(&bar[0], 0);
+
+  for (int i = 0; i < mine; ++i) {
+    const int j = NWG * i + wg;  // global key tile
+    const int s = i % STAGES;
+    mbar_wait(&kv_bar[s], (i / STAGES) & 1);
+    const __nv_bfloat16* kt = sK + s * TILE_ELEMS;
+    const __nv_bfloat16* vt = sV + s * TILE_ELEMS;
+
+    // S = Q K^T over d = 64: four k16 steps of 32 bytes along the rows.
+    float sc[32];
+#pragma unroll
+    for (int e = 0; e < 32; ++e) sc[e] = 0.f;
+    const uint64_t dk = sw128_desc(kt);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) wgmma_ss(sc, dq + 2 * kk, dk + 2 * kk, kk);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sc);
+
+    // Online softmax in log2 units: the max is taken on the raw scores (the
+    // scale is positive) and each probability is one FFMA and one MUFU op.
+    // Keys at or past nk count as -inf; only a ragged last tile has any.
+    if (j * BN + BN > nk) {
+      const int kbase = j * BN + col0;
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          if (kbase + 8 * n + e >= nk) {
+            sc[4 * n + e] = -INFINITY;
+            sc[4 * n + 2 + e] = -INFINITY;
+          }
+        }
+      }
+    }
+    float mx0 = sc[0], mx1 = sc[2];
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      mx0 = fmaxf(mx0, fmaxf(sc[4 * n], sc[4 * n + 1]));
+      mx1 = fmaxf(mx1, fmaxf(sc[4 * n + 2], sc[4 * n + 3]));
+    }
+    // Finite: every tile holds a valid key (its first), and the max only grows.
+    mx0 = fmaxf(m0, quad_max(mx0) * scale_log2);
+    mx1 = fmaxf(m1, quad_max(mx1) * scale_log2);
+    const float c0 = fast_exp2(m0 - mx0), c1 = fast_exp2(m1 - mx1);
+    m0 = mx0;
+    m1 = mx1;
+    float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        sc[4 * n + e] = fast_exp2(fmaf(sc[4 * n + e], scale_log2, -mx0));
+        sc[4 * n + 2 + e] = fast_exp2(fmaf(sc[4 * n + 2 + e], scale_log2, -mx1));
+        rs0 += sc[4 * n + e];
+        rs1 += sc[4 * n + 2 + e];
+      }
+    }
+    l0 = l0 * c0 + rs0;
+    l1 = l1 * c1 + rs1;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      acc[4 * n] *= c0;
+      acc[4 * n + 1] *= c0;
+      acc[4 * n + 2] *= c1;
+      acc[4 * n + 3] *= c1;
+    }
+
+    // P rounded to bf16, as A fragments of four k16 steps over the tile's keys.
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      pa[c][0] = pack_bf16x2(sc[8 * c + 0], sc[8 * c + 1]);  // r0, keys 16c + col0
+      pa[c][1] = pack_bf16x2(sc[8 * c + 2], sc[8 * c + 3]);  // r1
+      pa[c][2] = pack_bf16x2(sc[8 * c + 4], sc[8 * c + 5]);  // r0, keys 16c + 8 + col0
+      pa[c][3] = pack_bf16x2(sc[8 * c + 6], sc[8 * c + 7]);  // r1
+    }
+
+    // O += P V: V's rows are keys, its 64 columns contiguous (MN-major B).
+    const uint64_t dv = sw128_desc(vt);
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < 4; ++c) wgmma_rs_bt(acc, pa[c], dv + c * (16 * 128 / 16));
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc);
+
+    warpgroup_sync(wg);  // all four warps are done with stage s
+    if (wtid == 0 && i + STAGES < mine) {
+      const int jn = j + NWG * STAGES;
+      mbar_expect_tx(&kv_bar[s], 2 * TILE_BYTES);
+      tma_load_tile(sK + s * TILE_ELEMS, &tk, &kv_bar[s], jn * BN, h, b);
+      tma_load_tile(sV + s * TILE_ELEMS, &tv, &kv_bar[s], jn * BN, h, b);
+    }
+  }
+
+  // Warpgroup 1 hands (acc, m, l) to warpgroup 0 through its own ring, which
+  // it no longer reads; same thread index, same rows and columns.
+  float* merge = reinterpret_cast<float*>(ring(1));
+  if (wg == 1) {
+#pragma unroll
+    for (int e = 0; e < 32; ++e) merge[e * 128 + wtid] = acc[e];
+    merge[32 * 128 + wtid] = m0;
+    merge[33 * 128 + wtid] = m1;
+    merge[34 * 128 + wtid] = l0;
+    merge[35 * 128 + wtid] = l1;
+  }
+  __syncthreads();
+  if (wg == 1) return;
+  {
+    const float om0 = merge[32 * 128 + wtid], om1 = merge[33 * 128 + wtid];
+    const float n0 = fmaxf(m0, om0), n1 = fmaxf(m1, om1);  // finite: tile 0 is warpgroup 0's
+    const float a0 = fast_exp2(m0 - n0), a1 = fast_exp2(m1 - n1);
+    const float b0 = fast_exp2(om0 - n0), b1 = fast_exp2(om1 - n1);  // 0 for a warpgroup with no tile
+    l0 = l0 * a0 + merge[34 * 128 + wtid] * b0;
+    l1 = l1 * a1 + merge[35 * 128 + wtid] * b1;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      acc[4 * n] = acc[4 * n] * a0 + merge[(4 * n) * 128 + wtid] * b0;
+      acc[4 * n + 1] = acc[4 * n + 1] * a0 + merge[(4 * n + 1) * 128 + wtid] * b0;
+      acc[4 * n + 2] = acc[4 * n + 2] * a1 + merge[(4 * n + 2) * 128 + wtid] * b1;
+      acc[4 * n + 3] = acc[4 * n + 3] * a1 + merge[(4 * n + 3) * 128 + wtid] * b1;
+    }
+  }
+
+  const float inv0 = 1.f / quad_sum(l0), inv1 = 1.f / quad_sum(l1);
+  const int r0 = q0 + 16 * warp + (lane >> 2), r1 = r0 + 8;
+  __nv_bfloat16* ob = o + b * so.b + h * so.h;
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    const int col = 8 * n + col0;
+    if (r0 < nq)
+      *reinterpret_cast<__nv_bfloat162*>(ob + r0 * so.r + col) =
+          __floats2bfloat162_rn(acc[4 * n] * inv0, acc[4 * n + 1] * inv0);
+    if (r1 < nq)
+      *reinterpret_cast<__nv_bfloat162*>(ob + r1 * so.r + col) =
+          __floats2bfloat162_rn(acc[4 * n + 2] * inv1, acc[4 * n + 3] * inv1);
+  }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                         &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = (EncodeTiled)p;
+  }
+  return fn;
+}
+
+// A (batch, head, row, 64) bf16 tensor with the given element strides, read
+// in 64-row boxes with the 128-byte swizzle; rows past `rows` read as zeros.
+bool make_map(CUtensorMap* map, const void* ptr, const Strides& st, int rows, int heads,
+              int batch) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)rows, (cuuint64_t)heads,
+                              (cuuint64_t)batch};
+  const cuuint64_t strides[3] = {(cuuint64_t)st.r * 2, (cuuint64_t)st.h * 2,
+                                 (cuuint64_t)st.b * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)D, (cuuint32_t)BN, 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Tensor maps already encoded, direct-mapped on everything the encoding
+// reads (address, extents, strides), so an entry is valid for any tensor with
+// that key: the caching allocator hands the same buffers to the same calls
+// frame after frame, and a hit skips the encode on the host.
+struct MapEntry {
+  CUtensorMap map;
+  long long key[7];
+  bool valid;
+};
+constexpr int MAP_CACHE = 1024;
+MapEntry map_cache[MAP_CACHE];
+std::mutex map_cache_lock;  // ctypes drops the GIL: callers may be concurrent
+
+bool cached_map(CUtensorMap* map, const void* ptr, const Strides& st, int rows, int heads,
+                int batch) {
+  const long long key[7] = {(long long)(uintptr_t)ptr, rows, heads, batch, st.b, st.h, st.r};
+  uint64_t hash = 1469598103934665603ull;  // FNV-1a over the key's words
+  for (long long w : key) hash = (hash ^ (uint64_t)w) * 1099511628211ull;
+  std::lock_guard<std::mutex> guard(map_cache_lock);
+  MapEntry& e = map_cache[(hash >> 32) % MAP_CACHE];
+  if (!e.valid || memcmp(e.key, key, sizeof key) != 0) {
+    e.valid = make_map(&e.map, ptr, st, rows, heads, batch);
+    if (!e.valid) return false;
+    memcpy(e.key, key, sizeof key);
+  }
+  *map = e.map;
+  return true;
+}
+
+int launch_bf16(const void* q, const void* k, const void* v, void* o, const Strides* st,
+                int batch, int heads, int nq, int nk, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  if (!cached_map(&tq, q, st[0], nq, heads, batch) ||
+      !cached_map(&tk, k, st[1], nk, heads, batch) || !cached_map(&tv, v, st[2], nk, heads, batch))
+    return 1001;
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(
+        attn_fwd_bf16_tc, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_TC);
+    if (err != cudaSuccess) return (int)err;
+    configured = true;
+  }
+  const dim3 grid((nq + BM - 1) / BM, batch * heads);
+  attn_fwd_bf16_tc<<<grid, NTHREAD, SMEM_TC, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), st[3], heads, nq, nk,
+      1.4426950408889634f / sqrtf((float)D));
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 on success);
-// 1000 for arguments this kernel does not take.
-extern "C" int attn_forward(const void* q, const void* k, const void* v, void* o,
-                            int bh, int nq, int nk, int d, int dtype, void* stream) {
-  if (d != D || bh <= 0 || nq <= 0 || nk <= 0 || bh > 65535) return 1000;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(q, k, v, o, bh, nq, nk, s);
-  if (dtype == 1) return launch<__nv_bfloat16>(q, k, v, o, bh, nq, nk, s);
+// The arguments of one call, packed by the wrapper into 27 int64 values, so
+// that the host pays for one foreign argument instead of twelve.
+struct AttnArgs {
+  long long q, k, v, o;        // device pointers
+  long long stride[4][4];      // (batch, head, row, dim) element strides of q, k, v, o
+  long long batch, heads, nq, nk, d;
+  long long dtype;             // 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores)
+  long long stream;            // cudaStream_t
+};
+
+// q (B, H, nq, d), k and v (B, H, nk, d), o (B, H, nq, d), each addressed
+// through its own strides. Every operand's last dimension must be
+// contiguous; in bfloat16, q, k and v must also start 16-byte aligned with
+// every other stride a multiple of 8 elements, which a tensor map needs (the
+// stride of a dimension of size 1 is never read, and is not checked).
+// Returns a cudaError_t (0 on success); 1000 for arguments or a layout this
+// kernel does not take, 1001 when a TMA descriptor cannot be encoded.
+extern "C" int attn_forward(const AttnArgs* a) {
+  const int batch = (int)a->batch, heads = (int)a->heads, nq = (int)a->nq, nk = (int)a->nk;
+  if (a->d != D || batch <= 0 || heads <= 0 || nq <= 0 || nk <= 0 || batch * heads > 65535)
+    return 1000;
+  const long long ptr[4] = {a->q, a->k, a->v, a->o};
+  Strides st[4];
+  for (int i = 0; i < 4; ++i) {
+    if (a->stride[i][3] != 1) return 1000;
+    const int rows = i == 1 || i == 2 ? nk : nq;
+    st[i] = Strides{batch > 1 ? a->stride[i][0] : D, heads > 1 ? a->stride[i][1] : D,
+                    rows > 1 ? a->stride[i][2] : D};
+    if (a->dtype == 1 && i < 3 && ((ptr[i] & 15) || (st[i].b & 7) || (st[i].h & 7) || (st[i].r & 7)))
+      return 1000;
+  }
+  const void* q = (const void*)a->q;
+  const void* k = (const void*)a->k;
+  const void* v = (const void*)a->v;
+  void* o = (void*)a->o;
+  cudaStream_t s = (cudaStream_t)a->stream;
+  if (a->dtype == 0) return launch_f32(q, k, v, o, st, batch, heads, nq, nk, s);
+  if (a->dtype == 1) return launch_bf16(q, k, v, o, st, batch, heads, nq, nk, s);
   return 1000;
 }

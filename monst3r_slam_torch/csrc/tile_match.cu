@@ -25,15 +25,31 @@
 // 48*48*24 bf16 descriptors = 138 KB) lives in dynamic shared memory, so one
 // CTA of 256 threads runs per SM; every thread scans the same crop position
 // at the same time (broadcast reads) in step 1.
+//
+// Phase split: the template parameter PHASE cuts the body after each step,
+// as the TPU phase profiler `scripts/profile_pallas_phases.py` (`run_variant`,
+// body `make_kernel`) cuts the Pallas kernel, so that the difference of two
+// instantiations' times is one step's time:
+//   PHASE_STAGE   stage the crop only: u = cx, v = cy, conv = 0;
+//   PHASE_RAY     plus the ray argmax: u, v = corner + ray match, conv = 0;
+//   PHASE_STENCIL plus the convergence test: conv as in the full kernel;
+//   PHASE_FULL    the whole kernel (the main path's instantiation).
+// The cut phases read back one staged word of each array in a test that
+// never fires for finite data, so the compiler keeps the staging they time.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+// The cut phases return early, so the steps after the cut are unreachable
+// in their instantiations by design.
+#pragma nv_diag_suppress 128
+
 namespace {
 
 constexpr int MAX_TSZ = 256;
+constexpr int PHASE_STAGE = 0, PHASE_RAY = 1, PHASE_STENCIL = 2, PHASE_FULL = 3;
 
 __device__ __forceinline__ float ray_dot(float qx, float qy, float qz, const float* r) {
   return __fadd_rn(__fadd_rn(__fmul_rn(qx, r[0]), __fmul_rn(qy, r[1])), __fmul_rn(qz, r[2]));
@@ -46,7 +62,16 @@ __device__ __forceinline__ float gain(float diff, float tot, float s0) {
   return fmaxf(g, 0.0f);
 }
 
+// The cut phases' read-back of the staged crop: all-ones bits are a NaN ray
+// and a NaN descriptor pair, never staged from finite inputs, so this is
+// false and only keeps the staging alive.
 template <int FD>
+__device__ __forceinline__ bool poisoned(const float* rs, const __nv_bfloat16* ds, int i, int m) {
+  return (__float_as_uint(rs[i % (3 * m)]) &
+          reinterpret_cast<const uint32_t*>(ds)[i % (m * FD / 2)]) == 0xFFFFFFFFu;
+}
+
+template <int FD, int PHASE>
 __global__ void __launch_bounds__(MAX_TSZ)
 tile_match_kernel(const float* __restrict__ rays_img, const __nv_bfloat16* __restrict__ desc_img,
                   const float* __restrict__ q_rays, const __nv_bfloat16* __restrict__ q_desc,
@@ -80,6 +105,12 @@ tile_match_kernel(const float* __restrict__ rays_img, const __nv_bfloat16* __res
   const int qi = threadIdx.x;
   if (qi >= tsz) return;
   const size_t qo = (size_t)t * tsz + qi;
+  if constexpr (PHASE == PHASE_STAGE) {
+    u_out[qo] = poisoned<FD>(rs, ds, qi, m) ? -1 : cx;
+    v_out[qo] = cy;
+    conv_out[qo] = 0;
+    return;
+  }
   const float qx = q_rays[qo * 3], qy = q_rays[qo * 3 + 1], qz = q_rays[qo * 3 + 2];
 
   // 1. ray association
@@ -92,6 +123,12 @@ tile_match_kernel(const float* __restrict__ rays_img, const __nv_bfloat16* __res
       best = j;
     }
   }
+  if constexpr (PHASE == PHASE_RAY) {
+    u_out[qo] = poisoned<FD>(rs, ds, qi, m) ? -1 : cx + best % crop;
+    v_out[qo] = cy + best / crop;
+    conv_out[qo] = 0;
+    return;
+  }
 
   // 2. five-point stencil on flat neighbours
   auto at = [&](int j) { return (j >= 0 && j < m) ? ray_dot(qx, qy, qz, rs + 3 * j) : 0.0f; };
@@ -101,6 +138,11 @@ tile_match_kernel(const float* __restrict__ rays_img, const __nv_bfloat16* __res
   const float gy = gain(__fsub_rn(syp, sym), __fadd_rn(syp, sym), s0);
   const float peak = __fadd_rn(__fadd_rn(s0, gx), gy);
   conv_out[qo] = __fsub_rn(2.0f, 2.0f * peak) < conv_thresh ? 1 : 0;
+  if constexpr (PHASE == PHASE_STENCIL) {
+    u_out[qo] = poisoned<FD>(rs, ds, qi, m) ? -1 : cx + best % crop;
+    v_out[qo] = cy + best / crop;
+    return;
+  }
 
   // 3. descriptor argmax within +-window of the ray match
   float qd[FD];
@@ -134,7 +176,7 @@ tile_match_kernel(const float* __restrict__ rays_img, const __nv_bfloat16* __res
   v_out[qo] = cy + bdi / crop;
 }
 
-template <int FD>
+template <int FD, int PHASE>
 int launch(const void* rays_img, const void* desc_img, const void* q_rays, const void* q_desc,
            const void* corners, void* u_out, void* v_out, void* conv_out, int T, int tsz, int w,
            int crop, int window, float conv_thresh, cudaStream_t stream) {
@@ -142,16 +184,37 @@ int launch(const void* rays_img, const void* desc_img, const void* q_rays, const
   static int configured = 0;
   if (smem > configured) {
     cudaError_t err = cudaFuncSetAttribute(
-        tile_match_kernel<FD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        tile_match_kernel<FD, PHASE>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
     configured = smem;
   }
-  tile_match_kernel<FD><<<T, tsz, smem, stream>>>(
+  tile_match_kernel<FD, PHASE><<<T, tsz, smem, stream>>>(
       static_cast<const float*>(rays_img), static_cast<const __nv_bfloat16*>(desc_img),
       static_cast<const float*>(q_rays), static_cast<const __nv_bfloat16*>(q_desc),
       static_cast<const int*>(corners), static_cast<int*>(u_out), static_cast<int*>(v_out),
       static_cast<int*>(conv_out), tsz, w, crop, window, conv_thresh);
   return (int)cudaGetLastError();
+}
+
+template <int PHASE>
+int dispatch(const void* rays_img, const void* desc_img, const void* q_rays, const void* q_desc,
+             const void* corners, void* u_out, void* v_out, void* conv_out, int T, int tsz,
+             int h, int w, int fd, int crop, int window, float conv_thresh, void* stream) {
+  if (T <= 0 || tsz <= 0 || tsz > MAX_TSZ || crop <= 0 || crop > h || crop > w) return 1000;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (fd) {
+    case 16:
+      return launch<16, PHASE>(rays_img, desc_img, q_rays, q_desc, corners, u_out, v_out,
+                               conv_out, T, tsz, w, crop, window, conv_thresh, s);
+    case 24:
+      return launch<24, PHASE>(rays_img, desc_img, q_rays, q_desc, corners, u_out, v_out,
+                               conv_out, T, tsz, w, crop, window, conv_thresh, s);
+    case 32:
+      return launch<32, PHASE>(rays_img, desc_img, q_rays, q_desc, corners, u_out, v_out,
+                               conv_out, T, tsz, w, crop, window, conv_thresh, s);
+    default:
+      return 1000;
+  }
 }
 
 }  // namespace
@@ -164,18 +227,31 @@ extern "C" int tile_match_forward(const void* rays_img, const void* desc_img, co
                                   const void* q_desc, const void* corners, void* u_out,
                                   void* v_out, void* conv_out, int T, int tsz, int h, int w,
                                   int fd, int crop, int window, float conv_thresh, void* stream) {
-  if (T <= 0 || tsz <= 0 || tsz > MAX_TSZ || crop <= 0 || crop > h || crop > w) return 1000;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (fd) {
-    case 16:
-      return launch<16>(rays_img, desc_img, q_rays, q_desc, corners, u_out, v_out, conv_out, T,
-                        tsz, w, crop, window, conv_thresh, s);
-    case 24:
-      return launch<24>(rays_img, desc_img, q_rays, q_desc, corners, u_out, v_out, conv_out, T,
-                        tsz, w, crop, window, conv_thresh, s);
-    case 32:
-      return launch<32>(rays_img, desc_img, q_rays, q_desc, corners, u_out, v_out, conv_out, T,
-                        tsz, w, crop, window, conv_thresh, s);
+  return dispatch<PHASE_FULL>(rays_img, desc_img, q_rays, q_desc, corners, u_out, v_out,
+                              conv_out, T, tsz, h, w, fd, crop, window, conv_thresh, stream);
+}
+
+// The same call cut after `phase` (0 stage, 1 ray, 2 stencil, 3 full).
+extern "C" int tile_match_phase_forward(const void* rays_img, const void* desc_img,
+                                        const void* q_rays, const void* q_desc,
+                                        const void* corners, void* u_out, void* v_out,
+                                        void* conv_out, int T, int tsz, int h, int w, int fd,
+                                        int crop, int window, float conv_thresh, void* stream,
+                                        int phase) {
+  switch (phase) {
+    case PHASE_STAGE:
+      return dispatch<PHASE_STAGE>(rays_img, desc_img, q_rays, q_desc, corners, u_out, v_out,
+                                   conv_out, T, tsz, h, w, fd, crop, window, conv_thresh, stream);
+    case PHASE_RAY:
+      return dispatch<PHASE_RAY>(rays_img, desc_img, q_rays, q_desc, corners, u_out, v_out,
+                                 conv_out, T, tsz, h, w, fd, crop, window, conv_thresh, stream);
+    case PHASE_STENCIL:
+      return dispatch<PHASE_STENCIL>(rays_img, desc_img, q_rays, q_desc, corners, u_out, v_out,
+                                     conv_out, T, tsz, h, w, fd, crop, window, conv_thresh,
+                                     stream);
+    case PHASE_FULL:
+      return dispatch<PHASE_FULL>(rays_img, desc_img, q_rays, q_desc, corners, u_out, v_out,
+                                  conv_out, T, tsz, h, w, fd, crop, window, conv_thresh, stream);
     default:
       return 1000;
   }

@@ -38,6 +38,8 @@ def _heads_split(x: torch.Tensor, n_heads: int) -> torch.Tensor:
 
 
 def _heads_merge(x: torch.Tensor) -> torch.Tensor:
+    """A view for kernel A's output, the (B, H, N, hd) view of a (B, N, H, hd)
+    buffer; a copy for the plain version's contiguous (B, H, N, hd)."""
     b, h, n, hd = x.shape
     return x.transpose(1, 2).reshape(b, n, h * hd)
 

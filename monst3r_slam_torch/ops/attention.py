@@ -5,11 +5,18 @@ bias-free attention of the encoder and decoder goes through: on a CUDA
 tensor it launches kernel A (or raises), on a CPU tensor it runs the plain
 version, which has the reference's semantics — f32 logits and softmax,
 probabilities cast to v's type before the PV product, output in q's type.
+
+Kernel A has two routes: bfloat16 inputs (every call of the model on the
+card) go to the tensor-core kernel, float32 inputs to the CUDA-core kernel.
+Both read q, k and v through their strides and write the output into a
+(B, N, H, 64) buffer, returned as its (B, H, N, 64) view, so that neither
+the heads split before nor the merge after is a copy.
 """
 
 from __future__ import annotations
 
 import ctypes
+import struct
 
 import torch
 
@@ -17,7 +24,12 @@ from monst3r_slam_torch.ops import build
 
 HEAD_DIM = 64
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_ROUTES = {torch.float32: "f32", torch.bfloat16: "bf16_tc"}
+_SIGNATURES = {"attn_forward": ([ctypes.c_char_p], ctypes.c_int)}
+# One call's arguments as the C entry's `AttnArgs`: 4 pointers, the (batch,
+# head, row, dim) strides of q, k, v and the output, the 5 sizes, the type
+# and the stream, 27 int64 values in one buffer (one foreign argument).
+_PACK = struct.Struct("=27q").pack
 
 
 def sdpa_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -28,41 +40,72 @@ def sdpa_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tenso
     return torch.matmul(probs, v).to(q.dtype)
 
 
+def error_bound(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, ref: torch.Tensor) -> float:
+    """Largest error kernel A may show against `ref`, the plain version
+    computed in f32 from the same inputs.
+
+    f32 route: 2e-5, the summation-order tolerance of the CPU parity test.
+
+    bf16 route: 2^-8 max|ref| + 2^-9 max S. The first term covers the
+    rounding of the output to bf16 (at most 2^-9 of the value) and as much
+    again for the f32 summation order and exp2; it alone sufficed while the
+    probabilities stayed in f32. The kernel also rounds each probability to
+    bf16 before the PV product, which adds sum_k d_k p_ik v_kj to output
+    (i, j), with independent relative errors d_k uniform within +-2^-9: a
+    spread of 2^-9 / sqrt(3) S_ij, where S_ij = sqrt(sum_k p_ik^2 v_kj^2).
+    The second term allows sqrt(3) such spreads where S is largest. Logits
+    rounded to bf16 instead of kept in f32 exceed the bound once the logits
+    are large."""
+    if q.dtype == torch.float32:
+        return 2e-5
+    p = torch.softmax(q.float() @ k.float().transpose(-1, -2) * q.shape[-1] ** -0.5, dim=-1)
+    spread = torch.sqrt(p.square() @ v.float().square())
+    return 2.0**-8 * float(ref.abs().max()) + 2.0**-9 * float(spread.max())
+
+
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Kernel A on CUDA tensors q (B, H, Nq, 64), k/v (B, H, Nk, 64), all
-    contiguous and of one type, float32 or bfloat16."""
-    if not (q.is_cuda and k.device == q.device and v.device == q.device):
+    """Kernel A on CUDA tensors q (B, H, Nq, 64), k/v (B, H, Nk, 64), of one
+    type, float32 or bfloat16, read through their strides. The last
+    dimension must be contiguous and, in bfloat16, every start 16-byte
+    aligned and every other stride a multiple of 8 elements (the kernel
+    checks, and this raises on a layout it refuses). Returns (B, H, Nq, 64),
+    the transposed view of a contiguous (B, Nq, H, 64) buffer."""
+    dev = q.get_device()  # -1 for a CPU tensor
+    if dev < 0 or k.get_device() != dev or v.get_device() != dev:
         raise ValueError("fused_attention takes CUDA tensors on one device")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"fused_attention takes float32 or bfloat16, got {q.dtype}")
+    dtype = q.dtype
+    if dtype not in _DTYPES or k.dtype != dtype or v.dtype != dtype:
+        raise ValueError(f"fused_attention takes float32 or bfloat16, got {dtype}")
     if q.dim() != 4 or q.shape[-1] != HEAD_DIM:
         raise ValueError(f"fused_attention takes (B, H, N, {HEAD_DIM}), got {tuple(q.shape)}")
     b, h, nq, d = q.shape
     nk = k.shape[2]
     if k.shape != (b, h, nk, d) or v.shape != k.shape:
         raise ValueError(f"k/v shape {tuple(k.shape)}/{tuple(v.shape)} do not fit q {tuple(q.shape)}")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("fused_attention takes contiguous tensors")
-    lib = build.load("attention")
-    lib.attn_forward.argtypes = _ARGTYPES
-    lib.attn_forward.restype = ctypes.c_int
-    out = torch.empty_like(q)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = lib.attn_forward(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        b * h, nq, nk, d, _DTYPES[q.dtype], stream,
-    )
+    out = torch.empty_strided((b, h, nq, d), (nq * h * d, d, h * d, 1), dtype=dtype,
+                              device=q.device)
+    args = _PACK(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *q.stride(),
+                 *k.stride(), *v.stride(), *out.stride(), b, h, nq, nk, d, _DTYPES[dtype],
+                 torch._C._cuda_getCurrentRawStream(dev))
+    err = build.load("attention", _SIGNATURES).attn_forward(args)
+    if err == 1000:
+        raise ValueError(
+            f"fused_attention cannot read this layout: strides {q.stride()}, {k.stride()}, "
+            f"{v.stride()}; {dtype} starts {q.data_ptr() % 16}, {k.data_ptr() % 16}, "
+            f"{v.data_ptr() % 16} bytes past 16-byte alignment")
     if err != 0:
         raise RuntimeError(f"attention kernel launch failed: error {err}")
     fused_attention.launches += 1
+    fused_attention.route_launches[_ROUTES[dtype]] += 1
     return out
 
 
-fused_attention.launches = 0
+fused_attention.launches = 0  # every launch
+fused_attention.route_launches = {"bf16_tc": 0, "f32": 0}  # launches per route
 
 
 def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Kernel A for CUDA tensors, the plain version for CPU tensors."""
     if q.device.type == "cpu":
         return sdpa_plain(q, k, v)
-    return fused_attention(q.contiguous(), k.contiguous(), v.contiguous())
+    return fused_attention(q, k, v)

@@ -70,12 +70,20 @@ def build(names=KERNELS, force: bool = False) -> dict:
     return logs
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The kernel library `name`, built on first use."""
+def load(name: str, signatures: dict) -> ctypes.CDLL:
+    """The kernel library `name`, built on first use. `signatures` maps each
+    C entry to its (argtypes, restype), set once when the library loads; a
+    loaded library is returned without taking the lock."""
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
     with _lock:
         lib = _libs.get(name)
         if lib is None:
             build((name,))
             lib = ctypes.CDLL(str(lib_path(name)))
+            for fn, (argtypes, restype) in signatures.items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = restype
             _libs[name] = lib
     return lib

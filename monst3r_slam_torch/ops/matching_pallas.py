@@ -5,6 +5,11 @@ semantics (see the CUDA source's header). `tile_match` is the dispatch:
 kernel B for CUDA tensors (or an error), the plain version for CPU tensors.
 Both compute the ray dot and the descriptor dot with the same elementwise
 operations in the same order, so on one device they agree bit for bit.
+
+`tile_match_phase_kernel` launches kernel B cut after one of its steps
+(`PHASES`), the counterpart of the TPU phase profiler
+`scripts/profile_pallas_phases.py`; `tile_match_plain(..., phase=)` stops at
+the same points.
 """
 
 from __future__ import annotations
@@ -20,6 +25,13 @@ _FDS = (16, 24, 32)
 _MAX_TSZ = 256
 _SMEM_LIMIT = 232448  # bytes of shared memory one Hopper block may use
 _ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
+_SIGNATURES = {
+    "tile_match_forward": (_ARGTYPES, ctypes.c_int),
+    "tile_match_phase_forward": (_ARGTYPES + [ctypes.c_int], ctypes.c_int),
+}
+# Kernel B cut after each step: stage the crop; + ray argmax; + convergence
+# test; the whole kernel.
+PHASES = ("stage", "ray", "stencil", "full")
 
 
 class PallasTileConfig(NamedTuple):
@@ -35,9 +47,14 @@ def quantize_corners(corners: torch.Tensor, h: int, w: int, crop: int) -> torch.
 
 
 def tile_match_plain(rays_img, desc_img, q_rays, q_desc, corners, crop: int, window: int,
-                     conv_thresh: float, chunk: int = 32):
+                     conv_thresh: float, chunk: int = 32, phase: str = "full"):
     """Plain PyTorch version; corners already quantized. Returns (u, v
-    (T, tsz) int32, converged (T, tsz) bool)."""
+    (T, tsz) int32, converged (T, tsz) bool). `phase` stops where kernel B's
+    phase instantiation does: "stage" gives the corner and conv False, "ray"
+    the corner plus the ray match and conv False, "stencil" that with the
+    convergence test, "full" the descriptor refinement too."""
+    if phase not in PHASES:
+        raise ValueError(f"phase {phase!r} is not one of {PHASES}")
     h, w, _ = rays_img.shape
     T, tsz, _ = q_rays.shape
     fd = desc_img.shape[-1]
@@ -52,6 +69,12 @@ def tile_match_plain(rays_img, desc_img, q_rays, q_desc, corners, crop: int, win
     us, vs, convs = [], [], []
     for t0 in range(0, T, chunk):
         c = corners[t0 : t0 + chunk].long()
+        if phase == "stage":
+            tc = c.shape[0]
+            us.append(c[:, 0, None].expand(tc, tsz))
+            vs.append(c[:, 1, None].expand(tc, tsz))
+            convs.append(torch.zeros((tc, tsz), dtype=torch.bool, device=dev))
+            continue
         lin = (c[:, 1, None] + oy) * w + (c[:, 0, None] + ox)  # (tc, m)
         rc = rays_flat[lin][:, None]  # (tc, 1, m, 3)
         dc = desc_flat[lin][:, None]  # (tc, 1, m, fd)
@@ -60,6 +83,12 @@ def tile_match_plain(rays_img, desc_img, q_rays, q_desc, corners, crop: int, win
 
         s = (q[..., 0] * rc[..., 0] + q[..., 1] * rc[..., 1]) + q[..., 2] * rc[..., 2]
         best = torch.argmax(s, dim=-1)  # (tc, tsz)
+        pu, pv = best % crop, torch.div(best, crop, rounding_mode="floor")
+        if phase == "ray":
+            us.append(c[:, 0, None] + pu)
+            vs.append(c[:, 1, None] + pv)
+            convs.append(torch.zeros_like(best, dtype=torch.bool))
+            continue
         s0 = s.gather(-1, best[..., None])[..., 0]
 
         def at(d, s=s, best=best):
@@ -76,6 +105,10 @@ def tile_match_plain(rays_img, desc_img, q_rays, q_desc, corners, crop: int, win
 
         peak = s0 + gain(at(1), at(-1)) + gain(at(crop), at(-crop))
         convs.append((2.0 - 2.0 * peak) < conv_thresh)
+        if phase == "stencil":
+            us.append(c[:, 0, None] + pu)
+            vs.append(c[:, 1, None] + pv)
+            continue
 
         # Channel by channel, as the kernel sums. A product of two bf16
         # values is exact in f32, so the fused multiply-add rounds as the
@@ -85,7 +118,6 @@ def tile_match_plain(rays_img, desc_img, q_rays, q_desc, corners, crop: int, win
         sd = qd_c[0] * dc_c[0]
         for ch in range(1, fd):
             sd.addcmul_(qd_c[ch], dc_c[ch])
-        pu, pv = best % crop, torch.div(best, crop, rounding_mode="floor")
         # the window is separable: row test (y) x column test (x)
         in_win = (((off_c - pv[..., None]).abs() <= window)[..., :, None]
                   & ((off_c - pu[..., None]).abs() <= window)[..., None, :]).flatten(-2)
@@ -95,9 +127,9 @@ def tile_match_plain(rays_img, desc_img, q_rays, q_desc, corners, crop: int, win
     return (torch.cat(us).to(torch.int32), torch.cat(vs).to(torch.int32), torch.cat(convs))
 
 
-def tile_match_kernel(rays_img, desc_img, q_rays, q_desc, corners, crop: int, window: int,
-                      conv_thresh: float):
-    """Kernel B on CUDA tensors; corners already quantized."""
+def _launch(entry: str, rays_img, desc_img, q_rays, q_desc, corners, crop: int, window: int,
+            conv_thresh: float, *extra):
+    """Check the arguments kernel B takes and launch its C entry `entry`."""
     h, w, _ = rays_img.shape
     T, tsz, _ = q_rays.shape
     fd = desc_img.shape[-1]
@@ -117,25 +149,46 @@ def tile_match_kernel(rays_img, desc_img, q_rays, q_desc, corners, crop: int, wi
         raise ValueError(f"tile of {tsz} queries or crop {crop} not supported")
     if crop * crop * (12 + 2 * fd) > _SMEM_LIMIT:
         raise ValueError(f"crop {crop} with {fd} descriptor channels exceeds shared memory")
-    lib = build.load("tile_match")
-    lib.tile_match_forward.argtypes = _ARGTYPES
-    lib.tile_match_forward.restype = ctypes.c_int
+    lib = build.load("tile_match", _SIGNATURES)
     u = torch.empty((T, tsz), dtype=torch.int32, device=rays_img.device)
     v = torch.empty_like(u)
     conv = torch.empty_like(u)
     stream = torch.cuda.current_stream(rays_img.device).cuda_stream
-    err = lib.tile_match_forward(
+    err = getattr(lib, entry)(
         rays_img.data_ptr(), desc_img.data_ptr(), q_rays.data_ptr(), q_desc.data_ptr(),
         corners.data_ptr(), u.data_ptr(), v.data_ptr(), conv.data_ptr(),
-        T, tsz, h, w, fd, crop, window, conv_thresh, stream,
+        T, tsz, h, w, fd, crop, window, conv_thresh, stream, *extra,
     )
     if err != 0:
         raise RuntimeError(f"tile_match kernel launch failed: error {err}")
-    tile_match_kernel.launches += 1
     return u, v, conv.bool()
 
 
+def tile_match_kernel(rays_img, desc_img, q_rays, q_desc, corners, crop: int, window: int,
+                      conv_thresh: float):
+    """Kernel B on CUDA tensors; corners already quantized."""
+    out = _launch("tile_match_forward", rays_img, desc_img, q_rays, q_desc, corners, crop,
+                  window, conv_thresh)
+    tile_match_kernel.launches += 1
+    return out
+
+
 tile_match_kernel.launches = 0
+
+
+def tile_match_phase_kernel(rays_img, desc_img, q_rays, q_desc, corners, crop: int,
+                            window: int, conv_thresh: float, *, phase: str):
+    """Kernel B cut after `phase` (one of `PHASES`), on CUDA tensors; corners
+    already quantized. Its outputs are `tile_match_plain(..., phase=phase)`'s."""
+    if phase not in PHASES:
+        raise ValueError(f"phase {phase!r} is not one of {PHASES}")
+    out = _launch("tile_match_phase_forward", rays_img, desc_img, q_rays, q_desc, corners, crop,
+                  window, conv_thresh, PHASES.index(phase))
+    tile_match_phase_kernel.launches += 1
+    return out
+
+
+tile_match_phase_kernel.launches = 0
 
 
 def tile_match(rays_img, desc_img, q_rays, q_desc, corners,

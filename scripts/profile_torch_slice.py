@@ -7,7 +7,8 @@ few warm-up frames, then profiles `--frames` steady frames, the middle one
 a keyframe event, with torch.profiler (CUDA activity). Prints the per-frame
 wall time, the device-busy share (kernel time over wall time), device time
 per kernel group (the two ported kernels, GEMMs, convolutions, the rest)
-per frame, the top kernels, and the host stage times SLAMSystem.prof keeps.
+per frame, the Gauss-Newton iterations per frame, the top kernels, and the
+host stage times SLAMSystem.prof keeps.
 The full kernel table goes to logs/profile_torch_slice.txt.
 
     python3 scripts/profile_torch_slice.py [--frames 6] [--seed 0]
@@ -125,6 +126,9 @@ def main() -> int:
     for g, (ms, count) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
         print(f"  {g:24s} {ms / n:9.3f} ms/frame  {count / n:8.1f} launches/frame  "
               f"{ms / busy:.3f} of device time")
+    solves = sum(ev.count for ev in prof.key_averages() if ev.key == "aten::linalg_cholesky_ex")
+    print(f"Gauss-Newton iterations (one Cholesky solve each, tracker and backend): "
+          f"{solves / n:.2f} per frame")
     print("top kernels (ms over the window, launches):")
     for ms, count, name in rows[:12]:
         print(f"  {ms:9.3f} {count:6d}  {name[:110]}")

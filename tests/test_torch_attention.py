@@ -46,3 +46,55 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     x = torch.zeros((1, 1, 8, 64))
     with pytest.raises(ValueError):
         tatt.fused_attention(x, x, x)
+
+
+def _kernel_a_arithmetic(q, k, v, bf16_logits=False):
+    """Kernel A's bf16 route emulated on the CPU, step for step: f32 logits
+    (or, with `bf16_logits`, logits rounded to bf16 as a kernel that skipped
+    the f32 accumulator would give), 64-key tiles with a running max in log2
+    units, each tile's probabilities rounded to bf16 before the PV product,
+    the sum kept in f32, the output divided once and rounded to bf16."""
+    s = q.float() @ k.float().transpose(-1, -2)
+    if bf16_logits:
+        s = s.to(torch.bfloat16).float()
+    s = s * (q.shape[-1] ** -0.5 / np.log(2.0))
+    m = torch.full(s.shape[:-1] + (1,), -np.inf)
+    acc = torch.zeros(q.shape[:-1] + (v.shape[-1],))
+    l = torch.zeros(s.shape[:-1] + (1,))
+    for k0 in range(0, s.shape[-1], 64):
+        t = s[..., k0:k0 + 64]
+        m_new = torch.maximum(m, t.amax(-1, keepdim=True))
+        c = torch.exp2(m - m_new)
+        p = torch.exp2(t - m_new)
+        l = l * c + p.sum(-1, keepdim=True)
+        acc = acc * c + p.to(torch.bfloat16).float() @ v[..., k0:k0 + 64, :].float()
+        m = m_new
+    return (acc / l).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("logit_scale", [1, 8])
+@pytest.mark.parametrize("nq,nk", [(768, 768), (196, 196), (48, 80), (130, 7)])
+def test_error_bound_admits_the_kernels_roundings(nq, nk, logit_scale):
+    """`error_bound` (the card's tolerance for kernel A's bf16 route) admits
+    the kernel's own arithmetic, emulated, at the card tests' shapes, with
+    unit logits and with logits 8x larger (a peaked softmax)."""
+    rng = np.random.default_rng(nq + nk)
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, 3, n, 64), dtype=np.float32))
+               .to(torch.bfloat16) for n in (nq, nk, nk))
+    q = q * logit_scale
+    ref = tatt.sdpa_plain(q.float(), k.float(), v.float())
+    err = float((_kernel_a_arithmetic(q, k, v).float() - ref).abs().max())
+    assert err <= tatt.error_bound(q, k, v, ref)
+
+
+@pytest.mark.parametrize("nq,nk", [(768, 768), (196, 196), (48, 80), (130, 7)])
+def test_error_bound_refuses_bf16_logits(nq, nk):
+    """With large logits (8x unit scale), a kernel that rounded its logits
+    to bf16 instead of keeping them in f32 falls outside `error_bound`."""
+    rng = np.random.default_rng(nq + nk)
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, 3, n, 64), dtype=np.float32))
+               .to(torch.bfloat16) for n in (nq, nk, nk))
+    q = q * 8
+    ref = tatt.sdpa_plain(q.float(), k.float(), v.float())
+    err = float((_kernel_a_arithmetic(q, k, v, bf16_logits=True).float() - ref).abs().max())
+    assert err > tatt.error_bound(q, k, v, ref)
