@@ -11,7 +11,8 @@ phase printing one line:
   1. the card's name and power limit (nvidia-smi), then the build of every
      kernel from `monst3r_slam_torch/csrc/` with nvcc, one process per
      source, with each kernel's registers and spills, and a check in the
-     SASS that every phase instantiation of kernel B keeps its staging;
+     SASS that every phase instantiation of kernel B keeps its bulk-copy
+     staging and that its full instantiation runs on the tensor cores;
   2. kernel A (attention) against its plain version at the encoder
      (1, 16, 768, 64) and decoder (1, 12, 768, 64) shapes, on both routes:
      the bf16 tensor-core kernel (the main path's) and the f32 CUDA-core
@@ -20,12 +21,14 @@ phase printing one line:
      what a host-bound caller sees), and the kernel's and SDPA's device
      times (`device_ms`);
   3. kernel B (tile matcher) against its plain version on one 384x512 pair
-     from `--seed`, placed by the matcher's own tile and corner pipeline;
-     then the phase split of kernel B on the same input (the counterpart of
-     the TPU profiler `scripts/profile_pallas_phases.py`): each of the four
+     from `--seed`, placed by the matcher's own tile and corner pipeline,
+     under `matching_pallas.rounding_check` (the descriptor step sums on the
+     tensor cores), with the share of queries exactly equal; then the phase
+     split of kernel B on the same input (the counterpart of the TPU
+     profiler `scripts/profile_pallas_phases.py`): each of the four
      instantiations (stage, ray, stencil, full) against its plain version,
-     then the four timed, with the phase counter zeroed just before and
-     read just after;
+     then the four timed (`ms` and `device_ms`), with the phase counter
+     zeroed just before and read just after;
   4. the model and the matcher on the card against the port's plain CPU
      path on a small pair (MAST3R_512 widths, cut depth, f32);
   5. the main path: the port's synchronous SLAMSystem at MAST3R_512 full
@@ -136,10 +139,14 @@ def phase_card() -> str:
     return out[0].strip()
 
 
-def staging_instructions(lib: str, fd: int = 24) -> dict:
-    """{phase: (global loads, shared stores)} in the SASS of kernel B's
+COPY_OPS = ("UBLKCP", "UTMALDG")  # SASS of cp.async.bulk and of a TMA tensor load
+
+
+def kernel_instructions(lib: str, fd: int = 24) -> dict:
+    """{phase: (bulk copies, tensor-core mma)} in the SASS of kernel B's
     phase instantiations for `fd` channels: a cut phase whose staging the
-    compiler dropped would show none."""
+    compiler dropped would show no copy, and a full instantiation off the
+    tensor cores no HMMA."""
     from monst3r_slam_torch.ops import build
     from monst3r_slam_torch.ops.matching_pallas import PHASES
 
@@ -154,8 +161,8 @@ def staging_instructions(lib: str, fd: int = 24) -> dict:
             if cur is not None:
                 counts[cur] = [0, 0]
         elif cur is not None:
-            counts[cur][0] += "LDG" in ln
-            counts[cur][1] += "STS" in ln
+            counts[cur][0] += any(op in ln for op in COPY_OPS)
+            counts[cur][1] += "HMMA" in ln
     return {ph: tuple(c) for ph, c in counts.items()}
 
 
@@ -172,11 +179,14 @@ def phase_build() -> None:
         usage.append(f"{name}: " + "; ".join(regs))
     print(f"build: {sorted(logs)} in {secs:.1f} s (one nvcc per source, in parallel) | "
           + " | ".join(usage), flush=True)
-    staged = staging_instructions(str(build.lib_path("tile_match")))
-    if sorted(staged) != sorted(PHASES) or not all(ld > 0 and st > 0 for ld, st in staged.values()):
-        fail(f"kernel B's phase instantiations lost their staging (LDG, STS in SASS): {staged}")
-    print("tile_match phase instantiations keep their staging (LDG, STS in SASS): "
-          + ", ".join(f"{ph} {ld}/{st}" for ph, (ld, st) in staged.items()), flush=True)
+    ins = kernel_instructions(str(build.lib_path("tile_match")))
+    if (sorted(ins) != sorted(PHASES) or not all(cp > 0 for cp, _ in ins.values())
+            or ins["full"][1] == 0):
+        fail(f"kernel B's phase instantiations lost their bulk-copy staging ({'/'.join(COPY_OPS)} "
+             f"in SASS) or its full instantiation its tensor-core mma (HMMA): {ins}")
+    print(f"tile_match phase instantiations keep their bulk-copy staging ({'/'.join(COPY_OPS)}) "
+          "and the full one runs on the tensor cores (HMMA), per phase copies/HMMA: "
+          + ", ".join(f"{ph} {cp}/{mma}" for ph, (cp, mma) in ins.items()), flush=True)
 
 
 def phase_attention(seed: int) -> dict:
@@ -296,10 +306,26 @@ def tile_match_inputs(seed: int):
     return args, ti, bounds
 
 
+def check_full(args, got, what: str) -> float:
+    """Kernel B's full output against its plain version under
+    `matching_pallas.rounding_check`: every query must pass and at least
+    99.9% be exactly equal. Returns the exact share."""
+    from monst3r_slam_torch.ops.matching_pallas import rounding_check
+
+    passes, exact = rounding_check(*args, got)
+    share = float(exact.float().mean())
+    if not bool(passes.all()):
+        fail(f"{what}: {int((~passes).sum())} queries fail the rounding check")
+    if not share >= 0.999:
+        fail(f"{what}: exactly equal on {share} < 0.999 of the queries")
+    return share
+
+
 def phase_tile_match(seed: int) -> dict:
-    """Kernel B against its plain version on the same inputs; both do the
-    same f32 and bf16 arithmetic in the same order, so they must agree on at
-    least 99.9% of (u, v, converged)."""
+    """Kernel B against its plain version on the same inputs: the ray match
+    and the convergence flags are the same arithmetic in the same order, the
+    descriptor step sums on the tensor cores; every query must pass
+    `rounding_check` and at least 99.9% be exactly equal."""
     import torch
 
     from monst3r_slam_torch.ops.matching_pallas import tile_match_kernel, tile_match_plain
@@ -307,32 +333,32 @@ def phase_tile_match(seed: int) -> dict:
     args, ti, bounds = tile_match_inputs(seed)
     u, v, conv = tile_match_kernel(*args)
     torch.cuda.synchronize()
-    u0, v0, conv0 = tile_match_plain(*args)
-    agree = float(((u == u0) & (v == v0) & (conv == conv0)).float().mean())
-    if not agree >= 0.999:
-        fail(f"tile_match: agreement {agree} < 0.999")
+    agree = check_full(args, (u, v, conv), "tile_match")
+    u0, v0, _ = tile_match_plain(*args)
     T, tsz = u.shape
     ms = time_ms(lambda: tile_match_kernel(*args))
+    dev = device_ms(lambda: tile_match_kernel(*args))
     plain = time_ms(lambda: tile_match_plain(*args), iters=5)
     b_ms, b_by = bound_ms(*bounds["full"])
     err = float(torch.maximum((u - u0).abs().max(), (v - v0).abs().max()))
-    row = dict(shape=[T, tsz, ti.crop], max_abs_err=err, agree=agree, ms=ms, plain_ms=plain,
-               library_ms=None, bound_ms=b_ms, bound_by=b_by,
+    row = dict(shape=[T, tsz, ti.crop], max_abs_err=err, agree=agree, ms=ms, device_ms=dev,
+               plain_ms=plain, library_ms=None, bound_ms=b_ms, bound_by=b_by,
                converged=float(conv.float().mean()))
-    print(f"tile_match {T} tiles x {tsz} queries, crop {ti.crop}: agreement {agree:.6f}, "
-          f"max |du|,|dv| {err}, converged {row['converged']:.3f}; ms: kernel {ms:.4f}, "
-          f"plain {plain:.4f}, bound {b_ms:.5f} ({b_by})", flush=True)
+    print(f"tile_match {T} tiles x {tsz} queries, crop {ti.crop}: every query passes the "
+          f"rounding check, exactly equal {agree:.6f}, max |du|,|dv| {err}, converged "
+          f"{row['converged']:.3f}; ms: kernel {ms:.4f}, device {dev:.4f}, plain {plain:.4f}, "
+          f"bound {b_ms:.5f} ({b_by})", flush=True)
     return row
 
 
 def phase_tile_match_phases(seed: int) -> dict:
     """Kernel B's phase split on the input of `phase_tile_match`, at the main
-    path's crop of 48 (the TPU profiler's crop of 64 needs 245,760 B of
-    shared memory, more than a block may use). Each instantiation must equal
-    its plain version (the same arithmetic in the same order); then the four
-    are timed, which is the phase profiler's own path: its launch counter is
-    zeroed just before and read just after. A phase's time less the previous
-    one's is that step's time."""
+    path's crop of 48 (at the TPU profiler's crop of 64 the crops' slots do
+    not fit a block's shared memory). Stage, ray and stencil must equal their
+    plain versions (the same arithmetic in the same order), full pass the
+    rounding check; then the four are timed, which is the phase profiler's
+    own path: its launch counter is zeroed just before and read just after.
+    A phase's time less the previous one's is that step's time."""
     import torch
 
     from monst3r_slam_torch.ops.matching_pallas import (
@@ -345,7 +371,9 @@ def phase_tile_match_phases(seed: int) -> dict:
         got = tile_match_phase_kernel(*args, phase=ph)
         torch.cuda.synchronize()
         ref = tile_match_plain(*args, phase=ph)
-        if not all(torch.equal(a, r) for a, r in zip(got, ref)):
+        if ph == "full":
+            check_full(args, got, "tile_match phase full")
+        elif not all(torch.equal(a, r) for a, r in zip(got, ref)):
             fail(f"tile_match phase {ph}: the kernel differs from its plain version")
         err = max(err, float(torch.maximum((got[0] - ref[0]).abs().max(),
                                            (got[1] - ref[1]).abs().max())))
@@ -354,16 +382,19 @@ def phase_tile_match_phases(seed: int) -> dict:
     tile_match_phase_kernel.launches = 0
     for ph in PHASES:
         phases[ph]["ms"] = time_ms(lambda: tile_match_phase_kernel(*args, phase=ph))
+        phases[ph]["device_ms"] = device_ms(lambda: tile_match_phase_kernel(*args, phase=ph))
     launches = tile_match_phase_kernel.launches
-    prev = 0.0
+    prev, prev_dev = 0.0, 0.0
     for ph in PHASES:
         row = phases[ph]
-        row["delta_ms"] = row["ms"] - prev
-        prev = row["ms"]
+        row["delta_ms"], row["delta_device_ms"] = row["ms"] - prev, row["device_ms"] - prev_dev
+        prev, prev_dev = row["ms"], row["device_ms"]
         row["bound_ms"], row["bound_by"] = bound_ms(*bounds[ph])
+        held = "passes the rounding check" if ph == "full" else "equal to its plain version"
         print(f"tile_match phase {ph:8s} {row['ms']:.4f} ms (+{row['delta_ms']:.4f} ms over the "
-              f"previous phase), plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.5f} ms "
-              f"({row['bound_by']}); equal to its plain version", flush=True)
+              f"previous phase), device {row['device_ms']:.4f} ms (+{row['delta_device_ms']:.4f}), "
+              f"plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.5f} ms "
+              f"({row['bound_by']}); {held}", flush=True)
     T, tsz = ti.q_rays.shape[:2]
     return dict(shape=[T, tsz, ti.crop], launches=launches, max_abs_err=err, phases=phases)
 
@@ -571,13 +602,14 @@ def main() -> int:
              launches=launches["tile_match_kernel"], max_abs_err=tm["max_abs_err"],
              ms=tm["ms"], plain_ms=tm["plain_ms"], bound_ms=tm["bound_ms"],
              bound_by=tm["bound_by"], library_ms=None, shape=tm["shape"],
-             agree=tm["agree"]),
+             device_ms=tm["device_ms"], agree=tm["agree"],
+             kernel="tile_match_kernel<24, full> (mma.sync, cp.async.bulk, persistent)"),
         dict(name="tile_match_phases", route="cuda", source="monst3r_slam_torch/csrc/tile_match.cu",
              replaces="scripts/profile_pallas_phases.py:107",
              launches=tmp["launches"], max_abs_err=tmp["max_abs_err"],
              ms=full["ms"], plain_ms=full["plain_ms"], bound_ms=full["bound_ms"],
              bound_by=full["bound_by"], library_ms=None, shape=tmp["shape"],
-             phases=tmp["phases"]),
+             device_ms=full["device_ms"], phases=tmp["phases"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {card}", flush=True)

@@ -3,8 +3,11 @@
 Port of the JAX package's `ops/matching_pallas.py` with the Pallas kernel's
 semantics (see the CUDA source's header). `tile_match` is the dispatch:
 kernel B for CUDA tensors (or an error), the plain version for CPU tensors.
-Both compute the ray dot and the descriptor dot with the same elementwise
-operations in the same order, so on one device they agree bit for bit.
+Both compute the ray dot with the same elementwise operations in the same
+order, so the ray match and the convergence flag agree bit for bit. Kernel B
+sums the descriptor dot on the tensor cores, in their order;
+`rounding_check` states how far its descriptor match may differ from the
+plain version's.
 
 `tile_match_phase_kernel` launches kernel B cut after one of its steps
 (`PHASES`), the counterpart of the TPU phase profiler
@@ -21,9 +24,6 @@ import torch
 
 from monst3r_slam_torch.ops import build
 
-_FDS = (16, 24, 32)
-_MAX_TSZ = 256
-_SMEM_LIMIT = 232448  # bytes of shared memory one Hopper block may use
 _ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
 _SIGNATURES = {
     "tile_match_forward": (_ARGTYPES, ctypes.c_int),
@@ -32,6 +32,27 @@ _SIGNATURES = {
 # Kernel B cut after each step: stage the crop; + ray argmax; + convergence
 # test; the whole kernel.
 PHASES = ("stage", "ray", "stencil", "full")
+
+
+# The descriptor step's rounding allowance, in units of 2^-24 of the largest
+# window sum of |q_c d_jc|: the bound on how far below the plain window
+# maximum kernel B's descriptor match may score in the plain version's own
+# arithmetic. A bf16 x bf16 product is exact in f32, so each score is a sum of
+# fd <= 32 exact products, S_j = sum_c |q_c d_jc|. The plain version adds them
+# one by one, rounding to nearest: error <= (fd - 1) 2^-24 S_j <= 31 2^-24 S.
+# The tensor cores align the products of one mma (and its accumulator input)
+# to the largest and may truncate each by up to one unit in the last place,
+# 2^-23 S, then round the sum (NVIDIA does not document Hopper's adder; this
+# is the behaviour measured on earlier tensor cores): two mma of k + 2 such
+# terms at most, error <= 2 (16 + 2) 2^-23 S = 72 2^-24 S. The kernel's match
+# jk beats the plain match jp in its own arithmetic, so in the plain one
+# plain(jp) - plain(jk) <= 2 (31 + 72) 2^-24 S = 206 2^-24 S; 256 rounds that
+# up to a power of two. The check is sound while each tensor-core sum lies
+# within ROUNDING_C / 2 units of the plain one, which
+# `tests/test_torch_cuda.py` measures on the card with kernel B's mma
+# sequence (`test_tensor_core_descriptor_sums_stay_within_the_rounding_allowance`).
+ROUNDING_C = 256
+_CHECK_CHUNK = 64  # queries `rounding_check` re-scores at once
 
 
 class PallasTileConfig(NamedTuple):
@@ -110,9 +131,10 @@ def tile_match_plain(rays_img, desc_img, q_rays, q_desc, corners, crop: int, win
             vs.append(c[:, 1, None] + pv)
             continue
 
-        # Channel by channel, as the kernel sums. A product of two bf16
-        # values is exact in f32, so the fused multiply-add rounds as the
-        # kernel's separate multiply and add do.
+        # Channel by channel, in channel order. A product of two bf16 values
+        # is exact in f32, so only the sums round. Kernel B sums on the
+        # tensor cores in their own order; `rounding_check` bounds how far
+        # its match may differ from this one.
         qd_c = qd[..., 0, :].permute(2, 0, 1).contiguous()[..., None]  # (fd, tc, tsz, 1)
         dc_c = dc[:, 0].permute(2, 0, 1).contiguous()[:, :, None]  # (fd, tc, 1, m)
         sd = qd_c[0] * dc_c[0]
@@ -125,6 +147,60 @@ def tile_match_plain(rays_img, desc_img, q_rays, q_desc, corners, crop: int, win
         us.append(c[:, 0, None] + bd % crop)
         vs.append(c[:, 1, None] + torch.div(bd, crop, rounding_mode="floor"))
     return (torch.cat(us).to(torch.int32), torch.cat(vs).to(torch.int32), torch.cat(convs))
+
+
+def rounding_check(rays_img, desc_img, q_rays, q_desc, corners, crop: int, window: int,
+                   conv_thresh: float, got):
+    """Kernel B's output `got` = (u, v, conv) against the plain version on the
+    same arguments (corners already quantized). Returns (passes, exact), each
+    (T, tsz) bool: `exact` where u, v and conv equal the plain version's;
+    `passes` where they do, or where conv does and the descriptor match that
+    differs is one the tensor cores' rounding admits:
+      * it lies in the query's window (around the plain ray match, clipped
+        to the crop);
+      * its plain score is within delta = ROUNDING_C 2^-24 max_j sum_c
+        |q_c d_jc| (j over the window) of the plain window maximum;
+      * no lower-index window position holds the same descriptor vector
+        (equal vectors sum equally in any order, so the lowest-index tie rule
+        stays exact there)."""
+    u, v, conv = got
+    u0, v0, c0 = tile_match_plain(rays_img, desc_img, q_rays, q_desc, corners, crop, window,
+                                  conv_thresh)
+    conv_ok = conv.bool() == c0
+    exact = (u == u0) & (v == v0) & conv_ok
+    passes = exact.clone()
+    cand = (~exact & conv_ok).nonzero()
+    if len(cand) == 0:
+        return passes, exact
+    ru, rv, _ = tile_match_plain(rays_img, desc_img, q_rays, q_desc, corners, crop, window,
+                                 conv_thresh, phase="stencil")
+    h, w, fd = desc_img.shape
+    m = crop * crop
+    desc_flat = desc_img.reshape(h * w, fd).to(torch.bfloat16).float()
+    qd_all = q_desc.to(torch.bfloat16).float()
+    off = torch.arange(m, device=desc_img.device)
+    ox, oy = off % crop, torch.div(off, crop, rounding_mode="floor")
+    for idx in cand.split(_CHECK_CHUNK):
+        t, i = idx[:, 0], idx[:, 1]
+        cx, cy = corners[t, 0].long(), corners[t, 1].long()
+        in_win = (((ox - (ru[t, i] - cx)[:, None]).abs() <= window)
+                  & ((oy - (rv[t, i] - cy)[:, None]).abs() <= window))  # (n, m)
+        dc = desc_flat[(cy[:, None] + oy) * w + (cx[:, None] + ox)]  # (n, m, fd)
+        q = qd_all[t, i][:, None, :]  # (n, 1, fd)
+        sd = q[..., 0] * dc[..., 0]  # the plain version's order, channel by channel
+        for ch in range(1, fd):
+            sd.addcmul_(q[..., ch], dc[..., ch])
+        smax = sd.masked_fill(~in_win, -torch.inf).amax(-1)
+        scale = (q.abs() * dc.abs()).sum(-1).masked_fill(~in_win, 0.0).amax(-1)
+        ku, kv = u[t, i].long() - cx, v[t, i].long() - cy
+        jk = (kv * crop + ku).clamp(0, m - 1)
+        inside = (ku >= 0) & (ku < crop) & (kv >= 0) & (kv < crop)
+        inside &= in_win.gather(1, jk[:, None])[:, 0]
+        near = sd.gather(1, jk[:, None])[:, 0] >= smax - ROUNDING_C * 2.0**-24 * scale
+        same = (dc == dc.gather(1, jk[:, None, None].expand(-1, 1, fd))).all(-1)
+        dup = (same & in_win & (off < jk[:, None])).any(-1)
+        passes[t, i] = inside & near & ~dup
+    return passes, exact
 
 
 def _launch(entry: str, rays_img, desc_img, q_rays, q_desc, corners, crop: int, window: int,
@@ -142,13 +218,9 @@ def _launch(entry: str, rays_img, desc_img, q_rays, q_desc, corners, crop: int, 
         raise ValueError("rays must be float32 and corners int32")
     if desc_img.dtype != torch.bfloat16 or q_desc.dtype != torch.bfloat16:
         raise ValueError("descriptors must be bfloat16")
-    if fd not in _FDS or q_desc.shape != (T, tsz, fd) or corners.shape != (T, 2):
+    if q_desc.shape != (T, tsz, fd) or corners.shape != (T, 2):
         raise ValueError(f"unsupported shapes: desc {tuple(desc_img.shape)}, "
                          f"q_desc {tuple(q_desc.shape)}, corners {tuple(corners.shape)}")
-    if tsz > _MAX_TSZ or not 0 < crop <= min(h, w):
-        raise ValueError(f"tile of {tsz} queries or crop {crop} not supported")
-    if crop * crop * (12 + 2 * fd) > _SMEM_LIMIT:
-        raise ValueError(f"crop {crop} with {fd} descriptor channels exceeds shared memory")
     lib = build.load("tile_match", _SIGNATURES)
     u = torch.empty((T, tsz), dtype=torch.int32, device=rays_img.device)
     v = torch.empty_like(u)
@@ -159,6 +231,13 @@ def _launch(entry: str, rays_img, desc_img, q_rays, q_desc, corners, crop: int, 
         corners.data_ptr(), u.data_ptr(), v.data_ptr(), conv.data_ptr(),
         T, tsz, h, w, fd, crop, window, conv_thresh, stream, *extra,
     )
+    if err == 1000:
+        raise ValueError(
+            f"tile_match_kernel does not take fd {fd}, {tsz} queries a tile, crop {crop} on a "
+            f"{h}x{w} image, or images {rays_img.data_ptr() % 16} / {desc_img.data_ptr() % 16} / "
+            f"{q_desc.data_ptr() % 16} bytes past 16-byte alignment: it takes fd 16, 24 or 32, at "
+            "most 256 queries, a crop and an image width that are multiples of 4 (its bulk "
+            "copies move whole 16-byte crop rows), and crops that fit a block's shared memory")
     if err != 0:
         raise RuntimeError(f"tile_match kernel launch failed: error {err}")
     return u, v, conv.bool()

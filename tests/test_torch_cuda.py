@@ -99,55 +99,214 @@ def test_attention_kernel_refuses_what_it_does_not_take(cuda):
             attention.fused_attention(ok, ok, bad)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("seed,fd", [(0, 24), (1, 16)])
-def test_tile_match_kernel_matches_plain(cuda, seed, fd):
-    """Random rays and descriptors, corners that need clipping and
-    16-alignment, and exact ray peaks on a crop border (the stencil's wrap
-    and zero rules). Both do the same arithmetic in the same order: equal."""
+def _tile_args(cuda, seed, fd, T, desc=None, qd=None):
+    """Kernel B's dispatch arguments on a 64x80 image: random unit rays,
+    exact ray peaks on a crop border (the stencil's wrap and zero rules),
+    corners that need clipping and 16-alignment; random descriptors unless
+    given."""
     rng = np.random.default_rng(seed)
-    h, w, crop, T, tsz = 64, 80, 48, 6, 256
+    h, w, tsz = 64, 80, 256
     rays = rng.standard_normal((h, w, 3)).astype(np.float32)
     rays /= np.linalg.norm(rays, axis=-1, keepdims=True)
     q = rng.standard_normal((T, tsz, 3)).astype(np.float32)
     q /= np.linalg.norm(q, axis=-1, keepdims=True)
     q[:, :32] = rays[:1, :32]
-    corners = np.asarray([[-5, 3], [40, 40], [17, 9], [79, 63], [0, 0], [31, 15]], np.int32)
-    args = [torch.from_numpy(a).to(cuda) for a in (
-        rays, rng.standard_normal((h, w, fd)).astype(np.float32), q,
-        rng.standard_normal((T, tsz, fd)).astype(np.float32), corners)]
-    tcfg = matching_pallas.PallasTileConfig(crop=crop, window=15)
+    corners = np.concatenate([[[-5, 3], [40, 40], [17, 9], [79, 63], [0, 0], [31, 15]],
+                              rng.integers(-8, 90, (max(T - 6, 0), 2))])[:T].astype(np.int32)
+    if desc is None:
+        desc = rng.standard_normal((h, w, fd))
+    if qd is None:
+        qd = rng.standard_normal((T, tsz, fd))
+    return [torch.from_numpy(np.asarray(a, np.float32)).to(cuda) for a in (rays, desc, q, qd)] + [
+        torch.from_numpy(corners).to(cuda)]
+
+
+def _kernel_args(args, crop=48, window=15):
+    """The kernel wrapper's arguments from the dispatch's: bf16 descriptors,
+    quantized corners."""
+    h, w, _ = args[0].shape
+    return (args[0], args[1].to(torch.bfloat16), args[2], args[3].to(torch.bfloat16),
+            matching_pallas.quantize_corners(args[4], h, w, crop), crop, window, 1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [6, 301])
+@pytest.mark.parametrize("fd", [16, 24, 32])
+def test_tile_match_kernel_matches_plain(cuda, fd, T):
+    """Through the dispatch, at a tile count under the persistent grid and
+    one that is no multiple of it. The ray match (the stencil cut) and the
+    convergence flags equal the plain version's; the descriptor match passes
+    `rounding_check` (the tensor cores sum in their own order)."""
+    args = _tile_args(cuda, fd + T, fd, T)
     before = matching_pallas.tile_match_kernel.launches
-    u, v, conv = matching_pallas.tile_match(*args, tcfg=tcfg, conv_thresh=1e-6)
+    u, v, conv = matching_pallas.tile_match(
+        *args, tcfg=matching_pallas.PallasTileConfig(crop=48, window=15), conv_thresh=1e-6)
     torch.cuda.synchronize()
     assert matching_pallas.tile_match_kernel.launches == before + 1
-    cq = matching_pallas.quantize_corners(args[4], h, w, crop)
-    u0, v0, c0 = matching_pallas.tile_match_plain(args[0], args[1], args[2], args[3], cq,
-                                                  crop, 15, 1e-6)
-    assert torch.equal(u, u0) and torch.equal(v, v0) and torch.equal(conv, c0)
+    kargs = _kernel_args(args)
+    ray = matching_pallas.tile_match_phase_kernel(*kargs, phase="stencil")
+    torch.cuda.synchronize()
+    ray0 = matching_pallas.tile_match_plain(*kargs, phase="stencil")
+    assert all(torch.equal(a, b) for a, b in zip(ray, ray0))
+    assert torch.equal(conv, ray0[2])
+    passes, exact = matching_pallas.rounding_check(*kargs, (u, v, conv))
+    assert bool(passes.all())
+    assert float(exact.float().mean()) >= 0.99
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fd", [16, 24, 32])
+def test_tile_match_kernel_keeps_the_lowest_index_among_equal_descriptors(cuda, fd):
+    """Every position's descriptor is one of four small-integer vectors and
+    the queries are small integers, so every sum is an exact integer in any
+    order: each window holds many positions with the same descriptor and
+    equal scores, and the kernel must pick the lowest index as the plain
+    version does. Equal."""
+    rng = np.random.default_rng(fd)
+    palette = rng.integers(-2, 3, (4, fd))
+    desc = palette[rng.integers(0, 4, (64, 80))]
+    qd = rng.integers(-2, 3, (6, 256, fd))
+    kargs = _kernel_args(_tile_args(cuda, 7, fd, 6, desc=desc, qd=qd))
+    got = matching_pallas.tile_match_kernel(*kargs)
+    torch.cuda.synchronize()
+    ref = matching_pallas.tile_match_plain(*kargs)
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+
+
+@pytest.mark.cuda
+def test_tile_match_kernel_refuses_what_it_does_not_take(cuda):
+    """What its bulk copies cannot move (a crop or an image width that is no
+    multiple of 4, an image that is not 16-byte aligned) and a crop whose
+    ring of slots exceeds shared memory: refused, no other path."""
+    kargs = list(_kernel_args(_tile_args(cuda, 0, 24, 6)))
+    with pytest.raises(ValueError):
+        matching_pallas.tile_match_kernel(*kargs[:5], 46, *kargs[6:])
+    with pytest.raises(ValueError):
+        matching_pallas.tile_match_kernel(*kargs[:4], kargs[4], 64, *kargs[6:])
+    odd = torch.zeros(64 * 80 * 24 + 1, device=cuda, dtype=torch.bfloat16)[1:].reshape(64, 80, 24)
+    with pytest.raises(ValueError):
+        matching_pallas.tile_match_kernel(kargs[0], odd, *kargs[2:])
+    narrow = kargs[0][:, :78].contiguous()
+    with pytest.raises(ValueError):
+        matching_pallas.tile_match_kernel(narrow, kargs[1][:, :78].contiguous(), *kargs[2:])
+
+
+# fd 24 descriptor sums by kernel B's tensor-core instructions: m16n8k16 on
+# channels 0-15, then m16n8k8 on 16-23, from a zero accumulator, with each
+# operand in the k slot `descriptor_window` gives it. One warp per 16 x 8
+# block of s[b] = q[b] d[b]^T; q (batch, n, 24), d (batch, m, 24) bf16.
+_MMA_SUMS_SRC = r"""
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+__global__ void mma_sums(const uint32_t* q, const uint32_t* d, float* s, int n, int m) {
+  const int g = threadIdx.x >> 2, t = threadIdx.x & 3;
+  const size_t b = blockIdx.z, i = (size_t)blockIdx.y * 16 + g, j = (size_t)blockIdx.x * 8 + g;
+  const uint32_t* qa = q + (b * n + i) * 12;  // 12 bf16 pairs a row
+  const uint32_t* qb = qa + 8 * 12;
+  const uint32_t* dc = d + (b * m + j) * 12;
+  float c[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(qa[t]), "r"(qb[t]), "r"(qa[4 + t]), "r"(qb[4 + t]), "r"(dc[t]), "r"(dc[4 + t]));
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5}, {%6}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(qa[8 + t]), "r"(qb[8 + t]), "r"(dc[8 + t]));
+  float* out = s + (b * n + i) * m + (size_t)blockIdx.x * 8 + 2 * t;
+  out[0] = c[0];
+  out[1] = c[1];
+  out[8 * (size_t)m] = c[2];
+  out[8 * (size_t)m + 1] = c[3];
+}
+
+extern "C" int mma_sums_forward(const void* q, const void* d, void* s, int batch, int n, int m,
+                                void* stream) {
+  mma_sums<<<dim3(m / 8, n / 16, batch), 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(q), static_cast<const uint32_t*>(d), static_cast<float*>(s),
+      n, m);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+@pytest.mark.cuda
+def test_tensor_core_descriptor_sums_stay_within_the_rounding_allowance(cuda, tmp_path):
+    """`rounding_check` admits a descriptor match whose plain score is within
+    delta = ROUNDING_C 2^-24 S of the plain window maximum (S the window's
+    largest sum_c |q_c d_c|). That is sound while each tensor-core window
+    sum lies within ROUNDING_C / 2 units of 2^-24 S of the plain sum: then
+    plain(jp) - plain(jk) <= gap(jp) + (mma(jp) - mma(jk)) + gap(jk), and
+    the middle term is <= 0 for the kernel's match jk. On chip_smoke.py's
+    descriptors (384x512, fd 24, unit normal, seed 0), every query of each
+    16x16 tile against every position of its 48x48 crop (a superset of its
+    +-15 px window): the largest gap, in units of 2^-24 sum_c |q_c d_c| of
+    that pair (at most its unit of the window's S), with each sum's
+    distance from the exact one (float64), printed."""
+    import ctypes
+    import subprocess
+
+    from monst3r_slam_torch.ops import build
+
+    src, lib_file = tmp_path / "mma_sums.cu", tmp_path / "libmma_sums.so"
+    src.write_text(_MMA_SUMS_SRC)
+    subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-o", str(lib_file), str(src)], check=True,
+                   capture_output=True, timeout=300)
+    lib = ctypes.CDLL(str(lib_file))
+    lib.mma_sums_forward.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    lib.mma_sums_forward.restype = ctypes.c_int
+
+    h, w, fd, crop, batch = 384, 512, 24, 48, 32
+    d = np.random.default_rng(0).standard_normal((h * w, fd)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    flat = torch.from_numpy(d).to(cuda, torch.bfloat16)
+    ty, tx = torch.meshgrid(torch.arange(h // 16), torch.arange(w // 16), indexing="ij")
+    oy, ox = 16 * ty.flatten().to(cuda), 16 * tx.flatten().to(cuda)
+    cy, cx = (oy - 16).clamp(0, h - crop), (ox - 16).clamp(0, w - crop)
+    r16, rc = torch.arange(16, device=cuda), torch.arange(crop, device=cuda)
+    q_lin = ((oy[:, None, None] + r16[:, None]) * w + ox[:, None, None] + r16).flatten(1)
+    c_lin = ((cy[:, None, None] + rc[:, None]) * w + cx[:, None, None] + rc).flatten(1)
+    unit = 2.0**-24
+    worst = dict(gap=0.0, mma=0.0, plain=0.0)
+    for b0 in range(0, len(q_lin), batch):
+        q, dc = flat[q_lin[b0 : b0 + batch]], flat[c_lin[b0 : b0 + batch]]
+        nb, n, m = q.shape[0], q.shape[1], dc.shape[1]
+        s = torch.empty((nb, n, m), device=cuda)
+        err = lib.mma_sums_forward(q.data_ptr(), dc.data_ptr(), s.data_ptr(), nb, n, m,
+                                   torch.cuda.current_stream().cuda_stream)
+        assert err == 0
+        qf, df = q.float(), dc.float()
+        plain = qf[:, :, None, 0] * df[:, None, :, 0]  # tile_match_plain's order
+        for ch in range(1, fd):
+            plain.addcmul_(qf[:, :, None, ch], df[:, None, :, ch])
+        exact = q.double() @ dc.double().transpose(1, 2)
+        scale = unit * (q.double().abs() @ dc.double().abs().transpose(1, 2))
+        for key, a, ref in (("gap", s, plain), ("mma", s, exact), ("plain", plain, exact)):
+            worst[key] = max(worst[key], float(((a.double() - ref.double()).abs() / scale).max()))
+    print(f"fd 24 window sums over {len(q_lin)} tiles x 256 queries x {crop * crop} positions, "
+          f"largest distance in units of 2^-24 sum_c |q_c d_c|: mma.sync from plain "
+          f"{worst['gap']:.3f}, mma.sync from exact {worst['mma']:.3f}, plain from exact "
+          f"{worst['plain']:.3f} (allowance per sum: ROUNDING_C / 2 = "
+          f"{matching_pallas.ROUNDING_C / 2:g})")
+    assert worst["gap"] <= matching_pallas.ROUNDING_C / 2
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("phase", matching_pallas.PHASES)
 def test_tile_match_phase_kernel_matches_plain(cuda, phase):
     """Each phase instantiation of kernel B against the plain version cut at
-    the same point: the same arithmetic in the same order, so equal."""
-    rng = np.random.default_rng(2)
-    h, w, crop, T, tsz, fd = 64, 80, 48, 6, 256, 24
-    rays = rng.standard_normal((h, w, 3)).astype(np.float32)
-    rays /= np.linalg.norm(rays, axis=-1, keepdims=True)
-    q = rng.standard_normal((T, tsz, 3)).astype(np.float32)
-    q /= np.linalg.norm(q, axis=-1, keepdims=True)
-    corners = np.asarray([[-5, 3], [40, 40], [17, 9], [79, 63], [0, 0], [31, 15]], np.int32)
-    rays_t, q_t = torch.from_numpy(rays).to(cuda), torch.from_numpy(q).to(cuda)
-    desc = torch.from_numpy(rng.standard_normal((h, w, fd)).astype(np.float32)).to(cuda, torch.bfloat16)
-    qd = torch.from_numpy(rng.standard_normal((T, tsz, fd)).astype(np.float32)).to(cuda, torch.bfloat16)
-    cq = matching_pallas.quantize_corners(torch.from_numpy(corners).to(cuda), h, w, crop)
-    args = (rays_t, desc, q_t, qd, cq, crop, 15, 1e-6)
+    the same point: stage, ray and stencil do the same arithmetic in the same
+    order, so equal; full passes `rounding_check`."""
+    kargs = _kernel_args(_tile_args(cuda, 2, 24, 6))
     before = matching_pallas.tile_match_phase_kernel.launches
-    got = matching_pallas.tile_match_phase_kernel(*args, phase=phase)
+    got = matching_pallas.tile_match_phase_kernel(*kargs, phase=phase)
     torch.cuda.synchronize()
     assert matching_pallas.tile_match_phase_kernel.launches == before + 1
-    ref = matching_pallas.tile_match_plain(*args, phase=phase)
-    for a, r in zip(got, ref):
-        assert torch.equal(a, r)
+    if phase == "full":
+        passes, _ = matching_pallas.rounding_check(*kargs, got)
+        assert bool(passes.all())
+    else:
+        ref = matching_pallas.tile_match_plain(*kargs, phase=phase)
+        for a, r in zip(got, ref):
+            assert torch.equal(a, r)
