@@ -36,7 +36,16 @@ phase printing one line:
      frames, one of them forced to be a keyframe so that a keyframe event
      decodes and matches the new graph edge and runs the global
      Gauss-Newton. The launch counters are zeroed just before and read just
-     after; every attention launch must take the bf16 tensor-core route.
+     after; every attention launch must take the bf16 tensor-core route;
+  6. the main path as `main.py` runs it by default, through the port's
+     entry point `main_torch.py` with config/base.yaml: the backend on its
+     worker thread with the f64 host solve, tracking decisions two frames
+     late, retrieval on a k-means-bootstrapped codebook, relocalization and
+     the export (`phase_main`): once as the CLI in a subprocess, unchanged,
+     and once through its loop `main_torch.run` with the tied weights on
+     repeated frames with one frame of noise, which must track, solve a
+     keyframe event on the worker, lose the noise frame and relocalize.
+     Frames and the CLI's outputs go under build/smoke_main/ and logs/.
 
 Random weights carry no geometry: two views of one scene, even one shifted
 by a pixel, decode to pointmaps that do not match, and every frame would be
@@ -559,6 +568,210 @@ def phase_slice(seed: int, n_frames: int) -> dict:
     return launches
 
 
+ROOT = pathlib.Path(__file__).resolve().parent
+MAIN_DIR = ROOT / "build" / "smoke_main"  # frames and logs of the main phase
+
+
+def synthetic_rgb(seed: int) -> np.ndarray:
+    """`synthetic_frame` as a uint8 480x640 RGB camera image."""
+    return np.uint8(np.round((synthetic_frame(seed, 480, 640) * 0.5 + 0.5) * 255))
+
+
+def write_frames(folder: pathlib.Path, frames) -> None:
+    """One PNG per frame, named in order: a folder the port's RGB reader reads."""
+    import cv2
+
+    folder.mkdir(parents=True, exist_ok=True)
+    for old in folder.glob("*.png"):
+        old.unlink()
+    for i, img in enumerate(frames):
+        cv2.imwrite(str(folder / f"{i:04d}.png"), cv2.cvtColor(img, cv2.COLOR_RGB2BGR))
+
+
+def check_export(out: pathlib.Path, seq: str, n_frames: int) -> int:
+    """main_torch's export in `out` is well-formed: TUM keyframe and full
+    trajectories with finite poses and unit quaternions, a binary PLY whose
+    body holds its vertex count, one PNG per keyframe. Returns the keyframes."""
+    kf = np.atleast_2d(np.loadtxt(out / f"{seq}.txt"))
+    full = np.atleast_2d(np.loadtxt(out / f"{seq}_full.txt"))
+    if full.shape != (n_frames, 8) or kf.shape[1:] != (8,) or not 1 <= len(kf) <= n_frames:
+        fail(f"export {out}: trajectories of shape {kf.shape} / {full.shape}")
+    if not (np.isfinite(kf).all() and np.isfinite(full).all()):
+        fail(f"export {out}: non-finite pose")
+    if not np.allclose(np.linalg.norm(full[:, 4:8], axis=1), 1.0, atol=1e-4):
+        fail(f"export {out}: quaternions are not unit")
+    header, body = (out / f"{seq}.ply").read_bytes().split(b"end_header\n", 1)
+    n_vert = int(header.split(b"element vertex ")[1].split(b"\n")[0])
+    if not header.startswith(b"ply\nformat binary_little_endian 1.0\n") or len(body) != 15 * n_vert:
+        fail(f"export {out}: malformed PLY ({n_vert} vertices, {len(body)} bytes)")
+    pngs = list((out / "keyframes").glob("*.png"))
+    if len(pngs) != len(kf):
+        fail(f"export {out}: {len(pngs)} keyframe images for {len(kf)} keyframes")
+    return len(kf)
+
+
+def main_tracked_config() -> dict:
+    """config/base.yaml as shipped (async backend, tracking decisions two
+    frames late, `solver: auto`, bootstrapped retrieval), with the overrides
+    that let random tied weights track and relocalize; each is printed."""
+    from monst3r_slam_torch.app.config import load_config
+
+    cfg = load_config("config/base.yaml", set_global=False)
+    overrides = (
+        # the descriptor-confidence gates, calibrated for trained weights
+        # (as slice_config opens them)
+        ("tracking", "Q_conf", 0.0), ("local_opt", "Q_conf", 0.0),
+        # every tracked frame becomes a keyframe: keyframe events, graph
+        # edges and global solves on the worker on a repeated frame
+        ("tracking", "match_frac_thresh", 1.0),
+        # a codebook after two keyframes, sized for their features; random
+        # weights score even a repeated frame far below the trained gate
+        ("retrieval", "bootstrap_frames", 2), ("retrieval", "n_words", 64),
+        ("retrieval", "min_thresh", 0.0),
+        # the relocalization edge's gate at tracking's own (random weights
+        # match a repeated frame on fewer pixels than trained ones)
+        ("reloc", "min_match_frac", 0.05),
+    )
+    for sec, key, val in overrides:
+        print(f"main tracked run: {sec}.{key} = {val} (config/base.yaml: {cfg[sec].get(key)})",
+              flush=True)
+        cfg[sec][key] = val
+    return cfg
+
+
+def run_main_tracked(params, seed: int, n: int, noise_at: int):
+    """`main_torch.run` at MAST3R_512 on the card, on `n` copies of one
+    synthetic 480x640 frame with noise at `noise_at`, written as PNGs, with
+    `main_tracked_config`. Returns (slam, per-frame host ms, seconds)."""
+    import shutil
+
+    import torch
+
+    import main_torch
+    from monst3r_slam_torch.models.config import MAST3R_512
+
+    rng = np.random.default_rng(seed)
+    frames = [synthetic_rgb(seed)] * n
+    frames[noise_at] = rng.integers(0, 256, frames[0].shape, dtype=np.uint8)
+    tracked_dir = MAIN_DIR / "tracked"
+    write_frames(tracked_dir, frames)
+    shutil.rmtree(ROOT / "logs" / "smoke_tracked", ignore_errors=True)
+    args = main_torch.parse_args(["--dataset", str(tracked_dir), "--no-viz",
+                                  "--save-as", "smoke_tracked"])
+    cfg = main_tracked_config()
+    t0 = time.perf_counter()
+    slam, frame_ms = main_torch.run(args, cfg, params, MAST3R_512, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    check_export(ROOT / "logs" / "smoke_tracked", "tracked", n)
+    return slam, frame_ms, secs
+
+
+def phase_main(seed: int) -> dict:
+    """The port's entry point, `main_torch.py`, on config/base.yaml at
+    MAST3R_512 full width: async backend with the f64 host solve, retrieval
+    and relocalization, export. Two runs:
+      * the CLI, unchanged, in a subprocess on 8 frames of a panning camera
+        with random weights from its `--seed` (every frame is lost to
+        relocalization, which finds nothing: see the module notes); it must
+        exit 0 and write a well-formed export;
+      * `main_torch.run`, the CLI's loop, in this process with the smoke's
+        tied weights on 12 copies of one frame with noise in the middle: it
+        must track, solve a keyframe event on the worker with the f64 host
+        solve, lose the noise frame and relocalize against a retrieved
+        keyframe, through both kernels on the bf16 tensor-core route, with
+        finite poses. Launch counters zeroed just before, read just after."""
+    import shutil
+
+    import torch
+
+    from monst3r_slam_torch.models.config import MAST3R_512
+    from monst3r_slam_torch.models.convert import cast_params_for_inference
+    from monst3r_slam_torch.models.init import init_params
+    from monst3r_slam_torch.ops.attention import fused_attention
+    from monst3r_slam_torch.ops.matching_pallas import tile_match_kernel
+
+    shutil.rmtree(ROOT / "logs" / "smoke_cli", ignore_errors=True)
+    n_cli = 8
+    cli_dir = MAIN_DIR / "cli"
+    write_frames(cli_dir, [np.roll(synthetic_rgb(seed), 4 * i, axis=1) for i in range(n_cli)])
+    cmd = [sys.executable, "main_torch.py", "--dataset", str(cli_dir), "--no-viz",
+           "--max-frames", str(n_cli), "--save-as", "smoke_cli"]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=420)
+    cli_s = time.perf_counter() - t0
+    if out.returncode != 0:
+        fail(f"main_torch.py exited {out.returncode}:\n{out.stdout[-2000:]}\n{out.stderr[-4000:]}")
+    for want in ("backend: worker thread, global solve f64 host, tracking decisions 2 frames late",
+                 "saved results to"):
+        if want not in out.stdout:
+            fail(f"main_torch.py did not print {want!r}:\n{out.stdout[-2000:]}")
+    n_kf_cli = check_export(ROOT / "logs" / "smoke_cli", "cli", n_cli)
+    done = [ln for ln in out.stdout.splitlines() if ln.startswith("done:")]
+    print(f"main CLI: {' '.join(cmd[1:])} with config/base.yaml as shipped: exit 0 in "
+          f"{cli_s:.1f} s; {done[0] if done else ''}; export well-formed ({n_kf_cli} keyframes, "
+          f"{n_cli} frames)", flush=True)
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = init_params(gen, MAST3R_512)
+    params["dec_blocks2"], params["head2"] = params["dec_blocks"], params["head1"]
+    params = cast_params_for_inference(params)
+    torch.cuda.synchronize()
+    counters = (fused_attention, tile_match_kernel)
+    for fn in counters:
+        fn.launches = 0
+    for route in fused_attention.route_launches:
+        fused_attention.route_launches[route] = 0
+    n, noise_at = 12, 6
+    slam, frame_ms, secs = run_main_tracked(params, seed, n, noise_at)
+    launches = {fn.__name__: fn.launches for fn in counters}
+    routes = dict(fused_attention.route_launches)
+
+    p = slam.prof
+    n_tracked = len(p.get("kf_event", []))  # every frame resolved in TRACKING is a keyframe here
+    solve_ms, iters = p.get("backend_solve", []), p.get("backend_solve_iters", [])
+    per_iter = sum(solve_ms) / max(sum(iters), 1)
+    _, poses = slam.full_trajectory()
+    kf_poses, kf_ids = slam.keyframe_trajectory()
+    row = dict(frames=n, seconds=secs, frame_ms=frame_ms, n_tracked=n_tracked,
+               keyframes=kf_ids.tolist(), edges=slam.graph.edge_list(),
+               async_solves=slam.n_async_solves, shed_solves=slam.n_shed_solves,
+               host_solve=slam.host_solve, reloc_attempts=slam.n_reloc_attempts,
+               relocs=slam.n_relocs, backend_stall_s=slam.backend_stall_s,
+               kf_event_ms=p.get("kf_event", []), backend_job_ms=p.get("backend_job", []),
+               solve_ms=solve_ms, solve_iters=iters, host_solve_ms_per_iter=per_iter,
+               retrieval_ms=p.get("retrieval", []), launches=launches, routes=routes)
+    print(f"main tracked run, MAST3R_512 {H}x{W} from 480x640 PNGs, {n} frames (noise at "
+          f"{noise_at}) in {secs:.2f} s = {1e3 * secs / n:.1f} ms/frame; per-frame host ms "
+          f"{[round(t, 1) for t in frame_ms]}; resolved in TRACKING {n_tracked}; keyframes "
+          f"{row['keyframes']}; edges {row['edges']}; worker solves {slam.n_async_solves} (f64 "
+          f"host: {slam.host_solve}), shed {slam.n_shed_solves}; relocalizations "
+          f"{slam.n_relocs}/{slam.n_reloc_attempts}; backend_stall_s {slam.backend_stall_s:.3f}",
+          flush=True)
+    print(f"main tracked run times (ms): kf_event on the main thread "
+          f"{[round(t, 2) for t in row['kf_event_ms']]}; backend job on the worker "
+          f"{[round(t, 1) for t in row['backend_job_ms']]}; global solves "
+          f"{[round(t, 1) for t in solve_ms]} in {iters} GN steps = {per_iter:.2f} ms per step; "
+          f"retrieval queries {[round(t, 2) for t in row['retrieval_ms']]}; launches "
+          f"{launches}, attention by route {routes}", flush=True)
+    if n_tracked < 1:
+        fail("main tracked run: no frame was resolved in TRACKING")
+    # every solve here is a host solve; a failed first factorization applies no step
+    if not (slam.host_solve and slam.n_async_solves >= 1 and iters and min(iters) >= 1):
+        fail(f"main tracked run: no keyframe event was solved on the worker by the f64 host "
+             f"solve (host_solve {slam.host_solve}, worker solves {slam.n_async_solves}, "
+             f"steps per solve {iters})")
+    if slam.n_relocs < 1:
+        fail(f"main tracked run: no relocalization ({slam.n_reloc_attempts} attempts)")
+    if min(launches.values()) < 1:
+        fail(f"main tracked run: a kernel of the main path never launched: {launches}")
+    if routes["f32"] != 0 or routes["bf16_tc"] < 1:
+        fail(f"main tracked run: an attention launch left the bf16 tensor-core route: {routes}")
+    if not (np.isfinite(poses).all() and np.isfinite(kf_poses).all()):
+        fail("main tracked run: non-finite pose")
+    return row
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -582,13 +795,18 @@ def main() -> int:
     tmp = phase_tile_match_phases(args.seed)
     phase_reference(args.seed)
     launches = phase_slice(args.seed, args.frames)
+    main_run = phase_main(args.seed)
+    by_path = {name: dict(slice=launches[name], main=main_run["launches"][name])
+               for name in launches}
+    total = {name: sum(paths.values()) for name, paths in by_path.items()}
 
     enc = attn["bf16_tc", "encoder"]
     full = tmp["phases"]["full"]
     kernels = [
         dict(name="attention", route="cuda", source="monst3r_slam_torch/csrc/attention.cu",
              replaces="monst3r_slam_tpu/ops/attention.py:43",
-             launches=launches["fused_attention"], max_abs_err=enc["max_abs_err"],
+             launches=total["fused_attention"], launches_by_path=by_path["fused_attention"],
+             max_abs_err=enc["max_abs_err"],
              ms=enc["ms"], plain_ms=enc["plain_ms"], bound_ms=enc["bound_ms"],
              bound_by=enc["bound_by"], library_ms=enc["library_ms"], shape=enc["shape"],
              tol=enc["tol"], device_ms=enc["device_ms"],
@@ -599,7 +817,8 @@ def main() -> int:
                             decoder=attn["f32", "decoder"])),
         dict(name="tile_match", route="cuda", source="monst3r_slam_torch/csrc/tile_match.cu",
              replaces="monst3r_slam_tpu/ops/matching_pallas.py:213",
-             launches=launches["tile_match_kernel"], max_abs_err=tm["max_abs_err"],
+             launches=total["tile_match_kernel"], launches_by_path=by_path["tile_match_kernel"],
+             max_abs_err=tm["max_abs_err"],
              ms=tm["ms"], plain_ms=tm["plain_ms"], bound_ms=tm["bound_ms"],
              bound_by=tm["bound_by"], library_ms=None, shape=tm["shape"],
              device_ms=tm["device_ms"], agree=tm["agree"],
@@ -611,6 +830,7 @@ def main() -> int:
              bound_by=full["bound_by"], library_ms=None, shape=tmp["shape"],
              device_ms=full["device_ms"], phases=tmp["phases"]),
     ]
+    print(json.dumps({"main_tracked_run": main_run}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {

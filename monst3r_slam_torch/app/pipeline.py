@@ -1,22 +1,38 @@
-"""End-to-end SLAM pipeline, synchronous subset.
+"""End-to-end SLAM pipeline: one process, device-resident state.
 
-Port of the JAX package's `app/pipeline.py` for the `single_thread: True`
-MASt3R path: per frame, encode -> pair decode with the tracking keyframe ->
+Port of the JAX package's `app/pipeline.py` for the MASt3R path of
+`main.py`. Per frame: encode -> pair decode with the tracking keyframe ->
 tiled match (kernel B on CUDA) -> pointmap fusion + GN tracking + keyframe
-update (`_match_track_and_update`) -> host decisions; on a keyframe event,
-decode/match the new graph edges and run the global GN.
+update (`_match_track_and_update`) -> host decisions, up to
+`defer_tracking_sync` frames late. On a keyframe event: retrieval (ASMK on
+the host), decode and match of the new graph edges (consecutive and
+retrieved), and the global GN; on a lost frame, relocalization against the
+retrieved keyframe.
 
-Not ported yet, and refused with an error rather than ignored: the async
-backend worker, the multi-device mesh, retrieval databases, the calibrated
-residuals, the f64 host solver, the LM matcher, the dynamic (dual-model)
-and Easi3R pipelines, and the live viewer.
+`single_thread: True` runs the keyframe event's backend step on the main
+thread. `single_thread: False` (the default of config/base.yaml) hands it to
+a backend worker thread: the solve inputs are copied on the main thread
+when the job is queued (the tracking step writes keyframe rows in place),
+the worker solves the copies, superseded solves are skipped, and the main
+thread folds the newest poses in between frames. Both threads enqueue their
+work on the device's default stream, so stream order serializes the
+worker's decodes and solves with tracking. `local_opt.solver: auto` solves
+each GN step in float64 on the host (`native/solver.cpp`) when the backend
+runs on the worker, and in f32 on the device otherwise.
+
+Not ported, and refused with an error rather than ignored: a mesh across
+more than one card, the LM matcher, the dynamic (dual-model) and Easi3R
+pipelines, SLAM-state files and the live viewer.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import queue
+import threading
 import time
+import traceback
 from typing import List, Optional
 
 import numpy as np
@@ -25,11 +41,15 @@ import torch
 from monst3r_slam_torch.core import lie
 from monst3r_slam_torch.models import mast3r as model_api
 from monst3r_slam_torch.models.config import ModelConfig
+from monst3r_slam_torch.native.build import solver_available
 from monst3r_slam_torch.ops import matching, matching_tiled
+from monst3r_slam_torch.slam import retrieval as retrieval_mod
 from monst3r_slam_torch.slam import tracker as tracker_mod
 from monst3r_slam_torch.slam.backend import BackendConfig
-from monst3r_slam_torch.slam.factor_graph import FactorGraph
-from monst3r_slam_torch.slam.frame import Frame, Mode, fuse_pointmap, kf_append, make_keyframe_memory
+from monst3r_slam_torch.slam.factor_graph import FactorGraph, _next_pow2
+from monst3r_slam_torch.slam.frame import (
+    Frame, Mode, fuse_pointmap, kf_append, kf_update_poses, make_keyframe_memory,
+)
 
 
 def tracking_config_from_dict(cfg: dict) -> tracker_mod.TrackingConfig:
@@ -45,6 +65,10 @@ def tracking_config_from_dict(cfg: dict) -> tracker_mod.TrackingConfig:
         match_frac_thresh=t.get("match_frac_thresh", 0.333),
         sigma_ray=t.get("sigma_ray", 0.003),
         sigma_dist=t.get("sigma_dist", 10.0),
+        sigma_pixel=t.get("sigma_pixel", 1.0),
+        sigma_depth=t.get("sigma_depth", 10.0),
+        pixel_border=t.get("pixel_border", -10.0),
+        depth_eps=t.get("depth_eps", 1e-6),
         filtering_mode=t.get("filtering_mode", "weighted_pointmap"),
         filtering_score=t.get("filtering_score", "median"),
     )
@@ -67,7 +91,11 @@ def backend_config_from_dict(cfg: dict) -> BackendConfig:
         max_iters=int(b.get("max_iters", 10)),
         sigma_ray=b.get("sigma_ray", 0.003),
         sigma_dist=b.get("sigma_dist", 10.0),
+        sigma_pixel=b.get("sigma_pixel", 1.0),
+        sigma_depth=b.get("sigma_depth", 10.0),
         delta_norm=b.get("delta_norm", 1e-8),
+        pixel_border=b.get("pixel_border", -10.0),
+        depth_eps=b.get("depth_eps", 1e-6),
         pixel_subsample=int(b.get("pixel_subsample", 1)),
         pose_pad_lo=_pow2_floor("pose_pad_lo", b.get("pose_pad_lo", 8)),
         edge_pad_lo=_pow2_floor("edge_pad_lo", b.get("edge_pad_lo", 8)),
@@ -116,6 +144,7 @@ def _track_update_body(
     frame_X, frame_C, frame_N, frame_S,
     T_WCf, T_WCk,
     track_cfg, img_size, fmode, fscore,
+    K=None, use_calib: bool = False,
 ):
     """Frame fusion -> GN tracking -> keyframe fusion. The keyframe row of
     mem_X/C/N/S is updated IN PLACE after every read of its old value.
@@ -124,11 +153,11 @@ def _track_update_body(
     fX, fC, fN, fS = fuse_pointmap(frame_X, frame_C, frame_N, X1, C1, fmode, frame_S, fscore)
     kX_old, kC_old, kN_old = mem_X[kf_idx], mem_C[kf_idx], mem_N[kf_idx]
     res = tracker_mod.track_pose(
-        track_cfg, img_size, False,
+        track_cfg, img_size, use_calib,
         idx_f2k, valid_match_k, Q1, Q2,
         fX, fC / torch.clamp(fN.float(), min=1.0),
         kX_old, kC_old / torch.clamp(kN_old.float(), min=1.0),
-        T_WCf, T_WCk,
+        T_WCf, T_WCk, K,
     )
     Xkk = lie.sim3_act(res.T_CkCf, X2)
     kX, kC, kN, kS = fuse_pointmap(kX_old, kC_old, kN_old, Xkk, C2, fmode, mem_S[kf_idx], fscore)
@@ -157,8 +186,11 @@ def _match_track_and_update(
     tcfg,
     use_kernel: bool,
     use_init: bool,
+    K=None,
+    use_calib: bool = False,
 ):
-    """Matching + fusion + GN tracking + keyframe update for one frame.
+    """Matching + fusion + GN tracking + keyframe update for one frame;
+    `use_calib` tracks on the reprojection residual with the intrinsics K.
     Returns _track_update_body's outputs + (idx_f2k (1, hw), valid (1, hw, 1))."""
     h, w = img_size
     hw = h * w
@@ -173,7 +205,7 @@ def _match_track_and_update(
         X1.reshape(hw, 3), C1.reshape(hw, 1), Q1.reshape(hw, 1),
         X2.reshape(hw, 3), C2.reshape(hw, 1), Q2.reshape(hw, 1),
         frame_X, frame_C, frame_N, frame_S,
-        T_WCf, T_WCk, track_cfg, img_size, fmode, fscore,
+        T_WCf, T_WCk, track_cfg, img_size, fmode, fscore, K=K, use_calib=use_calib,
     )
     return outs + (idx_f2k, valid_match_k)
 
@@ -182,15 +214,24 @@ def _match_track_and_update(
 class SLAMSystem:
     """Holds model params + SLAM state and drives per-frame processing.
     Tensors live on `device` ("cuda" unless the caller asks for the CPU);
-    `params` must already be there."""
+    `params`, `K` and `retrieval_params` must already be there. `K` is the
+    (3, 3) intrinsics of the resized frame, required with `use_calib`."""
 
     params: dict
     model_cfg: ModelConfig
     cfg: dict
     img_size: tuple  # (h, w) of resized frames
+    K: Optional[torch.Tensor] = None
+    retrieval_params: Optional[dict] = None
+    retrieval_db: Optional[retrieval_mod.ASMKDatabase] = None
     kf_capacity: int = 512
     device: str = "cuda"
     dtype: torch.dtype = torch.bfloat16  # model compute type
+    # The JAX package's dynamic (MonST3R) and Easi3R models and its live
+    # viewer; not ported, refused when set.
+    dual: Optional[object] = None
+    easi3r: Optional[object] = None
+    viewer: Optional[object] = None
 
     def __post_init__(self):
         cfg = self.cfg
@@ -198,6 +239,10 @@ class SLAMSystem:
         h, w = self.img_size
         self.hw = h * w
         self.kf_capacity = int(cfg.get("kf_capacity", self.kf_capacity))
+        self.use_calib = bool(cfg.get("use_calib", False))
+        if self.use_calib and self.K is None:
+            raise ValueError("use_calib needs the frame intrinsics K (a dataset with a "
+                             "calibration, or --calib)")
         self.track_cfg = tracking_config_from_dict(cfg)
         self.backend_cfg = backend_config_from_dict(cfg)
         self.edge_bucket_lo = _pow2_floor("edge_bucket_lo", cfg.get("edge_bucket_lo", 1))
@@ -215,33 +260,71 @@ class SLAMSystem:
         self.frame_poses: List[np.ndarray] = []
         self.frame_ids: List[int] = []
         self.last_T_WC = lie.sim3_identity().numpy()
+        self.retr_cfg = cfg.get("retrieval", {"k": 3, "min_thresh": 5e-3})
+        self.reloc_cfg = cfg.get("reloc", {"min_match_frac": 0.3, "strict": True})
         self.filtering_mode = self.track_cfg.filtering_mode
         self.timestamps: List = []
-        self.defer_depth = int(cfg.get("defer_tracking_sync", 0))
-        self.defer_sync = self.defer_depth > 0
+        self.kf_uimgs: List[Optional[np.ndarray]] = []  # host uint8 keyframe images
+        self.cur_uimg: Optional[np.ndarray] = None
+        self.single_thread = bool(cfg.get("single_thread", True))
         self.n_kf = 0  # host copy of mem.count
         self._kf_cache = None  # (kf_idx, (feat, pos, T_WC))
         self._last_T_WC_dev = lie.sim3_identity(device=self.device)
+        # Host decisions on a frame's tracking result run up to this many
+        # frames late (0: at once). Depth 1 makes the same decisions one
+        # call later; depth >= 2 lets a new keyframe take effect and RELOC
+        # be seen up to d frames late. Async mode defaults to 2.
+        self.defer_depth = int(cfg.get("defer_tracking_sync", 0 if self.single_thread else 2))
+        self.defer_sync = self.defer_depth > 0
+        if self.defer_depth >= 2:
+            print(f"async tracking sync deferred {self.defer_depth} frames "
+                  "(defer_tracking_sync; depth 1 = bit-exact decisions, one frame late)")
         self._pending = collections.deque()  # unresolved tracking results
         self.last_summary = None
         self.n_reloc_attempts = 0
-        # Per-stage host wall times (ms), keyed by stage name.
+        self.n_relocs = 0  # successful relocalizations
+        self.n_async_solves = 0  # global solves the backend worker ran
+        self.n_shed_solves = 0  # worker solves skipped because a newer job was queued
+        # Per-stage host wall times (ms), keyed by stage name; the worker
+        # appends its own ("retrieval", "backend_solve", ...).
         self.prof: dict = {}
+        self.backend_stall_s = 0.0  # main-thread time spent on backend work
+        self._retr_lock = threading.Lock()  # the retrieval DB is shared with the worker
+        self._graph_lock = threading.Lock()
+        self._backend_jobs: queue.Queue = queue.Queue()
+        self._backend_results: queue.Queue = queue.Queue()
+        self._async_errors: List[BaseException] = []  # worker exceptions, raised on main
+        self._err_lock = threading.Lock()
+        # local_opt.solver: device (f32 Cholesky on the device), host (f64
+        # on the host, the reference's precision), or auto: host when the
+        # backend runs on the worker, where the host round trip per
+        # iteration is off the tracking thread, device in synchronous mode.
+        mode = str(cfg.get("local_opt", {}).get("solver", "auto"))
+        if mode == "auto":
+            self.host_solve = not self.single_thread and solver_available()
+        else:
+            self.host_solve = mode == "host"
+        self._worker: Optional[threading.Thread] = None
+        if not self.single_thread:
+            self._worker = threading.Thread(target=self._backend_worker, name="slam-backend",
+                                            daemon=True)
+            self._worker.start()
 
     def _refuse_unported(self, cfg: dict):
         def refuse(what):
             raise NotImplementedError(f"{what} is not ported to the PyTorch package yet")
 
-        if not cfg.get("single_thread", True):
-            refuse("the asynchronous backend (single_thread: False)")
-        if cfg.get("use_calib", False):
-            refuse("calibrated tracking (use_calib)")
-        if cfg.get("local_opt", {}).get("solver", "auto") == "host":
-            refuse("the f64 host solver (local_opt.solver: host)")
         mesh = str(cfg.get("parallel", {}).get("mesh", "auto"))
         multi = torch.device(self.device).type == "cuda" and torch.cuda.device_count() > 1
         if mesh not in ("off", "auto") or (mesh == "auto" and multi):
             refuse("the multi-device mesh (set parallel.mesh: off)")
+        if self.dual is not None:
+            refuse("the dynamic (MonST3R) pipeline")
+        if self.easi3r is not None:
+            refuse("the Easi3R pipeline")
+        if self.viewer is not None:
+            refuse("the live viewer")
+        matcher_mode(cfg, self.device)  # refuses the LM matcher
 
     # ------------------------------------------------------------------
     # Model wrappers
@@ -297,9 +380,26 @@ class SLAMSystem:
         self._kf_cache = (kf_idx, view)
         return view
 
+    # ------------------------------------------------------------------
+    # Retrieval
+    # ------------------------------------------------------------------
+
     def _retrieve(self, frame: Frame, add_after_query: bool) -> List[int]:
-        """No retrieval database in this slice: no retrieved keyframes."""
-        return []
+        """Keyframes retrieved for `frame` (none without a database); with
+        `add_after_query` the frame is then added to the database."""
+        if self.retrieval_db is None:
+            return []
+        t0 = time.perf_counter()
+        feats = retrieval_mod.prep_features(
+            self.retrieval_params, frame.feat.reshape(1, *frame.feat.shape[-2:]))
+        feats = feats[0].cpu().numpy()
+        with self._retr_lock:  # the database is host state shared with the worker
+            out = self.retrieval_db.update(
+                feats, add_after_query=add_after_query, k=int(self.retr_cfg.get("k", 3)),
+                min_thresh=float(self.retr_cfg.get("min_thresh", 5e-3)),
+            )
+        self.prof.setdefault("retrieval", []).append((time.perf_counter() - t0) * 1e3)
+        return out
 
     # ------------------------------------------------------------------
     # Factor graph edges
@@ -374,27 +474,131 @@ class SLAMSystem:
         return added
 
     def solve_backend(self):
-        self.graph.solve(self.mem, self.backend_cfg)
+        """Global solve on the live keyframe memory (main thread)."""
+        t0 = time.perf_counter()
+        self.graph.solve(self.mem, self.backend_cfg, use_calib=self.use_calib, K=self.K,
+                         img_size=self.img_size, host_solve=self.host_solve)
+        self._log_solve(t0)
+        self._kf_cache = None  # the solve rewrote keyframe poses
+
+    def _log_solve(self, t0: float):
+        self.prof.setdefault("backend_solve", []).append((time.perf_counter() - t0) * 1e3)
+        self.prof.setdefault("backend_solve_iters", []).append(self.graph.last_iters)
+
+    # ------------------------------------------------------------------
+    # SLAM-state files
+    # ------------------------------------------------------------------
+
+    def save_state(self, path):
+        raise NotImplementedError("SLAM-state files are not ported to the PyTorch package yet")
+
+    def load_state(self, path):
+        raise NotImplementedError("SLAM-state files are not ported to the PyTorch package yet")
+
+    # ------------------------------------------------------------------
+    # Backend: synchronous, or on the worker thread
+    # ------------------------------------------------------------------
 
     def backend_step(self, kf_idx: int, frame: Frame, track_cache=None):
         """Graph edges for a new keyframe (consecutive + retrieval), then a
-        global solve, synchronously."""
-        self._backend_job_body(kf_idx, frame, track_cache)
+        global solve (run_backend, main.py:84-106): at once in
+        `single_thread` mode, else queued for the backend worker with a copy
+        of the solve inputs taken here on the main thread (the tracking step
+        rewrites keyframe rows in place; the worker must never read them)."""
+        t0 = time.perf_counter()
+        if self.single_thread:
+            self._backend_job_body(kf_idx, frame, None, track_cache)
+            self.backend_stall_s += time.perf_counter() - t0
+            return
+        n_kf = self.n_kf
+        P = min(_next_pow2(n_kf, self.backend_cfg.pose_pad_lo), self.mem.capacity)
+        snap = (
+            self.mem.T_WC[:P].clone(),
+            self.mem.X_canon[:P].clone(),
+            self.mem.C[:P] / torch.clamp(self.mem.N[:P, None, None].float(), min=1.0),
+            n_kf,
+        )
+        self._backend_jobs.put((kf_idx, frame, snap, track_cache))
+        self.backend_stall_s += time.perf_counter() - t0
 
-    def _backend_job_body(self, kf_idx: int, frame: Frame, track_cache=None):
+    def _backend_job_body(self, kf_idx: int, frame: Frame, snap, track_cache=None):
         retrieved = self._retrieve(frame, add_after_query=True)
         ii = [idx for idx in retrieved if idx < kf_idx - 1] + ([kf_idx - 1] if kf_idx > 0 else [])
-        if ii:
-            self.add_factors(
-                ii, [kf_idx] * len(ii), self.cfg.get("local_opt", {}).get("min_match_frac", 0.1),
-                track_cache=track_cache,
+        Twc_new = None
+        with self._graph_lock:
+            if ii:
+                self.add_factors(
+                    ii, [kf_idx] * len(ii),
+                    self.cfg.get("local_opt", {}).get("min_match_frac", 0.1),
+                    track_cache=track_cache,
+                )
+            if snap is None:  # synchronous: solve on the live memory
+                self.solve_backend()
+                return
+            # A newer job already queued supersedes this job's solve before
+            # anyone reads it: skip it (the edges and retrieval above are
+            # cumulative and stay). The newest job always solves.
+            if not self._backend_jobs.empty():
+                self.n_shed_solves += 1
+                return
+            Twc, Xs, Cs, n_kf = snap
+            t0 = time.perf_counter()
+            Twc_new = self.graph.solve_poses(
+                Twc, Xs, Cs, n_kf, self.backend_cfg, use_calib=self.use_calib, K=self.K,
+                img_size=self.img_size, host_solve=self.host_solve,
             )
-        self.solve_backend()
-        self._kf_cache = None  # the solve rewrote keyframe poses
+            if Twc_new is not None:
+                self._log_solve(t0)
+                self.n_async_solves += 1
+        if Twc_new is not None:
+            # only the n_kf poses of the snapshot: the padding rows must not
+            # clobber keyframes appended after it was taken
+            self._backend_results.put((Twc_new, n_kf))
+
+    def _backend_worker(self):
+        while True:
+            job = self._backend_jobs.get()
+            if job is None:
+                self._backend_jobs.task_done()
+                return
+            t0 = time.perf_counter()
+            try:
+                self._backend_job_body(*job)
+                self.prof.setdefault("backend_job", []).append((time.perf_counter() - t0) * 1e3)
+            except Exception as e:  # keep the worker alive; raised on the main thread
+                traceback.print_exc()
+                with self._err_lock:
+                    self._async_errors.append(e)
+            finally:
+                self._backend_jobs.task_done()
+
+    def _apply_backend_results(self) -> bool:
+        """Fold finished async solves into the live keyframe poses, and raise
+        a backend-worker exception on the main thread (one per call)."""
+        with self._err_lock:
+            exc = self._async_errors.pop(0) if self._async_errors else None
+        if exc is not None:
+            raise RuntimeError("async backend worker failed") from exc
+        applied = False
+        while True:
+            try:
+                Twc_new, n_kf = self._backend_results.get_nowait()
+            except queue.Empty:
+                break
+            kf_update_poses(self.mem, Twc_new[:n_kf], torch.arange(n_kf, device=self.device))
+            self._kf_cache = None  # the cached keyframe pose is stale now
+            applied = True
+        return applied
 
     def finalize(self):
-        """Resolve the last deferred tracking decisions."""
+        """Resolve the last deferred tracking decisions, wait for the backend
+        worker and apply its results: a deterministic final state for export."""
         self._resolve_pending()
+        if self._worker is not None:
+            t0 = time.perf_counter()
+            self._backend_jobs.join()
+            self.backend_stall_s += time.perf_counter() - t0
+        self._apply_backend_results()
 
     def _append_keyframe(self, frame: Frame) -> int:
         if self.n_kf >= self.kf_capacity:
@@ -408,40 +612,78 @@ class SLAMSystem:
         self._kf_cache = None
         return idx
 
+    # ------------------------------------------------------------------
+    # Relocalization (main.py:29-78)
+    # ------------------------------------------------------------------
+
     def relocalize(self, frame: Frame) -> bool:
-        """Relocalize against retrieved keyframes; with no retrieval database
-        nothing is retrieved and relocalization fails."""
+        """Relocalize `frame` against its best retrieved keyframe: append it
+        as a tentative keyframe at that keyframe's pose, add the edge (strict
+        by default: a weak match rejects it), solve; on failure the tentative
+        keyframe is rolled back."""
         self.n_reloc_attempts += 1
+        if self._worker is not None:
+            # a quiescent graph: wait out in-flight backend jobs
+            t0 = time.perf_counter()
+            self._backend_jobs.join()
+            self.backend_stall_s += time.perf_counter() - t0
+            self._apply_backend_results()
         retrieved = self._retrieve(frame, add_after_query=False)
         if not retrieved:
             return False
-        raise NotImplementedError("relocalization against retrieved keyframes is not ported yet")
+        frame = dataclasses.replace(frame, T_WC=self.mem.T_WC[retrieved[0]].clone())
+        kf_idx = self._append_keyframe(frame)
+        self._set_kf_uimg(kf_idx, self.cur_uimg)
+        with self._graph_lock:
+            ok = self.add_factors([retrieved[0]], [kf_idx], self.reloc_cfg.get("min_match_frac", 0.3),
+                                  is_reloc=self.reloc_cfg.get("strict", True))
+        if ok:
+            self._retrieve(frame, add_after_query=True)
+            with self._graph_lock:
+                self.solve_backend()
+            self._last_T_WC_dev = self.mem.T_WC[kf_idx].clone()
+            self.last_T_WC = self._last_T_WC_dev.cpu().numpy()
+            self.n_relocs += 1
+            return True
+        self.mem.count -= 1  # roll back the tentative keyframe
+        self.n_kf -= 1
+        self._kf_cache = None
+        return False
 
     # ------------------------------------------------------------------
     # Main per-frame step
     # ------------------------------------------------------------------
 
-    def process_frame(self, frame_id: int, timestamp, img_np,
+    def process_frame(self, frame_id: int, timestamp, img_np, uimg=None,
                       force_kf: Optional[bool] = None):
-        """One input frame. `force_kf` overrides the tracker's keyframe
-        decision host-side (True: always, False: never, None: the tracker's
+        """One input frame: `img_np` the normalized (h, w, 3) or (1, h, w, 3)
+        image (numpy or a tensor), `uimg` its uint8 RGB for the keyframe
+        exports. `force_kf` overrides the tracker's keyframe decision
+        host-side (True: always, False: never, None: the tracker's
         match-fraction gate)."""
         t0 = time.perf_counter()
+        self._apply_backend_results()  # async pose write-back between frames
         self.timestamps.append(timestamp)
-        frame = self.make_frame(frame_id, img_np)
+        self.cur_uimg = uimg
         t1 = time.perf_counter()
+        frame = self.make_frame(frame_id, img_np)
+        t2 = time.perf_counter()
         self._resolve_to_depth(self.defer_depth)
         if self.mode == Mode.RELOC:
+            # later in-flight frames were dispatched as TRACKING: resolve them
+            # now, so a relocalization below is not overridden by them
             self._resolve_pending()
-        t2 = time.perf_counter()
+        t3 = time.perf_counter()
         p = self.prof
-        p.setdefault("encode_dispatch", []).append((t1 - t0) * 1e3)
-        p.setdefault("resolve_prev", []).append((t2 - t1) * 1e3)
+        p.setdefault("apply_backend", []).append((t1 - t0) * 1e3)
+        p.setdefault("encode_dispatch", []).append((t2 - t1) * 1e3)
+        p.setdefault("resolve_prev", []).append((t3 - t2) * 1e3)
         frame = dataclasses.replace(frame, T_WC=self._last_T_WC_dev)
 
         if self.mode == Mode.INIT:
             frame = self._mono_init(frame)
-            self._append_keyframe(frame)
+            new_idx = self._append_keyframe(frame)
+            self._set_kf_uimg(new_idx, uimg)
             self._retrieve(frame, add_after_query=True)
             self.mode = Mode.TRACKING
             self._record_pose(frame_id, frame.T_WC)
@@ -454,12 +696,12 @@ class SLAMSystem:
             self._record_pose(frame_id, self.last_T_WC)
             return
 
-        t3 = time.perf_counter()
+        t4 = time.perf_counter()
         kf_idx = self.n_kf - 1
         kf_feat, kf_pos, kf_T_WC = self._kf_view(kf_idx)
         out = self._decode_pair(frame.feat, frame.pos, kf_feat, kf_pos)
-        t4 = time.perf_counter()
-        p.setdefault("decode_dispatch", []).append((t4 - t3) * 1e3)
+        t5 = time.perf_counter()
+        p.setdefault("decode_dispatch", []).append((t5 - t4) * 1e3)
 
         use_init = self.idx_f2k is not None
         (fX, fC, fN, fS, res, summary, idx_f2k, valid_match_k) = _match_track_and_update(
@@ -472,6 +714,7 @@ class SLAMSystem:
             fmode=self.filtering_mode, fscore=self.track_cfg.filtering_score,
             mcfg=self.match_cfg, tcfg=self.match_tcfg,
             use_kernel=self.match_mode == "kernel", use_init=use_init,
+            K=self.K, use_calib=self.use_calib,
         )
         self.idx_f2k = idx_f2k
         frame = dataclasses.replace(frame, X_canon=fX, C=fC, N=fN, score=fS)
@@ -479,13 +722,14 @@ class SLAMSystem:
         # direction if this frame becomes a keyframe: add_factors reuses it.
         track_pair = dict(kf_idx=kf_idx, out=out, idx=idx_f2k, valid=valid_match_k)
         self._pending.append(dict(
-            frame_id=frame_id, frame=frame, res=res, summary=summary, force_kf=force_kf, track_pair=track_pair,
+            frame_id=frame_id, frame=frame, res=res, summary=summary, uimg=uimg,
+            force_kf=force_kf, track_pair=track_pair,
         ))
-        p.setdefault("track_dispatch", []).append((time.perf_counter() - t4) * 1e3)
+        p.setdefault("track_dispatch", []).append((time.perf_counter() - t5) * 1e3)
         if not self.defer_sync:
-            t5 = time.perf_counter()
+            t6 = time.perf_counter()
             self._resolve_pending()
-            p.setdefault("resolve_sync", []).append((time.perf_counter() - t5) * 1e3)
+            p.setdefault("resolve_sync", []).append((time.perf_counter() - t6) * 1e3)
 
     def _resolve_pending(self):
         """Resolve every pending tracking result."""
@@ -520,16 +764,25 @@ class SLAMSystem:
             tk = time.perf_counter()
             self.idx_f2k = None
             new_idx = self._append_keyframe(frame)
+            self._set_kf_uimg(new_idx, p["uimg"])
             tc = p.get("track_pair")
             if tc is not None and tc["kf_idx"] != new_idx - 1:
                 tc = None  # an interleaved keyframe broke consecutiveness
             self.backend_step(new_idx, frame, track_cache=tc)
-            # the synchronous solve just updated this pose; read it back
-            self._last_T_WC_dev = self.mem.T_WC[new_idx].clone()
-            self.last_T_WC = self._last_T_WC_dev.cpu().numpy()
+            if self.single_thread:
+                # the synchronous solve just updated this pose; read it back
+                self._last_T_WC_dev = self.mem.T_WC[new_idx].clone()
+                self.last_T_WC = self._last_T_WC_dev.cpu().numpy()
+            # async: the solve has not run yet, and the tracked pose is
+            # already on the host (sv[:8])
             self.prof.setdefault("kf_event", []).append((time.perf_counter() - tk) * 1e3)
 
         self._record_pose(frame_id, self.last_T_WC)
+
+    def _set_kf_uimg(self, idx: int, uimg):
+        while len(self.kf_uimgs) <= idx:
+            self.kf_uimgs.append(None)
+        self.kf_uimgs[idx] = uimg
 
     def _record_pose(self, frame_id: int, T_WC):
         self.frame_ids.append(frame_id)
@@ -544,6 +797,17 @@ class SLAMSystem:
     def keyframe_trajectory(self):
         n = self.mem.count
         return self.mem.T_WC[:n].cpu().numpy(), self.mem.frame_id[:n].cpu().numpy()
+
+    def keyframe_colors(self) -> np.ndarray:
+        """(n_kf, hw, 3) float RGB in [0, 1] from the kept keyframe images;
+        gray for a keyframe without one."""
+        n = self.mem.count
+        cols = np.full((n, self.hw, 3), 0.5, np.float32)
+        for i in range(min(n, len(self.kf_uimgs))):
+            u = self.kf_uimgs[i]
+            if u is not None:
+                cols[i] = np.asarray(u, np.float32).reshape(self.hw, 3) / 255.0
+        return cols
 
     def full_trajectory(self):
         poses = np.stack(self.frame_poses) if self.frame_poses else np.zeros((0, 8))

@@ -1,18 +1,24 @@
 """Backend pose-graph Gauss-Newton over dense pointmap correspondences.
 
-Port of the ray-residual path of the JAX package's `slam/backend.py`: the
-pose-independent gathers and gates run once per solve (`_gather_edges`),
+Port of the JAX package's `slam/backend.py` for one device: the
+pose-independent gathers and gates run once per solve (`_gather_edges`);
 each iteration accumulates the per-edge 7x7 blocks A = Jj^T W Jj and
-b = Jj^T W err in structure-of-arrays form (`_edge_terms_ray_soa`, using
-Ji = -Jj), scatters them into the dense reduced system (`_assemble_dense`)
-and solves it with the f32 Jacobi-preconditioned Cholesky (`_solve_dense`).
-The iteration loop reads the step norm on the host once per iteration.
+b = Jj^T W err (Ji = -Jj), on the ray/distance residual in
+structure-of-arrays form (`_edge_terms_ray_soa`) or on the calibrated
+reprojection residual (`_edge_terms_calib`), and scatters them into the
+dense reduced system (`_assemble_dense`). `gauss_newton` solves that with
+the f32 Jacobi-preconditioned Cholesky (`_solve_dense`) and reads the step
+norm on the host once per iteration; `gauss_newton_host_solve` reads the
+assembled (H, g) back once per iteration and solves it in float64 with the
+native solver (`native/solver.cpp`), the reference's GPU-kernel +
+CPU-Eigen split.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from monst3r_slam_torch.core import geometry, lie, robust
@@ -27,7 +33,11 @@ class BackendConfig(NamedTuple):
     max_iters: int = 10
     sigma_ray: float = 0.003
     sigma_dist: float = 10.0
+    sigma_pixel: float = 1.0
+    sigma_depth: float = 10.0
     delta_norm: float = 1e-8
+    pixel_border: float = -10.0
+    depth_eps: float = 1e-6
     # Keep every S-th pixel slot in the residual set (1 = every pixel).
     pixel_subsample: int = 1
     # Pad-bucket floors for the (P poses, E edges) shapes of a solve.
@@ -35,16 +45,47 @@ class BackendConfig(NamedTuple):
     edge_pad_lo: int = 8
 
 
+def _point_jac_local(P):
+    """d(exp(eps) P)/d eps = [I | -skew(P) | P], (..., 3, 7)."""
+    eye = torch.eye(3, dtype=P.dtype, device=P.device).expand(P.shape[:-1] + (3, 3))
+    return torch.cat([eye, -lie.skew(P), P[..., :, None]], dim=-1)
+
+
 def _ray_residual(Xi, Xj_Ci):
     """Residual and local Jacobian of the ray/dist alignment:
-    (err (..., 4), J_local (..., 4, 7)), with d(exp(eps) P)/d eps =
-    [I | -skew(P) | P]. The generic form of what `_edge_terms_ray_soa`
-    accumulates in closed form."""
+    (err (..., 4), J_local (..., 4, 7)). The generic form of what
+    `_edge_terms_ray_soa` accumulates in closed form."""
     rd_i = geometry.point_to_ray_dist(Xi)
     rd_j, drd_dP = geometry.point_to_ray_dist(Xj_Ci, jacobian=True)
-    eye = torch.eye(3, dtype=Xj_Ci.dtype, device=Xj_Ci.device).expand(Xj_Ci.shape[:-1] + (3, 3))
-    dP = torch.cat([eye, -lie.skew(Xj_Ci), Xj_Ci[..., :, None]], dim=-1)
-    return rd_j - rd_i, drd_dP @ dP
+    return rd_j - rd_i, drd_dP @ _point_jac_local(Xj_Ci)
+
+
+def _calib_residual(Xi, Xj_Ci, ind_Xi, K, height, width, border, z_eps):
+    """Residual, local Jacobian and validity of the calibrated reprojection
+    alignment (gn_kernels.cu:1352-1430): [u, v, log z] of Xj_Ci against the
+    grid position of the matched pixel ind_Xi and the log depth of Xi."""
+    fx, fy, cx, cy = geometry.decompose_K(K)
+    u_t = (ind_Xi % width).to(Xi.dtype)
+    v_t = torch.div(ind_Xi, width, rounding_mode="floor").to(Xi.dtype)
+    zj = Xj_Ci[..., 2]
+    valid_z = (zj > z_eps) & (Xi[..., 2] > z_eps)
+    zj_safe = torch.where(valid_z, zj, torch.ones_like(zj))
+    zj_inv = 1.0 / zj_safe
+    x_div_z = Xj_Ci[..., 0] * zj_inv
+    y_div_z = Xj_Ci[..., 1] * zj_inv
+    u = fx * x_div_z + cx
+    v = fy * y_div_z + cy
+    valid_uv = (u > border) & (u < width - 1 - border) & (v > border) & (v < height - 1 - border)
+    logz = torch.log(zj_safe) - torch.log(torch.clamp(Xi[..., 2], min=1e-30))
+    err = torch.stack([u - u_t, v - v_t, torch.where(valid_z, logz, torch.zeros_like(logz))],
+                      dim=-1)
+    zero = torch.zeros_like(zj_inv)
+    dP = torch.stack([
+        torch.stack([fx * zj_inv, zero, -fx * x_div_z * zj_inv], dim=-1),
+        torch.stack([zero, fy * zj_inv, -fy * y_div_z * zj_inv], dim=-1),
+        torch.stack([zero, zero, zj_inv], dim=-1),
+    ], dim=-2)
+    return err, dP @ _point_jac_local(Xj_Ci), valid_z & valid_uv
 
 
 class Gathered(NamedTuple):
@@ -54,6 +95,7 @@ class Gathered(NamedTuple):
     Xj: torch.Tensor  # (E, n, 3) dense-grid points of frame j
     wq: torch.Tensor  # (E, n) sqrt(max(Q, 0))
     valid: torch.Tensor  # (E, n) bool: every pose-independent gate
+    ind: torch.Tensor  # (E, n) matched pixel index of frame i (calibrated u, v)
 
 
 def _gather_edges(Xs, Cs, ii, jj, idx_ii2jj, valid_match, Q, edge_valid,
@@ -73,7 +115,7 @@ def _gather_edges(Xs, Cs, ii, jj, idx_ii2jj, valid_match, Q, edge_valid,
         & edge_valid[:, None]
     )
     wq = torch.sqrt(torch.clamp(Q, min=0.0))
-    return Gathered(XCi[..., 0:3], XCj[..., 0:3], wq, valid)
+    return Gathered(XCi[..., 0:3], XCj[..., 0:3], wq, valid, ind_Xi)
 
 
 def _edge_terms_ray_soa(Twc, ii, jj, gat: Gathered, cfg: BackendConfig):
@@ -117,6 +159,31 @@ def _edge_terms_ray_soa(Twc, ii, jj, gat: Gathered, cfg: BackendConfig):
     A = torch.einsum("enrp,enrq->epq", wJ, J)
     b = torch.einsum("enrp,enr->ep", wJ, e)
     return A, b
+
+
+def _edge_terms_calib(Twc, ii, jj, gat: Gathered, cfg: BackendConfig, K, img_size):
+    """Per-edge A (E, 7, 7) and b (E, 7) of the calibrated reprojection
+    system: the local Jacobian moved to the absolute pose of j,
+    Jj = Adj(T_i)^-T J_local (Ji = -Jj, gn_kernels.cu:988-1000)."""
+    Ti = Twc[ii]
+    Tij = lie.sim3_rel(Ti, Twc[jj])
+    Xj_Ci = lie.sim3_act(Tij[:, None, :], gat.Xj)
+    err, J_local, valid_px = _calib_residual(
+        gat.Xi, Xj_Ci, gat.ind, K, img_size[0], img_size[1], cfg.pixel_border, cfg.depth_eps)
+    sig = err.new_tensor([1.0 / cfg.sigma_pixel] * 2 + [1.0 / cfg.sigma_depth])
+    sqrt_w = torch.where((gat.valid & valid_px)[..., None], sig * gat.wq[..., None],
+                         torch.zeros_like(err))
+    w = robust.huber(sqrt_w * err) * sqrt_w * sqrt_w  # (E, n, 3)
+    Jj = lie.sim3_adj_inv_T_apply(Ti[:, None, None, :], J_local)  # (E, n, 3, 7)
+    wJ = w[..., None] * Jj
+    return torch.einsum("enrp,enrq->epq", wJ, Jj), torch.einsum("enrp,enr->ep", wJ, err)
+
+
+def _edge_terms(Twc, ii, jj, gat: Gathered, cfg: BackendConfig, calib):
+    """A and b of either residual; `calib` is (K, img_size) or None."""
+    if calib is None:
+        return _edge_terms_ray_soa(Twc, ii, jj, gat, cfg)
+    return _edge_terms_calib(Twc, ii, jj, gat, cfg, *calib)
 
 
 def _assemble_dense(A, b, ii, jj, edge_valid, n_poses: int, cfg: BackendConfig):
@@ -163,18 +230,54 @@ def _solve_dense(H_opt, g_opt, n_poses: int, cfg: BackendConfig):
 
 @torch.no_grad()
 def gauss_newton(Twc, Xs, Cs, ii, jj, idx_ii2jj, valid_match, Q, edge_valid,
-                 cfg: BackendConfig, n_poses: int):
-    """Global GN on the ray residual. Twc (P, 8); Xs (P, hw, 3); Cs (P, hw, 1);
-    ii/jj (E,); idx_ii2jj (E, hw); valid_match (E, hw); Q (E, hw);
-    edge_valid (E,). Returns (new Twc, iterations)."""
+                 cfg: BackendConfig, n_poses: int, use_calib: bool = False, K=None,
+                 img_size=None):
+    """Global GN with the f32 device solve. Twc (P, 8); Xs (P, hw, 3);
+    Cs (P, hw, 1); ii/jj (E,); idx_ii2jj (E, hw); valid_match (E, hw);
+    Q (E, hw); edge_valid (E,); `use_calib` takes the reprojection residual
+    with K (3, 3) at img_size (h, w). Returns (new Twc, iterations)."""
+    calib = (K, img_size) if use_calib else None
     gat = _gather_edges(Xs, Cs, ii, jj, idx_ii2jj, valid_match, Q, edge_valid, cfg)
     it = 0
     while it < cfg.max_iters:
-        A, b = _edge_terms_ray_soa(Twc, ii, jj, gat, cfg)
+        A, b = _edge_terms(Twc, ii, jj, gat, cfg, calib)
         H_opt, g_opt = _assemble_dense(A, b, ii, jj, edge_valid, n_poses, cfg)
         dx = _solve_dense(H_opt, g_opt, n_poses, cfg)
         Twc = lie.sim3_retr(Twc, dx)
         it += 1
         if float(torch.linalg.vector_norm(dx)) < cfg.delta_norm:
+            break
+    return Twc, it
+
+
+@torch.no_grad()
+def gauss_newton_host_solve(Twc, Xs, Cs, ii, jj, idx_ii2jj, valid_match, Q, edge_valid,
+                            cfg: BackendConfig, n_poses: int, use_calib: bool = False, K=None,
+                            img_size=None):
+    """The GN loop of `gauss_newton` with each linear solve in float64 on the
+    host (the native solver): the device linearizes and assembles (H, g),
+    which is read back in one transfer per iteration, and the step goes back
+    as f32. A solve that fails even with jitter ends the loop, keeping the
+    poses of the last good step. Returns (new Twc, steps applied)."""
+    from monst3r_slam_torch.native.build import solve_spd
+
+    calib = (K, img_size) if use_calib else None
+    n_opt = n_poses - cfg.pin
+    dim = n_opt * 7
+    gat = _gather_edges(Xs, Cs, ii, jj, idx_ii2jj, valid_match, Q, edge_valid, cfg)
+    pinned = torch.zeros((cfg.pin, 7), dtype=Twc.dtype, device=Twc.device)
+    it = 0
+    while it < cfg.max_iters:
+        A, b = _edge_terms(Twc, ii, jj, gat, cfg, calib)
+        H_opt, g_opt = _assemble_dense(A, b, ii, jj, edge_valid, n_poses, cfg)
+        Hg = torch.cat([H_opt.reshape(-1), g_opt]).cpu().numpy().astype(np.float64)
+        try:
+            dx = -solve_spd(Hg[: dim * dim].reshape(dim, dim), Hg[dim * dim:], jitter=1e-12)
+        except np.linalg.LinAlgError:
+            break
+        it += 1
+        dx_t = torch.from_numpy(dx.astype(np.float32).reshape(n_opt, 7)).to(Twc.device)
+        Twc = lie.sim3_retr(Twc, torch.cat([pinned, dx_t]))
+        if float(np.linalg.norm(dx)) < cfg.delta_norm:
             break
     return Twc, it

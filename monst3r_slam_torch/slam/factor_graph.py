@@ -4,7 +4,8 @@ Port of the JAX package's `slam/factor_graph.py`. Both directions of every
 accepted edge are stored; edge e relates keyframes (ii[e], jj[e]), and
 `idx[e][k]` maps pixel k of keyframe jj[e] to a pixel of keyframe ii[e].
 Edge tensors grow by doubling; a solve pads the pose and edge counts to
-powers of two, with the padding masked out of the normal equations.
+powers of two, with the padding masked out of the normal equations. The
+calibrated solve first snaps every keyframe point onto its pixel ray.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from typing import List
 import numpy as np
 import torch
 
+from monst3r_slam_torch.core import geometry
 from monst3r_slam_torch.slam import backend as backend_mod
 from monst3r_slam_torch.slam.frame import KeyframeMemory, kf_update_poses
 
@@ -65,26 +67,46 @@ class FactorGraph:
     def edge_list(self) -> List[tuple]:
         return [(int(self.ii[e]), int(self.jj[e])) for e in range(0, self.n_edges, 2)]
 
-    def solve(self, mem: KeyframeMemory, cfg: backend_mod.BackendConfig) -> None:
-        """Run the global GN and write the poses back into `mem` in place."""
+    def solve(self, mem: KeyframeMemory, cfg: backend_mod.BackendConfig, use_calib: bool = False,
+              K=None, img_size=None, host_solve: bool = False) -> None:
+        """Run the global GN on the live keyframe memory and write the poses
+        back into `mem` in place. `host_solve` solves each step in float64 on
+        the host (config `local_opt.solver: host`)."""
         n_kf = mem.count
         if self.n_edges == 0 or n_kf <= cfg.pin:
             return
         P = min(_next_pow2(n_kf, cfg.pose_pad_lo), mem.capacity)
-        E = _next_pow2(self.n_edges, cfg.edge_pad_lo)
-        dev = mem.T_WC.device
         Cs = mem.C[:P] / torch.clamp(mem.N[:P, None, None].float(), min=1.0)
-        Twc_new, self.last_iters = backend_mod.gauss_newton(
-            mem.T_WC[:P], mem.X_canon[:P], Cs,
+        Twc_new = self.solve_poses(mem.T_WC[:P], mem.X_canon[:P], Cs, n_kf, cfg,
+                                   use_calib=use_calib, K=K, img_size=img_size,
+                                   host_solve=host_solve)
+        kf_update_poses(mem, Twc_new, torch.arange(P, device=mem.T_WC.device))
+
+    def solve_poses(self, Twc, Xs, Cs, n_kf: int, cfg: backend_mod.BackendConfig,
+                    use_calib: bool = False, K=None, img_size=None, host_solve: bool = False):
+        """Global GN on explicit (P, ...) snapshots of the keyframe state
+        (P >= n_kf, a power of two): the updated (P, 8) poses, or None when
+        there is nothing to solve. The async backend solves its snapshot
+        copies with this, never the live memory."""
+        if self.n_edges == 0 or n_kf <= cfg.pin:
+            return None
+        P = Twc.shape[0]
+        E = _next_pow2(self.n_edges, cfg.edge_pad_lo)
+        dev = Twc.device
+        if use_calib:
+            Xs = geometry.constrain_points_to_ray(img_size, Xs, K)
+        solve = backend_mod.gauss_newton_host_solve if host_solve else backend_mod.gauss_newton
+        Twc_new, self.last_iters = solve(
+            Twc, Xs, Cs,
             torch.from_numpy(np.resize(self.ii[: self.n_edges], E)).to(dev),
             torch.from_numpy(np.resize(self.jj[: self.n_edges], E)).to(dev),
             self._padded(self.idx, E), self._padded(self.valid_match, E),
             self._padded(self.Q, E),
             torch.arange(E, device=dev) < self.n_edges,
-            cfg, n_poses=P,
+            cfg, n_poses=P, use_calib=use_calib, K=K, img_size=img_size,
         )
         self.n_solves += 1
-        kf_update_poses(mem, Twc_new, torch.arange(P, device=dev))
+        return Twc_new
 
     @staticmethod
     def _padded(arr, E):

@@ -1,11 +1,13 @@
 """Frontend tracker: per-frame Sim(3) pose Gauss-Newton against the last
 keyframe.
 
-Port of the uncalibrated path of the JAX package's `slam/tracker.py`. The
-JAX `lax.while_loop`s become Python loops with one host read per iteration
-(the stop test); the ray/distance normal equations are built from the
-closed-form Jacobian rows of the reference's structure-of-arrays body,
-vectorized over pixels. A failed Cholesky (not positive definite) is
+Port of the JAX package's `slam/tracker.py`. The JAX `lax.while_loop`s
+become Python loops with one host read per iteration (the stop test); the
+uncalibrated ray/distance normal equations are built from the closed-form
+Jacobian rows of the reference's structure-of-arrays body, vectorized over
+pixels, and the calibrated ones (`opt_pose_calib_sim3`: pixel and
+log-depth residuals against the keyframe's grid) from the generic
+whitened-residual form. A failed Cholesky (not positive definite) is
 reported as `solver_failed`, as the reference's NaN test does.
 """
 
@@ -31,6 +33,10 @@ class TrackingConfig(NamedTuple):
     match_frac_thresh: float = 0.333
     sigma_ray: float = 0.003
     sigma_dist: float = 10.0
+    sigma_pixel: float = 1.0
+    sigma_depth: float = 10.0
+    pixel_border: float = -10.0
+    depth_eps: float = 1e-6
     filtering_mode: str = "weighted_pointmap"
     filtering_score: str = "median"
 
@@ -54,15 +60,19 @@ def _cholesky_solve(H: torch.Tensor, g: torch.Tensor):
     return torch.where(ok[..., None], x, torch.zeros_like(x)), ok
 
 
-def _solve_7x7(sqrt_info, r, J, huber_k: float):
-    """Whitened robust normal equations + Cholesky solve.
-    sqrt_info, r: (n, m); J: (n, m, 7). Returns (tau (7,), cost, ok)."""
+def _normal_equations(sqrt_info, r, J, huber_k: float):
+    """Whitened robust normal equations: sqrt_info, r (n, m); J (n, m, 7)
+    -> (H (7, 7), g (7,), cost)."""
     w = sqrt_info * torch.sqrt(robust.huber(sqrt_info * r, huber_k))
     A = (w[..., None] * J).reshape(-1, 7)
     b = (w * r).reshape(-1)
-    H = A.T @ A
-    g = -(A.T @ b)
-    cost = 0.5 * torch.dot(b, b)
+    return A.T @ A, -(A.T @ b), 0.5 * torch.dot(b, b)
+
+
+def _solve_7x7(sqrt_info, r, J, huber_k: float):
+    """Whitened robust normal equations + Cholesky solve.
+    sqrt_info, r: (n, m); J: (n, m, 7). Returns (tau (7,), cost, ok)."""
+    H, g, cost = _normal_equations(sqrt_info, r, J, huber_k)
     tau, ok = _cholesky_solve(H, g)
     return tau, cost, ok
 
@@ -126,6 +136,27 @@ def opt_pose_ray_dist_sim3(Xf, Xk, T_CkCf_init, Qk, valid, cfg: TrackingConfig):
     return _gn_loop(cfg, system, T_CkCf_init)
 
 
+def opt_pose_calib_sim3(Xf, Xk, T_CkCf_init, Qk, valid, meas_k, valid_meas_k, K, img_size,
+                        cfg: TrackingConfig):
+    """Calibrated frame-to-keyframe alignment (tracker.py:216-266): residual
+    [pixel (2), log depth (1)] of the frame's points projected into the
+    keyframe, against the keyframe's pixel grid and log depth `meas_k`
+    (n, 3). Xf, Xk: (n, 3) points on their pixel rays; Qk, valid: (n, 1)."""
+    sqrtQ = torch.sqrt(torch.clamp(Qk, min=0.0))
+    info_pix = (1.0 / cfg.sigma_pixel) * valid * sqrtQ
+    info_depth = (1.0 / cfg.sigma_depth) * valid * sqrtQ
+    sqrt_info = torch.cat([info_pix, info_pix, info_depth], dim=-1)  # (n, 3)
+
+    def system(T):
+        Xf_Ck, dX_dT = geometry.act_Sim3(T, Xf, jacobian=True)
+        pz, dpz_dX, valid_proj = geometry.project_calib(
+            Xf_Ck, K, img_size, jacobian=True, border=cfg.pixel_border, z_eps=cfg.depth_eps)
+        J = -(dpz_dX @ dX_dT)
+        return _normal_equations(sqrt_info * (valid_proj & valid_meas_k), meas_k - pz, J, cfg.huber)
+
+    return _gn_loop(cfg, system, T_CkCf_init)
+
+
 def unique_fraction(idx: torch.Tensor, valid: torch.Tensor, n_total: int) -> torch.Tensor:
     """|unique(idx[valid])| / n_total via an occupancy scatter."""
     occ = torch.zeros((n_total,), dtype=torch.int32, device=idx.device)
@@ -148,10 +179,9 @@ def track_pose(
     Ck_avg: torch.Tensor,  # (hw, 1)
     T_WCf: torch.Tensor,  # (8,) current frame pose estimate
     T_WCk: torch.Tensor,  # (8,) keyframe pose
+    K=None,  # (3, 3) intrinsics of the resized frame, with use_calib
 ) -> TrackResult:
     """Validity gates, GN, and the keyframe decision for one frame."""
-    if use_calib:
-        raise NotImplementedError("calibrated tracking is not ported yet")
     hw = idx_f2k.shape[0]
     Qk = torch.sqrt(Qff[idx_f2k] * Qkf)
     Xf = Xf_canon[idx_f2k]
@@ -164,7 +194,18 @@ def track_pose(
     low_match = match_frac < cfg.min_match_frac
 
     T_CkCf_init = lie.sim3_rel(T_WCk, T_WCf)
-    T_CkCf, iters, ok = opt_pose_ray_dist_sim3(Xf, Xk_canon, T_CkCf_init, Qk, valid_opt, cfg)
+    if use_calib:
+        Xf_c = geometry.constrain_points_to_ray(img_size, Xf[None], K)[0]
+        Xk_c = geometry.constrain_points_to_ray(img_size, Xk_canon[None], K)[0]
+        uv_k = geometry.get_pixel_coords(1, img_size, device=Xf.device).reshape(-1, 2)
+        valid_meas_k = Xk_c[..., 2:3] > cfg.depth_eps
+        logz = torch.log(torch.clamp(Xk_c[..., 2:3], min=1e-30))
+        meas_k = torch.cat([uv_k, torch.where(valid_meas_k, logz, torch.zeros_like(logz))], dim=-1)
+        meas_k = torch.where(valid_meas_k, meas_k, torch.zeros_like(meas_k))
+        T_CkCf, iters, ok = opt_pose_calib_sim3(Xf_c, Xk_c, T_CkCf_init, Qk, valid_opt, meas_k,
+                                                valid_meas_k, K, img_size, cfg)
+    else:
+        T_CkCf, iters, ok = opt_pose_ray_dist_sim3(Xf, Xk_canon, T_CkCf_init, Qk, valid_opt, cfg)
     T_WCf_new = lie.sim3_mul(T_WCk, T_CkCf)
 
     match_frac_k = valid_kf.float().mean()

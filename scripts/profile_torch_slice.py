@@ -9,9 +9,19 @@ wall time, the device-busy share (kernel time over wall time), device time
 per kernel group (the two ported kernels, GEMMs, convolutions, the rest)
 per frame, the Gauss-Newton iterations per frame, the top kernels, and the
 host stage times SLAMSystem.prof keeps.
-The full kernel table goes to logs/profile_torch_slice.txt.
+The full kernel table goes to logs/profile_torch_slice.txt (`_async.txt`).
 
-    python3 scripts/profile_torch_slice.py [--frames 6] [--seed 0]
+With `--async`, the same frames run as `main.py` runs them by default: the
+backend on its worker thread with the f64 host solve, tracking decisions two
+frames late, and a retrieval database (bootstrapped on the first keyframe,
+its gate opened for random weights). The keyframe event is then queued for
+the worker, and the window ends when the worker has finished. It also prints
+the worker's stall on the main thread, the keyframe event's time on both
+threads, the host solve's time per Gauss-Newton iteration and the retrieval
+query's time. Both modes also time `--frames` frames back to back with no
+synchronization in between ("pipelined"), the steady rate a user sees.
+
+    python3 scripts/profile_torch_slice.py [--frames 6] [--seed 0] [--async]
 """
 
 from __future__ import annotations
@@ -46,6 +56,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--frames", type=int, default=6)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--async", dest="async_", action="store_true",
+                    help="the backend worker, the host solve and retrieval (main.py's default)")
     args = ap.parse_args()
 
     import torch
@@ -59,6 +71,7 @@ def main() -> int:
     from monst3r_slam_torch.models.config import MAST3R_512
     from monst3r_slam_torch.models.convert import cast_params_for_inference
     from monst3r_slam_torch.models.init import init_params
+    from monst3r_slam_torch.slam import retrieval
 
     card = chip_smoke.phase_card()
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
@@ -66,8 +79,17 @@ def main() -> int:
     params["dec_blocks2"], params["head2"] = params["dec_blocks"], params["head1"]
     params = cast_params_for_inference(params)
     hw = (chip_smoke.H, chip_smoke.W)
-    slam = SLAMSystem(params=params, model_cfg=MAST3R_512, cfg=chip_smoke.slice_config(),
-                      img_size=hw, kf_capacity=16, device="cuda", dtype=torch.bfloat16)
+    cfg = chip_smoke.slice_config()
+    extra = {}
+    if args.async_:
+        cfg["single_thread"] = False
+        cfg["local_opt"]["solver"] = "auto"
+        cfg["retrieval"].update(bootstrap_frames=1, n_words=64, min_thresh=0.0)
+        extra = dict(retrieval_params=retrieval.init_retrieval_params(
+            torch.Generator().manual_seed(1), MAST3R_512.enc_dim, device="cuda"),
+            retrieval_db=retrieval.ASMKDatabase.from_config(cfg))
+    slam = SLAMSystem(params=params, model_cfg=MAST3R_512, cfg=cfg, img_size=hw,
+                      kf_capacity=16, device="cuda", dtype=torch.bfloat16, **extra)
     img = chip_smoke.synthetic_frame(args.seed, *hw)
     warm = 3
     for i in range(warm):
@@ -83,7 +105,15 @@ def main() -> int:
         unprofiled.append((time.perf_counter() - t0) * 1e3)
     warm += args.frames
     host_unprofiled = {k: np.median(v) for k, v in slam.prof.items()}
+    t0 = time.perf_counter()
+    for i in range(warm, warm + args.frames):
+        slam.process_frame(i, i / 30.0, img, force_kf=False)
+    slam.finalize()
+    torch.cuda.synchronize()
+    pipelined = (time.perf_counter() - t0) * 1e3 / args.frames
+    warm += args.frames
     slam.prof.clear()
+    stall0 = slam.backend_stall_s
 
     kf_at = warm + args.frames // 2
     wall = []
@@ -93,8 +123,12 @@ def main() -> int:
             slam.process_frame(i, i / 30.0, img, force_kf=i == kf_at)
             torch.cuda.synchronize()
             wall.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        slam.finalize()  # the deferred decisions and the worker's solve
+        torch.cuda.synchronize()
+        drain = (time.perf_counter() - t0) * 1e3
     modes = slam.mode.name
-    total_wall = sum(wall)
+    total_wall = sum(wall) + drain
 
     rows = []
     for ev in prof.key_averages():
@@ -117,11 +151,16 @@ def main() -> int:
         g[1] += count
 
     n = args.frames
+    mode = ("async: backend worker, f64 host solve, retrieval, decisions "
+            f"{slam.defer_depth} frames late" if args.async_ else "synchronous")
     print(f"card: {card}")
+    print(f"mode: {mode}")
     print(f"frames {n} (keyframe event at frame {kf_at}), final mode {modes}; wall ms per "
-          f"frame {[round(t, 2) for t in wall]}; mean {total_wall / n:.2f} ms")
+          f"frame {[round(t, 2) for t in wall]} + {drain:.2f} ms to drain; mean "
+          f"{total_wall / n:.2f} ms")
     print(f"without the profiler, {n} tracking frames: wall ms "
-          f"{[round(t, 2) for t in unprofiled]}; median {np.median(unprofiled):.2f} ms")
+          f"{[round(t, 2) for t in unprofiled]}; median {np.median(unprofiled):.2f} ms; "
+          f"pipelined (no sync between frames) {pipelined:.2f} ms per frame")
     print(f"device busy {busy:.2f} ms of {total_wall:.2f} ms wall = {busy / total_wall:.3f}")
     for g, (ms, count) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
         print(f"  {g:24s} {ms / n:9.3f} ms/frame  {count / n:8.1f} launches/frame  "
@@ -135,6 +174,15 @@ def main() -> int:
     print("most launched kernels (launches per frame, ms over the window):")
     for ms, count, name in sorted(rows, key=lambda r: -r[1])[:8]:
         print(f"  {count / n:8.1f} {ms:9.3f}  {name[:100]}")
+    p = slam.prof
+    iters = sum(p.get("backend_solve_iters", []))
+    print(f"keyframe event: main thread {p.get('kf_event')} ms, worker job "
+          f"{p.get('backend_job')} ms; global solve {p.get('backend_solve')} ms in "
+          f"{p.get('backend_solve_iters')} iterations = "
+          f"{sum(p.get('backend_solve', [])) / max(iters, 1):.3f} ms per iteration "
+          f"({'f64 host' if slam.host_solve else 'f32 device'}); retrieval queries "
+          f"{p.get('retrieval')} ms; backend stall on the main thread "
+          f"{(slam.backend_stall_s - stall0) * 1e3:.2f} ms (with the profiler)")
     print("host stages (median ms; without / with the profiler):")
     for k, v in slam.prof.items():
         print(f"  {k:18s} {host_unprofiled.get(k, float('nan')):9.2f} {np.median(v):9.2f}  "
@@ -146,7 +194,7 @@ def main() -> int:
         table = prof.key_averages().table(sort_by="self_device_time_total", row_limit=60)
     except (AttributeError, KeyError, ValueError):
         table = prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=60)
-    (out / "profile_torch_slice.txt").write_text(f"card: {card}\n{table}")
+    (out / f"profile_torch_slice{'_async' if args.async_ else ''}.txt").write_text(f"card: {card}\n{table}")
     return 0
 
 

@@ -1,6 +1,7 @@
-"""The port stands alone: `monst3r_slam_torch` and `chip_smoke.py` import
-neither JAX nor anything of the JAX package, not even its numpy-only
-modules (the port keeps its own copies of those)."""
+"""The port stands alone: `monst3r_slam_torch`, its entry point
+`main_torch.py` and `chip_smoke.py` import neither JAX nor anything of the
+JAX package, not even its numpy-only modules or its native solver (the port
+keeps its own copies of those, C++ source included)."""
 
 import ast
 import pathlib
@@ -19,6 +20,7 @@ names = [m.name for m in pkgutil.walk_packages(monst3r_slam_torch.__path__, "mon
 for name in names:
     importlib.import_module(name)
 import chip_smoke
+import main_torch
 bad = sorted(m for m, mod in sys.modules.items() if mod is not None
              and (m.startswith("monst3r_slam_tpu") or m.split(".")[0] in ("jax", "jaxlib")))
 print(len(names), bad)
@@ -36,17 +38,21 @@ def test_port_imports_without_jax_or_the_jax_package():
 
 def test_port_sources_name_neither_jax_nor_the_jax_package():
     for path in sorted(PORT.rglob("*")):
-        if path.suffix in (".py", ".cu", ".cuh", ".h"):
+        if path.suffix in (".py", ".cu", ".cuh", ".h", ".cpp"):
             text = path.read_text()
             assert not re.search(r"\bjax\b|monst3r_slam_tpu", text), path
+    assert (PORT / "native" / "solver.cpp").is_file()  # read above
+    assert not re.search(r"\bjax\b|monst3r_slam_tpu", (ROOT / "main_torch.py").read_text())
     # chip_smoke.py names the TPU kernels it replaces by path, but imports
     # nothing of theirs.
-    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
-    for node in ast.walk(tree):
-        if isinstance(node, ast.Import):
-            mods = [a.name for a in node.names]
-        elif isinstance(node, ast.ImportFrom):
-            mods = [node.module or ""]
-        else:
-            continue
-        assert not any(m.split(".")[0] in ("jax", "jaxlib", "monst3r_slam_tpu") for m in mods)
+    for script in ("chip_smoke.py", "main_torch.py"):
+        tree = ast.parse((ROOT / script).read_text())
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                mods = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                mods = [node.module or ""]
+            else:
+                continue
+            assert not any(m.split(".")[0] in ("jax", "jaxlib", "monst3r_slam_tpu")
+                           for m in mods), script

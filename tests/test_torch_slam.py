@@ -33,6 +33,18 @@ from tests.test_ate_regression import (
 )
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread while the oracle twins run. The test suite runs in
+    several processes at once, and torch's pool in each (a thread per core)
+    would oversubscribe the cores several times over: the oracle runs take
+    up to 20x longer so. Modules that drive the oracle import this."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 class TorchOracleSLAM(tpipe.SLAMSystem):
     """The port's SLAMSystem with the network replaced by the geometry
     oracle of tests/test_ate_regression.py::OracleSLAM."""
@@ -119,18 +131,26 @@ def test_oracle_slam_matches_jax(jmode, tmode, pose_tol):
 
 
 def test_port_refuses_unported_configurations():
-    def make(**over):
+    """config/base.yaml as shipped (async worker, `solver: auto`, `mesh:
+    auto` on one device) is accepted, and so are the calibrated and
+    host-solve settings; what is still unported raises."""
+    def make(fields=None, **over):
         c = tload_config("config/base.yaml", set_global=False)
-        c.update(single_thread=True, parallel={"mesh": "off"})
-        c["local_opt"]["solver"] = "device"
-        for k, v in over.items():
-            c[k] = v
+        c.update(over)
         return tpipe.SLAMSystem(params={}, model_cfg=TTINY, cfg=c, img_size=(H, W),
-                                kf_capacity=2, device="cpu")
+                                kf_capacity=2, device="cpu", **(fields or {}))
 
-    make()  # the slice's configuration is accepted
-    for over in ({"single_thread": False}, {"use_calib": True},
-                 {"local_opt": {"solver": "host"}}, {"parallel": {"mesh": "on"}},
-                 {"matching": {"mode": "lm"}}):
+    s = make()
+    assert s._worker is not None and s.defer_depth == 2 and s.host_solve
+    s.finalize()
+    make(single_thread=True, use_calib=True, fields={"K": torch.eye(3)})
+    make(single_thread=True, local_opt={"solver": "host"})
+    for over, fields in (({"parallel": {"mesh": "on"}}, None), ({"matching": {"mode": "lm"}}, None),
+                         ({}, {"dual": object()}), ({}, {"easi3r": object()}),
+                         ({}, {"viewer": object()})):
         with pytest.raises(NotImplementedError):
-            make(**over)
+            make(fields, single_thread=True, **over)
+    s = make(single_thread=True)
+    for method in (s.save_state, s.load_state):
+        with pytest.raises(NotImplementedError):
+            method("state.npz")
