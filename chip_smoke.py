@@ -45,7 +45,22 @@ phase printing one line:
      and once through its loop `main_torch.run` with the tied weights on
      repeated frames with one frame of noise, which must track, solve a
      keyframe event on the worker, lose the noise frame and relocalize.
-     Frames and the CLI's outputs go under build/smoke_main/ and logs/.
+     Frames and the CLI's outputs go under build/smoke_main/ and logs/;
+  7. RAFT on the card against the port's CPU path on a small pair (full
+     widths, 3 iterations, f32), and `raft_flow` timed at 384x512 and 20
+     iterations (`phase_raft_reference`);
+  8. the dynamic pipeline as `main_monster_slam.py` runs it, through the
+     port's entry point `main_monster_torch.py` (`phase_dynamic`): the CLI
+     unchanged in a subprocess on config/dynamic_mask_test.yaml with the
+     calibration and random RAFT; `main_monster_torch.run` in-process at
+     MAST3R_512 + MONST3R_512 full width with RAFT at 20 iterations on
+     config/base.yaml (masking refined by the native refiner and the
+     temporal propagator), which must track frames with a non-empty mask,
+     decode keyframe edges with both decoders and launch both kernels; a
+     stage split of its frames with the device synchronized at every stage,
+     which must launch kernel A 120 times and kernel B once per tracked
+     frame; and the device busy share of `scripts/profile_torch_slice.py
+     --dynamic`. Frames go under build/smoke_dynamic/.
 
 Random weights carry no geometry: two views of one scene, even one shifted
 by a pixel, decode to pointmaps that do not match, and every frame would be
@@ -54,7 +69,9 @@ one random draw and every frame is the same synthetic image: each pair then
 decodes to equal pointmaps, and the confidence gates, calibrated for trained
 weights, are opened. Matching then finds a share of the pixels, and
 tracking, the keyframe event and the global solve run as they do on a real
-sequence.
+sequence. The dynamic phase also moves MonST3R's random pointmap in front
+of the camera (`front_depth`), which the calibrated tracker and the
+ego-motion flow need, and raises the mask threshold (`DYN_THRESHOLD`).
 
 Then one JSON line with the kernel table and, last, the `{"ok": true, ...}`
 line. Exits non-zero without that line when there is no CUDA device, when
@@ -522,17 +539,10 @@ def phase_slice(seed: int, n_frames: int) -> dict:
     import torch
 
     from monst3r_slam_torch.models.config import MAST3R_512
-    from monst3r_slam_torch.models.convert import cast_params_for_inference
-    from monst3r_slam_torch.models.init import init_params
     from monst3r_slam_torch.ops.attention import fused_attention
     from monst3r_slam_torch.ops.matching_pallas import tile_match_kernel
 
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    params = init_params(gen, MAST3R_512)
-    # One random draw for both decoder streams and both heads, so that a
-    # pair of equal views decodes to equal pointmaps (see the module notes).
-    params["dec_blocks2"], params["head2"] = params["dec_blocks"], params["head1"]
-    params = cast_params_for_inference(params)
+    params = tied_params(MAST3R_512, seed)
     torch.cuda.synchronize()
     counters = (fused_attention, tile_match_kernel)
     for fn in counters:
@@ -686,8 +696,6 @@ def phase_main(seed: int) -> dict:
     import torch
 
     from monst3r_slam_torch.models.config import MAST3R_512
-    from monst3r_slam_torch.models.convert import cast_params_for_inference
-    from monst3r_slam_torch.models.init import init_params
     from monst3r_slam_torch.ops.attention import fused_attention
     from monst3r_slam_torch.ops.matching_pallas import tile_match_kernel
 
@@ -712,10 +720,7 @@ def phase_main(seed: int) -> dict:
           f"{cli_s:.1f} s; {done[0] if done else ''}; export well-formed ({n_kf_cli} keyframes, "
           f"{n_cli} frames)", flush=True)
 
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    params = init_params(gen, MAST3R_512)
-    params["dec_blocks2"], params["head2"] = params["dec_blocks"], params["head1"]
-    params = cast_params_for_inference(params)
+    params = tied_params(MAST3R_512, seed)
     torch.cuda.synchronize()
     counters = (fused_attention, tile_match_kernel)
     for fn in counters:
@@ -772,6 +777,313 @@ def phase_main(seed: int) -> dict:
     return row
 
 
+DYN_DIR = ROOT / "build" / "smoke_dynamic"  # frames of the dynamic phase
+# dynamic_mask_threshold of the tracked run: random RAFT flow is a smooth
+# random field, and at base.yaml's 0.35 the refined mask covers 98.7% of the
+# frame (81% raw), at 0.8 84% (4% raw), so frames keep pixels to track on.
+DYN_THRESHOLD = 0.8
+SQUARE = 32  # side of the moving square, px of the 480x640 frame; moves 4 px a frame
+
+
+def tied_params(cfg, seed: int, depth_img=None) -> dict:
+    """Random bf16 weights of `cfg` from `seed` on the card, both decoder
+    streams and both heads one draw (see the module notes); with
+    `depth_img`, a pointmap in front of the camera (`front_depth`)."""
+    import torch
+
+    from monst3r_slam_torch.models.convert import cast_params_for_inference
+    from monst3r_slam_torch.models.init import init_params
+
+    params = init_params(torch.Generator(device="cuda").manual_seed(seed), cfg)
+    params["dec_blocks2"], params["head2"] = params["dec_blocks"], params["head1"]
+    if depth_img is not None:
+        front_depth(params, cfg, depth_img)
+    return cast_params_for_inference(params)
+
+
+def front_depth(params, cfg, img: np.ndarray) -> float:
+    """Scale the pointmap rows of the head's last convolution so that its
+    raw output has a standard deviation of 0.1 on the normalized image
+    `img`, and add 1 to the z bias; returns the scale. Random weights
+    otherwise saturate the 'exp' depth mode (|X| near 1e17) with half of the
+    points behind the camera, where the calibrated tracker has no residual
+    and the ego-motion flow divides by the clamped depth; after it, depths
+    lie near 1.7, a camera in front of a wall."""
+    import torch
+
+    from monst3r_slam_torch.models import croco
+    from monst3r_slam_torch.models.dpt import dpt_forward
+
+    x = torch.from_numpy(img)[None].to("cuda")
+    feat, pos = croco.encode_image(params, cfg, x, torch.float32)
+    dec, _ = croco.decode_pair(params, cfg, feat, pos, feat, pos, torch.float32)
+    fmap = dpt_forward(params["head1"]["dpt"], cfg, dec, img.shape[0] // cfg.patch_size,
+                       img.shape[1] // cfg.patch_size)
+    scale = 0.1 / float(fmap[..., :3].float().std())
+    conv3 = params["head1"]["dpt"]["head"]["conv3"]
+    conv3["w"][:3] *= scale
+    conv3["b"][2] += 1.0
+    return scale
+
+
+def dynamic_frames(seed: int, n: int) -> list:
+    """`n` copies of `synthetic_rgb(seed)` with a red square moving right."""
+    frames = []
+    for i in range(n):
+        img = synthetic_rgb(seed).copy()
+        x0 = 200 + 4 * i
+        img[220 : 220 + SQUARE, x0 : x0 + SQUARE] = (230, 30, 30)
+        frames.append(img)
+    return frames
+
+
+def dynamic_config() -> dict:
+    """config/base.yaml as shipped (worker, f64 host solve, decisions two
+    frames late, masking refined by the native refiner and the temporal
+    propagator), with the overrides that let random tied weights track,
+    each printed."""
+    from monst3r_slam_torch.app.config import load_config
+
+    cfg = load_config("config/base.yaml", set_global=False)
+    overrides = (
+        # the descriptor-confidence gates, calibrated for trained weights
+        ("tracking", "Q_conf", 0.0), ("local_opt", "Q_conf", 0.0),
+        # see DYN_THRESHOLD
+        (None, "dynamic_mask_threshold", DYN_THRESHOLD),
+    )
+    for sec, key, val in overrides:
+        d = cfg if sec is None else cfg[sec]
+        name = key if sec is None else f"{sec}.{key}"
+        print(f"dynamic tracked run: {name} = {val} (config/base.yaml: {d.get(key)})", flush=True)
+        d[key] = val
+    return cfg
+
+
+def phase_raft_reference(seed: int) -> dict:
+    """RAFT on the card against the same code's CPU path (which the CPU
+    tests hold to the JAX package) on one 64x80 pair at RAFT's full widths,
+    3 iterations, f32 on both sides (TF32 off): the flow within 1e-4 of its
+    scale, and the fused uint8 error map within one step (1/255). Then
+    `raft_flow` timed on the card at the main path's 384x512 and 20
+    iterations: calls back to back (`time_ms`) and the device alone
+    (`device_ms`)."""
+    import torch
+
+    from monst3r_slam_torch.core import lie
+    from monst3r_slam_torch.dynamic import raft
+
+    cfg = raft.RAFTConfig(iters=3)
+    params = raft.init_raft_params(torch.Generator().manual_seed(seed + 2), cfg)
+    u0 = np.uint8(np.round((synthetic_frame(seed, 64, 80) * 0.5 + 0.5) * 255))
+    u1 = np.roll(u0, 2, axis=1)
+    T_j = lie.sim3_retr(lie.sim3_identity(), torch.tensor([0.02, 0, 0, 0, 0.01, 0, 0]))
+    K = np.asarray([[80.0, 0, 40], [0, 80.0, 32], [0, 0, 1]], np.float32)
+    depth = np.full((64, 80), 2.0, np.float32)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = _to_device(params, dev)
+        flow = raft.raft_flow(p, torch.from_numpy(u0).float().to(dev),
+                              torch.from_numpy(u1).float().to(dev), cfg).cpu()
+        err = raft.make_fused_flow_error_program(p, cfg)(u0, u1, lie.sim3_identity(), T_j, depth, K)
+        out[dev] = (flow, err)
+    scale = float(out["cpu"][0].abs().max())
+    flow_err = float((out["cuda"][0] - out["cpu"][0]).abs().max())
+    map_err = float(np.abs(out["cuda"][1] - out["cpu"][1]).max())
+    ok = flow_err <= 1e-4 * scale and map_err <= 1 / 255 + 1e-6
+    print(f"raft reference (full widths, 3 iterations, 64x80, f32): card vs CPU path flow max "
+          f"|d| {flow_err:.3e} px of scale {scale:.3f} (tol 1e-4 of scale), fused u8 error map "
+          f"max |d| {map_err:.5f} (tol 1/255)", flush=True)
+    if not ok:
+        fail("raft reference: the card's RAFT differs from the CPU path beyond the tolerance")
+    p = _to_device(params, "cuda")
+    a, b = (torch.from_numpy(synthetic_frame(seed + i, H, W) * 127.5 + 127.5).to("cuda")
+            for i in (0, 1))
+    full = raft.RAFTConfig()
+    ms = time_ms(lambda: raft.raft_flow(p, a, b, full), iters=3, warmup=1)
+    dev = device_ms(lambda: raft.raft_flow(p, a, b, full), iters=3, warmup=1)
+    print(f"raft_flow {H}x{W}, {full.iters} iterations, f32: {ms:.2f} ms back to back, device "
+          f"{dev:.2f} ms", flush=True)
+    return dict(flow_max_abs_err=flow_err, flow_scale=scale, map_max_abs_err=map_err,
+                raft_ms=ms, raft_device_ms=dev)
+
+
+def dynamic_stage_split(slam, n: int) -> dict:
+    """`n` more frames through `slam`, each the last keyframe's image again,
+    with `sync_stages` (the device synchronized at every stage boundary) and
+    no keyframe event, the launch counters zeroed just before and read just
+    after: per-frame wall ms by stage, and the launches per tracked frame."""
+    import torch
+
+    from monst3r_slam_torch.ops.attention import fused_attention
+    from monst3r_slam_torch.ops.matching_pallas import tile_match_kernel
+
+    slam.finalize()
+    slam.sync_stages = True
+    slam.prof.clear()
+    uimg = slam.kf_uimgs[slam.n_kf - 1]
+    img = torch.from_numpy((uimg.astype(np.float32) / 255.0 - 0.5) / 0.5).to("cuda")
+    counters = (fused_attention, tile_match_kernel)
+    for fn in counters:
+        fn.launches = 0
+    for route in fused_attention.route_launches:
+        fused_attention.route_launches[route] = 0
+    wall = []
+    for i in range(n):
+        t0 = time.perf_counter()
+        slam.process_frame(1000 + i, 0.0, img, uimg=uimg, force_kf=False)
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+    slam.finalize()
+    launches = {fn.__name__: fn.launches for fn in counters}
+    routes = dict(fused_attention.route_launches)
+    stages = {k: float(np.median(v)) for k, v in slam.prof.items()
+              if k in ("encode_dispatch", "decode_monst3r", "flow_program", "decode_mast3r",
+                       "mask_refine", "track_dispatch", "resolve_prev", "mask_share")}
+    slam.sync_stages = False
+    return dict(wall_ms=wall, stages=stages, launches=launches, routes=routes,
+                n_masked=len(slam.prof.get("mask_share", [])))
+
+
+def phase_dynamic(seed: int, card: str) -> dict:
+    """The dynamic pipeline through its entry point, `main_monster_torch.py`,
+    at MAST3R_512 + MONST3R_512 full width and depth with RAFT at full width
+    and 20 iterations. Three runs:
+      * the CLI, unchanged, in a subprocess on 8 PNG frames of a panning
+        camera with config/dynamic_mask_test.yaml (masking, no refinement,
+        every fourth frame), the calibration and `--raft-checkpoint random`
+        (random untied weights: a plumbing and export check);
+      * `main_monster_torch.run` in this process with tied weights on
+        `n` copies of one frame with a moving square, config/base.yaml
+        (masking, then the native refiner and the temporal propagator) and
+        the calibration: frames must track with a non-empty mask applied, a
+        keyframe event must decode its edges with both decoders, and both
+        kernels must launch, kernel A only on the bf16 tensor-core route.
+        Counters zeroed just before, read just after;
+      * a stage split on the same system (`dynamic_stage_split`): exactly
+        120 kernel A launches (24 encoder + 2 x 48 decoder) and one kernel B
+        launch per tracked frame."""
+    import shutil
+
+    import torch
+
+    import main_monster_torch
+    from monst3r_slam_torch.dynamic import mask as dyn_mask
+    from monst3r_slam_torch.dynamic.inference import DualParams
+    from monst3r_slam_torch.models.config import MAST3R_512, MONST3R_512
+    from monst3r_slam_torch.ops.attention import fused_attention
+    from monst3r_slam_torch.ops.matching_pallas import tile_match_kernel
+
+    shutil.rmtree(ROOT / "logs" / "smoke_dynamic_cli", ignore_errors=True)
+    n_cli = 8
+    cli_dir = DYN_DIR / "cli"
+    write_frames(cli_dir, [np.roll(f, 4 * i, axis=1) for i, f in enumerate(dynamic_frames(seed, n_cli))])
+    cmd = [sys.executable, "main_monster_torch.py", "--dataset", str(cli_dir),
+           "--config", "config/dynamic_mask_test.yaml", "--calib", "config/intrinsics.yaml",
+           "--raft-checkpoint", "random", "--no-viz", "--max-frames", str(n_cli),
+           "--save-as", "smoke_dynamic_cli"]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=420)
+    cli_s = time.perf_counter() - t0
+    if out.returncode != 0:
+        fail(f"main_monster_torch.py exited {out.returncode}:\n{out.stdout[-2000:]}\n"
+             f"{out.stderr[-4000:]}")
+    for want in ("RAFT flow estimator installed (random init", "saved results to"):
+        if want not in out.stdout:
+            fail(f"main_monster_torch.py did not print {want!r}:\n{out.stdout[-2000:]}")
+    n_sub = len(range(0, n_cli, 4))  # dynamic_mask_test.yaml keeps every fourth frame
+    n_kf_cli = check_export(ROOT / "logs" / "smoke_dynamic_cli", "cli", n_sub)
+    done = [ln for ln in out.stdout.splitlines() if ln.startswith("done:")]
+    print(f"dynamic CLI: {' '.join(cmd[1:])}: exit 0 in {cli_s:.1f} s; "
+          f"{done[0] if done else ''}; export well-formed ({n_kf_cli} keyframes, {n_sub} frames)",
+          flush=True)
+
+    print("dynamic tracked run: MonST3R's last head convolution set for a pointmap in front "
+          "of the camera (front_depth)", flush=True)
+    dual = DualParams(tied_params(MONST3R_512, seed + 1, synthetic_frame(seed, H, W)), MONST3R_512,
+                      tied_params(MAST3R_512, seed), MAST3R_512)
+    n = 8
+    frames = dynamic_frames(seed, n)
+    tracked_dir = DYN_DIR / "tracked"
+    write_frames(tracked_dir, frames)
+    shutil.rmtree(ROOT / "logs" / "smoke_dynamic", ignore_errors=True)
+    args = main_monster_torch.parse_args([
+        "--dataset", str(tracked_dir), "--calib", "config/intrinsics.yaml", "--no-viz",
+        "--raft-checkpoint", "random", "--seed", str(seed), "--save-as", "smoke_dynamic"])
+    cfg = dynamic_config()
+    main_monster_torch.install_flow(args.raft_checkpoint, seed + 2, "cuda")
+    torch.cuda.synchronize()
+    counters = (fused_attention, tile_match_kernel)
+    for fn in counters:
+        fn.launches = 0
+    for route in fused_attention.route_launches:
+        fused_attention.route_launches[route] = 0
+    t0 = time.perf_counter()
+    try:
+        slam, frame_ms = main_monster_torch.run(args, cfg, dual)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = {fn.__name__: fn.launches for fn in counters}
+        routes = dict(fused_attention.route_launches)
+        check_export(ROOT / "logs" / "smoke_dynamic", "tracked", n)
+        p = slam.prof
+        shares = p.get("mask_share", [])
+        kf_events = len(p.get("kf_event", []))
+        row = dict(frames=n, seconds=secs, frame_ms=frame_ms, mask_share=shares,
+                   keyframes=slam.keyframe_trajectory()[1].tolist(),
+                   edges=slam.graph.edge_list(), kf_events=kf_events,
+                   async_solves=slam.n_async_solves, relocs=slam.n_relocs,
+                   reloc_attempts=slam.n_reloc_attempts, launches=launches, routes=routes,
+                   threshold=slam.dyn_threshold)
+        print(f"dynamic tracked run, MAST3R_512 + MONST3R_512 {H}x{W} from 480x640 PNGs, RAFT "
+              f"20 iterations: MonST3R depth median {float(slam.mem.X_canon[0, :, 2].median()):.3f}, "
+              f"min {float(slam.mem.X_canon[0, :, 2].min()):.3f}; "
+              f"{n} frames in {secs:.2f} s = {1e3 * secs / n:.1f} ms/frame; "
+              f"per-frame host ms {[round(t, 1) for t in frame_ms]}; mask pixel share per "
+              f"tracked frame {[round(s, 4) for s in shares]}; keyframes {row['keyframes']}; "
+              f"edges {row['edges']}; keyframe events {kf_events}, worker solves "
+              f"{slam.n_async_solves}; relocalizations {slam.n_relocs}/{slam.n_reloc_attempts}; "
+              f"launches {launches}, attention by route {routes}", flush=True)
+        split = dynamic_stage_split(slam, 4)
+    finally:
+        dyn_mask.set_flow_estimator(None)
+        dyn_mask.set_flow_error_program(None)
+    row["split"] = split
+    print(f"dynamic stage split ({card}), 4 tracked frames with the device synchronized at "
+          f"each stage: wall ms {[round(t, 1) for t in split['wall_ms']]}; stage medians (ms) "
+          + ", ".join(f"{k} {v:.2f}" for k, v in split["stages"].items())
+          + f"; launches {split['launches']}, attention by route {split['routes']}", flush=True)
+    n_masked = sum(s > 0 for s in shares)
+    if n_masked < 4:
+        fail(f"dynamic tracked run: {n_masked} frames tracked with a non-empty mask (< 4): "
+             f"{shares}")
+    if kf_events < 1 or not any(i != j for i, j in row["edges"]):
+        fail(f"dynamic tracked run: no keyframe event decoded an edge ({kf_events} events, "
+             f"edges {row['edges']})")
+    if min(launches.values()) < 1:
+        fail(f"dynamic tracked run: a kernel of the path never launched: {launches}")
+    if routes["f32"] != 0 or routes["bf16_tc"] < 120 * n_masked:
+        fail(f"dynamic tracked run: attention left the bf16 tensor-core route: {routes}")
+    k = len(split["wall_ms"])
+    if split["n_masked"] != k or split["launches"] != {"fused_attention": 120 * k,
+                                                        "tile_match_kernel": k}:
+        fail(f"dynamic stage split: {split['n_masked']} of {k} frames masked, launches "
+             f"{split['launches']} (want 120 and 1 per tracked frame)")
+    if split["routes"]["bf16_tc"] != 120 * k:
+        fail(f"dynamic stage split: attention left the bf16 tensor-core route: {split['routes']}")
+    if not np.isfinite(slam.full_trajectory()[1]).all():
+        fail("dynamic tracked run: non-finite pose")
+
+    prof = subprocess.run([sys.executable, "scripts/profile_torch_slice.py", "--dynamic",
+                           "--frames", "3"], cwd=ROOT, capture_output=True, text=True, timeout=420)
+    busy = [ln for ln in prof.stdout.splitlines() if ln.startswith("device busy")]
+    if prof.returncode != 0 or not busy:
+        fail(f"profile_torch_slice.py --dynamic failed:\n{prof.stdout[-2000:]}\n"
+             f"{prof.stderr[-3000:]}")
+    print(f"dynamic profile ({card}): {busy[0]}", flush=True)
+    row["profile_busy"] = busy[0]
+    return row
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -796,7 +1108,10 @@ def main() -> int:
     phase_reference(args.seed)
     launches = phase_slice(args.seed, args.frames)
     main_run = phase_main(args.seed)
-    by_path = {name: dict(slice=launches[name], main=main_run["launches"][name])
+    raft_ref = phase_raft_reference(args.seed)
+    dyn = phase_dynamic(args.seed, card)
+    by_path = {name: dict(slice=launches[name], main=main_run["launches"][name],
+                          dynamic=dyn["launches"][name] + dyn["split"]["launches"][name])
                for name in launches}
     total = {name: sum(paths.values()) for name, paths in by_path.items()}
 
@@ -831,6 +1146,7 @@ def main() -> int:
              device_ms=full["device_ms"], phases=tmp["phases"]),
     ]
     print(json.dumps({"main_tracked_run": main_run}), flush=True)
+    print(json.dumps({"dynamic_run": dyn, "raft_reference": raft_ref}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -46,10 +46,13 @@ def parse_args(argv=None) -> argparse.Namespace:
     return parser.parse_args(argv)
 
 
-def run(args: argparse.Namespace, cfg: dict, params: dict, model_cfg, dtype=torch.bfloat16):
+def run(args: argparse.Namespace, cfg: dict, params: dict, model_cfg, dtype=torch.bfloat16,
+        dual=None):
     """Dataset -> prefetch -> SLAM loop -> export, with `params` (already on
     `args.device`) and the run config `cfg` (made the global config the
-    dataset readers consult). Returns (slam, per-frame host ms)."""
+    dataset readers consult); `dual` (MonST3R + MASt3R weights) runs the
+    dynamic pipeline, as `main_monster_torch.py` does. Returns (slam,
+    per-frame host ms)."""
     from monst3r_slam_torch.app import evaluate
     from monst3r_slam_torch.app.config import set_global_config
     from monst3r_slam_torch.app.pipeline import SLAMSystem
@@ -93,7 +96,7 @@ def run(args: argparse.Namespace, cfg: dict, params: dict, model_cfg, dtype=torc
 
     slam = SLAMSystem(params=params, model_cfg=model_cfg, cfg=dict(config), img_size=img_size,
                       K=K, retrieval_params=retr_params, retrieval_db=retr_db, device=device,
-                      dtype=dtype)
+                      dtype=dtype, dual=dual)
     print(f"backend: {'worker thread' if slam._worker is not None else 'main thread'}, global "
           f"solve {'f64 host' if slam.host_solve else 'f32 device'}, tracking decisions "
           f"{slam.defer_depth} frames late, retrieval "
@@ -141,6 +144,21 @@ def run(args: argparse.Namespace, cfg: dict, params: dict, model_cfg, dtype=torc
     return slam, frame_ms
 
 
+def load_or_random(path: str, default_cfg, seed: int, device):
+    """(params, cfg) from the checkpoint at `path`, or random weights of
+    `default_cfg` from `seed` when there is no such file."""
+    from monst3r_slam_torch.models.convert import load_checkpoint
+    from monst3r_slam_torch.models.init import init_params
+
+    p = pathlib.Path(path)
+    if p.is_file():
+        params, cfg = load_checkpoint(str(p), device=device)
+        print(f"loaded checkpoint {p}")
+        return params, cfg
+    print(f"WARNING: checkpoint {p} not found — random weights")
+    return init_params(torch.Generator(device=device).manual_seed(seed), default_cfg), default_cfg
+
+
 def main(argv=None):
     args = parse_args(argv)
     if args.device == "cuda" and not torch.cuda.is_available():
@@ -148,19 +166,10 @@ def main(argv=None):
 
     from monst3r_slam_torch.app.config import load_config
     from monst3r_slam_torch.models.config import MAST3R_512
-    from monst3r_slam_torch.models.convert import cast_params_for_inference, load_checkpoint
-    from monst3r_slam_torch.models.init import init_params
+    from monst3r_slam_torch.models.convert import cast_params_for_inference
 
     cfg = load_config(args.config)
-    ckpt = pathlib.Path(args.checkpoint)
-    if ckpt.is_file():
-        params, model_cfg = load_checkpoint(str(ckpt), device=args.device)
-        print(f"loaded checkpoint {ckpt}")
-    else:
-        model_cfg = MAST3R_512
-        gen = torch.Generator(device=args.device).manual_seed(args.seed)
-        params = init_params(gen, model_cfg)
-        print("WARNING: checkpoint not found — using random weights")
+    params, model_cfg = load_or_random(args.checkpoint, MAST3R_512, args.seed, args.device)
     # The model computes in bf16 on the card; the weights are stored so.
     dtype = torch.bfloat16 if args.device == "cuda" else torch.float32
     if cfg.get("bf16_params", True) and args.device == "cuda":

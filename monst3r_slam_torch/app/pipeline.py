@@ -20,15 +20,25 @@ worker's decodes and solves with tracking. `local_opt.solver: auto` solves
 each GN step in float64 on the host (`native/solver.cpp`) when the backend
 runs on the worker, and in f32 on the device otherwise.
 
+With `dual` (the dynamic pipeline of `main_monster_slam.py`) frames cache
+MonST3R encoder features and every pair decode runs the MonST3R decoder (X,
+C) and the MASt3R decoder (D, Q) on them. With `use_dynamic_mask`, K and
+both images, a tracked frame's decode is split: the MonST3R half first, the
+flow-error program next (dynamic/mask.py), and the MASt3R half enqueued by
+that program before its map is read back, so that the decode runs on the
+card while the host thresholds and refines the mask; C, D and Q are then
+zeroed on the frame's masked pixels and on its keyframe's stored mask.
+
 Not ported, and refused with an error rather than ignored: a mesh across
-more than one card, the LM matcher, the dynamic (dual-model) and Easi3R
-pipelines, SLAM-state files and the live viewer.
+more than one card, the LM matcher, the Easi3R pipeline, the dynamic
+pipeline's pointmap debug dumps, SLAM-state files and the live viewer.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import pathlib
 import queue
 import threading
 import time
@@ -39,6 +49,8 @@ import numpy as np
 import torch
 
 from monst3r_slam_torch.core import lie
+from monst3r_slam_torch.dynamic import mask as dyn
+from monst3r_slam_torch.dynamic.inference import DualParams, combine, monst3r_asymmetric_inference
 from monst3r_slam_torch.models import mast3r as model_api
 from monst3r_slam_torch.models.config import ModelConfig
 from monst3r_slam_torch.native.build import solver_available
@@ -227,11 +239,16 @@ class SLAMSystem:
     kf_capacity: int = 512
     device: str = "cuda"
     dtype: torch.dtype = torch.bfloat16  # model compute type
-    # The JAX package's dynamic (MonST3R) and Easi3R models and its live
-    # viewer; not ported, refused when set.
-    dual: Optional[object] = None
+    # The dynamic pipeline's MonST3R + MASt3R models (None: the plain MASt3R
+    # pipeline of `params`). The Easi3R models and the live viewer are not
+    # ported and are refused when set.
+    dual: Optional[DualParams] = None
     easi3r: Optional[object] = None
     viewer: Optional[object] = None
+    # Synchronize the device at each stage boundary of `prof`, so that the
+    # stage times are the device's and not the host's enqueue times (it
+    # serializes what the pipeline overlaps: for measurement only).
+    sync_stages: bool = False
 
     def __post_init__(self):
         cfg = self.cfg
@@ -250,9 +267,9 @@ class SLAMSystem:
         self.match_fn = make_matcher(cfg, self.device)
         self.match_mode = matcher_mode(cfg, self.device)
         self.match_tcfg = matching_tiled.TiledConfig()
+        enc_cfg = self.dual.monst3r_cfg if self.dual is not None else self.model_cfg
         self.mem = make_keyframe_memory(
-            self.kf_capacity, h, w, self.model_cfg.enc_dim, self.model_cfg.patch_size,
-            device=self.device,
+            self.kf_capacity, h, w, enc_cfg.enc_dim, enc_cfg.patch_size, device=self.device,
         )
         self.graph = FactorGraph(self.hw, device=self.device)
         self.mode = Mode.INIT
@@ -264,7 +281,20 @@ class SLAMSystem:
         self.reloc_cfg = cfg.get("reloc", {"min_match_frac": 0.3, "strict": True})
         self.filtering_mode = self.track_cfg.filtering_mode
         self.timestamps: List = []
+        self.use_dynamic_mask = bool(cfg.get("use_dynamic_mask", False))
+        self.dyn_threshold = float(cfg.get("dynamic_mask_threshold", 0.35))
+        self.dyn_refine = bool(cfg.get("refine_dynamic_mask_with_sam2", False))
+        # The reference refines with a SAM2 video predictor that carries
+        # masks across frames; the native refiner flow-warps the previous
+        # refined mask forward (dynamic/refine.py).
+        self._mask_propagator = None
+        if self.dyn_refine and bool(cfg.get("temporal_mask_propagation", True)):
+            from monst3r_slam_torch.dynamic.refine import TemporalMaskPropagator
+
+            self._mask_propagator = TemporalMaskPropagator()
+        self._last_dyn_mask: Optional[np.ndarray] = None
         self.kf_uimgs: List[Optional[np.ndarray]] = []  # host uint8 keyframe images
+        self.kf_dyn_masks: List[Optional[np.ndarray]] = []  # their dynamic masks
         self.cur_uimg: Optional[np.ndarray] = None
         self.single_thread = bool(cfg.get("single_thread", True))
         self.n_kf = 0  # host copy of mem.count
@@ -318,8 +348,10 @@ class SLAMSystem:
         multi = torch.device(self.device).type == "cuda" and torch.cuda.device_count() > 1
         if mesh not in ("off", "auto") or (mesh == "auto" and multi):
             refuse("the multi-device mesh (set parallel.mesh: off)")
-        if self.dual is not None:
-            refuse("the dynamic (MonST3R) pipeline")
+        if self.dual is not None and (cfg.get("debug_save_pointmap_visualization", False)
+                                      or cfg.get("debug_save_3d_pointclouds", False)):
+            refuse("the pointmap debug dumps (debug_save_pointmap_visualization, "
+                   "debug_save_3d_pointclouds)")
         if self.easi3r is not None:
             refuse("the Easi3R pipeline")
         if self.viewer is not None:
@@ -331,11 +363,25 @@ class SLAMSystem:
     # ------------------------------------------------------------------
 
     def encode(self, img_nhwc: torch.Tensor):
+        if self.dual is not None:  # the dynamic pipeline caches MonST3R features
+            return model_api.encode(self.dual.monst3r, self.dual.monst3r_cfg, img_nhwc, self.dtype)
         return model_api.encode(self.params, self.model_cfg, img_nhwc, self.dtype)
 
     def _decode_pair(self, feat_i, pos_i, feat_j, pos_j):
+        if self.dual is not None:
+            return monst3r_asymmetric_inference(self.dual, feat_i, pos_i, feat_j, pos_j,
+                                                self.img_size, self.dtype)
         return model_api.decode(self.params, self.model_cfg, feat_i, pos_i, feat_j, pos_j,
                                 self.img_size, self.dtype)
+
+    def _stamp(self, key: str, t0: float) -> float:
+        """Log the time since `t0` under `key` in `prof` (after a device
+        synchronize with `sync_stages`); returns the time now."""
+        if self.sync_stages and torch.device(self.device).type == "cuda":
+            torch.cuda.synchronize(self.device)
+        t = time.perf_counter()
+        self.prof.setdefault(key, []).append((t - t0) * 1e3)
+        return t
 
     # ------------------------------------------------------------------
     # Frame lifecycle
@@ -343,7 +389,8 @@ class SLAMSystem:
 
     def make_frame(self, frame_id: int, img_np) -> Frame:
         img = torch.as_tensor(img_np, dtype=torch.float32, device=self.device)
-        feat, pos = self.encode(img[None] if img.dim() == 3 else img)
+        img = img[None] if img.dim() == 3 else img
+        feat, pos = self.encode(img)
         dev = self.device
         return Frame(
             frame_id=frame_id,
@@ -354,6 +401,7 @@ class SLAMSystem:
             feat=feat,  # batched (1, n, d): fed straight to the decoder
             pos=pos,
             score=torch.zeros((), device=dev),
+            img=img,
         )
 
     def _mono_init(self, frame: Frame) -> Frame:
@@ -667,7 +715,7 @@ class SLAMSystem:
         self.cur_uimg = uimg
         t1 = time.perf_counter()
         frame = self.make_frame(frame_id, img_np)
-        t2 = time.perf_counter()
+        t2 = self._stamp("encode_dispatch", t1)
         self._resolve_to_depth(self.defer_depth)
         if self.mode == Mode.RELOC:
             # later in-flight frames were dispatched as TRACKING: resolve them
@@ -676,7 +724,6 @@ class SLAMSystem:
         t3 = time.perf_counter()
         p = self.prof
         p.setdefault("apply_backend", []).append((t1 - t0) * 1e3)
-        p.setdefault("encode_dispatch", []).append((t2 - t1) * 1e3)
         p.setdefault("resolve_prev", []).append((t3 - t2) * 1e3)
         frame = dataclasses.replace(frame, T_WC=self._last_T_WC_dev)
 
@@ -699,9 +746,18 @@ class SLAMSystem:
         t4 = time.perf_counter()
         kf_idx = self.n_kf - 1
         kf_feat, kf_pos, kf_T_WC = self._kf_view(kf_idx)
-        out = self._decode_pair(frame.feat, frame.pos, kf_feat, kf_pos)
-        t5 = time.perf_counter()
-        p.setdefault("decode_dispatch", []).append((t5 - t4) * 1e3)
+        kf_uimg = self.kf_uimgs[kf_idx] if kf_idx < len(self.kf_uimgs) else None
+        # The flow-vs-ego-motion mask belongs to the dynamic pipeline: the
+        # plain MASt3R tracker never computes one, whatever use_dynamic_mask.
+        cur_dyn_mask = None
+        if (self.use_dynamic_mask and self.dual is not None and self.K is not None
+                and uimg is not None and kf_uimg is not None):
+            out, cur_dyn_mask = self._masked_decode(frame, uimg, kf_idx, kf_feat, kf_pos,
+                                                    kf_T_WC, kf_uimg)
+            t5 = time.perf_counter()
+        else:
+            out = self._decode_pair(frame.feat, frame.pos, kf_feat, kf_pos)
+            t5 = self._stamp("decode_dispatch", t4)
 
         use_init = self.idx_f2k is not None
         (fX, fC, fN, fS, res, summary, idx_f2k, valid_match_k) = _match_track_and_update(
@@ -718,18 +774,84 @@ class SLAMSystem:
         )
         self.idx_f2k = idx_f2k
         frame = dataclasses.replace(frame, X_canon=fX, C=fC, N=fN, score=fS)
-        # The pair just decoded is the consecutive graph edge's j->i
-        # direction if this frame becomes a keyframe: add_factors reuses it.
-        track_pair = dict(kf_idx=kf_idx, out=out, idx=idx_f2k, valid=valid_match_k)
+        dbg = None
+        if (self.use_dynamic_mask and uimg is not None
+                and self.cfg.get("debug_save_final_valid_opt_mask", True)):
+            # the keyframe row is a copy: later frames update it in place
+            dbg = (idx_f2k, valid_match_k, out.Q1, out.Q2, fC, fN,
+                   self.mem.C[kf_idx].clone(), self.mem.N[kf_idx].clone())
+        # The plain pipeline's pair just decoded is the consecutive graph
+        # edge's j->i direction if this frame becomes a keyframe: add_factors
+        # reuses it. The dual pipeline masks C/D/Q after the decode, so its
+        # edges are decoded afresh.
+        track_pair = None
+        if self.dual is None:
+            track_pair = dict(kf_idx=kf_idx, out=out, idx=idx_f2k, valid=valid_match_k)
         self._pending.append(dict(
             frame_id=frame_id, frame=frame, res=res, summary=summary, uimg=uimg,
-            force_kf=force_kf, track_pair=track_pair,
+            force_kf=force_kf, track_pair=track_pair, dyn_mask=cur_dyn_mask, dbg=dbg,
         ))
-        p.setdefault("track_dispatch", []).append((time.perf_counter() - t5) * 1e3)
+        self._stamp("track_dispatch", t5)
         if not self.defer_sync:
             t6 = time.perf_counter()
             self._resolve_pending()
             p.setdefault("resolve_sync", []).append((time.perf_counter() - t6) * 1e3)
+
+    def _masked_decode(self, frame: Frame, uimg, kf_idx: int, kf_feat, kf_pos, kf_T_WC, kf_uimg):
+        """The dual decode of a tracked frame and its dynamic mask. The
+        MonST3R half runs first (its depth feeds the ego-motion flow); the
+        MASt3R half is enqueued by the flow-error program between enqueueing
+        its own work and reading its map back, so the decode runs on the card
+        while the host thresholds and refines the mask. C, D and Q are then
+        zeroed on the frame's masked pixels and on the keyframe's stored
+        mask. Returns (PairOutput, mask (h, w) bool)."""
+        t0 = time.perf_counter()
+        dual = self.dual
+        out_m = model_api.decode(dual.monst3r, dual.monst3r_cfg, frame.feat, frame.pos, kf_feat,
+                                 kf_pos, self.img_size, self.dtype)
+        t1 = self._stamp("decode_monst3r", t0)
+        box = {}
+
+        def dispatch_mast3r():
+            ta = self._stamp("flow_program", t1)
+            box["out_a"] = model_api.decode(dual.mast3r, dual.mast3r_cfg, frame.feat, frame.pos,
+                                            kf_feat, kf_pos, self.img_size, self.dtype)
+            box["t"] = self._stamp("decode_mast3r", ta)
+
+        m = dyn.get_dynamic_mask(
+            uimg, kf_uimg, frame.T_WC, kf_T_WC, out_m.X1[0, ..., 2], self.K,
+            threshold=self.dyn_threshold, refine=self.dyn_refine,
+            refiner=(self._mask_propagator.as_refiner()
+                     if self._mask_propagator is not None else None),
+            # the normalized frame is on the device already, for the encoder
+            img_i_flow=frame.img,
+            overlap_cb=dispatch_mast3r,
+        )
+        if "out_a" not in box:  # get_dynamic_mask runs the callback exactly once
+            raise RuntimeError("the flow-error program broke the overlap_cb contract: "
+                               "get_dynamic_mask returned without invoking the callback "
+                               "(see dynamic/mask.py set_flow_error_program)")
+        self._stamp("mask_refine", box["t"])
+        self.prof.setdefault("mask_share", []).append(float(m.mean()))
+        self._last_dyn_mask = m
+        out = combine(out_m, box["out_a"])
+        if self.cfg.get("debug_save_dynamic_mask", True):
+            try:
+                from monst3r_slam_torch.viz import debug as dbgviz
+
+                dbgviz.save_mask_overlay(
+                    self._debug_dir("debug_dynamic_mask") / f"frame_{frame.frame_id:06d}.png",
+                    uimg, m, color=(255, 0, 0), alpha=0.5)
+            except Exception as e:  # best-effort, as in the reference
+                print(f"dynamic-mask overlay failed for {frame.frame_id}: {e}")
+        if m.any():
+            C1, D1, Q1 = dyn.apply_dynamic_mask_native(out.C1, out.D1, out.Q1, m)
+            out = out._replace(C1=C1, D1=D1, Q1=Q1)
+        kf_mask = self.kf_dyn_masks[kf_idx] if kf_idx < len(self.kf_dyn_masks) else None
+        if kf_mask is not None and kf_mask.any():
+            C2, D2, Q2 = dyn.apply_dynamic_mask_native(out.C2, out.D2, out.Q2, kf_mask)
+            out = out._replace(C2=C2, D2=D2, Q2=Q2)
+        return out, m
 
     def _resolve_pending(self):
         """Resolve every pending tracking result."""
@@ -747,11 +869,15 @@ class SLAMSystem:
         """Host-side decisions for one tracked frame: RELOC, pose write-back,
         keyframe event."""
         frame_id, frame, res = p["frame_id"], p["frame"], p["res"]
+        if p["dbg"] is not None:
+            self._save_valid_opt_overlay(frame_id, p["uimg"], *p["dbg"])
         sv = p["summary"].cpu().numpy()  # one device->host read per frame
         self.last_summary = sv
         if sv[8] > 0.5 or sv[9] > 0.5:  # low_match | solver_failed
             self.mode = Mode.RELOC
             self.idx_f2k = None
+            if self._mask_propagator is not None:
+                self._mask_propagator.reset()  # stale masks must not seed later frames
             self._record_pose(frame_id, self.last_T_WC)
             return
 
@@ -764,8 +890,8 @@ class SLAMSystem:
             tk = time.perf_counter()
             self.idx_f2k = None
             new_idx = self._append_keyframe(frame)
-            self._set_kf_uimg(new_idx, p["uimg"])
-            tc = p.get("track_pair")
+            self._set_kf_uimg(new_idx, p["uimg"], dyn_mask=p["dyn_mask"])
+            tc = p["track_pair"]
             if tc is not None and tc["kf_idx"] != new_idx - 1:
                 tc = None  # an interleaved keyframe broke consecutiveness
             self.backend_step(new_idx, frame, track_cache=tc)
@@ -779,10 +905,41 @@ class SLAMSystem:
 
         self._record_pose(frame_id, self.last_T_WC)
 
-    def _set_kf_uimg(self, idx: int, uimg):
+    def _save_valid_opt_overlay(self, frame_id: int, uimg, idx_f2k, valid_match_k, Q1, Q2, fC,
+                                fN, kC, kN):
+        """The debug overlay of the pixels that passed every gate of the
+        tracking step (valid match, C and Q confidences), recomputed on the
+        host from its outputs."""
+        try:
+            from monst3r_slam_torch.viz import debug as dbgviz
+
+            idx = idx_f2k.reshape(-1).cpu().numpy()
+            Qk = np.sqrt(Q1.reshape(-1).float().cpu().numpy()[idx]
+                         * Q2.reshape(-1).float().cpu().numpy())
+            Cf = (fC.reshape(-1).cpu().numpy()
+                  / np.maximum(fN.float().reshape(-1).cpu().numpy(), 1.0))[idx]
+            Ck = kC.reshape(-1).cpu().numpy() / np.maximum(kN.float().reshape(-1).cpu().numpy(), 1.0)
+            tc = self.track_cfg
+            valid_opt = (valid_match_k.reshape(-1).cpu().numpy() & (Cf > tc.C_conf)
+                         & (Ck > tc.C_conf) & (Qk > tc.Q_conf)).reshape(self.img_size)
+            dbgviz.save_mask_overlay(
+                self._debug_dir("debug_final_valid_opt_mask") / f"frame_{frame_id:06d}_final_opt.png",
+                uimg, valid_opt, color=(0, 255, 0), alpha=0.5)
+        except Exception as e:  # best-effort, as in the reference
+            print(f"valid_opt overlay failed for {frame_id}: {e}")
+
+    def _debug_dir(self, name: str):
+        """logs/<dataset>/<sequence>/<name>, the reference's layout."""
+        ds = self.cfg.get("dataset", {})
+        seq = ds.get("sequence", ds.get("video", "unknown_video"))
+        return pathlib.Path("logs") / ds.get("name", "unknown_dataset") / str(seq) / name
+
+    def _set_kf_uimg(self, idx: int, uimg, dyn_mask=None):
         while len(self.kf_uimgs) <= idx:
             self.kf_uimgs.append(None)
+            self.kf_dyn_masks.append(None)
         self.kf_uimgs[idx] = uimg
+        self.kf_dyn_masks[idx] = dyn_mask
 
     def _record_pose(self, frame_id: int, T_WC):
         self.frame_ids.append(frame_id)

@@ -68,6 +68,11 @@ class ModelConfig:
 # Published MASt3R ViT-L 512 configuration
 MAST3R_512 = ModelConfig()
 
+# MonST3R: DUSt3R-style weights, no descriptor head and one confidence; the
+# dynamic pipeline takes D and Q from the MASt3R decoder run on the same
+# encoder features (dynamic/inference.py).
+MONST3R_512 = ModelConfig(desc_dim=None, two_confs=False)
+
 # Tiny config for unit tests (same topology, small dims)
 TINY = ModelConfig(
     patch_size=16,

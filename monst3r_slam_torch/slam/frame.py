@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import dataclasses
 from enum import IntEnum
+from typing import Optional
 
 import torch
 
@@ -29,7 +30,8 @@ class Mode(IntEnum):
 class Frame:
     """One video frame's SLAM state (hw = h*w, n = patches):
     T_WC (8,), X_canon (hw, 3), C (hw, 1), N () int32, feat (1, n, enc_dim)
-    encoder features, pos (1, n, 2), score ()."""
+    encoder features, pos (1, n, 2), score (); img (1, h, w, 3) the
+    normalized image the encoder consumed (the dynamic mask's flow reads it)."""
 
     frame_id: int
     T_WC: torch.Tensor
@@ -39,6 +41,7 @@ class Frame:
     feat: torch.Tensor
     pos: torch.Tensor
     score: torch.Tensor
+    img: Optional[torch.Tensor] = None
 
 
 def fuse_pointmap(X_old, C_old, N_old, X_new, C_new, mode: str = "weighted_pointmap",

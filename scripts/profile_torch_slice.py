@@ -11,6 +11,13 @@ per frame, the Gauss-Newton iterations per frame, the top kernels, and the
 host stage times SLAMSystem.prof keeps.
 The full kernel table goes to logs/profile_torch_slice.txt (`_async.txt`).
 
+With `--dynamic`, the frames run through the dynamic pipeline of
+`main_monster_torch.py`: MAST3R_512 + MONST3R_512 (both tied, bf16), RAFT
+with random weights at 20 iterations, config/intrinsics.yaml's calibration
+scaled to the frame, masking refined by the native refiner and the temporal
+propagator; host stages then include the MonST3R and MASt3R decodes, the
+flow program and the mask refinement.
+
 With `--async`, the same frames run as `main.py` runs them by default: the
 backend on its worker thread with the f64 host solve, tracking decisions two
 frames late, and a retrieval database (bootstrapped on the first keyframe,
@@ -21,7 +28,7 @@ threads, the host solve's time per Gauss-Newton iteration and the retrieval
 query's time. Both modes also time `--frames` frames back to back with no
 synchronization in between ("pipelined"), the steady rate a user sees.
 
-    python3 scripts/profile_torch_slice.py [--frames 6] [--seed 0] [--async]
+    python3 scripts/profile_torch_slice.py [--frames 6] [--seed 0] [--async] [--dynamic]
 """
 
 from __future__ import annotations
@@ -58,6 +65,8 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--async", dest="async_", action="store_true",
                     help="the backend worker, the host solve and retrieval (main.py's default)")
+    ap.add_argument("--dynamic", action="store_true",
+                    help="the dynamic pipeline (MonST3R + MASt3R, RAFT, masking)")
     args = ap.parse_args()
 
     import torch
@@ -69,18 +78,32 @@ def main() -> int:
     import chip_smoke
     from monst3r_slam_torch.app.pipeline import SLAMSystem
     from monst3r_slam_torch.models.config import MAST3R_512
-    from monst3r_slam_torch.models.convert import cast_params_for_inference
-    from monst3r_slam_torch.models.init import init_params
     from monst3r_slam_torch.slam import retrieval
 
     card = chip_smoke.phase_card()
-    gen = torch.Generator(device="cuda").manual_seed(args.seed)
-    params = init_params(gen, MAST3R_512)
-    params["dec_blocks2"], params["head2"] = params["dec_blocks"], params["head1"]
-    params = cast_params_for_inference(params)
+    params = chip_smoke.tied_params(MAST3R_512, args.seed)
     hw = (chip_smoke.H, chip_smoke.W)
     cfg = chip_smoke.slice_config()
-    extra = {}
+    extra, uimg = {}, None
+    img = chip_smoke.synthetic_frame(args.seed, *hw)
+    if args.dynamic:
+        import yaml
+
+        import main_monster_torch
+        from monst3r_slam_torch.dynamic.inference import DualParams
+        from monst3r_slam_torch.models.config import MONST3R_512
+
+        with open(ROOT / "config" / "intrinsics.yaml") as f:
+            intr = yaml.safe_load(f)
+        s = hw[1] / intr["width"]
+        K = torch.tensor([[intr["fx"] * s, 0, intr["cx"] * s], [0, intr["fy"] * s, intr["cy"] * s],
+                          [0, 0, 1]], device="cuda")
+        cfg.update(use_calib=True, use_dynamic_mask=True, refine_dynamic_mask_with_sam2=True,
+                   dynamic_mask_threshold=chip_smoke.DYN_THRESHOLD)
+        monst3r = chip_smoke.tied_params(MONST3R_512, args.seed + 1, img)
+        extra = dict(K=K, dual=DualParams(monst3r, MONST3R_512, params, MAST3R_512))
+        main_monster_torch.install_flow("random", args.seed + 2, "cuda")
+        uimg = np.uint8(np.round((img * 0.5 + 0.5) * 255))
     if args.async_:
         cfg["single_thread"] = False
         cfg["local_opt"]["solver"] = "auto"
@@ -90,24 +113,23 @@ def main() -> int:
             retrieval_db=retrieval.ASMKDatabase.from_config(cfg))
     slam = SLAMSystem(params=params, model_cfg=MAST3R_512, cfg=cfg, img_size=hw,
                       kf_capacity=16, device="cuda", dtype=torch.bfloat16, **extra)
-    img = chip_smoke.synthetic_frame(args.seed, *hw)
     warm = 3
     for i in range(warm):
-        slam.process_frame(i, i / 30.0, img, force_kf=False)
+        slam.process_frame(i, i / 30.0, img, uimg=uimg, force_kf=False)
     torch.cuda.synchronize()
     slam.prof.clear()
 
     unprofiled = []  # the same frames without the profiler's overhead
     for i in range(warm, warm + args.frames):
         t0 = time.perf_counter()
-        slam.process_frame(i, i / 30.0, img, force_kf=False)
+        slam.process_frame(i, i / 30.0, img, uimg=uimg, force_kf=False)
         torch.cuda.synchronize()
         unprofiled.append((time.perf_counter() - t0) * 1e3)
     warm += args.frames
     host_unprofiled = {k: np.median(v) for k, v in slam.prof.items()}
     t0 = time.perf_counter()
     for i in range(warm, warm + args.frames):
-        slam.process_frame(i, i / 30.0, img, force_kf=False)
+        slam.process_frame(i, i / 30.0, img, uimg=uimg, force_kf=False)
     slam.finalize()
     torch.cuda.synchronize()
     pipelined = (time.perf_counter() - t0) * 1e3 / args.frames
@@ -120,7 +142,7 @@ def main() -> int:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for i in range(warm, warm + args.frames):
             t0 = time.perf_counter()
-            slam.process_frame(i, i / 30.0, img, force_kf=i == kf_at)
+            slam.process_frame(i, i / 30.0, img, uimg=uimg, force_kf=i == kf_at)
             torch.cuda.synchronize()
             wall.append((time.perf_counter() - t0) * 1e3)
         t0 = time.perf_counter()
@@ -153,6 +175,9 @@ def main() -> int:
     n = args.frames
     mode = ("async: backend worker, f64 host solve, retrieval, decisions "
             f"{slam.defer_depth} frames late" if args.async_ else "synchronous")
+    if args.dynamic:
+        mode += (", dynamic: MonST3R + MASt3R, RAFT 20 iterations, mask threshold "
+                 f"{slam.dyn_threshold}, mask share {slam.prof.get('mask_share')}")
     print(f"card: {card}")
     print(f"mode: {mode}")
     print(f"frames {n} (keyframe event at frame {kf_at}), final mode {modes}; wall ms per "
@@ -194,7 +219,8 @@ def main() -> int:
         table = prof.key_averages().table(sort_by="self_device_time_total", row_limit=60)
     except (AttributeError, KeyError, ValueError):
         table = prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=60)
-    (out / f"profile_torch_slice{'_async' if args.async_ else ''}.txt").write_text(f"card: {card}\n{table}")
+    name = "profile_torch_slice" + ("_async" if args.async_ else "") + ("_dynamic" if args.dynamic else "")
+    (out / f"{name}.txt").write_text(f"card: {card}\n{table}")
     return 0
 
 

@@ -1,6 +1,8 @@
 """Kernels A (attention, both routes) and B (tile matcher, and its phase
 instantiations) on the card against their plain versions, through the
-dispatch the model and the matcher call.
+dispatch the model and the matcher call; and the dynamic pipeline's parts
+on the card: RAFT against its CPU path, the fused flow program's readback
+ordering around `overlap_cb`, and the dual decode's kernel A launches.
 
 They need a CUDA device and nvcc, and skip without them. On a machine with
 the card, from the repository root:
@@ -310,3 +312,109 @@ def test_tile_match_phase_kernel_matches_plain(cuda, phase):
         ref = matching_pallas.tile_match_plain(*kargs, phase=phase)
         for a, r in zip(got, ref):
             assert torch.equal(a, r)
+
+
+def _raft_inputs(seed=0, h=64, w=80):
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    img = sum(np.sin(rng.uniform(0.05, 0.4) * xx[..., None] + rng.uniform(0.05, 0.4)
+                     * yy[..., None] + rng.uniform(0, 6.3, 3)) for _ in range(5))
+    u0 = np.uint8(np.clip((img / np.abs(img).max() * 0.5 + 0.5) * 255, 0, 255))
+    K = np.asarray([[w, 0, w / 2], [0, w, h / 2], [0, 0, 1]], np.float32)
+    return u0, np.roll(u0, 3, axis=1), np.full((h, w), 2.0, np.float32), K
+
+
+@pytest.mark.cuda
+def test_raft_on_the_card_matches_the_cpu_path(cuda):
+    """RAFT at full widths, 3 iterations, f32 with TF32 off on both sides:
+    the flow within 1e-4 of its scale, the fused uint8 map within one step."""
+    from monst3r_slam_torch.core import lie
+    from monst3r_slam_torch.dynamic import raft
+
+    cfg = raft.RAFTConfig(iters=3)
+    params = raft.init_raft_params(torch.Generator().manual_seed(2), cfg)
+    u0, u1, depth, K = _raft_inputs()
+    T_j = lie.sim3_retr(lie.sim3_identity(), torch.tensor([0.02, 0, 0, 0, 0.01, 0, 0]))
+    got, ref = {}, {}
+    for dev, out in ((cuda, got), ("cpu", ref)):
+        p = _tree_to(params, dev)
+        out["flow"] = raft.raft_flow(p, torch.from_numpy(u0).float().to(dev),
+                                     torch.from_numpy(u1).float().to(dev), cfg).cpu()
+        out["map"] = raft.make_fused_flow_error_program(p, cfg)(
+            u0, u1, lie.sim3_identity(), T_j, depth, K)
+    scale = float(ref["flow"].abs().max())
+    assert float((got["flow"] - ref["flow"]).abs().max()) <= 1e-4 * scale
+    assert np.abs(got["map"] - ref["map"]).max() <= 1 / 255 + 1e-6
+
+
+def _tree_to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+@pytest.mark.cuda
+def test_fused_program_reads_its_map_before_the_overlap_work_ends(cuda):
+    """The map's pinned copy is enqueued behind the flow program with an
+    event, then `overlap_cb` runs, then only that event is waited on: the
+    adapter returns while the work `overlap_cb` enqueued (a 0.2 s spin here,
+    as the MASt3R decode in the pipeline) is still running, and the map is
+    the one a plain read gives."""
+    from monst3r_slam_torch.core import lie
+    from monst3r_slam_torch.dynamic import raft
+
+    cfg = raft.RAFTConfig(iters=2)
+    params = raft.init_raft_params(torch.Generator(device=cuda).manual_seed(2), cfg)
+    u0, u1, depth, K = _raft_inputs()
+    prog = raft.make_fused_flow_error_program(params, cfg)
+    T = lie.sim3_identity(device=cuda)
+    ref = prog(u0, u1, T, T, depth, K)
+    overlap_done = torch.cuda.Event()
+
+    def overlap_cb():
+        torch.cuda._sleep(int(0.2 * 1.98e9))
+        overlap_done.record()
+
+    got = prog(u0, u1, T, T, depth, K, overlap_cb=overlap_cb)
+    assert not overlap_done.query()  # returned before the overlap work ended
+    torch.cuda.synchronize()
+    assert overlap_done.query()
+    np.testing.assert_array_equal(got, ref)
+
+
+@pytest.mark.cuda
+def test_dual_decode_launches_kernel_a_per_decoder(cuda):
+    """The dual pipeline's encode and pair decode at MAST3R_512 / MONST3R_512
+    widths (cut depth, bf16): kernel A once per encoder block, and 4 per
+    decoder block in each decoder (self and cross attention, both streams),
+    all on the tensor-core route, so 24 + 2 x 48 = 120 at full depth; X and C
+    come from MonST3R, D and Q from MASt3R."""
+    import dataclasses
+
+    from monst3r_slam_torch.dynamic.inference import DualParams, monst3r_asymmetric_inference
+    from monst3r_slam_torch.models import mast3r as model_api
+    from monst3r_slam_torch.models.config import MAST3R_512, MONST3R_512
+    from monst3r_slam_torch.models.convert import cast_params_for_inference
+    from monst3r_slam_torch.models.init import init_params
+
+    cut = dict(enc_depth=2, dec_depth=2)
+    a_cfg, m_cfg = (dataclasses.replace(c, **cut) for c in (MAST3R_512, MONST3R_512))
+    a, m = (cast_params_for_inference(init_params(torch.Generator(device=cuda).manual_seed(s), c))
+            for s, c in ((0, a_cfg), (1, m_cfg)))
+    dual = DualParams(m, m_cfg, a, a_cfg)
+    img = torch.from_numpy(np.random.default_rng(0).uniform(-1, 1, (2, 64, 80, 3))
+                           .astype(np.float32)).to(cuda)
+    attn = attention.fused_attention
+    before, before_tc = attn.launches, attn.route_launches["bf16_tc"]
+    feat, pos = model_api.encode(m, m_cfg, img)
+    out = monst3r_asymmetric_inference(dual, feat[:1], pos[:1], feat[1:], pos[1:], (64, 80))
+    torch.cuda.synchronize()
+    want = 2 + 2 * 4 * 2  # the batch-2 encode: one a block; each decoder: 4 a block
+    assert attn.launches - before == want and attn.route_launches["bf16_tc"] - before_tc == want
+    ref_m = model_api.decode(m, m_cfg, feat[:1], pos[:1], feat[1:], pos[1:], (64, 80))
+    ref_a = model_api.decode(a, a_cfg, feat[:1], pos[:1], feat[1:], pos[1:], (64, 80))
+    for got, ref in ((out.X1, ref_m.X1), (out.C2, ref_m.C2), (out.D1, ref_a.D1),
+                     (out.Q2, ref_a.Q2)):
+        assert torch.equal(got, ref)

@@ -26,6 +26,7 @@ from monst3r_slam_tpu.models.config import TINY as JTINY
 from monst3r_slam_torch.app import pipeline as tpipe
 from monst3r_slam_torch.app.config import load_config as tload_config
 from monst3r_slam_torch.core import lie as tlie
+from monst3r_slam_torch.dynamic.inference import DualParams
 from monst3r_slam_torch.models import mast3r as tmodel
 from monst3r_slam_torch.models.config import TINY as TTINY
 from tests.test_ate_regression import (
@@ -133,7 +134,8 @@ def test_oracle_slam_matches_jax(jmode, tmode, pose_tol):
 def test_port_refuses_unported_configurations():
     """config/base.yaml as shipped (async worker, `solver: auto`, `mesh:
     auto` on one device) is accepted, and so are the calibrated and
-    host-solve settings; what is still unported raises."""
+    host-solve settings and the dynamic pipeline's dual models; what is
+    still unported raises (with the dual models: the pointmap debug dumps)."""
     def make(fields=None, **over):
         c = tload_config("config/base.yaml", set_global=False)
         c.update(over)
@@ -145,8 +147,10 @@ def test_port_refuses_unported_configurations():
     s.finalize()
     make(single_thread=True, use_calib=True, fields={"K": torch.eye(3)})
     make(single_thread=True, local_opt={"solver": "host"})
+    dual = {"dual": DualParams({}, TTINY, {}, TTINY)}
+    make(dual, single_thread=True)
     for over, fields in (({"parallel": {"mesh": "on"}}, None), ({"matching": {"mode": "lm"}}, None),
-                         ({}, {"dual": object()}), ({}, {"easi3r": object()}),
+                         ({"debug_save_3d_pointclouds": True}, dual), ({}, {"easi3r": object()}),
                          ({}, {"viewer": object()})):
         with pytest.raises(NotImplementedError):
             make(fields, single_thread=True, **over)
