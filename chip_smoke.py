@@ -60,7 +60,17 @@ phase printing one line:
      stage split of its frames with the device synchronized at every stage,
      which must launch kernel A 120 times and kernel B once per tracked
      frame; and the device busy share of `scripts/profile_torch_slice.py
-     --dynamic`. Frames go under build/smoke_dynamic/.
+     --dynamic`. Frames go under build/smoke_dynamic/;
+  9. SAM2 mask refinement on the dynamic path (`phase_sam2`): Hiera-B+
+     (SAM2_BASE_PLUS, 1024x1024) and the video predictor (VIDEO_BASE_PLUS)
+     on the card against the port's CPU path, `sam2_encode` and a video
+     step timed; `main_monster_torch.py` unchanged in a subprocess with
+     `--sam2-checkpoint random`, once with the image refiner and once with
+     the video predictor; and `main_monster_torch.run` in-process at the
+     dynamic phase's full width with the SAM2_BASE_PLUS image refiner
+     (random weights), which must be called on every masked frame while
+     both kernels launch, and its host-refinement stage beside the native
+     refiner's.
 
 Random weights carry no geometry: two views of one scene, even one shifted
 by a pixel, decode to pointmaps that do not match, and every frame would be
@@ -73,14 +83,16 @@ sequence. The dynamic phase also moves MonST3R's random pointmap in front
 of the camera (`front_depth`), which the calibrated tracker and the
 ego-motion flow need, and raises the mask threshold (`DYN_THRESHOLD`).
 
-Then one JSON line with the kernel table and, last, the `{"ok": true, ...}`
-line. Exits non-zero without that line when there is no CUDA device, when
-the port is not importable, or when any phase fails.
+Then one JSON line with the kernel table (each kernel's launches on every
+path, `sam2` included) and, last, the `{"ok": true, ...}` line. Exits
+non-zero without that line when there is no CUDA device, when the port is
+not importable, or when any phase fails.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import pathlib
 import subprocess
@@ -474,8 +486,8 @@ def phase_reference(seed: int) -> None:
 def _to_device(tree, device):
     if isinstance(tree, dict):
         return {k: _to_device(v, device) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_to_device(v, device) for v in tree]
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_device(v, device) for v in tree)
     return tree.to(device)
 
 
@@ -1029,6 +1041,7 @@ def phase_dynamic(seed: int, card: str) -> dict:
         shares = p.get("mask_share", [])
         kf_events = len(p.get("kf_event", []))
         row = dict(frames=n, seconds=secs, frame_ms=frame_ms, mask_share=shares,
+                   mask_refine_ms=list(p.get("mask_refine", [])),
                    keyframes=slam.keyframe_trajectory()[1].tolist(),
                    edges=slam.graph.edge_list(), kf_events=kf_events,
                    async_solves=slam.n_async_solves, relocs=slam.n_relocs,
@@ -1081,6 +1094,262 @@ def phase_dynamic(seed: int, card: str) -> dict:
              f"{prof.stderr[-3000:]}")
     print(f"dynamic profile ({card}): {busy[0]}", flush=True)
     row["profile_busy"] = busy[0]
+    return row, dual
+
+
+SAM2_DIR = ROOT / "build" / "smoke_sam2"  # the video predictor's config
+
+
+def _tree_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_tree_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_tree_bytes(v) for v in tree)
+    return tree.numel() * tree.element_size()
+
+
+def sam2_reference(seed: int) -> dict:
+    """SAM2 at SAM2_BASE_PLUS (Hiera-B+, 1024x1024) and VIDEO_BASE_PLUS on the
+    card against the same code's CPU path (which the CPU tests hold to the
+    JAX package) on the same random weights (from `--seed + 3` and `+ 4`, the
+    CLI's seeds) and inputs, f32 on both sides (TF32 off): `sam2_encode`'s
+    three outputs within 1e-3 of their scale, `sam2_decode_select` on 8
+    prompt rows (3 points, 5 padding: the refiner's batch) with at most
+    0.1% of the mask pixels differing (logits near 0) and the IoUs within
+    1e-3 of their scale, and the video predictor's two frames (a
+    conditioning frame, then a memory-conditioned one) with logits within
+    1e-3 of their scale and at most 0.1% of their signs differing. Then
+    `sam2_encode` and one memory-conditioned video step (encoder, memory
+    attention over the bank, decoder and memory encoder) timed on the card;
+    their bounds from the operations the CPU run counted
+    (torch.utils.flop_counter) at the f32 peak. Returns the card's weights
+    and the timings."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from monst3r_slam_torch.dynamic import sam2, sam2_video
+
+    cfg, vcfg = sam2.SAM2_BASE_PLUS, sam2_video.VIDEO_BASE_PLUS
+    S = cfg.img_size
+    params = sam2.init_sam2_params(torch.Generator().manual_seed(seed + 3), cfg)
+    vparams = sam2_video.init_video_params(torch.Generator().manual_seed(seed + 4), cfg, vcfg)
+    img = synthetic_frame(seed, S, S) * 0.5 + 0.5
+    frames = [img, np.roll(img, 16, axis=1)]
+    pts = np.zeros((8, 1, 2), np.float32)
+    lbs = -np.ones((8, 1), np.int64)
+    pts[:3, 0] = [(0.5, 0.5), (0.25, 0.6), (0.8, 0.3)]
+    lbs[:3] = 1
+
+    def run(p, vp, count=False):
+        device = sam2._device_of(p)
+        x = torch.from_numpy(img)[None].to(device)
+        fc_enc, fc_step = FlopCounterMode(display=False), FlopCounterMode(display=False)
+        with fc_enc if count else contextlib.nullcontext():
+            emb = sam2.sam2_encode(p, cfg, x)
+        sel, iou = sam2.sam2_decode_select(p, cfg, *emb, torch.from_numpy(pts).to(device),
+                                           torch.from_numpy(lbs).to(device))
+        pred = sam2_video.Sam2VideoPredictor(p, vp, cfg, vcfg)
+        state = pred.init_state(frames)
+        pred.add_new_points(state, 0, 1, np.asarray([[[S / 2, S / 2]]], np.float32),
+                            np.ones((1, 1), np.int64))
+        steps = pred.propagate_in_video(state)
+        logits = [next(steps)[2]]
+        with fc_step if count else contextlib.nullcontext():
+            logits.append(next(steps)[2])
+        out = dict(emb=[t.cpu() for t in emb], sel=sel.cpu(), iou=iou.cpu(),
+                   logits=[t.cpu() for t in logits], pred=pred, state=state)
+        if count:
+            out.update(enc_flops=fc_enc.get_total_flops(), step_flops=fc_step.get_total_flops())
+        return out
+
+    t0 = time.perf_counter()
+    ref = run(params, vparams, count=True)
+    cpu_s = time.perf_counter() - t0
+    pc, vpc = _to_device(params, "cuda"), _to_device(vparams, "cuda")
+    got = run(pc, vpc)
+    torch.cuda.synchronize()
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    enc_err = max(rel(a, b) for a, b in zip(got["emb"], ref["emb"]))
+    sel_diff = float((got["sel"] != ref["sel"]).float().mean())
+    iou_err = rel(got["iou"], ref["iou"])
+    vid_err = max(rel(a, b) for a, b in zip(got["logits"], ref["logits"]))
+    vid_sign = max(float(((a > 0) != (b > 0)).float().mean())
+                   for a, b in zip(got["logits"], ref["logits"]))
+    print(f"sam2 reference (SAM2_BASE_PLUS {S}x{S}, VIDEO_BASE_PLUS, full depth: stages "
+          f"{cfg.stages}, {vcfg.mem_layers} memory-attention layers; f32): card vs CPU path "
+          f"sam2_encode within {enc_err:.3e} of scale; decode_select masks differ on "
+          f"{sel_diff:.2e} of the pixels, IoU within {iou_err:.3e}; video frames (conditioning, "
+          f"memory-conditioned) logits within {vid_err:.3e}, signs differ on {vid_sign:.2e}; "
+          f"the CPU side took {cpu_s:.1f} s", flush=True)
+    if not (enc_err <= 1e-3 and sel_diff <= 1e-3 and iou_err <= 1e-3 and vid_err <= 1e-3
+            and vid_sign <= 1e-3):
+        fail("sam2 reference: the card's SAM2 differs from the CPU path beyond the tolerance")
+
+    pred, state = got["pred"], got["state"]
+    x, x2 = state["images"]
+    empty_pts = torch.zeros((1, 1, 2), device=x.device)
+    empty_lbs = -torch.ones((1, 1), dtype=torch.int64, device=x.device)
+
+    def video_step():  # an unprompted frame conditioned on the bank of frames 0 and 1
+        feats = sam2.encode_features(pc, cfg, x2)
+        return sam2_video._condition_and_decode(
+            pc, vpc, cfg, vcfg, *feats, *pred._bank_views(state, 2, 0), empty_pts, empty_lbs,
+            is_cond=False, multimask=False)
+
+    img_bytes = x.numel() * 4
+    enc_bytes = _tree_bytes(pc) + img_bytes + sum(t.numel() * 4 for t in got["emb"])
+    step_bytes = (_tree_bytes(pc) + _tree_bytes(vpc) + img_bytes
+                  + 2 * state["mem_feat"].numel() * 4 + state["obj_ptrs"].numel() * 4)
+    row = dict(cpu_s=cpu_s, enc_max_rel_err=enc_err, select_pixels_differ=sel_diff,
+               iou_max_rel_err=iou_err, video_max_rel_err=vid_err, video_signs_differ=vid_sign,
+               enc_flops=ref["enc_flops"], step_flops=ref["step_flops"])
+    for name, fn, n_bytes, flops in (("encode", lambda: sam2.sam2_encode(pc, cfg, x), enc_bytes,
+                                      ref["enc_flops"]),
+                                     ("video_step", video_step, step_bytes, ref["step_flops"])):
+        ms = time_ms(fn, iters=5, warmup=2)
+        dev = device_ms(fn, iters=5, warmup=2)
+        b_ms, b_by = bound_ms(n_bytes, flops / PEAK_F32)
+        row[name] = dict(ms=ms, device_ms=dev, bound_ms=b_ms, bound_by=b_by, flops=flops)
+        print(f"sam2 {name} (SAM2_BASE_PLUS {S}x{S}, f32): {ms:.2f} ms back to back, device "
+              f"{dev:.2f} ms; {flops / 1e12:.4f} TFLOP (counted on the CPU run), bound "
+              f"{b_ms:.3f} ms ({b_by}, f32 at {PEAK_F32 / 1e12:.0f} TFLOP/s)", flush=True)
+    row["weights"] = (pc, vpc)
+    return row
+
+
+def phase_sam2(seed: int, card: str, dyn: dict, dual) -> dict:
+    """SAM2 mask refinement on the dynamic path, as `main_monster_slam.py`
+    runs it with a SAM2 checkpoint. Three parts:
+      * `sam2_reference`: Hiera-B+ and the video predictor at full width on
+        the card against the CPU path, and their times;
+      * the CLI, unchanged, in a subprocess twice on the dynamic phase's 8
+        PNG frames with the calibration, random RAFT and `--sam2-checkpoint
+        random` (SAM2_TEST): on config/base.yaml (the image refiner), and on
+        a config under build/ that inherits it and sets
+        `sam2_video_predictor: true`; each must exit 0, say which refiner it
+        installed and write a well-formed export;
+      * `main_monster_torch.run` in this process with the dynamic phase's
+        tied weights and frames and the SAM2_BASE_PLUS image refiner
+        (random weights) installed: frames must track with a non-empty
+        mask, the refiner be called on every masked frame, and both kernels
+        launch (counters zeroed just before, read just after). Its
+        host-refinement stage stands beside the native refiner's in the
+        dynamic phase's run. The random refiner's masks cover most of the
+        frame, so tracking is lost after a few frames: no stage split runs
+        here, since its frames would not reach the masked decode."""
+    import shutil
+
+    import torch
+
+    import main_monster_torch
+    from monst3r_slam_torch.dynamic import mask as dyn_mask
+    from monst3r_slam_torch.dynamic import sam2
+    from monst3r_slam_torch.ops.attention import fused_attention
+    from monst3r_slam_torch.ops.matching_pallas import tile_match_kernel, tile_match_phase_kernel
+
+    row = sam2_reference(seed)
+    pc, _ = row.pop("weights")
+
+    SAM2_DIR.mkdir(parents=True, exist_ok=True)
+    video_cfg = SAM2_DIR / "video.yaml"
+    video_cfg.write_text("inherit: config/base.yaml\nsam2_video_predictor: true\n")
+    n_cli = 8
+    for name, extra, want in (
+            ("image", [], "SAM2 refiner installed (random init"),
+            ("video", ["--config", str(video_cfg)], "SAM2 VIDEO-predictor refiner installed "
+                                                     "(random init")):
+        save_as = f"smoke_sam2_{name}_cli"
+        shutil.rmtree(ROOT / "logs" / save_as, ignore_errors=True)
+        cmd = [sys.executable, "main_monster_torch.py", "--dataset", str(DYN_DIR / "cli"),
+               "--calib", "config/intrinsics.yaml", "--raft-checkpoint", "random",
+               "--sam2-checkpoint", "random", "--no-viz", "--max-frames", str(n_cli),
+               "--save-as", save_as, *extra]
+        t0 = time.perf_counter()
+        out = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=420)
+        cli_s = time.perf_counter() - t0
+        if out.returncode != 0:
+            fail(f"main_monster_torch.py ({name} refiner) exited {out.returncode}:\n"
+                 f"{out.stdout[-2000:]}\n{out.stderr[-4000:]}")
+        for line in (want, "saved results to"):
+            if line not in out.stdout:
+                fail(f"main_monster_torch.py ({name} refiner) did not print {line!r}:\n"
+                     f"{out.stdout[-2000:]}")
+        n_kf_cli = check_export(ROOT / "logs" / save_as, "cli", n_cli)
+        done = [ln for ln in out.stdout.splitlines() if ln.startswith("done:")]
+        row[f"cli_{name}_s"] = cli_s
+        print(f"sam2 CLI ({name} refiner): {' '.join(cmd[1:])}: exit 0 in {cli_s:.1f} s; "
+              f"{done[0] if done else ''}; export well-formed ({n_kf_cli} keyframes)", flush=True)
+
+    refiner = sam2.Sam2Refiner(pc, sam2.SAM2_BASE_PLUS)
+    n = len(dyn["frame_ms"])
+    shutil.rmtree(ROOT / "logs" / "smoke_sam2", ignore_errors=True)
+    args = main_monster_torch.parse_args([
+        "--dataset", str(DYN_DIR / "tracked"), "--calib", "config/intrinsics.yaml", "--no-viz",
+        "--raft-checkpoint", "random", "--seed", str(seed), "--save-as", "smoke_sam2"])
+    cfg = dynamic_config()
+    main_monster_torch.install_flow(args.raft_checkpoint, seed + 2, "cuda")
+    dyn_mask.set_mask_refiner(refiner)
+    torch.cuda.synchronize()
+    counters = (fused_attention, tile_match_kernel, tile_match_phase_kernel)
+    for fn in counters:
+        fn.launches = 0
+    for route in fused_attention.route_launches:
+        fused_attention.route_launches[route] = 0
+    t0 = time.perf_counter()
+    try:
+        slam, frame_ms = main_monster_torch.run(args, cfg, dual)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = {fn.__name__: fn.launches for fn in counters}
+        routes = dict(fused_attention.route_launches)
+        check_export(ROOT / "logs" / "smoke_sam2", "tracked", n)
+        shares = slam.prof.get("mask_share", [])
+        kf_events = len(slam.prof.get("kf_event", []))
+        print(f"sam2 tracked run, MAST3R_512 + MONST3R_512 {H}x{W}, RAFT 20 iterations, "
+              f"SAM2_BASE_PLUS image refiner (random weights) under the temporal propagator: "
+              f"{n} frames in {secs:.2f} s; per-frame host ms {[round(t, 1) for t in frame_ms]}; "
+              f"mask pixel share per tracked frame {[round(v, 4) for v in shares]}; refiner "
+              f"calls {refiner.calls}, components replaced {refiner.replaced}, rejected (IoU under "
+              f"{refiner.iou_floor}) {refiner.rejected}; keyframes "
+              f"{slam.keyframe_trajectory()[1].tolist()}, keyframe events {kf_events}; "
+              f"relocalizations {slam.n_relocs}/{slam.n_reloc_attempts}; launches {launches}, "
+              f"attention by route {routes}", flush=True)
+    finally:
+        dyn_mask.set_flow_estimator(None)
+        dyn_mask.set_flow_error_program(None)
+        dyn_mask.set_mask_refiner(None)
+    # the host refinement as the pipeline runs it (no synchronization between
+    # stages): the refiner's read-back waits for the queued MASt3R decode
+    refine_ms = slam.prof.get("mask_refine", [float("nan")])
+    refine = float(np.median(refine_ms))
+    native = float(np.median(dyn["mask_refine_ms"]))
+    print(f"sam2 host refinement ({card}): median {refine:.2f} ms per masked frame "
+          f"{[round(t, 1) for t in refine_ms]} with the SAM2_BASE_PLUS refiner, "
+          f"against {native:.2f} ms {[round(t, 1) for t in dyn['mask_refine_ms']]} with the "
+          f"native refiner in the dynamic phase's tracked run (same frames and weights; "
+          f"{dyn['split']['stages'].get('mask_refine', float('nan')):.2f} ms in its "
+          f"synchronized split)", flush=True)
+    row.update(frames=n, seconds=secs, frame_ms=frame_ms, mask_share=shares,
+               refiner_calls=refiner.calls, replaced=refiner.replaced, rejected=refiner.rejected,
+               kf_events=kf_events, launches=launches, routes=routes,
+               refine_ms=list(refine_ms), refine_median_ms=refine,
+               native_refine_median_ms=native)
+    n_masked = sum(v > 0 for v in shares)
+    if n_masked < 2 or kf_events < 1:
+        fail(f"sam2 tracked run: {n_masked} frames tracked with a non-empty mask (< 2) and "
+             f"{kf_events} keyframe events: {shares}")
+    if refiner.calls != len(shares):
+        fail(f"sam2 tracked run: the SAM2 refiner ran {refiner.calls} times for {len(shares)} "
+             "masked frames")
+    if min(launches["fused_attention"], launches["tile_match_kernel"]) < 1:
+        fail(f"sam2 tracked run: a kernel of the path never launched: {launches}")
+    if routes["f32"] != 0:
+        fail(f"sam2 tracked run: attention left the bf16 tensor-core route: {routes}")
+    if not np.isfinite(slam.full_trajectory()[1]).all():
+        fail("sam2 tracked run: non-finite pose")
     return row
 
 
@@ -1109,9 +1378,11 @@ def main() -> int:
     launches = phase_slice(args.seed, args.frames)
     main_run = phase_main(args.seed)
     raft_ref = phase_raft_reference(args.seed)
-    dyn = phase_dynamic(args.seed, card)
+    dyn, dual = phase_dynamic(args.seed, card)
+    sam2_run = phase_sam2(args.seed, card, dyn, dual)
     by_path = {name: dict(slice=launches[name], main=main_run["launches"][name],
-                          dynamic=dyn["launches"][name] + dyn["split"]["launches"][name])
+                          dynamic=dyn["launches"][name] + dyn["split"]["launches"][name],
+                          sam2=sam2_run["launches"][name])
                for name in launches}
     total = {name: sum(paths.values()) for name, paths in by_path.items()}
 
@@ -1141,12 +1412,15 @@ def main() -> int:
         dict(name="tile_match_phases", route="cuda", source="monst3r_slam_torch/csrc/tile_match.cu",
              replaces="scripts/profile_pallas_phases.py:107",
              launches=tmp["launches"], max_abs_err=tmp["max_abs_err"],
+             launches_by_path=dict(phase_profiler=tmp["launches"],
+                                   sam2=sam2_run["launches"]["tile_match_phase_kernel"]),
              ms=full["ms"], plain_ms=full["plain_ms"], bound_ms=full["bound_ms"],
              bound_by=full["bound_by"], library_ms=None, shape=tmp["shape"],
              device_ms=full["device_ms"], phases=tmp["phases"]),
     ]
     print(json.dumps({"main_tracked_run": main_run}), flush=True)
     print(json.dumps({"dynamic_run": dyn, "raft_reference": raft_ref}), flush=True)
+    print(json.dumps({"sam2_run": sam2_run}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {

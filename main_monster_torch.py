@@ -11,25 +11,32 @@
 MASt3R + MonST3R dual inference on shared MonST3R encoder features (X and C
 from MonST3R, D and Q from MASt3R), the optical-flow-vs-ego-motion dynamic
 mask before matching (with `use_dynamic_mask`, which this entry point turns
-on unless the config sets it, and a calibration), refined on the host by the
-native hysteresis + GrabCut refiner and the temporal propagator
-(`refine_dynamic_mask_with_sam2`). Without a checkpoint file a model gets
-random weights from `--seed` (MASt3R), `--seed + 1` (MonST3R).
+on unless the config sets it, and a calibration), refined on the host
+(`refine_dynamic_mask_with_sam2`) under the temporal propagator by SAM2 or
+by the native hysteresis + GrabCut refiner. The models compute in bf16 on
+every device, with bf16 weights under `bf16_params`. Without a checkpoint
+file a model gets random weights from `--seed` (MASt3R), `--seed + 1`
+(MonST3R).
 
 Optical flow: `--raft-checkpoint random` installs RAFT with random weights
 from `--seed + 2` (for testing), an existing file loads a torch RAFT state
-dict, a missing file falls back to OpenCV DIS on the host. SAM2 is not
-ported: `--sam2-checkpoint random`, an existing SAM2 file or
-`sam2_video_predictor: true` raise NotImplementedError; a missing file keeps
-the native refiner, as in the reference.
+dict, a missing file falls back to OpenCV DIS on the host.
+
+Mask refinement: `--sam2-checkpoint random` installs SAM2 at its test size
+with random weights from `--seed + 3` (the video predictor's from `--seed +
+4`; for testing), an existing file loads the official Hiera-B+ checkpoint;
+with `sam2_video_predictor: true` in the config the video predictor refines
+(`sam2_carry_memory` keeps its memory across frames), else the image
+refiner. A missing file keeps the native refiner, as in the reference. SAM2
+runs on the same device as the models.
 
 Runs on the first CUDA card unless `--device cpu` is given; with `cuda` and
 no card it fails. Outputs under logs/[<save-as>/] as `main_torch.py`'s, and
 with the debug keys of the config the mask overlays under
 logs/<dataset>/<sequence>/.
 
-`main(argv)` parses the flags, builds the weights and installs the flow;
-`run(...)` drives the dataset, the SLAM loop and the export.
+`main(argv)` parses the flags, builds the weights and installs the flow and
+the refiner; `run(...)` drives the dataset, the SLAM loop and the export.
 """
 
 from __future__ import annotations
@@ -59,25 +66,59 @@ def parse_args(argv=None) -> argparse.Namespace:
                         help="torch RAFT weights; 'random' installs RAFT with random weights "
                         "(for testing); a missing file falls back to OpenCV DIS flow")
     parser.add_argument("--sam2-checkpoint", default="checkpoints/sam2_hiera_base_plus.pt",
-                        help="SAM2 weights (not ported: 'random' or an existing file raise); "
-                        "a missing file keeps the native hysteresis + GrabCut refiner")
+                        help="official SAM2 weights (Hiera-B+) for the mask refinement; "
+                        "'random' installs SAM2_TEST with random weights (for testing); a "
+                        "missing file keeps the native hysteresis + GrabCut refiner")
     parser.add_argument("--max-frames", type=int, default=0)
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     return parser.parse_args(argv)
 
 
-def check_sam2(sam2_checkpoint: str, cfg: dict) -> None:
-    """Refuse every SAM2 setting; a missing SAM2 file keeps the native
-    refiner."""
-    if bool(cfg.get("sam2_video_predictor", False)):
-        raise NotImplementedError("SAM2 (sam2_video_predictor) is not ported to the "
-                                  "PyTorch package yet")
-    if sam2_checkpoint == "random" or pathlib.Path(sam2_checkpoint).is_file():
-        raise NotImplementedError(f"SAM2 refinement ({sam2_checkpoint}) is not ported to the "
-                                  "PyTorch package yet")
-    print(f"SAM2 checkpoint {sam2_checkpoint} not found — using the native "
-          "hysteresis+GrabCut refiner")
+def install_sam2(sam2_checkpoint: str, cfg: dict, seed: int, device):
+    """SAM2 refinement of the dynamic mask, installed as the reference
+    installs it: 'random' gives SAM2_TEST weights from `seed`, an existing
+    file SAM2_BASE_PLUS through the checkpoint converter. With the config's
+    `sam2_video_predictor` the video predictor refines (VIDEO_TEST weights
+    from `seed + 1` with 'random'; `sam2_carry_memory` keeps its memory
+    across frames), else the image refiner. The weights live on `device`. A
+    missing file keeps the native hysteresis + GrabCut refiner. Returns the
+    installed refiner, or None."""
+    from monst3r_slam_torch.dynamic import mask as dyn_mask
+    from monst3r_slam_torch.dynamic import sam2 as sam2_mod
+    from monst3r_slam_torch.dynamic import sam2_video as sam2v
+
+    use_video = bool(cfg.get("sam2_video_predictor", False))
+    vparams = None
+    if sam2_checkpoint == "random":
+        scfg, vcfg = sam2_mod.SAM2_TEST, sam2v.VIDEO_TEST
+        params = sam2_mod.init_sam2_params(torch.Generator(device=device).manual_seed(seed), scfg)
+        if use_video:
+            vparams = sam2v.init_video_params(
+                torch.Generator(device=device).manual_seed(seed + 1), scfg, vcfg)
+        origin = "(random init — testing only)"
+    elif pathlib.Path(sam2_checkpoint).is_file():
+        scfg, vcfg = sam2_mod.SAM2_BASE_PLUS, sam2v.VIDEO_BASE_PLUS
+        if use_video:
+            params, vparams = sam2v.video_params_from_torch(sam2_checkpoint, scfg, vcfg,
+                                                            device=device)
+        else:
+            params = sam2_mod.sam2_params_from_torch(sam2_checkpoint, scfg, device=device)
+        origin = f"from {sam2_checkpoint}"
+    else:
+        dyn_mask.set_mask_refiner(None)
+        print(f"SAM2 checkpoint {sam2_checkpoint} not found — using the native "
+              "hysteresis+GrabCut refiner")
+        return None
+    if use_video:
+        refiner = sam2v.Sam2VideoRefiner(params, vparams, scfg, vcfg,
+                                         carry_memory=bool(cfg.get("sam2_carry_memory", False)))
+        print(f"SAM2 VIDEO-predictor refiner installed {origin}")
+    else:
+        refiner = sam2_mod.Sam2Refiner(params, scfg)
+        print(f"SAM2 refiner installed {origin}")
+    dyn_mask.set_mask_refiner(refiner)
+    return refiner
 
 
 def install_flow(raft_checkpoint: str, seed: int, device) -> None:
@@ -123,17 +164,17 @@ def main(argv=None):
 
     cfg = load_config(args.config)
     cfg.setdefault("use_dynamic_mask", True)
-    check_sam2(args.sam2_checkpoint, cfg)
     mast3r, mast3r_cfg = main_torch.load_or_random(args.checkpoint, MAST3R_512, args.seed,
                                                    args.device)
     monst3r, monst3r_cfg = main_torch.load_or_random(args.monst3r_checkpoint, MONST3R_512,
                                                      args.seed + 1, args.device)
-    # The models compute in bf16 on the card; the weights are stored so.
-    dtype = torch.bfloat16 if args.device == "cuda" else torch.float32
-    if cfg.get("bf16_params", True) and args.device == "cuda":
+    # As in the reference, the models compute in bf16 on every device, and
+    # `bf16_params` stores their weights so.
+    if cfg.get("bf16_params", True):
         mast3r, monst3r = cast_params_for_inference(mast3r), cast_params_for_inference(monst3r)
     install_flow(args.raft_checkpoint, args.seed + 2, args.device)
-    return run(args, cfg, DualParams(monst3r, monst3r_cfg, mast3r, mast3r_cfg), dtype=dtype)
+    install_sam2(args.sam2_checkpoint, cfg, args.seed + 3, args.device)
+    return run(args, cfg, DualParams(monst3r, monst3r_cfg, mast3r, mast3r_cfg))
 
 
 if __name__ == "__main__":

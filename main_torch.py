@@ -7,9 +7,11 @@
                          [--max-frames N] [--seed S] [--device cuda|cpu]
 
 Runs on the first CUDA card unless `--device cpu` is given; with `cuda` and
-no card it fails. Without the checkpoint file the model gets random weights
-from `--seed`. The live viewer is not ported: without `--no-viz` one line
-says so and the run is headless.
+no card it fails. The model computes in bf16 on every device, as `main.py`,
+with its weights stored in bf16 under the config's `bf16_params`. Without
+the checkpoint file the model gets random weights from `--seed`. The live
+viewer is not ported: without `--no-viz` one line says so and the run is
+headless.
 
 Outputs under logs/[<save-as>/]: <seq>.txt (keyframe trajectory, TUM
 format), <seq>_full.txt (every frame), <seq>.ply (the keyframe pointmaps
@@ -170,11 +172,11 @@ def main(argv=None):
 
     cfg = load_config(args.config)
     params, model_cfg = load_or_random(args.checkpoint, MAST3R_512, args.seed, args.device)
-    # The model computes in bf16 on the card; the weights are stored so.
-    dtype = torch.bfloat16 if args.device == "cuda" else torch.float32
-    if cfg.get("bf16_params", True) and args.device == "cuda":
+    # As in the reference, the model computes in bf16 on every device, and
+    # `bf16_params` stores its weights so.
+    if cfg.get("bf16_params", True):
         params = cast_params_for_inference(params)
-    return run(args, cfg, params, model_cfg, dtype=dtype)
+    return run(args, cfg, params, model_cfg)
 
 
 if __name__ == "__main__":

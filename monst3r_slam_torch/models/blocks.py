@@ -4,7 +4,8 @@ Port of the JAX package's `models/blocks.py`. Parameters are plain dicts of
 tensors; linear weights are stored torch-style, (out, in), and applied with
 `F.linear` (`models/convert.py` transposes the JAX (in, out) layout).
 Layernorm runs in float32 whatever the compute type; GELU is the exact (erf)
-variant. Tokens are (B, N, D), heads (B, H, N, hd).
+variant. In bf16 the products, bias additions and GELU steps round where the
+reference's bf16 program rounds them. Tokens are (B, N, D), heads (B, H, N, hd).
 """
 
 from __future__ import annotations
@@ -20,7 +21,10 @@ from monst3r_slam_torch.ops.attention import sdpa
 
 def linear(p, x: torch.Tensor) -> torch.Tensor:
     b = p.get("b")
-    return F.linear(x, p["w"].to(x.dtype), None if b is None else b.to(x.dtype))
+    if b is None or x.dtype == torch.float32:
+        return F.linear(x, p["w"].to(x.dtype), None if b is None else b.to(x.dtype))
+    # In bf16 the reference rounds the product to bf16 before it adds the bias.
+    return F.linear(x, p["w"].to(x.dtype)) + b.to(x.dtype)
 
 
 def layernorm(p, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -28,8 +32,17 @@ def layernorm(p, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     return y.to(x.dtype)
 
 
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """Exact (erf) GELU. In bf16 each step of the reference's formula,
+    0.5 x erfc(-x sqrt(1/2)), is rounded to bf16, as the reference rounds it."""
+    if x.dtype == torch.float32:
+        return F.gelu(x, approximate="none")
+    sqrt_half = float(torch.tensor(0.5**0.5, dtype=x.dtype))
+    return 0.5 * x * torch.special.erfc(x * -sqrt_half)
+
+
 def mlp(p, x: torch.Tensor) -> torch.Tensor:
-    return linear(p["fc2"], F.gelu(linear(p["fc1"], x), approximate="none"))
+    return linear(p["fc2"], gelu(linear(p["fc1"], x)))
 
 
 def _heads_split(x: torch.Tensor, n_heads: int) -> torch.Tensor:

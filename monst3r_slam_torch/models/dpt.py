@@ -15,15 +15,24 @@ import torch.nn.functional as F
 from monst3r_slam_torch.models.config import ModelConfig
 
 
+def _add_bias(y: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return y + b.to(y.dtype)[:, None, None]
+
+
 def conv2d(p, x: torch.Tensor, stride: int = 1, padding: int = 0) -> torch.Tensor:
     b = p.get("b")
-    return F.conv2d(x, p["w"].to(x.dtype), None if b is None else b.to(x.dtype),
-                    stride=stride, padding=padding)
+    if b is None or x.dtype == torch.float32:
+        return F.conv2d(x, p["w"].to(x.dtype), None if b is None else b.to(x.dtype),
+                        stride=stride, padding=padding)
+    # In bf16 the reference rounds the convolution to bf16 before it adds the bias.
+    return _add_bias(F.conv2d(x, p["w"].to(x.dtype), stride=stride, padding=padding), b)
 
 
 def conv_transpose_exact(p, x: torch.Tensor, factor: int) -> torch.Tensor:
     """ConvTranspose2d with kernel == stride == factor (no overlap)."""
-    return F.conv_transpose2d(x, p["w"].to(x.dtype), p["b"].to(x.dtype), stride=factor)
+    if x.dtype == torch.float32:
+        return F.conv_transpose2d(x, p["w"].to(x.dtype), p["b"].to(x.dtype), stride=factor)
+    return _add_bias(F.conv_transpose2d(x, p["w"].to(x.dtype), stride=factor), p["b"])
 
 
 def _interp_matrix(n_out: int, n_in: int, dtype, device) -> torch.Tensor:

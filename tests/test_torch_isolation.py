@@ -20,7 +20,8 @@ import monst3r_slam_torch
 names = [m.name for m in pkgutil.walk_packages(monst3r_slam_torch.__path__, "monst3r_slam_torch.")]
 for name in names:
     importlib.import_module(name)
-assert {"monst3r_slam_torch.dynamic." + m for m in ("inference", "mask", "raft", "refine")} \
+assert {"monst3r_slam_torch.dynamic." + m
+        for m in ("inference", "mask", "raft", "refine", "sam2", "sam2_video")} \
     | {"monst3r_slam_torch.viz.debug"} <= set(names), names
 import chip_smoke
 import main_monster_torch

@@ -5,7 +5,8 @@ bootstrapping retrieval database) through `main(argv)` with `--device cpu
 --no-viz`. The export must be written and well-formed (TUM keyframe and
 full trajectories, a binary PLY, one PNG per keyframe), and the trajectory
 must equal that of the port's SLAMSystem driven directly on the same frames
-with the same weights. The JAX-vs-port comparison of the pipeline is the
+with the same weights, both in bf16 as `main.py` computes on every device.
+The JAX-vs-port comparison of the pipeline is the
 oracle twins' (tests/test_torch_slam.py and the tests beside it)."""
 
 import pathlib
@@ -20,7 +21,7 @@ from monst3r_slam_torch.app.config import load_config
 from monst3r_slam_torch.app.pipeline import SLAMSystem
 from monst3r_slam_torch.data.datasets import load_dataset
 from monst3r_slam_torch.data.preprocess import resize_img
-from monst3r_slam_torch.models.convert import load_checkpoint
+from monst3r_slam_torch.models.convert import cast_params_for_inference, load_checkpoint
 from monst3r_slam_torch.slam import retrieval
 from tests.test_torch_checkpoint import write_tiny_checkpoint
 from tests.test_torch_slam import one_torch_thread  # noqa: F401
@@ -42,16 +43,18 @@ def _write_frames(d: pathlib.Path):
 
 
 def _drive_directly(dataset_dir: pathlib.Path, ckpt: pathlib.Path):
-    """The SLAMSystem of `main_torch.run`, driven frame by frame by hand."""
+    """The SLAMSystem of `main_torch.run`, driven frame by frame by hand, in
+    bf16 with the weights cast (base.yaml's `bf16_params`) as the CLI runs."""
     cfg = load_config(str(ROOT / "config/base.yaml"))
     params, model_cfg = load_checkpoint(str(ckpt))
+    params = cast_params_for_inference(params)
     dataset = load_dataset(str(dataset_dir))
     slam = SLAMSystem(
         params=params, model_cfg=model_cfg, cfg=dict(cfg),
         img_size=tuple(dataset.get_img_shape()[0]),
         retrieval_params=retrieval.init_retrieval_params(
             torch.Generator().manual_seed(1), model_cfg.enc_dim, device="cpu"),
-        retrieval_db=retrieval.ASMKDatabase.from_config(cfg), device="cpu", dtype=torch.float32,
+        retrieval_db=retrieval.ASMKDatabase.from_config(cfg), device="cpu",
     )
     for i in range(N_FRAMES):
         ts, img = dataset[i]
@@ -95,6 +98,27 @@ def test_main_torch_writes_the_export(tmp_path, monkeypatch):
     np.testing.assert_array_equal(slam.full_trajectory()[1], ref.full_trajectory()[1])
     for a, b in zip(slam.keyframe_trajectory(), ref.keyframe_trajectory()):
         np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("bf16_params", [True, False])
+def test_main_torch_computes_in_bf16_on_the_cpu(tmp_path, monkeypatch, bf16_params):
+    """As `main.py` on every device: the model computes in bf16, and
+    `bf16_params` (base.yaml: on) stores its weights in bf16."""
+    seq = tmp_path / "seq"
+    _write_frames(seq)
+    ckpt = tmp_path / "tiny.pth"
+    write_tiny_checkpoint(ckpt)
+    cfg = tmp_path / "cfg.yaml"
+    cfg.write_text(f"inherit: {ROOT / 'config/base.yaml'}\nbf16_params: {bf16_params}\n"
+                   "single_thread: True\n")
+    monkeypatch.chdir(tmp_path)
+    slam, _ = main_torch.main(["--dataset", str(seq), "--config", str(cfg), "--checkpoint",
+                               str(ckpt), "--max-frames", "1", "--device", "cpu", "--no-viz"])
+    assert slam.dtype == torch.bfloat16
+    weights = {slam.params["enc_blocks"][0]["attn"]["qkv"]["w"].dtype,
+               slam.params["head1"]["dpt"]["head"]["conv3"]["w"].dtype}
+    assert weights == {torch.bfloat16 if bf16_params else torch.float32}
+    assert slam.params["enc_blocks"][0]["attn"]["qkv"]["b"].dtype == torch.float32
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="a card is present")

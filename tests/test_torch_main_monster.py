@@ -6,7 +6,7 @@ refinement, every fourth frame, both debug overlays on) and `--raft-checkpoint
 random`, through `main(argv)` with `--device cpu --no-viz`. The export and the
 overlays must be written and well-formed. The JAX-vs-port comparison of the
 dynamic pipeline is tests/test_torch_pipeline_dynamic.py's; here the
-entry point's plumbing, its refusals of SAM2 and its flow fallbacks."""
+entry point's plumbing, its SAM2 installs and its flow fallbacks."""
 
 import argparse
 import dataclasses
@@ -108,18 +108,116 @@ def test_main_monster_torch_writes_the_export_and_overlays(tmp_path, monkeypatch
     assert cv2.imread(str(masks[0])).shape == (*slam.img_size, 3)
 
 
-@pytest.mark.parametrize("setting", ["random", "file", "video"])
-def test_main_monster_torch_refuses_sam2(tmp_path, setting):
-    ckpt = tmp_path / "sam2.pt"
-    ckpt.write_bytes(b"")
-    cfg = tmp_path / "video.yaml"
-    cfg.write_text(f"inherit: {ROOT / 'config/base.yaml'}\nsam2_video_predictor: true\n")
-    argv = ["--dataset", str(tmp_path), "--device", "cpu", "--no-viz",
-            "--sam2-checkpoint", {"random": "random", "file": str(ckpt)}.get(setting, "none.pt")]
-    if setting == "video":
-        argv += ["--config", str(cfg)]
-    with pytest.raises(NotImplementedError, match="SAM2"):
-        main_monster_torch.main(argv)
+def _sam2_run(tmp_path, monkeypatch, setting, n_frames=5, extra=""):
+    """main_monster_torch.main on the CPU with TINY checkpoints, random RAFT,
+    the calibration, base.yaml's refinement under the temporal propagator
+    and the SAM2 `setting`; returns (slam, the installed refiner, stdout
+    lines). A synthetic checkpoint file is read at SAM2_TEST / VIDEO_TEST
+    width (the CLI reads a file at Hiera-B+ width, 80 M weights: here its
+    configs are patched to the test ones, which the file is made at)."""
+    from monst3r_slam_torch.dynamic import sam2 as sam2_mod
+    from monst3r_slam_torch.dynamic import sam2_video as sam2v
+
+    seq = tmp_path / "seq"
+    _write_frames(seq, n_frames)
+    mast3r, monst3r = tmp_path / "mast3r.pth", tmp_path / "monst3r.pth"
+    write_tiny_checkpoint(mast3r)
+    write_tiny_monst3r_checkpoint(monst3r)
+    calib = tmp_path / "calib.yaml"
+    calib.write_text("width: 64\nheight: 8\nfx: 60.0\nfy: 60.0\ncx: 32.0\ncy: 4.0\n")
+    cfg = tmp_path / "cfg.yaml"
+    video = setting.startswith("video")
+    cfg.write_text(f"inherit: {ROOT / 'config/base.yaml'}\nsingle_thread: True\n"
+                   f"sam2_video_predictor: {video}\n"
+                   f"sam2_carry_memory: {setting == 'video_carry'}\n{extra}")
+    ckpt = "random"
+    if setting in ("file", "video_file"):
+        monkeypatch.setattr(sam2_mod, "SAM2_BASE_PLUS", sam2_mod.SAM2_TEST)
+        monkeypatch.setattr(sam2v, "VIDEO_BASE_PLUS", sam2v.VIDEO_TEST)
+        gen = torch.Generator().manual_seed(5)
+        sd = sam2_state_dict(sam2_mod.init_sam2_params(gen, sam2_mod.SAM2_TEST),
+                             sam2v.init_video_params(gen, sam2_mod.SAM2_TEST, sam2v.VIDEO_TEST))
+        ckpt = str(tmp_path / "sam2.pt")
+        torch.save({"model": sd}, ckpt)
+    monkeypatch.chdir(tmp_path)
+    try:
+        slam, _ = main_monster_torch.main([
+            "--dataset", str(seq), "--config", str(cfg), "--calib", str(calib), "--checkpoint",
+            str(mast3r), "--monst3r-checkpoint", str(monst3r), "--raft-checkpoint", "random",
+            "--sam2-checkpoint", ckpt, "--device", "cpu", "--no-viz"])
+        refiner = dyn_mask._mask_refiner
+    finally:
+        dyn_mask.set_flow_estimator(None)
+        dyn_mask.set_flow_error_program(None)
+        dyn_mask.set_mask_refiner(None)
+    return slam, refiner
+
+
+def sam2_state_dict(params, vparams) -> dict:
+    """An official-layout SAM2 state dict of the port's image and video
+    parameters (the reverse of `sam2_params_from_torch` and
+    `video_params_from_torch`)."""
+    from tests.test_sam2 import _fabricate_torch_sd
+    from tests.test_torch_sam2_video import _video_sd
+
+    def np_tree(t):
+        if isinstance(t, dict):
+            return {k: np_tree(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return type(t)(np_tree(v) for v in t)
+        return t.numpy()
+
+    return _video_sd(np_tree(vparams), _fabricate_torch_sd(np_tree(params), None))
+
+
+@pytest.mark.parametrize("setting", ["random", "file", "video", "video_carry", "video_file"])
+def test_main_monster_torch_installs_sam2(tmp_path, monkeypatch, capsys, setting):
+    """Wherever main_monster_slam.py installs SAM2: `random` (SAM2_TEST from
+    --seed + 3, the video weights from --seed + 4) and a checkpoint file, as
+    the image refiner or, with `sam2_video_predictor`, the video refiner with
+    or without `sam2_carry_memory`. The refiner runs on the masked frames."""
+    from monst3r_slam_torch.dynamic import sam2 as sam2_mod
+    from monst3r_slam_torch.dynamic import sam2_video as sam2v
+
+    slam, refiner = _sam2_run(tmp_path, monkeypatch, setting)
+    printed = capsys.readouterr().out
+    video = setting.startswith("video")
+    kind = "SAM2 VIDEO-predictor refiner" if video else "SAM2 refiner"
+    origin = f"from {tmp_path / 'sam2.pt'}" if setting.endswith("file") else "(random init"
+    assert f"{kind} installed {origin}" in printed
+    assert slam.dyn_refine and slam._mask_propagator is not None
+    if video:
+        assert isinstance(refiner, sam2v.Sam2VideoRefiner)
+        assert refiner.pred.cfg == sam2_mod.SAM2_TEST and refiner.pred.vcfg == sam2v.VIDEO_TEST
+        assert refiner.carry_memory == (setting == "video_carry")
+        params = refiner.pred.params
+    else:
+        assert isinstance(refiner, sam2_mod.Sam2Refiner) and refiner.cfg == sam2_mod.SAM2_TEST
+        params = refiner.params
+    assert refiner.calls >= 1 and len(slam.prof["mask_share"]) >= 1
+    if setting == "random":  # SAM2_TEST from --seed + 3 (--seed 0)
+        want = sam2_mod.init_sam2_params(torch.Generator().manual_seed(3), sam2_mod.SAM2_TEST)
+        assert torch.equal(params["trunk"]["patch_embed"]["w"], want["trunk"]["patch_embed"]["w"])
+    if setting == "video":  # VIDEO_TEST from --seed + 4
+        want = sam2v.init_video_params(torch.Generator().manual_seed(4), sam2_mod.SAM2_TEST,
+                                       sam2v.VIDEO_TEST)
+        assert torch.equal(refiner.pred.vparams["no_obj_ptr"], want["no_obj_ptr"])
+    if setting == "video_carry":
+        # the bank outlives the call, its consumed image dropped
+        assert refiner._state is not None and refiner._state["images"][-1] is None
+
+
+@pytest.mark.parametrize("bf16_params", [True, False])
+def test_main_monster_torch_computes_in_bf16_on_the_cpu(tmp_path, monkeypatch, bf16_params):
+    """As `main_monster_slam.py` on every device: both models compute in
+    bf16, and `bf16_params` (base.yaml: on) stores their weights in bf16."""
+    slam, refiner = _sam2_run(tmp_path, monkeypatch, "random", n_frames=2,
+                              extra=f"bf16_params: {bf16_params}\n")
+    assert slam.dtype == torch.bfloat16
+    want = torch.bfloat16 if bf16_params else torch.float32
+    for params in (slam.dual.mast3r, slam.dual.monst3r):
+        assert params["enc_blocks"][0]["attn"]["qkv"]["w"].dtype == want
+        assert params["head1"]["dpt"]["head"]["conv3"]["w"].dtype == want
 
 
 def test_install_flow_fallbacks(tmp_path, capsys):

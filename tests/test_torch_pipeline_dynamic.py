@@ -17,6 +17,10 @@ applied and becomes a keyframe event. GrabCut draws from OpenCV's global
 RNG, so `cv2.setRNGSeed(frame)` is called before each side's frame, the two
 sides interleaved frame by frame.
 
+A fourth run is the DIS one with the SAM2 image refiner (SAM2_TEST, the
+JAX weights carried over with `sam2_params_from_numpy`) installed on both
+sides, which the temporal propagator then refines with.
+
 Per frame: the same modes, keyframes and graph edges; masks equal except on
 pixels whose error map lies within one uint8 step (1/255) of the threshold
 on either side; the error maps within 1e-4 (DIS) or one uint8 step (RAFT).
@@ -36,6 +40,7 @@ from monst3r_slam_tpu.app.config import load_config as jload_config
 from monst3r_slam_tpu.app.pipeline import SLAMSystem as JSLAM
 from monst3r_slam_tpu.dynamic import mask as jmask
 from monst3r_slam_tpu.dynamic import raft as jraft
+from monst3r_slam_tpu.dynamic import sam2 as jsam2
 from monst3r_slam_tpu.dynamic.inference import DualParams as JDual
 from monst3r_slam_tpu.models import mast3r as jmodel
 from monst3r_slam_tpu.models.config import TINY as JTINY
@@ -45,6 +50,7 @@ from monst3r_slam_torch.app.config import load_config as tload_config
 from monst3r_slam_torch.app.pipeline import SLAMSystem as TSLAM
 from monst3r_slam_torch.dynamic import mask as tmask
 from monst3r_slam_torch.dynamic import raft as traft
+from monst3r_slam_torch.dynamic import sam2 as tsam2
 from monst3r_slam_torch.dynamic.inference import DualParams as TDual
 from monst3r_slam_torch.models.config import TINY as TTINY
 from monst3r_slam_torch.models.convert import params_from_jax
@@ -168,6 +174,32 @@ def test_dynamic_pipeline_dis_matches_jax(jax_f32, monkeypatch):
     js, ts = _systems()
     assert ts._mask_propagator is not None and ts.dyn_refine  # base.yaml refines
     _check(js, ts, jrec, trec, _run_twin(js, ts, jrec, trec), 1e-4)
+
+
+@pytest.fixture
+def sam2_both():
+    """The same SAM2_TEST image refiner (random weights, the default prompt
+    budget and IoU floor) installed on both sides."""
+    jp = jax.jit(jsam2.init_sam2_params, static_argnums=1)(jax.random.PRNGKey(5), jsam2.SAM2_TEST)
+    tref = tsam2.Sam2Refiner(tsam2.sam2_params_from_numpy(jax.tree.map(np.asarray, jp)),
+                             tsam2.SAM2_TEST)
+    jmask.set_mask_refiner(jsam2.Sam2Refiner(jp, jsam2.SAM2_TEST))
+    tmask.set_mask_refiner(tref)
+    yield tref
+    jmask.set_mask_refiner(None)
+    tmask.set_mask_refiner(None)
+
+
+def test_dynamic_pipeline_sam2_refiner_matches_jax(jax_f32, sam2_both, monkeypatch):
+    """The DIS scenario with the SAM2 image refiner installed on both sides:
+    the temporal propagator refines each frame's seeds with it."""
+    jrec, trec = _Recorder(), _Recorder()
+    monkeypatch.setattr(jmask, "flow_error_map", jrec.wrap_map(jmask.flow_error_map))
+    monkeypatch.setattr(tmask, "flow_error_map", trec.wrap_map(tmask.flow_error_map))
+    js, ts = _systems()
+    _check(js, ts, jrec, trec, _run_twin(js, ts, jrec, trec), 1e-4)
+    refiner = sam2_both
+    assert refiner.calls == len(trec.maps) and refiner.replaced + refiner.rejected >= 1
 
 
 @pytest.fixture
