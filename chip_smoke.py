@@ -70,7 +70,23 @@ phase printing one line:
      dynamic phase's full width with the SAM2_BASE_PLUS image refiner
      (random weights), which must be called on every masked frame while
      both kernels launch, and its host-refinement stage beside the native
-     refiner's.
+     refiner's;
+ 10. the Easi3R pipeline as `main_easier_slam.py` runs it, through the port's
+     `main_easier_torch.py` (`phase_easi3r`): the double inference at
+     MONST3R_512 full depth on the card against the CPU path in f32 (token
+     masks equal) and the bf16 masks' difference, pass 1, the double
+     inference and a plain decoder pass timed (device time from
+     torch.profiler) beside the FLOP-counted bound; `main_easier_torch.run`
+     on the dynamic phase's frames and weights, which must track with the
+     attention masks applied and decode keyframe edges, then 3 frames
+     synchronized one by one with 120 kernel A and 1 kernel B launches each;
+     and the CLI unchanged in a subprocess with `--no-viz`;
+ 11. the live viewer (`phase_viewer`): `main_torch.run` on the main phase's
+     tied setup with a started `LiveViewer`, its `/state.bin` and
+     `/frame.bin` fetched over 127.0.0.1 during the run and checked, runs
+     with and without it in turns, `_surfel_snapshot` on the card against
+     the CPU, a run ended by a POSTed terminate, and `main_torch.py`
+     without `--no-viz` in a subprocess.
 
 Random weights carry no geometry: two views of one scene, even one shifted
 by a pixel, decode to pointmaps that do not match, and every frame would be
@@ -84,7 +100,8 @@ of the camera (`front_depth`), which the calibrated tracker and the
 ego-motion flow need, and raises the mask threshold (`DYN_THRESHOLD`).
 
 Then one JSON line with the kernel table (each kernel's launches on every
-path, `sam2` included) and, last, the `{"ok": true, ...}` line. Exits
+path, `sam2`, `easi3r` and `viewer` included) and, last, the
+`{"ok": true, ...}` line. Exits
 non-zero without that line when there is no CUDA device, when the port is
 not importable, or when any phase fails.
 """
@@ -158,6 +175,32 @@ def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     torch.cuda.synchronize()
     torch.cuda._sleep(int(min(1.5 * host_s * iters * SM_CLOCK_HZ, SM_CLOCK_HZ)))
     return _events_ms(fn, iters)
+
+
+def profiled_ms(fn, iters: int = 3, warmup: int = 2) -> tuple:
+    """(device ms, launches) per call: the kernels' own device time summed
+    by torch.profiler over `iters` calls. For a call that launches more
+    kernels than the device's queue holds (~1,000), where `device_ms`'s spin
+    kernel cannot keep the host ahead and its window holds the host's
+    enqueue time too."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us, n = 0.0, 0
+    for ev in prof.key_averages():
+        t = getattr(ev, "self_device_time_total", None)
+        t = ev.self_cuda_time_total if t is None else t
+        if ev.device_type == torch.autograd.DeviceType.CUDA and t > 0:
+            us += t
+            n += ev.count
+    return us / 1e3 / iters, n / iters
 
 
 def bound_ms(n_bytes: float, op_times_s: float) -> tuple:
@@ -1353,6 +1396,449 @@ def phase_sam2(seed: int, card: str, dyn: dict, dual) -> dict:
     return row
 
 
+EASI_DIR = ROOT / "build" / "smoke_easi3r"  # the easi3r phase's logs
+
+
+def easi3r_reference(seed: int) -> dict:
+    """`easi3r_double_inference_pair` at MONST3R_512 full depth on one 384x512
+    pair (a frame and the same frame shifted by 8 px with a square moved),
+    random weights from `--seed + 1` (the CLI's), on the card against the
+    port's CPU path (which the CPU tests hold to the JAX package) on the
+    same encoder features: in f32 on both sides (TF32 off, kernel A's f32
+    route on the card) X and C within 1e-3 of their scale and the token
+    masks equal, with the smallest distance of a token's received attention
+    from its threshold printed; then the card's bf16 run (the pipeline's)
+    against its f32 run, the share of tokens whose mask differs reported.
+    The operations of the double inference are counted on the CPU run
+    (torch.utils.flop_counter, which does not see kernel A's launches on
+    the card). Returns the row and the card's weights and features."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from monst3r_slam_torch.dynamic import easi3r
+    from monst3r_slam_torch.models import mast3r
+    from monst3r_slam_torch.models.config import MONST3R_512
+    from monst3r_slam_torch.models.convert import cast_params_for_inference
+    from monst3r_slam_torch.models.init import init_params
+
+    cfg = MONST3R_512
+    params = init_params(torch.Generator(device="cuda").manual_seed(seed + 1), cfg)
+    img = synthetic_frame(seed, H, W)
+    img2 = np.roll(img, 8, axis=1).copy()
+    img2[150:200, 250:300] = img[100:150, 100:150]
+    x = torch.from_numpy(np.stack([img, img2])).to("cuda")
+    feat, pos = mast3r.encode(params, cfg, x, torch.float32)
+    args = (feat[:1], pos[:1], feat[1:], pos[1:])
+    got = easi3r.easi3r_double_inference_pair(params, cfg, *args, (H, W), dtype=torch.float32)
+    _, _, a1, a2 = easi3r._decode_pair_attn(params, cfg, *args, dtype=torch.float32)
+    torch.cuda.synchronize()
+    pc = _to_device(params, "cpu")
+    cargs = _to_device(args, "cpu")
+    fc = FlopCounterMode(display=False)
+    t0 = time.perf_counter()
+    with fc:
+        ref = easi3r.easi3r_double_inference_pair(pc, cfg, *cargs, (H, W), dtype=torch.float32)
+    cpu_s = time.perf_counter() - t0
+    flops = fc.get_total_flops()
+    _, _, c1, c2 = easi3r._decode_pair_attn(pc, cfg, *cargs, dtype=torch.float32)
+    errs = {n: float((getattr(got, n).cpu() - getattr(ref, n)).abs().max()
+                     / getattr(ref, n).abs().max()) for n in ("X1", "C1", "X2", "C2")}
+    masks_equal = all(torch.equal(getattr(got, n).cpu(), getattr(ref, n))
+                      for n in ("dyn_mask1", "dyn_mask2"))
+    margin = float("inf")
+    for a in (c1, c2):
+        med = easi3r._median(a)
+        thr = med - 2.0 * torch.clamp(easi3r._median((a - med).abs()), min=1e-6)
+        margin = min(margin, float((a - thr).abs().min()))
+    attn_err = max(float((a.cpu() - c).abs().max()) for a, c in ((a1, c1), (a2, c2)))
+    share = [float(getattr(ref, n).float().mean()) for n in ("dyn_mask1", "dyn_mask2")]
+    pb = cast_params_for_inference(params)
+    bf = easi3r.easi3r_double_inference_pair(pb, cfg, *args, (H, W))
+    bf_diff = [float((getattr(bf, n) != getattr(got, n)).float().mean())
+               for n in ("dyn_mask1", "dyn_mask2")]
+    print(f"easi3r reference (MONST3R_512 full depth, {H}x{W}, f32): card vs CPU path X1/C1/X2/C2 "
+          f"within {', '.join(f'{v:.3e}' for v in errs.values())} of scale (tol 1e-3); received "
+          f"attention within {attn_err:.3e}; token masks equal: {masks_equal} (dynamic share "
+          f"{share[0]:.4f} / {share[1]:.4f}; nearest token {margin:.3e} from its threshold); "
+          f"bf16 on the card: masks differ from f32 on {bf_diff[0]:.4f} / {bf_diff[1]:.4f} of "
+          f"the pixels; the CPU side took {cpu_s:.1f} s, {flops / 1e12:.4f} TFLOP counted",
+          flush=True)
+    if not (max(errs.values()) <= 1e-3 and masks_equal):
+        fail("easi3r reference: the card's double inference differs from the CPU path beyond "
+             "the tolerance")
+    row = dict(max_rel_err=errs, attn_max_abs_err=attn_err, masks_equal=masks_equal,
+               mask_share=share, threshold_margin=margin, bf16_mask_differs=bf_diff,
+               cpu_s=cpu_s, flops=flops)
+    return row, pb, args
+
+
+def phase_easi3r(seed: int, card: str, dual) -> dict:
+    """The Easi3R pipeline as `main_easier_slam.py` runs it, through the
+    port's `main_easier_torch.py`, at MAST3R_512 + MONST3R_512 full width
+    and depth:
+      * `easi3r_reference`: the double inference on the card against the
+        CPU path, and its bf16 masks;
+      * pass 1 (the attention statistics), the whole double inference and,
+        beside them, a plain decoder pass (`croco.decode_pair`, what each
+        MASt3R or MonST3R decode runs) timed in bf16 back to back
+        (`time_ms`) and as device time (`profiled_ms`: each call launches
+        thousands of kernels), beside the bound of the operations counted
+        on the CPU run at 989 TFLOP/s bf16 and of the weights' bytes;
+      * `main_easier_torch.run` in this process on the dynamic phase's 8
+        frames (a moving square) with its tied weights and `front_depth`
+        (the MonST3R draw as the Easi3R model) and the calibration: frames
+        must track with the attention masks applied, a keyframe event must
+        decode its edges, kernels A and B must launch (counters zeroed just
+        before, read just after), A only on the bf16 tensor-core route;
+        then 3 more tracked frames synchronized one by one, each launching
+        kernel A 120 times (24 encoder + 24 + 24 in the two Easi3R passes'
+        self-attention + 48 in the MASt3R decode) and B once;
+      * the CLI, unchanged, in a subprocess with random weights on the
+        dynamic phase's 8 PNGs with `--no-viz`: exit 0 and a well-formed
+        export."""
+    import shutil
+    import statistics
+
+    import torch
+
+    import main_easier_torch
+    from monst3r_slam_torch.app import pipeline
+    from monst3r_slam_torch.dynamic import easi3r
+    from monst3r_slam_torch.dynamic.inference import EasiParams
+    from monst3r_slam_torch.models import croco
+    from monst3r_slam_torch.models.config import MAST3R_512, MONST3R_512
+    from monst3r_slam_torch.ops.attention import fused_attention
+    from monst3r_slam_torch.ops.matching_pallas import tile_match_kernel
+
+    row, pb, args = easi3r_reference(seed)
+    cfg = MONST3R_512
+    n_bytes = _tree_bytes(pb) + sum(t.numel() * t.element_size() for t in args)
+    b_ms, b_by = bound_ms(n_bytes, row["flops"] / PEAK_BF16)
+    for name, fn in (("pass1", lambda: easi3r._decode_pair_attn(pb, cfg, *args)),
+                     ("double", lambda: easi3r.easi3r_double_inference_pair(pb, cfg, *args,
+                                                                            (H, W))),
+                     ("plain_decoder", lambda: croco.decode_pair(pb, cfg, *args))):
+        dev, n_launch = profiled_ms(fn)
+        row[name] = dict(ms=time_ms(fn, iters=5, warmup=2), device_ms=dev, launches=n_launch)
+    row.update(bound_ms=b_ms, bound_by=b_by)
+    print(f"easi3r timing (MONST3R_512, {H}x{W}, bf16; {card}): "
+          + "; ".join(f"{name} {row[name]['ms']:.2f} ms back to back, device "
+                      f"{row[name]['device_ms']:.2f} ms in {row[name]['launches']:.0f} launches"
+                      for name in ("pass1", "double", "plain_decoder"))
+          + f"; the double inference's bound {b_ms:.3f} ms ({b_by}; {row['flops'] / 1e12:.4f} "
+          f"TFLOP at {PEAK_BF16 / 1e12:.0f} TFLOP/s bf16, {n_bytes / 1e6:.1f} MB)", flush=True)
+    del pb, args
+
+    ep = EasiParams(dual.monst3r, MONST3R_512, dual.mast3r, MAST3R_512, k_mad=2.0)
+    n = 8
+    shutil.rmtree(ROOT / "logs" / "smoke_easi3r", ignore_errors=True)
+    run_args = main_easier_torch.parse_args([
+        "--dataset", str(DYN_DIR / "tracked"), "--calib", "config/intrinsics.yaml", "--no-viz",
+        "--seed", str(seed), "--save-as", "smoke_easi3r"])
+    tcfg = dynamic_config()
+    share_t = []
+    infer = pipeline.easi3r_asymmetric_inference
+
+    def recording(*a, **k):  # the masked share of C1, read after the run
+        out = infer(*a, **k)
+        share_t.append((out.C1 == 0).float().mean())
+        return out
+
+    pipeline.easi3r_asymmetric_inference = recording
+    torch.cuda.synchronize()
+    counters = (fused_attention, tile_match_kernel)
+    for fn in counters:
+        fn.launches = 0
+    for route in fused_attention.route_launches:
+        fused_attention.route_launches[route] = 0
+    t0 = time.perf_counter()
+    try:
+        slam, frame_ms = main_easier_torch.run(run_args, tcfg, ep)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = {fn.__name__: fn.launches for fn in counters}
+        routes = dict(fused_attention.route_launches)
+        check_export(ROOT / "logs" / "smoke_easi3r", "tracked", n)
+        shares = [float(v) for v in share_t]
+        kf_events = len(slam.prof.get("kf_event", []))
+        n_tracked = sum(1 for v in slam.prof.get("track_dispatch", []))
+        # 3 more frames, each the last keyframe's image, synchronized one by one
+        slam.finalize()
+        uimg = slam.kf_uimgs[slam.n_kf - 1]
+        img = torch.from_numpy((uimg.astype(np.float32) / 255.0 - 0.5) / 0.5).to("cuda")
+        for fn in counters:
+            fn.launches = 0
+        sync_ms = []
+        for i in range(3):
+            t1 = time.perf_counter()
+            slam.process_frame(1000 + i, 0.0, img, uimg=uimg, force_kf=False)
+            torch.cuda.synchronize()
+            sync_ms.append((time.perf_counter() - t1) * 1e3)
+        slam.finalize()
+        split_launches = {fn.__name__: fn.launches for fn in counters}
+        split_modes = slam.mode.name
+    finally:
+        pipeline.easi3r_asymmetric_inference = infer
+    med = statistics.median(frame_ms[1:])
+    row.update(frames=n, seconds=secs, frame_ms=frame_ms, frame_median_ms=med,
+               sync_frame_ms=sync_ms, mask_share=shares, kf_events=kf_events,
+               n_tracked=n_tracked, keyframes=slam.keyframe_trajectory()[1].tolist(),
+               edges=slam.graph.edge_list(), relocs=slam.n_relocs, launches=launches,
+               routes=routes, split_launches=split_launches)
+    print(f"easi3r tracked run ({card}), MAST3R_512 + MONST3R_512 {H}x{W} from 480x640 PNGs: "
+          f"{n} frames in {secs:.2f} s; per-frame host ms (pipelined) "
+          f"{[round(t, 1) for t in frame_ms]}, median after the first {med:.1f}; tracked "
+          f"frames dispatched {n_tracked}; Easi3R mask share of C1 per decode "
+          f"{[round(v, 4) for v in shares]}; keyframes {row['keyframes']}; edges {row['edges']}; "
+          f"keyframe events {kf_events}; relocalizations {slam.n_relocs}/"
+          f"{slam.n_reloc_attempts}; launches {launches}, attention by route {routes}; then 3 "
+          f"frames synchronized one by one: {[round(t, 1) for t in sync_ms]} ms, launches "
+          f"{split_launches}, mode {split_modes}", flush=True)
+    if n_tracked < 4 or kf_events < 1 or not any(i != j for i, j in row["edges"]):
+        fail(f"easi3r tracked run: {n_tracked} frames tracked, {kf_events} keyframe events, "
+             f"edges {row['edges']}")
+    if not any(v > 0 for v in shares):
+        fail(f"easi3r tracked run: no decode masked a pixel: {shares}")
+    if min(launches.values()) < 1 or routes["f32"] != 0:
+        fail(f"easi3r tracked run: a kernel never launched or attention left the bf16 "
+             f"tensor-core route: {launches}, {routes}")
+    if split_modes != "TRACKING" or split_launches != {"fused_attention": 360,
+                                                       "tile_match_kernel": 3}:
+        fail(f"easi3r synchronized frames: mode {split_modes}, launches {split_launches} "
+             "(want 120 and 1 per tracked frame)")
+    if not np.isfinite(slam.full_trajectory()[1]).all():
+        fail("easi3r tracked run: non-finite pose")
+
+    shutil.rmtree(ROOT / "logs" / "smoke_easi3r_cli", ignore_errors=True)
+    n_cli = 8
+    cmd = [sys.executable, "main_easier_torch.py", "--dataset", str(DYN_DIR / "cli"), "--no-viz",
+           "--max-frames", str(n_cli), "--save-as", "smoke_easi3r_cli"]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=420)
+    cli_s = time.perf_counter() - t0
+    if out.returncode != 0:
+        fail(f"main_easier_torch.py exited {out.returncode}:\n{out.stdout[-2000:]}\n"
+             f"{out.stderr[-4000:]}")
+    if "saved results to" not in out.stdout or "live viewer" in out.stdout:
+        fail(f"main_easier_torch.py did not export headless:\n{out.stdout[-2000:]}")
+    n_kf_cli = check_export(ROOT / "logs" / "smoke_easi3r_cli", "cli", n_cli)
+    done = [ln for ln in out.stdout.splitlines() if ln.startswith("done:")]
+    row["cli_s"] = cli_s
+    print(f"easi3r CLI: {' '.join(cmd[1:])}: exit 0 in {cli_s:.1f} s; {done[0] if done else ''}; "
+          f"export well-formed ({n_kf_cli} keyframes, {n_cli} frames)", flush=True)
+    return row
+
+
+def decode_state(blob: bytes) -> dict:
+    """A `/state.bin` snapshot (layout in monst3r_slam_torch/viz/live.py) as
+    arrays; fails unless the blob is exactly as long as its header says."""
+    import struct
+
+    seq, n_p, n_t, n_k, n_s, surf, gh, gw = struct.unpack_from("<8I", blob)
+    out = dict(seq=seq, n_points=n_p, n_traj=n_t, n_kf=n_k, n_seg=n_s, surfel=surf, grid=(gh, gw))
+    off = 32
+    out["pts"] = np.frombuffer(blob, "<f4", n_p * 3, off).reshape(-1, 3)
+    off += n_p * 15
+    off += (4 - off % 4) % 4
+    for name, k in (("traj", n_t * 3), ("kf", n_k * 3), ("segs", n_s * 6)):
+        out[name] = np.frombuffer(blob, "<f4", k, off)
+        off += 4 * k
+    if surf:
+        out["nrm"] = np.frombuffer(blob, "<f4", n_p * 3, off)
+        out["rad"] = np.frombuffer(blob, "<f4", n_p, off + 12 * n_p)
+        off += 16 * n_p
+    if off != len(blob):
+        fail(f"viewer: /state.bin is {len(blob)} bytes, its header says {off}")
+    return out
+
+
+def phase_viewer(seed: int, card: str) -> dict:
+    """The live viewer, the default mode of the three CLIs, on the `main`
+    phase's tied setup (MAST3R_512, 12 frames with noise at frame 6,
+    `main_tracked_config`), through `main_torch.run` with a `LiveViewer`
+    started here (the phase fails if it binds no port):
+      * four runs to the end in turns, without the viewer, with it, with it,
+        without it, for the frame medians with and without it. In the first
+        run with it, a thread fetches `/state.bin` and `/frame.bin` over
+        127.0.0.1 once the first snapshot is up: the header decodes,
+        n_points > 0, every value finite but the NaN holes (whole points
+        under the display threshold), the frame's size right. Pushes and
+        their ms (`prof["viewer_push"]`: the surfel program per keyframe,
+        the read-back, the blob). Counters zeroed just before, read just
+        after the first run with the viewer;
+      * `_surfel_snapshot` on the card against the CPU on that run's keyframe
+        memory: points, radii and confidences within 1e-5 of their scale,
+        normals within 1e-3 on all but 0.1% (a normal turns far where its
+        tangents are nearly parallel);
+      * a run where a thread POSTs {"terminate": true} to `/control` once
+        the first snapshot is up: it must stop before its last frame and
+        still export;
+      * `main_torch.py`, unchanged, in a subprocess without `--no-viz` on 4
+        of the `main` phase's CLI frames: exit 0, the viewer's line printed."""
+    import json
+    import shutil
+    import statistics
+    import struct
+    import threading
+    import urllib.request
+
+    import torch
+
+    import main_torch
+    from monst3r_slam_torch.app.pipeline import _surfel_snapshot
+    from monst3r_slam_torch.models.config import MAST3R_512
+    from monst3r_slam_torch.ops.attention import fused_attention
+    from monst3r_slam_torch.ops.matching_pallas import tile_match_kernel
+    from monst3r_slam_torch.viz.live import LiveViewer
+
+    params = tied_params(MAST3R_512, seed)
+    n = 12
+    tracked_dir = MAIN_DIR / "tracked"  # written by the main phase
+    counters = (fused_attention, tile_match_kernel)
+
+    def tracked_run(save_as: str, viewer=None):
+        shutil.rmtree(ROOT / "logs" / save_as, ignore_errors=True)
+        args = main_torch.parse_args(["--dataset", str(tracked_dir), "--save-as", save_as]
+                                     + ([] if viewer else ["--no-viz"]))
+        torch.cuda.synchronize()
+        for fn in counters:
+            fn.launches = 0
+        for route in fused_attention.route_launches:
+            fused_attention.route_launches[route] = 0
+        t0 = time.perf_counter()
+        slam, frame_ms = main_torch.run(args, main_tracked_config(), params, MAST3R_512,
+                                        viewer=viewer)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = {fn.__name__: fn.launches for fn in counters}
+        return slam, frame_ms, secs, launches, dict(fused_attention.route_launches)
+
+    def viewer_run(save_as: str, on_snapshot):
+        viewer = LiveViewer()
+        port = viewer.start()
+        if port is None:
+            fail("viewer: LiveViewer.start() bound no port in 8089-8104")
+        got = {}
+
+        def client():
+            url = f"http://127.0.0.1:{port}"
+            deadline = time.time() + 300
+            while time.time() < deadline:
+                blob = urllib.request.urlopen(url + "/state.bin", timeout=10).read()
+                if len(blob) > 32 and decode_state(blob)["n_points"] > 0:
+                    got["state"] = blob
+                    got["frame"] = urllib.request.urlopen(url + "/frame.bin", timeout=10).read()
+                    got["page"] = urllib.request.urlopen(url + "/", timeout=10).read()
+                    on_snapshot(url, got)
+                    return
+                time.sleep(0.05)
+
+        th = threading.Thread(target=client, daemon=True)
+        th.start()
+        try:
+            out = tracked_run(save_as, viewer)
+            th.join(timeout=60)
+        finally:
+            viewer.stop()
+        if "state" not in got:
+            fail("viewer: no snapshot with points was served during the run")
+        return out + (viewer, got)
+
+    def noop(url, got):
+        pass
+
+    off1 = tracked_run("smoke_viewer_off")
+    slam, frame_ms, secs, launches, routes, viewer, got = viewer_run("smoke_viewer", noop)
+    on2 = viewer_run("smoke_viewer_2", noop)
+    off2 = tracked_run("smoke_viewer_off")
+    check_export(ROOT / "logs" / "smoke_viewer", "tracked", n)
+    st = decode_state(got["state"])
+    holes = np.isnan(st["pts"]).any(1)
+    finite = (np.isfinite(st["pts"][~holes]).all() and not np.isfinite(st["pts"][holes]).any()
+              and all(np.isfinite(st[k]).all() for k in ("traj", "kf", "segs")))
+    if st["surfel"]:
+        finite = finite and np.isfinite(st["nrm"]).all() and np.isfinite(st["rad"]).all()
+    fw, fh = struct.unpack_from("<2I", got["frame"])
+    header = {k: st[k] for k in ("seq", "n_points", "n_traj", "n_kf", "n_seg", "surfel", "grid")}
+    if not (st["n_points"] > 0 and finite and st["surfel"] == 1
+            and st["n_points"] == st["n_kf"] * st["grid"][0] * st["grid"][1]
+            and len(got["frame"]) == 8 + 3 * fw * fh and (fw, fh) == (256, 192)
+            and b"state.bin" in got["page"]):
+        fail(f"viewer: malformed snapshot: {header}, finite but the holes {finite}, "
+             f"frame {fw}x{fh}")
+    push_ms = slam.prof.get("viewer_push", []) + on2[0].prof.get("viewer_push", [])
+    pushes = viewer._seq + on2[5]._seq
+    medians = [statistics.median(r[1][1:]) for r in (off1, (slam, frame_ms), on2, off2)]
+    row = dict(frames=n, seconds=secs, frame_ms=frame_ms, frame_medians_ms=medians,
+               frame_ms_by_run=[off1[1], frame_ms, on2[1], off2[1]], pushes=pushes,
+               push_ms=push_ms,
+               snapshot=dict(seq=st["seq"], n_points=st["n_points"], holes=int(holes.sum()),
+                             n_traj=st["n_traj"], n_kf=st["n_kf"], grid=st["grid"]),
+               launches=launches, routes=routes)
+    print(f"viewer runs ({card}), MAST3R_512 {H}x{W}, the main phase's tied setup, {n} frames "
+          f"each: {pushes} pushes in the two runs with the viewer at "
+          f"{[round(t, 2) for t in push_ms]} ms; frame medians after the first frame, without / "
+          f"with / with / without the viewer: {' / '.join(f'{m:.1f}' for m in medians)} ms; "
+          f"snapshot served: seq {st['seq']}, {st['n_points']} "
+          f"points ({int(holes.sum())} NaN holes), {st['n_traj']} trajectory points, "
+          f"{st['n_kf']} keyframes, grid {st['grid']}, frame {fw}x{fh}; launches {launches}, "
+          f"attention by route {routes}", flush=True)
+    if min(launches.values()) < 1 or routes["f32"] != 0 or viewer._seq < 2:
+        fail(f"viewer run: launches {launches}, routes {routes}, pushes {viewer._seq}")
+    if len(push_ms) != pushes:
+        fail(f"viewer runs: {len(push_ms)} timed pushes for {pushes} snapshots")
+
+    mem, (h, w) = slam.mem, slam.img_size
+    worst, off_share = 0.0, 0.0
+    for i in range(slam.n_kf):
+        ins = (mem.X_canon[i], mem.C[i], mem.N[i], mem.T_WC[i])
+        a = _surfel_snapshot(*ins, h=h, w=w, stride=2)
+        b = _surfel_snapshot(*(t.cpu() for t in ins), h=h, w=w, stride=2)
+        for k, (x, y) in enumerate(zip(a, b)):
+            x = x.cpu()
+            if k == 1:  # normals
+                off_share = max(off_share, float(((x - y).abs() > 1e-3).any(-1).float().mean()))
+            else:
+                worst = max(worst, float((x - y).abs().max() / y.abs().max()))
+    print(f"viewer surfel program: card vs CPU on {slam.n_kf} keyframes (stride 2): points, "
+          f"radii, confidences within {worst:.3e} of scale (tol 1e-5); normals off by more "
+          f"than 1e-3 on {off_share:.2e} of the points (tol 1e-3)", flush=True)
+    if not (worst <= 1e-5 and off_share <= 1e-3):
+        fail("viewer: the card's surfel program differs from the CPU")
+    row.update(surfel_max_rel_err=worst, surfel_normals_off=off_share)
+
+    def terminate(url, got):
+        req = urllib.request.Request(url + "/control", data=json.dumps({"terminate": True})
+                                     .encode(), method="POST")
+        got["status"] = urllib.request.urlopen(req, timeout=10).status
+
+    slam2, frame_ms2, _, _, _, _, got2 = viewer_run("smoke_viewer_terminate", terminate)
+    n_done = len(slam2.frame_ids)
+    print(f"viewer terminate run: POST /control {got2.get('status')} after the first snapshot; "
+          f"{len(frame_ms2)} of {n} frames run, terminate_requested {slam2.terminate_requested}",
+          flush=True)
+    if not (slam2.terminate_requested and got2.get("status") == 200 and n_done < n):
+        fail(f"viewer: terminate did not end the run early ({n_done} of {n} frames)")
+    check_export(ROOT / "logs" / "smoke_viewer_terminate", "tracked", n_done)
+    row["terminate_frames"] = n_done
+
+    shutil.rmtree(ROOT / "logs" / "smoke_viewer_cli", ignore_errors=True)
+    cmd = [sys.executable, "main_torch.py", "--dataset", str(MAIN_DIR / "cli"), "--max-frames",
+           "4", "--save-as", "smoke_viewer_cli"]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=420)
+    cli_s = time.perf_counter() - t0
+    line = [ln for ln in out.stdout.splitlines() if ln.startswith("live viewer: http://127.0.0.1:")]
+    if out.returncode != 0 or not line:
+        fail(f"main_torch.py without --no-viz: exit {out.returncode}, viewer line {line}:\n"
+             f"{out.stdout[-2000:]}\n{out.stderr[-4000:]}")
+    check_export(ROOT / "logs" / "smoke_viewer_cli", "cli", 4)
+    row["cli_s"] = cli_s
+    print(f"viewer CLI: {' '.join(cmd[1:])}: exit 0 in {cli_s:.1f} s; printed {line[0]!r}",
+          flush=True)
+    return row
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1380,9 +1866,14 @@ def main() -> int:
     raft_ref = phase_raft_reference(args.seed)
     dyn, dual = phase_dynamic(args.seed, card)
     sam2_run = phase_sam2(args.seed, card, dyn, dual)
+    easi3r_run = phase_easi3r(args.seed, card, dual)
+    viewer_run = phase_viewer(args.seed, card)
     by_path = {name: dict(slice=launches[name], main=main_run["launches"][name],
                           dynamic=dyn["launches"][name] + dyn["split"]["launches"][name],
-                          sam2=sam2_run["launches"][name])
+                          sam2=sam2_run["launches"][name],
+                          easi3r=easi3r_run["launches"][name]
+                          + easi3r_run["split_launches"][name],
+                          viewer=viewer_run["launches"][name])
                for name in launches}
     total = {name: sum(paths.values()) for name, paths in by_path.items()}
 
@@ -1421,6 +1912,7 @@ def main() -> int:
     print(json.dumps({"main_tracked_run": main_run}), flush=True)
     print(json.dumps({"dynamic_run": dyn, "raft_reference": raft_ref}), flush=True)
     print(json.dumps({"sam2_run": sam2_run}), flush=True)
+    print(json.dumps({"easi3r_run": easi3r_run, "viewer_run": viewer_run}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {

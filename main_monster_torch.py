@@ -31,9 +31,11 @@ refiner. A missing file keeps the native refiner, as in the reference. SAM2
 runs on the same device as the models.
 
 Runs on the first CUDA card unless `--device cpu` is given; with `cuda` and
-no card it fails. Outputs under logs/[<save-as>/] as `main_torch.py`'s, and
-with the debug keys of the config the mask overlays under
-logs/<dataset>/<sequence>/.
+no card it fails. Unless `--no-viz` is given the live viewer serves the
+reconstruction and the current frame with its dynamic mask at
+http://127.0.0.1:8089/, as in `main_torch.py`. Outputs under
+logs/[<save-as>/] as `main_torch.py`'s, and with the debug keys of the
+config the mask overlays under logs/<dataset>/<sequence>/.
 
 `main(argv)` parses the flags, builds the weights and installs the flow and
 the refiner; `run(...)` drives the dataset, the SLAM loop and the export.

@@ -9,9 +9,10 @@
 Runs on the first CUDA card unless `--device cpu` is given; with `cuda` and
 no card it fails. The model computes in bf16 on every device, as `main.py`,
 with its weights stored in bf16 under the config's `bf16_params`. Without
-the checkpoint file the model gets random weights from `--seed`. The live
-viewer is not ported: without `--no-viz` one line says so and the run is
-headless.
+the checkpoint file the model gets random weights from `--seed`. Unless
+`--no-viz` is given the live viewer serves the reconstruction at
+http://127.0.0.1:8089/ (or the next free port of 16), and its `terminate`
+control ends the frame loop early; the export is still written.
 
 Outputs under logs/[<save-as>/]: <seq>.txt (keyframe trajectory, TUM
 format), <seq>_full.txt (every frame), <seq>.ply (the keyframe pointmaps
@@ -48,13 +49,30 @@ def parse_args(argv=None) -> argparse.Namespace:
     return parser.parse_args(argv)
 
 
+def start_viewer():
+    """A started `LiveViewer` on the first free port from 8089, or None when
+    none of its 16 ports is free."""
+    from monst3r_slam_torch.viz.live import LiveViewer
+
+    viewer = LiveViewer()
+    port = viewer.start()
+    if port is None:
+        print("live viewer: no free port in 8089-8104; running headless")
+        return None
+    print(f"live viewer: http://127.0.0.1:{port}/ (disable with --no-viz)")
+    return viewer
+
+
 def run(args: argparse.Namespace, cfg: dict, params: dict, model_cfg, dtype=torch.bfloat16,
-        dual=None):
+        dual=None, easi3r=None, viewer=None):
     """Dataset -> prefetch -> SLAM loop -> export, with `params` (already on
     `args.device`) and the run config `cfg` (made the global config the
     dataset readers consult); `dual` (MonST3R + MASt3R weights) runs the
-    dynamic pipeline, as `main_monster_torch.py` does. Returns (slam,
-    per-frame host ms)."""
+    dynamic pipeline, as `main_monster_torch.py` does, `easi3r` (Easi3R +
+    MASt3R weights) the Easi3R pipeline, as `main_easier_torch.py` does.
+    Unless `args.no_viz`, the frames are shown by `viewer` or, without one,
+    by a viewer started here and stopped at the end; a `terminate` from it
+    ends the loop early. Returns (slam, per-frame host ms)."""
     from monst3r_slam_torch.app import evaluate
     from monst3r_slam_torch.app.config import set_global_config
     from monst3r_slam_torch.app.pipeline import SLAMSystem
@@ -92,19 +110,25 @@ def run(args: argparse.Namespace, cfg: dict, params: dict, model_cfg, dtype=torc
     else:
         # No pretrained codebook: the database fits one by k-means on the
         # first keyframes' features (retrieval.n_words, bootstrap_frames).
+        # The feature head takes the width of the encoder the frames cache.
+        enc_cfg = (easi3r.easi3r_cfg if easi3r is not None
+                   else dual.monst3r_cfg if dual is not None else model_cfg)
         retr_params = retrieval_mod.init_retrieval_params(
-            torch.Generator().manual_seed(1), model_cfg.enc_dim, device=device)
+            torch.Generator().manual_seed(1), enc_cfg.enc_dim, device=device)
         retr_db = retrieval_mod.ASMKDatabase.from_config(config)
 
     slam = SLAMSystem(params=params, model_cfg=model_cfg, cfg=dict(config), img_size=img_size,
                       K=K, retrieval_params=retr_params, retrieval_db=retr_db, device=device,
-                      dtype=dtype, dual=dual)
+                      dtype=dtype, dual=dual, easi3r=easi3r)
     print(f"backend: {'worker thread' if slam._worker is not None else 'main thread'}, global "
           f"solve {'f64 host' if slam.host_solve else 'f32 device'}, tracking decisions "
           f"{slam.defer_depth} frames late, retrieval "
           f"{'from ' + str(rp) if rp and rp.is_file() else 'codebook bootstrapped by k-means'}")
+    own_viewer = None
     if not args.no_viz:
-        print("live viewer: not ported to the PyTorch package; running headless (--no-viz)")
+        if viewer is None:
+            viewer = own_viewer = start_viewer()
+        slam.viewer = viewer
 
     n = min(len(dataset), args.max_frames) if args.max_frames else len(dataset)
     # Reading and resizing frame t+1 overlaps the device's work on frame t.
@@ -112,13 +136,21 @@ def run(args: argparse.Namespace, cfg: dict, params: dict, model_cfg, dtype=torc
         dataset, uploading_preprocess(lambda img: resize_img(img, dataset.img_size), device), hi=n)
     frame_ms = []
     t0 = time.time()
-    for i, timestamp, out in frames:
-        tf = time.perf_counter()
-        slam.process_frame(i, timestamp, out["img_dev"], uimg=out["unnormalized_img"])
-        frame_ms.append((time.perf_counter() - tf) * 1e3)
-        if i % 30 == 0 and i > 0:
-            print(f"frame {i}/{n}  FPS: {i / (time.time() - t0):.3f}  keyframes: {slam.n_kf}")
-    slam.finalize()  # the last deferred decisions and the backend worker's solves
+    try:
+        for i, timestamp, out in frames:
+            tf = time.perf_counter()
+            slam.process_frame(i, timestamp, out["img_dev"], uimg=out["unnormalized_img"])
+            if slam.terminate_requested:  # the viewer's terminate control: frame i not run
+                print("terminated from viewer")
+                frames.stop()
+                break
+            frame_ms.append((time.perf_counter() - tf) * 1e3)
+            if i % 30 == 0 and i > 0:
+                print(f"frame {i}/{n}  FPS: {i / (time.time() - t0):.3f}  keyframes: {slam.n_kf}")
+        slam.finalize()  # the last deferred decisions and the backend worker's solves
+    finally:
+        if own_viewer is not None:
+            own_viewer.stop()
     elapsed = time.time() - t0
     print(f"done: {n} frames in {elapsed:.1f}s = {n / elapsed:.3f} FPS "
           f"(backend stall {slam.backend_stall_s:.2f}s)")

@@ -29,9 +29,22 @@ that program before its map is read back, so that the decode runs on the
 card while the host thresholds and refines the mask; C, D and Q are then
 zeroed on the frame's masked pixels and on its keyframe's stored mask.
 
+With `easi3r` (the pipeline of `main_easier_slam.py`) frames cache Easi3R
+(DUSt3R-architecture) encoder features, and every pair decode is the
+two-pass attention-reweighted inference for X and C plus the MASt3R decoder
+for D and Q, with the attention masks zeroing C and Q (dynamic/easi3r.py);
+no flow mask, no reuse of the tracking decode for a graph edge.
+
+With a `viewer` (viz/live.py), control messages are applied between frames
+(pause, single step, relocalization, the display threshold, terminate), and
+after a frame at most once a second the keyframe memory is read on the main
+thread into a surfel snapshot (`_surfel_snapshot` per keyframe on the
+device, then to the host) with the trajectory, the frustums and the current
+frame with its dynamic mask.
+
 Not ported, and refused with an error rather than ignored: a mesh across
-more than one card, the LM matcher, the Easi3R pipeline, the dynamic
-pipeline's pointmap debug dumps, SLAM-state files and the live viewer.
+more than one card, the LM matcher, the dynamic pipeline's pointmap debug
+dumps and SLAM-state files.
 """
 
 from __future__ import annotations
@@ -50,7 +63,9 @@ import torch
 
 from monst3r_slam_torch.core import lie
 from monst3r_slam_torch.dynamic import mask as dyn
-from monst3r_slam_torch.dynamic.inference import DualParams, combine, monst3r_asymmetric_inference
+from monst3r_slam_torch.dynamic.inference import (
+    DualParams, EasiParams, combine, easi3r_asymmetric_inference, monst3r_asymmetric_inference,
+)
 from monst3r_slam_torch.models import mast3r as model_api
 from monst3r_slam_torch.models.config import ModelConfig
 from monst3r_slam_torch.native.build import solver_available
@@ -222,6 +237,41 @@ def _match_track_and_update(
     return outs + (idx_f2k, valid_match_k)
 
 
+@torch.no_grad()
+def _surfel_snapshot(X_flat, C, N, T_WC, h: int, w: int, stride: int):
+    """One keyframe's surfels for the live viewer: world points, grid
+    normals (the cross product of the pixel grid's tangents, rotated to the
+    world), footprint radii (the mean neighbour distance times `stride`) and
+    the mean confidence, on the `stride` grid in grid order (row-major over
+    `viewer_grid_dims`), on the memory's device."""
+    X = X_flat.reshape(h, w, 3)
+    # forward differences, the last row and column extrapolated
+    dXu = torch.diff(X, dim=1, append=X[:, -1:] + (X[:, -1:] - X[:, -2:-1]))
+    dXv = torch.diff(X, dim=0, append=X[-1:] + (X[-1:] - X[-2:-1]))
+    n_cam = torch.linalg.cross(dXu, dXv, dim=-1)
+    n_cam = n_cam / torch.clamp(torch.linalg.vector_norm(n_cam, dim=-1, keepdim=True),
+                                min=1e-12)
+    r = 0.5 * (torch.linalg.vector_norm(dXu, dim=-1)
+               + torch.linalg.vector_norm(dXv, dim=-1)) * float(stride)
+    s = T_WC[7]
+    R_pure = lie.sim3_matrix(T_WC)[:3, :3] / s  # normals rotate without the scale
+
+    def grid2d(a):  # (h, w, ...) -> (gh * gw, ...)
+        g = a[::stride, ::stride]
+        return g.reshape((-1,) + tuple(g.shape[2:]))
+
+    Xw = lie.sim3_act(T_WC, grid2d(X))
+    Nw = grid2d(n_cam) @ R_pure.T
+    rad = grid2d(r) * s
+    conf = grid2d(C.reshape(h, w)) / torch.clamp(N.float(), min=1.0)
+    return Xw, Nw, rad, conf
+
+
+def viewer_grid_dims(h: int, w: int, stride: int):
+    """(gh, gw) of `_surfel_snapshot`'s strided grid."""
+    return len(range(0, h, stride)), len(range(0, w, stride))
+
+
 @dataclasses.dataclass
 class SLAMSystem:
     """Holds model params + SLAM state and drives per-frame processing.
@@ -239,11 +289,12 @@ class SLAMSystem:
     kf_capacity: int = 512
     device: str = "cuda"
     dtype: torch.dtype = torch.bfloat16  # model compute type
-    # The dynamic pipeline's MonST3R + MASt3R models (None: the plain MASt3R
-    # pipeline of `params`). The Easi3R models and the live viewer are not
-    # ported and are refused when set.
+    # The dynamic pipeline's MonST3R + MASt3R models, or the Easi3R
+    # pipeline's DUSt3R-architecture + MASt3R models (None: the plain MASt3R
+    # pipeline of `params`).
     dual: Optional[DualParams] = None
-    easi3r: Optional[object] = None
+    easi3r: Optional[EasiParams] = None
+    # The live viewer (viz/live.py LiveViewer); None: headless.
     viewer: Optional[object] = None
     # Synchronize the device at each stage boundary of `prof`, so that the
     # stage times are the device's and not the host's enqueue times (it
@@ -267,7 +318,8 @@ class SLAMSystem:
         self.match_fn = make_matcher(cfg, self.device)
         self.match_mode = matcher_mode(cfg, self.device)
         self.match_tcfg = matching_tiled.TiledConfig()
-        enc_cfg = self.dual.monst3r_cfg if self.dual is not None else self.model_cfg
+        enc_cfg = (self.easi3r.easi3r_cfg if self.easi3r is not None
+                   else self.dual.monst3r_cfg if self.dual is not None else self.model_cfg)
         self.mem = make_keyframe_memory(
             self.kf_capacity, h, w, enc_cfg.enc_dim, enc_cfg.patch_size, device=self.device,
         )
@@ -293,6 +345,10 @@ class SLAMSystem:
 
             self._mask_propagator = TemporalMaskPropagator()
         self._last_dyn_mask: Optional[np.ndarray] = None
+        self._last_viz_push = 0.0
+        # the viewer's control channel (the reference's WindowMsg)
+        self.terminate_requested = False
+        self.viz_C_conf = float(cfg.get("C_conf", 1.5))  # the display filter
         self.kf_uimgs: List[Optional[np.ndarray]] = []  # host uint8 keyframe images
         self.kf_dyn_masks: List[Optional[np.ndarray]] = []  # their dynamic masks
         self.cur_uimg: Optional[np.ndarray] = None
@@ -352,10 +408,8 @@ class SLAMSystem:
                                       or cfg.get("debug_save_3d_pointclouds", False)):
             refuse("the pointmap debug dumps (debug_save_pointmap_visualization, "
                    "debug_save_3d_pointclouds)")
-        if self.easi3r is not None:
-            refuse("the Easi3R pipeline")
-        if self.viewer is not None:
-            refuse("the live viewer")
+        if self.dual is not None and self.easi3r is not None:
+            raise ValueError("SLAMSystem takes the MonST3R (dual) or the Easi3R models, not both")
         matcher_mode(cfg, self.device)  # refuses the LM matcher
 
     # ------------------------------------------------------------------
@@ -363,11 +417,17 @@ class SLAMSystem:
     # ------------------------------------------------------------------
 
     def encode(self, img_nhwc: torch.Tensor):
+        if self.easi3r is not None:  # the Easi3R pipeline caches Easi3R features
+            return model_api.encode(self.easi3r.easi3r, self.easi3r.easi3r_cfg, img_nhwc,
+                                    self.dtype)
         if self.dual is not None:  # the dynamic pipeline caches MonST3R features
             return model_api.encode(self.dual.monst3r, self.dual.monst3r_cfg, img_nhwc, self.dtype)
         return model_api.encode(self.params, self.model_cfg, img_nhwc, self.dtype)
 
     def _decode_pair(self, feat_i, pos_i, feat_j, pos_j):
+        if self.easi3r is not None:
+            return easi3r_asymmetric_inference(self.easi3r, feat_i, pos_i, feat_j, pos_j,
+                                               self.img_size, self.dtype)
         if self.dual is not None:
             return monst3r_asymmetric_inference(self.dual, feat_i, pos_i, feat_j, pos_j,
                                                 self.img_size, self.dtype)
@@ -708,7 +768,11 @@ class SLAMSystem:
         image (numpy or a tensor), `uimg` its uint8 RGB for the keyframe
         exports. `force_kf` overrides the tracker's keyframe decision
         host-side (True: always, False: never, None: the tracker's
-        match-fraction gate)."""
+        match-fraction gate). Does nothing once the viewer asked to
+        terminate."""
+        self._consume_viewer_control()
+        if self.terminate_requested:
+            return
         t0 = time.perf_counter()
         self._apply_backend_results()  # async pose write-back between frames
         self.timestamps.append(timestamp)
@@ -782,10 +846,10 @@ class SLAMSystem:
                    self.mem.C[kf_idx].clone(), self.mem.N[kf_idx].clone())
         # The plain pipeline's pair just decoded is the consecutive graph
         # edge's j->i direction if this frame becomes a keyframe: add_factors
-        # reuses it. The dual pipeline masks C/D/Q after the decode, so its
-        # edges are decoded afresh.
+        # reuses it. The dual and Easi3R pipelines mask C/D/Q after the
+        # decode, so their edges are decoded afresh.
         track_pair = None
-        if self.dual is None:
+        if self.dual is None and self.easi3r is None:
             track_pair = dict(kf_idx=kf_idx, out=out, idx=idx_f2k, valid=valid_match_k)
         self._pending.append(dict(
             frame_id=frame_id, frame=frame, res=res, summary=summary, uimg=uimg,
@@ -946,6 +1010,76 @@ class SLAMSystem:
         if isinstance(T_WC, torch.Tensor):
             T_WC = T_WC.cpu().numpy()
         self.frame_poses.append(np.array(T_WC, np.float32))
+        self._maybe_push_viewer()
+
+    # ------------------------------------------------------------------
+    # Live viewer
+    # ------------------------------------------------------------------
+
+    def _consume_viewer_control(self):
+        """Apply the viewer's pending control messages between frames: the
+        display threshold, terminate, relocalization, and pause (hold here
+        until resumed, stepped or terminated)."""
+        if (self.viewer is None or not hasattr(self.viewer, "poll_control")
+                or self.terminate_requested):  # a paused viewer must not block shutdown
+            return
+        while True:
+            msg = self.viewer.poll_control()
+            if msg.get("C_conf") is not None:
+                self.viz_C_conf = float(msg["C_conf"])
+            if msg.get("terminate"):
+                self.terminate_requested = True
+                return
+            if msg.get("reloc") and self.mode == Mode.TRACKING:
+                self.mode = Mode.RELOC
+                self.idx_f2k = None
+                if self._mask_propagator is not None:
+                    self._mask_propagator.reset()
+            if not msg.get("pause") or msg.get("step"):
+                return
+            time.sleep(0.05)  # paused: hold between frames until resume or step
+
+    def _maybe_push_viewer(self, min_interval_s: float = 1.0):
+        """At most once per `min_interval_s`: the keyframe memory as a surfel
+        snapshot of about 200k points (strided per keyframe, in grid order,
+        points under the display threshold NaN so that the mesh mode keeps
+        its holes), the trajectory, the keyframe frustums, and the current
+        frame with its dynamic mask. Reads each keyframe's four outputs back
+        from the device, which waits for the work queued before them."""
+        if self.viewer is None:
+            return
+        now = time.time()
+        if now - self._last_viz_push < min_interval_s:
+            return
+        n = self.mem.count
+        if n == 0:
+            return
+        self._last_viz_push = now
+        t0 = time.perf_counter()
+        h, w = self.img_size
+        stride = max(1, int(np.ceil(np.sqrt(n * self.hw / 200_000))))
+        gh, gw = viewer_grid_dims(h, w, stride)
+        T = self.mem.T_WC[:n].cpu().numpy()
+        cols = self.keyframe_colors().reshape(n, h, w, 3)[:, ::stride, ::stride].reshape(n, -1, 3)
+        if self.cur_uimg is not None and hasattr(self.viewer, "update_frame"):
+            self.viewer.update_frame(self.cur_uimg, self._last_dyn_mask)
+        pts, nrm, rad = [], [], []
+        for i in range(n):
+            Xw, Nw, R, conf = (t.cpu().numpy() for t in _surfel_snapshot(
+                self.mem.X_canon[i], self.mem.C[i], self.mem.N[i], self.mem.T_WC[i],
+                h=h, w=w, stride=stride))
+            Xw[conf <= self.viz_C_conf] = np.nan  # mesh holes; the splat mode skips NaNs
+            pts.append(Xw)
+            nrm.append(Nw)
+            rad.append(R)
+        traj = (np.stack(self.frame_poses)[:, :3] if self.frame_poses
+                else np.zeros((0, 3), np.float32))
+        self.viewer.update(
+            np.concatenate(pts), cols.reshape(-1, 3), traj=traj, kf_centers=T[:, :3],
+            kf_segments=type(self.viewer).frustum_segments(T),
+            normals=np.concatenate(nrm), radii=np.concatenate(rad), grid=(gh, gw),
+        )
+        self.prof.setdefault("viewer_push", []).append((time.perf_counter() - t0) * 1e3)
 
     # ------------------------------------------------------------------
     # Export

@@ -68,16 +68,35 @@ def self_attention(p, x: torch.Tensor, pos: torch.Tensor, n_heads: int,
 
 
 def cross_attention(p, x: torch.Tensor, mem: torch.Tensor, xpos: torch.Tensor,
-                    mpos: torch.Tensor, n_heads: int, rope_freq: Optional[float]) -> torch.Tensor:
+                    mpos: torch.Tensor, n_heads: int, rope_freq: Optional[float],
+                    mem_bias: Optional[torch.Tensor] = None, return_attn_colsum: bool = False):
     """Separate q/k/v projections; queries from x, keys/values from mem.
-    The reference's Easi3R bias / column-sum branch is not on this path."""
+
+    `mem_bias` (B, Nk) is added to every query's logits (Easi3R's
+    re-weighting of dynamic memory tokens). `return_attn_colsum` also
+    returns the attention mass each memory token receives, summed over the
+    queries and averaged over the heads, (B, Nk) in f32. Either one takes
+    the explicit-logits branch, plain PyTorch as in the reference (which
+    computes it outside its attention kernel): f32 logits from q and k, the
+    bias and the softmax in f32, the probabilities cast to q's type before
+    the product with v. Without them the call goes to `sdpa` (kernel A)."""
     q = _heads_split(linear(p["q"], x), n_heads)
     k = _heads_split(linear(p["k"], mem), n_heads)
     v = _heads_split(linear(p["v"], mem), n_heads)
     if rope_freq is not None:
         q = apply_rope2d(q, xpos, rope_freq)
         k = apply_rope2d(k, mpos, rope_freq)
-    return linear(p["proj"], _heads_merge(sdpa(q, k, v)))
+    if mem_bias is None and not return_attn_colsum:
+        return linear(p["proj"], _heads_merge(sdpa(q, k, v)))
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * q.shape[-1] ** -0.5
+    if mem_bias is not None:
+        logits = logits + mem_bias[:, None, None, :].float()
+    probs = torch.softmax(logits, dim=-1)
+    del logits
+    y = linear(p["proj"], _heads_merge(torch.matmul(probs.to(q.dtype), v)))
+    if return_attn_colsum:
+        return y, probs.sum(dim=(1, 2)) / probs.shape[1]
+    return y
 
 
 def encoder_block(p, x, pos, n_heads: int, rope_freq: float, eps: float) -> torch.Tensor:
@@ -86,11 +105,19 @@ def encoder_block(p, x, pos, n_heads: int, rope_freq: float, eps: float) -> torc
     return x + mlp(p["mlp"], layernorm(p["norm2"], x, eps))
 
 
-def decoder_block(p, x, y, xpos, ypos, n_heads: int, rope_freq: float, eps: float):
-    """Self-attn + cross-attn (memory normalized by `norm_y`) + MLP block."""
+def decoder_block(p, x, y, xpos, ypos, n_heads: int, rope_freq: float, eps: float,
+                  mem_bias: Optional[torch.Tensor] = None, return_attn_colsum: bool = False):
+    """Self-attn + cross-attn (memory normalized by `norm_y`) + MLP block;
+    `mem_bias` and `return_attn_colsum` go to the cross-attention, and with
+    the latter the block returns (x, colsum)."""
     x = x + self_attention(p["attn"], layernorm(p["norm1"], x, eps), xpos, n_heads, rope_freq)
     y_n = layernorm(p["norm_y"], y, eps)
-    x = x + cross_attention(
-        p["cross"], layernorm(p["norm2"], x, eps), y_n, xpos, ypos, n_heads, rope_freq
+    ca = cross_attention(
+        p["cross"], layernorm(p["norm2"], x, eps), y_n, xpos, ypos, n_heads, rope_freq,
+        mem_bias=mem_bias, return_attn_colsum=return_attn_colsum,
     )
-    return x + mlp(p["mlp"], layernorm(p["norm3"], x, eps))
+    if return_attn_colsum:
+        ca, colsum = ca
+    x = x + ca
+    x = x + mlp(p["mlp"], layernorm(p["norm3"], x, eps))
+    return (x, colsum) if return_attn_colsum else x

@@ -26,7 +26,7 @@ from monst3r_slam_tpu.models.config import TINY as JTINY
 from monst3r_slam_torch.app import pipeline as tpipe
 from monst3r_slam_torch.app.config import load_config as tload_config
 from monst3r_slam_torch.core import lie as tlie
-from monst3r_slam_torch.dynamic.inference import DualParams
+from monst3r_slam_torch.dynamic.inference import DualParams, EasiParams
 from monst3r_slam_torch.models import mast3r as tmodel
 from monst3r_slam_torch.models.config import TINY as TTINY
 from tests.test_ate_regression import (
@@ -134,8 +134,10 @@ def test_oracle_slam_matches_jax(jmode, tmode, pose_tol):
 def test_port_refuses_unported_configurations():
     """config/base.yaml as shipped (async worker, `solver: auto`, `mesh:
     auto` on one device) is accepted, and so are the calibrated and
-    host-solve settings and the dynamic pipeline's dual models; what is
-    still unported raises (with the dual models: the pointmap debug dumps)."""
+    host-solve settings, the dynamic pipeline's dual models, the Easi3R
+    models and a viewer; what is still unported raises (with the dual
+    models: the pointmap debug dumps), and so do dual and Easi3R models
+    together."""
     def make(fields=None, **over):
         c = tload_config("config/base.yaml", set_global=False)
         c.update(over)
@@ -149,11 +151,15 @@ def test_port_refuses_unported_configurations():
     make(single_thread=True, local_opt={"solver": "host"})
     dual = {"dual": DualParams({}, TTINY, {}, TTINY)}
     make(dual, single_thread=True)
+    easi3r = {"easi3r": EasiParams({}, TTINY, {}, TTINY)}
+    make(easi3r, single_thread=True)
+    make({"viewer": object()}, single_thread=True)
     for over, fields in (({"parallel": {"mesh": "on"}}, None), ({"matching": {"mode": "lm"}}, None),
-                         ({"debug_save_3d_pointclouds": True}, dual), ({}, {"easi3r": object()}),
-                         ({}, {"viewer": object()})):
+                         ({"debug_save_3d_pointclouds": True}, dual)):
         with pytest.raises(NotImplementedError):
             make(fields, single_thread=True, **over)
+    with pytest.raises(ValueError, match="not both"):
+        make({**dual, **easi3r}, single_thread=True)
     s = make(single_thread=True)
     for method in (s.save_state, s.load_state):
         with pytest.raises(NotImplementedError):
