@@ -1839,10 +1839,426 @@ def phase_viewer(seed: int, card: str) -> dict:
     return row
 
 
+# ---------------------------------------------------------------------------
+# The rest of SLAMSystem: the LM matcher, the fusion modes, the symmetric and
+# fused-head decodes, SLAM-state files and chunked tracking
+# ---------------------------------------------------------------------------
+
+REST_DIR = ROOT / "build" / "smoke_rest"  # the state phase's files
+FUSION_MODES = ("first", "recent", "best_score", "indep_conf", "weighted_pointmap",
+                "weighted_spherical")
+
+
+def _counters():
+    from monst3r_slam_torch.ops.attention import fused_attention
+    from monst3r_slam_torch.ops.matching_pallas import tile_match_kernel, tile_match_phase_kernel
+
+    return fused_attention, tile_match_kernel, tile_match_phase_kernel
+
+
+def zero_counts() -> None:
+    """Every launch counter to 0, after the work queued before."""
+    import torch
+
+    torch.cuda.synchronize()
+    attn = _counters()[0]
+    for fn in _counters():
+        fn.launches = 0
+    for route in attn.route_launches:
+        attn.route_launches[route] = 0
+
+
+def read_counts() -> dict:
+    return {fn.__name__: fn.launches for fn in _counters()}
+
+
+def rest_config(**tracking) -> dict:
+    """`slice_config` (synchronous, the confidence gates open) with the
+    `tracking` keys given: the new phases' configuration."""
+    cfg = slice_config()
+    cfg["tracking"].update(tracking)
+    return cfg
+
+
+def lm_inputs(seed: int):
+    """A 384x512 pair for the LM matcher: a smooth pointmap and the same
+    surface sampled 1.3 px right and 0.4 px down, with unit descriptors
+    (fd 24) drawn from `seed` and shifted one pixel; (1, h, w, c) CPU tensors."""
+    import torch
+
+    def surface(dx, dy):
+        yy, xx = np.mgrid[0:H, 0:W].astype(np.float32)
+        u, v = (xx + dx - W / 2) / 400.0, (yy + dy - H / 2) / 400.0
+        z = 2.0 + 0.3 * np.sin(3 * u) * np.cos(4 * v)
+        return np.stack([u * z, v * z, z], axis=-1)[None].astype(np.float32)
+
+    D = np.random.default_rng(seed).standard_normal((1, H, W, 24)).astype(np.float32)
+    D /= np.linalg.norm(D, axis=-1, keepdims=True)
+    return [torch.from_numpy(a) for a in (surface(0, 0), surface(1.3, 0.4), D,
+                                         np.roll(D, 1, axis=2))]
+
+
+def track_frames(slam, frames, first: int = 0, force_kf_at=()) -> dict:
+    """`process_frame` on each frame, the device synchronized after each:
+    per-frame wall ms, the mode after each and its decision flags."""
+    import torch
+
+    wall, modes, flags = [], [], []
+    for i, img in enumerate(frames, first):
+        t0 = time.perf_counter()
+        slam.process_frame(i, i / 30.0, img, force_kf=True if i in force_kf_at else None)
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+        modes.append(slam.mode.name)
+        flags.append(None if slam.last_summary is None
+                     else [int(x > 0.5) for x in slam.last_summary[8:11]])
+    return dict(wall_ms=wall, modes=modes, flags=flags)
+
+
+def phase_lm(seed: int, card: str, params) -> dict:
+    """The LM matcher (`matching.mode: lm`): `matching.match` on the card
+    against its CPU run on one 384x512 pair (`lm_inputs`), indices and
+    `valid` equal on at least 99.9% of the pixels, the match timed; then the
+    synchronous SLAMSystem at MAST3R_512 full width tracking 6 copies of one
+    frame with the LM matcher (frame 3 a keyframe: its graph edge is
+    matched by LM too), kernel A counted and kernel B never launched."""
+    import torch
+
+    from monst3r_slam_torch.app.pipeline import SLAMSystem
+    from monst3r_slam_torch.models.config import MAST3R_512
+    from monst3r_slam_torch.ops import matching
+
+    args = lm_inputs(seed)
+    t0 = time.perf_counter()
+    ref = matching.match(*args)
+    cpu_s = time.perf_counter() - t0
+    dev = [a.cuda() for a in args]
+    got = matching.match(*dev)
+    idx_eq = float((got[0].cpu() == ref[0]).float().mean())
+    valid_eq = float((got[1].cpu() == ref[1]).float().mean())
+    diff = (got[0].cpu() != ref[0])[0]
+    off = 0
+    if bool(diff.any()):
+        a, b = got[0].cpu()[0][diff], ref[0][0][diff]
+        off = int(torch.maximum((a % W - b % W).abs(), (a // W - b // W).abs()).max())
+    ms = time_ms(lambda: matching.match(*dev), iters=5, warmup=1)
+    print(f"lm match ({card}) {H}x{W}, fd 24, 10 LM steps, radius 3, dilations 5..1: "
+          f"{ms:.3f} ms back to back; card against CPU: indices equal on {idx_eq:.6f}, "
+          f"valid on {valid_eq:.6f} of the pixels (the rest at most {off} px apart); "
+          f"valid share {float(ref[1].float().mean()):.4f}; CPU run {cpu_s:.1f} s", flush=True)
+    if idx_eq < 0.999 or valid_eq < 0.999:
+        fail(f"the LM matcher on the card differs from the CPU on more than 0.1% of the pixels "
+             f"(indices {idx_eq}, valid {valid_eq})")
+
+    img = synthetic_frame(seed, H, W)
+    zero_counts()
+    cfg = rest_config(match_frac_thresh=0.0)
+    cfg["matching"]["mode"] = "lm"
+    slam = SLAMSystem(params=params, model_cfg=MAST3R_512, cfg=cfg, img_size=(H, W),
+                      kf_capacity=16, device="cuda")
+    run = track_frames(slam, [img] * 6, force_kf_at=(3,))
+    launches = read_counts()
+    print(f"lm tracked run ({card}), MAST3R_512 {H}x{W}, 6 frames: per-frame ms "
+          f"{[round(t, 1) for t in run['wall_ms']]}; modes {run['modes']}; keyframes "
+          f"{slam.keyframe_trajectory()[1].tolist()}; global solves {slam.graph.n_solves}; "
+          f"launches {launches}", flush=True)
+    if slam.match_mode != "lm" or run["modes"][1:] != ["TRACKING"] * 5:
+        fail(f"the LM path did not track every frame: {run['modes']}")
+    if slam.graph.n_solves < 1 or not np.isfinite(slam.full_trajectory()[1]).all():
+        fail("the LM path ran no global solve or gave a non-finite pose")
+    if launches["fused_attention"] < 72 * 5 or launches["tile_match_kernel"] != 0:
+        fail(f"the LM path's launches are off: {launches} (kernel A at least 72 a tracked "
+             "frame, kernel B never)")
+    return dict(match_ms=ms, idx_equal=idx_eq, valid_equal=valid_eq, max_px_off=off,
+                cpu_s=cpu_s, wall_ms=run["wall_ms"], launches=launches,
+                tol="indices and valid equal on >= 99.9% of the pixels")
+
+
+def phase_fusion(seed: int, card: str) -> dict:
+    """Each filtering mode of `fuse_pointmap` on the card against the CPU on
+    384x512 keyframe pointmaps, first (N_old 0) and later (N_old 3)
+    observations, `best_score` under both scores: N equal and the median
+    score equal; X and C within 1e-6 of their scale, the mean score within
+    1e-6 of itself. `weighted_spherical` runs on the card's own atan2,
+    arccos, sin and cos, whose results may differ from the CPU's by an ulp;
+    arccos(c) near the poles turns that ulp into 1/sqrt(1 - c^2) of them, so
+    its X is held to 5e-5 of its scale."""
+    import torch
+
+    from monst3r_slam_torch.slam.frame import fuse_pointmap
+
+    rng = np.random.default_rng(seed)
+    hw = H * W
+    cpu = [torch.from_numpy(a) for a in (
+        rng.standard_normal((hw, 3)).astype(np.float32) + np.float32([0, 0, 3]),
+        rng.uniform(0.5, 3.0, (hw, 1)).astype(np.float32),
+        rng.standard_normal((hw, 3)).astype(np.float32) + np.float32([0, 0, 3]),
+        rng.uniform(0.5, 3.0, (hw, 1)).astype(np.float32))]
+    dev = [t.cuda() for t in cpu]
+    worst = {}
+    for mode in FUSION_MODES:
+        for n_old in (0, 3):
+            for fscore in (("median", "mean") if mode == "best_score" else ("median",)):
+                args = (torch.tensor(n_old, dtype=torch.int32), torch.tensor(1.0))
+                r = fuse_pointmap(cpu[0], cpu[1], args[0], cpu[2], cpu[3], mode, args[1], fscore)
+                g = fuse_pointmap(dev[0], dev[1], args[0].cuda(), dev[2], dev[3], mode,
+                                  args[1].cuda(), fscore)
+                g = [t.cpu() for t in g]
+                scale = float(r[0].abs().max())
+                ex, ec = float((g[0] - r[0]).abs().max()), float((g[1] - r[1]).abs().max())
+                es = abs(float(g[3]) - float(r[3]))
+                tol = (5e-5 if mode == "weighted_spherical" else 1e-6) * scale
+                stol = 0.0 if fscore == "median" else 1e-6 * abs(float(r[3]))
+                if ex > tol or ec > 1e-6 * float(r[1].abs().max()) or es > stol or \
+                        int(g[2]) != int(r[2]):
+                    fail(f"fusion {mode} (N_old {n_old}, {fscore}) on the card differs from "
+                         f"the CPU: X {ex} (tol {tol}), C {ec}, score {es}, N {int(g[2])} / "
+                         f"{int(r[2])}")
+                worst[mode] = max(worst.get(mode, 0.0), ex / scale)
+    print(f"fusion modes ({card}), {hw} points, card against CPU, largest X error over its "
+          f"scale: { {m: f'{e:.3g}' for m, e in worst.items()} }", flush=True)
+    return dict(max_rel_err=worst)
+
+
+def phase_decode_sym(seed: int, card: str, params) -> dict:
+    """`inference_sym` and `decode(fused_heads=True)` at MAST3R_512 full
+    width on the card against the separate bf16 decodes of each order: each
+    output within twice the separate decode's own bf16 distance from its
+    f32 run (the bound of tests/test_torch_models_sym.py); then both heads
+    timed, fused (one vmapped pass) and unfused (one after the other)."""
+    import torch
+
+    from monst3r_slam_torch.models import croco, heads, mast3r as model_api
+    from monst3r_slam_torch.models.config import MAST3R_512 as cfg
+
+    imgs = [torch.from_numpy(synthetic_frame(seed + k, H, W))[None].cuda() for k in (0, 1)]
+    (fi, pi), (fj, pj) = (model_api.encode(params, cfg, im) for im in imgs)
+    sep = [model_api.decode(params, cfg, fi, pi, fj, pj, (H, W)),
+           model_api.decode(params, cfg, fj, pj, fi, pi, (H, W))]
+    f32 = [model_api.decode(params, cfg, fi, pi, fj, pj, (H, W), torch.float32),
+           model_api.decode(params, cfg, fj, pj, fi, pi, (H, W), torch.float32)]
+    sym = model_api.inference_sym(params, cfg, fi, pi, fj, pj, (H, W))
+    fused = model_api.decode(params, cfg, fi, pi, fj, pj, (H, W), fused_heads=True)
+    errs = {}
+    for what, outs, refs in (("sym", sym, sep), ("fused", [fused], sep[:1])):
+        for k, (o, s, f) in enumerate(zip(outs, refs, f32)):
+            for name in o._fields:
+                own = float((getattr(s, name).float() - getattr(f, name).float()).abs().max())
+                err = float((getattr(o, name).float() - getattr(s, name).float()).abs().max())
+                errs[f"{what}{k}.{name}"] = (err, own)
+                if not err <= 2.0 * own:
+                    fail(f"{what} {name} (order {k}) on the card is {err} from the separate "
+                         f"decode, over twice its own bf16 distance {own}")
+    dec1, dec2 = croco.decode_pair(params, cfg, fi, pi, fj, pj)
+    n_h, n_w = H // cfg.patch_size, W // cfg.patch_size
+
+    def unfused():
+        return (heads.head_forward(params["head1"], cfg, dec1, n_h, n_w),
+                heads.head_forward(params["head2"], cfg, dec2, n_h, n_w))
+
+    def fused_heads():
+        return model_api._fused_heads(params, cfg, dec1, dec2, n_h, n_w)
+
+    t = {}
+    for name, fn in (("unfused", unfused), ("fused", fused_heads)):
+        dev_ms, n_launch = profiled_ms(fn)
+        t[name] = dict(ms=time_ms(fn, iters=10, warmup=2), device_ms=dev_ms, launches=n_launch)
+    worst = max(errs.items(), key=lambda kv: kv[1][0] / kv[1][1])
+    print(f"decode_sym ({card}) MAST3R_512 {H}x{W} bf16: inference_sym and fused heads within "
+          f"twice the separate decode's bf16 distance (worst {worst[0]}: {worst[1][0]:.4g} of "
+          f"{worst[1][1]:.4g}); both heads unfused {t['unfused']['ms']:.3f} ms back to back, "
+          f"device {t['unfused']['device_ms']:.3f} ms in {t['unfused']['launches']:.0f} launches; "
+          f"fused {t['fused']['ms']:.3f} ms, device {t['fused']['device_ms']:.3f} ms in "
+          f"{t['fused']['launches']:.0f} launches", flush=True)
+    return dict(heads=t, worst=dict(name=worst[0], err=worst[1][0], own=worst[1][1]))
+
+
+def phase_state(seed: int, card: str, params) -> dict:
+    """SLAM-state files at MAST3R_512 full width: 6 tracked frames,
+    `save_state`, a fresh SLAMSystem, `load_state`, 4 more frames, against an
+    uninterrupted run of the 10 (frames 3 and 7 made keyframes, one on each
+    side of the file): the same modes, decision flags and keyframes. The
+    resumed system starts the matcher cold (the file holds no warm start),
+    so its poses are held to 1e-6 against an uninterrupted run whose warm
+    start is dropped after frame 5, and their distance from the plain
+    uninterrupted run's is reported."""
+    import shutil
+
+    from monst3r_slam_torch.app.pipeline import SLAMSystem
+    from monst3r_slam_torch.models.config import MAST3R_512
+
+    img = synthetic_frame(seed, H, W)
+    force = (3, 7)
+
+    def make():
+        return SLAMSystem(params=params, model_cfg=MAST3R_512,
+                          cfg=rest_config(match_frac_thresh=0.0), img_size=(H, W),
+                          kf_capacity=16, device="cuda")
+
+    whole = make()
+    w = track_frames(whole, [img] * 10, force_kf_at=force)
+    cold = make()
+    track_frames(cold, [img] * 6, force_kf_at=force)
+    cold.idx_f2k = None  # what load_state leaves
+    track_frames(cold, [img] * 4, first=6, force_kf_at=force)
+    first = make()
+    a = track_frames(first, [img] * 6, force_kf_at=force)
+    shutil.rmtree(REST_DIR, ignore_errors=True)
+    REST_DIR.mkdir(parents=True)
+    path = REST_DIR / "state.npz"
+    t0 = time.perf_counter()
+    first.save_state(path)
+    save_s = time.perf_counter() - t0
+    rest = make()
+    t0 = time.perf_counter()
+    rest.load_state(path)
+    load_s = time.perf_counter() - t0
+    b = track_frames(rest, [img] * 4, first=6, force_kf_at=force)
+    kf_w, kf_r = whole.keyframe_trajectory()[1].tolist(), rest.keyframe_trajectory()[1].tolist()
+    dpose = float(np.abs(rest.full_trajectory()[1] - cold.full_trajectory()[1]).max())
+    dwarm = float(np.abs(rest.full_trajectory()[1] - whole.full_trajectory()[1]).max())
+    print(f"state ({card}) MAST3R_512 {H}x{W}: file {path.stat().st_size / 1e6:.1f} MB, saved "
+          f"in {save_s:.2f} s, loaded in {load_s:.2f} s; modes {a['modes']} + {b['modes']} "
+          f"against {w['modes']}; keyframes {kf_r} against {kf_w}; poses within {dpose:.3g} of "
+          f"the run with the warm start dropped, {dwarm:.3g} of the uninterrupted run",
+          flush=True)
+    if a["modes"] + b["modes"] != w["modes"] or a["flags"] + b["flags"] != w["flags"]:
+        fail("the resumed run decided otherwise than the uninterrupted one")
+    if kf_r != kf_w or len(kf_w) != 3 or rest.graph.n_solves < 1:
+        fail(f"the resumed run's keyframes {kf_r} are not the uninterrupted run's {kf_w}")
+    if not dpose <= 1e-6:
+        fail(f"the resumed run's poses are {dpose} from the uninterrupted run's with the "
+             "warm start dropped")
+    return dict(max_pose_diff=dpose, max_pose_diff_warm=dwarm,
+                file_mb=path.stat().st_size / 1e6, save_s=save_s, load_s=load_s)
+
+
+def phase_chunked(seed: int, card: str, params) -> dict:
+    """`process_chunk` (chunk 4) over 12 uint8 copies of one frame at
+    MAST3R_512 full width, against the per-frame path with
+    `defer_tracking_sync: 0` on the host-normalized frames: once with the
+    keyframe gate shut (event-free chunks, timed) and once with every frame
+    a keyframe (events inside each chunk: the done flag, re-dispatch from
+    k0). Each chunk's dispatch runs under `torch.cuda.set_sync_debug_mode
+    ("error")`, so a host synchronization inside it fails the phase. The
+    same modes and keyframes, poses within 1e-5; the launch counters are
+    zeroed before each chunked run and read after."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from monst3r_slam_torch.app import chunked
+    from monst3r_slam_torch.app.pipeline import SLAMSystem
+    from monst3r_slam_torch.models.config import MAST3R_512
+
+    u8 = np.uint8(np.round((synthetic_frame(seed, H, W) * 0.5 + 0.5) * 255))
+    host = (u8.astype(np.float32) / 255.0 - 0.5) / 0.5
+    n, chunk = 12, 4
+    track = chunked.chunk_track
+    dispatch_ms = []
+
+    def strict(*a, **k):  # each chunk's dispatch: no host synchronization allowed
+        torch.cuda.set_sync_debug_mode("error")
+        t0 = time.perf_counter()
+        try:
+            return track(*a, **k)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+            dispatch_ms.append((time.perf_counter() - t0) * 1e3)
+
+    def make(thresh):
+        return SLAMSystem(params=params, model_cfg=MAST3R_512,
+                          cfg=rest_config(match_frac_thresh=thresh), img_size=(H, W),
+                          kf_capacity=16, device="cuda")
+
+    def run_chunked(slam, first=0, count=n):
+        wall = []
+        for c0 in range(first, first + count, chunk):
+            ids = list(range(c0, c0 + chunk))
+            t0 = time.perf_counter()
+            slam.process_chunk(ids, [i / 30.0 for i in ids],
+                               torch.from_numpy(np.stack([u8] * chunk)).cuda())
+            torch.cuda.synchronize()
+            wall.append((time.perf_counter() - t0) * 1e3 / chunk)
+        return wall
+
+    def kernel_launches(fn):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return sum(ev.count for ev in prof.key_averages()
+                   if ev.device_type == torch.autograd.DeviceType.CUDA)
+
+    chunked.chunk_track = strict
+    try:
+        out = {}
+        for name, thresh in (("event_free", 0.0), ("every_frame_a_keyframe", 1.0)):
+            ref = make(thresh)
+            ref_run = track_frames(ref, [host] * n)
+            got = make(thresh)
+            zero_counts()
+            n_dispatch = len(dispatch_ms)
+            wall = run_chunked(got)
+            launches = read_counts()
+            dispatches = len(dispatch_ms) - n_dispatch
+            ref.finalize()
+            got.finalize()
+            kf_r, kf_g = ref.keyframe_trajectory()[1].tolist(), got.keyframe_trajectory()[1].tolist()
+            dpose = float(np.abs(got.full_trajectory()[1] - ref.full_trajectory()[1]).max())
+            row = dict(perframe_ms=ref_run["wall_ms"], chunked_ms_per_frame=wall,
+                       dispatches=dispatches, dispatch_ms=dispatch_ms[n_dispatch:],
+                       launches=launches, keyframes=kf_g,
+                       max_pose_diff=dpose, reads=len(got.prof["chunk_sync"]))
+            if name == "event_free":  # launches per frame, per-frame and chunked, 4 frames each
+                row["launches_per_frame"] = dict(
+                    perframe=kernel_launches(lambda: track_frames(ref, [host] * 4, first=n)) / 4,
+                    chunked=kernel_launches(lambda: run_chunked(got, first=n, count=4)) / 4)
+            out[name] = row
+            print(f"chunked {name} ({card}) MAST3R_512 {H}x{W}, {n} frames in chunks of "
+                  f"{chunk}: per-frame path ms {[round(t, 1) for t in ref_run['wall_ms']]}; "
+                  f"chunked ms a frame {[round(t, 1) for t in wall]}; {dispatches} dispatches "
+                  f"(enqueued in {[round(t, 1) for t in row['dispatch_ms']]} ms), "
+                  f"{row['reads']} host reads; keyframes {kf_g} (per-frame {kf_r}); poses "
+                  f"within {dpose:.3g}; launches {launches}"
+                  + (f"; kernel launches a frame {row['launches_per_frame']}"
+                     if "launches_per_frame" in row else ""), flush=True)
+            if got.frame_ids[:n] != ref.frame_ids[:n] or kf_g != kf_r or got.mode != ref.mode:
+                fail(f"chunked {name}: decisions differ from the per-frame path "
+                     f"(keyframes {kf_g} against {kf_r})")
+            if not dpose <= 1e-5:
+                fail(f"chunked {name}: poses {dpose} from the per-frame path's")
+            if min(launches["fused_attention"], launches["tile_match_kernel"]) < 1:
+                fail(f"chunked {name}: a kernel of the path never launched: {launches}")
+            if name == "event_free" and (len(kf_g) != 1 or row["reads"] != n // chunk):
+                fail(f"chunked event_free: {len(kf_g)} keyframes, {row['reads']} host reads")
+            if name != "event_free" and len(kf_g) != n:
+                fail(f"chunked {name}: {len(kf_g)} keyframes, not one a frame")
+    finally:
+        chunked.chunk_track = track
+    return out
+
+
+def phase_rest(seed: int, card: str) -> dict:
+    """The phases of the rest of SLAMSystem, on one tied MAST3R_512 draw."""
+    from monst3r_slam_torch.models.config import MAST3R_512
+
+    t0 = time.perf_counter()
+    params = tied_params(MAST3R_512, seed)
+    out = dict(lm=phase_lm(seed, card, params), fusion=phase_fusion(seed, card),
+               decode_sym=phase_decode_sym(seed, card, params),
+               state=phase_state(seed, card, params),
+               chunked=phase_chunked(seed, card, params))
+    out["seconds"] = time.perf_counter() - t0
+    print(f"rest of SLAMSystem phases: {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--frames", type=int, default=8)
+    ap.add_argument("--only-rest", action="store_true",
+                    help="build the kernels and run only the phases of the rest of SLAMSystem "
+                         "(lm, fusion, decode_sym, state, chunked); prints no result line")
     args = ap.parse_args()
 
     import torch
@@ -1857,6 +2273,11 @@ def main() -> int:
     card = phase_card()
     print(f"card: {card}", flush=True)
     phase_build()
+    if args.only_rest:
+        rest = phase_rest(args.seed, card)
+        print(json.dumps({"rest_run": rest}), flush=True)
+        print(f"card: {card}; only the rest of SLAMSystem's phases ran", flush=True)
+        return 0
     attn = phase_attention(args.seed)
     tm = phase_tile_match(args.seed)
     tmp = phase_tile_match_phases(args.seed)
@@ -1868,12 +2289,15 @@ def main() -> int:
     sam2_run = phase_sam2(args.seed, card, dyn, dual)
     easi3r_run = phase_easi3r(args.seed, card, dual)
     viewer_run = phase_viewer(args.seed, card)
+    rest = phase_rest(args.seed, card)
     by_path = {name: dict(slice=launches[name], main=main_run["launches"][name],
                           dynamic=dyn["launches"][name] + dyn["split"]["launches"][name],
                           sam2=sam2_run["launches"][name],
                           easi3r=easi3r_run["launches"][name]
                           + easi3r_run["split_launches"][name],
-                          viewer=viewer_run["launches"][name])
+                          viewer=viewer_run["launches"][name],
+                          lm=rest["lm"]["launches"][name],
+                          chunked=sum(r["launches"][name] for r in rest["chunked"].values()))
                for name in launches}
     total = {name: sum(paths.values()) for name, paths in by_path.items()}
 
@@ -1904,7 +2328,10 @@ def main() -> int:
              replaces="scripts/profile_pallas_phases.py:107",
              launches=tmp["launches"], max_abs_err=tmp["max_abs_err"],
              launches_by_path=dict(phase_profiler=tmp["launches"],
-                                   sam2=sam2_run["launches"]["tile_match_phase_kernel"]),
+                                   sam2=sam2_run["launches"]["tile_match_phase_kernel"],
+                                   lm=rest["lm"]["launches"]["tile_match_phase_kernel"],
+                                   chunked=sum(r["launches"]["tile_match_phase_kernel"]
+                                               for r in rest["chunked"].values())),
              ms=full["ms"], plain_ms=full["plain_ms"], bound_ms=full["bound_ms"],
              bound_by=full["bound_by"], library_ms=None, shape=tmp["shape"],
              device_ms=full["device_ms"], phases=tmp["phases"]),
@@ -1913,6 +2340,7 @@ def main() -> int:
     print(json.dumps({"dynamic_run": dyn, "raft_reference": raft_ref}), flush=True)
     print(json.dumps({"sam2_run": sam2_run}), flush=True)
     print(json.dumps({"easi3r_run": easi3r_run, "viewer_run": viewer_run}), flush=True)
+    print(json.dumps({"rest_run": rest}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {

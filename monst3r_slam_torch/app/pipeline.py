@@ -42,9 +42,16 @@ thread into a surfel snapshot (`_surfel_snapshot` per keyframe on the
 device, then to the host) with the trajectory, the frustums and the current
 frame with its dynamic mask.
 
+With `matching.mode: lm` the tracked frame is matched by the
+iterative-projection matcher (ops/matching.py), then fused, tracked and
+folded into the keyframe by `_track_and_update`; graph edges and
+relocalization use the same matcher. `save_state` / `load_state` write and
+read the SLAM state as an `.npz` with the JAX package's keys, dtypes and
+shapes. `process_chunk` tracks a batch of frames with one host read per
+event-free chunk (app/chunked.py).
+
 Not ported, and refused with an error rather than ignored: a mesh across
-more than one card, the LM matcher, the dynamic pipeline's pointmap debug
-dumps and SLAM-state files.
+more than one card.
 """
 
 from __future__ import annotations
@@ -132,6 +139,8 @@ def backend_config_from_dict(cfg: dict) -> BackendConfig:
 def matching_config_from_dict(cfg: dict) -> matching.MatchingConfig:
     m = cfg.get("matching", {})
     return matching.MatchingConfig(
+        max_iter=int(m.get("max_iter", 10)),
+        lambda_init=m.get("lambda_init", 1e-8),
         convergence_thresh=m.get("convergence_thresh", 1e-6),
         dist_thresh=m.get("dist_thresh", 0.1),
         radius=int(m.get("radius", 3)),
@@ -140,21 +149,29 @@ def matching_config_from_dict(cfg: dict) -> matching.MatchingConfig:
 
 
 def matcher_mode(cfg: dict, device) -> str:
-    """'kernel' (the tile-matcher kernel's semantics; default on CUDA) or
-    'tiled' (the plain tiled path; default on CPU). The reference's
-    'pallas' names the same semantics as 'kernel'."""
+    """'kernel' (the tile-matcher kernel's semantics; default on CUDA),
+    'tiled' (the plain tiled path; default on CPU) or 'lm' (the
+    iterative-projection matcher). The reference's 'pallas' names the same
+    semantics as 'kernel'."""
     default = "kernel" if torch.device(device).type == "cuda" else "tiled"
     mode = cfg.get("matching", {}).get("mode", default)
     mode = "kernel" if mode == "pallas" else mode
-    if mode not in ("kernel", "tiled"):
-        raise NotImplementedError(f"matching mode {mode!r} is not ported yet")
+    if mode not in ("kernel", "tiled", "lm"):
+        raise ValueError(f"unknown matching mode {mode!r} (kernel, pallas, tiled or lm)")
     return mode
 
 
 def make_matcher(cfg: dict, device):
-    """Batched matcher for graph edges (the tracking step fuses its own)."""
+    """Batched matcher for graph edges and relocalization (the tracking
+    step of the tiled modes fuses its own)."""
     mcfg = matching_config_from_dict(cfg)
-    use_kernel = matcher_mode(cfg, device) == "kernel"
+    mode = matcher_mode(cfg, device)
+    if mode == "lm":
+        def lm_match_fn(X11, X21, D11, D21, idx_init=None):
+            return matching.match(X11, X21, D11, D21, idx_init, cfg=mcfg)
+
+        return lm_match_fn
+    use_kernel = mode == "kernel"
     tcfg = matching_tiled.TiledConfig()
 
     def match_fn(X11, X21, D11, D21, idx_init=None):
@@ -171,10 +188,12 @@ def _track_update_body(
     frame_X, frame_C, frame_N, frame_S,
     T_WCf, T_WCk,
     track_cfg, img_size, fmode, fscore,
-    K=None, use_calib: bool = False,
+    K=None, use_calib: bool = False, frozen=None,
 ):
     """Frame fusion -> GN tracking -> keyframe fusion. The keyframe row of
     mem_X/C/N/S is updated IN PLACE after every read of its old value.
+    `frozen` (a () bool tensor, chunked tracking) keeps the row as it was
+    and runs the GN loop for its fixed `max_iters` steps with no host read.
     Returns (fX, fC, fN, fS, res, summary); summary is the 11-float decision
     vector [T_WCf(0:8), low_match, solver_failed, new_kf]."""
     fX, fC, fN, fS = fuse_pointmap(frame_X, frame_C, frame_N, X1, C1, fmode, frame_S, fscore)
@@ -184,11 +203,13 @@ def _track_update_body(
         idx_f2k, valid_match_k, Q1, Q2,
         fX, fC / torch.clamp(fN.float(), min=1.0),
         kX_old, kC_old / torch.clamp(kN_old.float(), min=1.0),
-        T_WCf, T_WCk, K,
+        T_WCf, T_WCk, K, fixed_iters=frozen is not None,
     )
     Xkk = lie.sim3_act(res.T_CkCf, X2)
     kX, kC, kN, kS = fuse_pointmap(kX_old, kC_old, kN_old, Xkk, C2, fmode, mem_S[kf_idx], fscore)
     ok = ~(res.low_match | res.solver_failed)
+    if frozen is not None:
+        ok = ok & ~frozen
     # in place: every read of the keyframe's old row is done above
     mem_X[kf_idx] = torch.where(ok, kX, kX_old)
     mem_C[kf_idx] = torch.where(ok, kC, kC_old)
@@ -235,6 +256,33 @@ def _match_track_and_update(
         T_WCf, T_WCk, track_cfg, img_size, fmode, fscore, K=K, use_calib=use_calib,
     )
     return outs + (idx_f2k, valid_match_k)
+
+
+def _track_and_update(
+    mem_X, mem_C, mem_N, mem_S, kf_idx: int,
+    idx_f2k, valid_match_k,
+    X1, C1, Q1, X2, C2, Q2,
+    frame_X, frame_C, frame_N, frame_S,
+    T_WCf, T_WCk,
+    track_cfg: tracker_mod.TrackingConfig,
+    img_size,
+    fmode: str,
+    fscore: str,
+    K=None,
+    use_calib: bool = False,
+):
+    """Fusion + GN tracking + keyframe update for one frame matched by a
+    standalone matcher (the LM path): the decode outputs and the match in
+    any layout, flattened here. Returns _track_update_body's outputs."""
+    hw = img_size[0] * img_size[1]
+    return _track_update_body(
+        mem_X, mem_C, mem_N, mem_S, kf_idx,
+        idx_f2k.reshape(hw), valid_match_k.reshape(hw, 1),
+        X1.reshape(hw, 3), C1.reshape(hw, 1), Q1.reshape(hw, 1),
+        X2.reshape(hw, 3), C2.reshape(hw, 1), Q2.reshape(hw, 1),
+        frame_X, frame_C, frame_N, frame_S,
+        T_WCf, T_WCk, track_cfg, img_size, fmode, fscore, K=K, use_calib=use_calib,
+    )
 
 
 @torch.no_grad()
@@ -317,7 +365,7 @@ class SLAMSystem:
         self.match_cfg = matching_config_from_dict(cfg)
         self.match_fn = make_matcher(cfg, self.device)
         self.match_mode = matcher_mode(cfg, self.device)
-        self.match_tcfg = matching_tiled.TiledConfig()
+        self.match_tcfg = None if self.match_mode == "lm" else matching_tiled.TiledConfig()
         enc_cfg = (self.easi3r.easi3r_cfg if self.easi3r is not None
                    else self.dual.monst3r_cfg if self.dual is not None else self.model_cfg)
         self.mem = make_keyframe_memory(
@@ -404,13 +452,8 @@ class SLAMSystem:
         multi = torch.device(self.device).type == "cuda" and torch.cuda.device_count() > 1
         if mesh not in ("off", "auto") or (mesh == "auto" and multi):
             refuse("the multi-device mesh (set parallel.mesh: off)")
-        if self.dual is not None and (cfg.get("debug_save_pointmap_visualization", False)
-                                      or cfg.get("debug_save_3d_pointclouds", False)):
-            refuse("the pointmap debug dumps (debug_save_pointmap_visualization, "
-                   "debug_save_3d_pointclouds)")
         if self.dual is not None and self.easi3r is not None:
             raise ValueError("SLAMSystem takes the MonST3R (dual) or the Easi3R models, not both")
-        matcher_mode(cfg, self.device)  # refuses the LM matcher
 
     # ------------------------------------------------------------------
     # Model wrappers
@@ -598,10 +641,105 @@ class SLAMSystem:
     # ------------------------------------------------------------------
 
     def save_state(self, path):
-        raise NotImplementedError("SLAM-state files are not ported to the PyTorch package yet")
+        """Write the SLAM state to `path` (.npz) with the JAX package's keys,
+        dtypes and shapes, so that either package reads the other's files:
+        the keyframe memory, the graph's edges, the per-frame trajectory,
+        the mode and the last pose, and the host-side keyframe images and
+        dynamic masks with their `_valid` flags. The deferred tracking
+        decisions are resolved first."""
+        self._resolve_pending()
+        n = self.mem.count
+        h, w = self.img_size
+        uimg = np.zeros((n, h, w, 3), np.uint8)
+        uimg_valid = np.zeros((n,), bool)
+        dyn = np.zeros((n, h, w), bool)
+        dyn_valid = np.zeros((n,), bool)
+        for i in range(min(n, len(self.kf_uimgs))):
+            if self.kf_uimgs[i] is not None:
+                uimg[i] = np.asarray(self.kf_uimgs[i], np.uint8).reshape(h, w, 3)
+                uimg_valid[i] = True
+            if self.kf_dyn_masks[i] is not None:
+                dyn[i] = np.asarray(self.kf_dyn_masks[i], bool).reshape(h, w)
+                dyn_valid[i] = True
+        mem, g, ne = self.mem, self.graph, self.graph.n_edges
+
+        def host(t, dtype):
+            return t.cpu().numpy().astype(dtype)
+
+        np.savez_compressed(
+            path,
+            kf_uimg=uimg, kf_uimg_valid=uimg_valid, kf_dyn_mask=dyn, kf_dyn_mask_valid=dyn_valid,
+            kf_frame_id=host(mem.frame_id[:n], np.int32),
+            kf_T_WC=host(mem.T_WC[:n], np.float32),
+            kf_X=host(mem.X_canon[:n], np.float32),
+            kf_C=host(mem.C[:n], np.float32),
+            kf_N=host(mem.N[:n], np.int32),
+            kf_score=host(mem.score[:n], np.float32),
+            kf_feat=host(mem.feat[:n], np.float32),
+            kf_pos=host(mem.pos[:n], np.int32),
+            graph_ii=g.ii[:ne].astype(np.int32),
+            graph_jj=g.jj[:ne].astype(np.int32),
+            graph_idx=host(g.idx[:ne], np.int32),
+            graph_valid=host(g.valid_match[:ne], bool),
+            graph_Q=host(g.Q[:ne], np.float32),
+            frame_poses=(np.stack(self.frame_poses) if self.frame_poses
+                         else np.zeros((0, 8))),
+            frame_ids=np.asarray(self.frame_ids, np.int64),
+            mode=int(self.mode),
+            last_T_WC=np.asarray(self.last_T_WC),
+        )
 
     def load_state(self, path):
-        raise NotImplementedError("SLAM-state files are not ported to the PyTorch package yet")
+        """Read a state file of either package into this system (files
+        without `kf_score` or the host-side images load as the reference's
+        do). Every cache of the old state is dropped: the tracking keyframe's
+        view, the device copy of the last pose and the matcher's warm start,
+        with the old state's undecided frames and unapplied solves."""
+        self._pending.clear()
+        if self._worker is not None:
+            self._backend_jobs.join()
+        self._apply_backend_results()
+        data = np.load(path)
+        n = data["kf_T_WC"].shape[0]
+        if n > self.mem.capacity:
+            raise RuntimeError(f"the state holds {n} keyframes, more than the memory's "
+                               f"capacity {self.mem.capacity} (`kf_capacity`)")
+        mem = self.mem
+        for name, key in (("frame_id", "kf_frame_id"), ("T_WC", "kf_T_WC"), ("X_canon", "kf_X"),
+                          ("C", "kf_C"), ("N", "kf_N"), ("feat", "kf_feat"), ("pos", "kf_pos"),
+                          ("score", "kf_score")):
+            if key not in data:  # files written before the score was kept
+                continue
+            arr = getattr(mem, name)
+            arr[:n] = torch.from_numpy(np.asarray(data[key])).to(device=arr.device,
+                                                                 dtype=arr.dtype)
+        mem.count = n
+        self.n_kf = n
+        g = self.graph
+        ne = data["graph_ii"].shape[0]
+        g._grow(ne - g.n_edges)
+        g.ii[:ne] = data["graph_ii"]
+        g.jj[:ne] = data["graph_jj"]
+        for name, key in (("idx", "graph_idx"), ("valid_match", "graph_valid"), ("Q", "graph_Q")):
+            arr = getattr(g, name)
+            arr[:ne] = torch.from_numpy(np.asarray(data[key])).to(device=arr.device,
+                                                                 dtype=arr.dtype)
+        g.n_edges = ne
+        self.frame_poses = [np.array(p, np.float32) for p in data["frame_poses"]]
+        self.frame_ids = [int(i) for i in data["frame_ids"]]
+        self.mode = Mode(int(data["mode"]))
+        self.last_T_WC = np.array(data["last_T_WC"], np.float32)
+        self._last_T_WC_dev = torch.as_tensor(self.last_T_WC, device=self.device)
+        self._kf_cache = None
+        self.idx_f2k = None
+        self.kf_uimgs = [None] * n
+        self.kf_dyn_masks = [None] * n
+        if "kf_uimg" in data:  # files written before the host state was kept
+            for i in range(n):
+                if data["kf_uimg_valid"][i]:
+                    self.kf_uimgs[i] = data["kf_uimg"][i]
+                if data["kf_dyn_mask_valid"][i]:
+                    self.kf_dyn_masks[i] = data["kf_dyn_mask"][i]
 
     # ------------------------------------------------------------------
     # Backend: synchronous, or on the worker thread
@@ -823,19 +961,35 @@ class SLAMSystem:
             out = self._decode_pair(frame.feat, frame.pos, kf_feat, kf_pos)
             t5 = self._stamp("decode_dispatch", t4)
 
-        use_init = self.idx_f2k is not None
-        (fX, fC, fN, fS, res, summary, idx_f2k, valid_match_k) = _match_track_and_update(
-            self.mem.X_canon, self.mem.C, self.mem.N, self.mem.score, kf_idx,
-            out.X1, out.C1, out.Q1, out.D1, out.X2, out.C2, out.Q2, out.D2,
-            self.idx_f2k,
-            frame.X_canon, frame.C, frame.N, frame.score,
-            frame.T_WC, kf_T_WC,
-            track_cfg=self.track_cfg, img_size=self.img_size,
-            fmode=self.filtering_mode, fscore=self.track_cfg.filtering_score,
-            mcfg=self.match_cfg, tcfg=self.match_tcfg,
-            use_kernel=self.match_mode == "kernel", use_init=use_init,
-            K=self.K, use_calib=self.use_calib,
-        )
+        if self.match_mode != "lm":
+            use_init = self.idx_f2k is not None
+            (fX, fC, fN, fS, res, summary, idx_f2k, valid_match_k) = _match_track_and_update(
+                self.mem.X_canon, self.mem.C, self.mem.N, self.mem.score, kf_idx,
+                out.X1, out.C1, out.Q1, out.D1, out.X2, out.C2, out.Q2, out.D2,
+                self.idx_f2k,
+                frame.X_canon, frame.C, frame.N, frame.score,
+                frame.T_WC, kf_T_WC,
+                track_cfg=self.track_cfg, img_size=self.img_size,
+                fmode=self.filtering_mode, fscore=self.track_cfg.filtering_score,
+                mcfg=self.match_cfg, tcfg=self.match_tcfg,
+                use_kernel=self.match_mode == "kernel", use_init=use_init,
+                K=self.K, use_calib=self.use_calib,
+            )
+        else:
+            h, w = self.img_size
+            idx_f2k, valid_match_k = self.match_fn(
+                out.X1.reshape(1, h, w, 3), out.X2.reshape(1, h, w, 3), out.D1, out.D2,
+                self.idx_f2k)
+            (fX, fC, fN, fS, res, summary) = _track_and_update(
+                self.mem.X_canon, self.mem.C, self.mem.N, self.mem.score, kf_idx,
+                idx_f2k, valid_match_k,
+                out.X1, out.C1, out.Q1, out.X2, out.C2, out.Q2,
+                frame.X_canon, frame.C, frame.N, frame.score,
+                frame.T_WC, kf_T_WC,
+                track_cfg=self.track_cfg, img_size=self.img_size,
+                fmode=self.filtering_mode, fscore=self.track_cfg.filtering_score,
+                K=self.K, use_calib=self.use_calib,
+            )
         self.idx_f2k = idx_f2k
         frame = dataclasses.replace(frame, X_canon=fX, C=fC, N=fN, score=fS)
         dbg = None
@@ -847,9 +1001,10 @@ class SLAMSystem:
         # The plain pipeline's pair just decoded is the consecutive graph
         # edge's j->i direction if this frame becomes a keyframe: add_factors
         # reuses it. The dual and Easi3R pipelines mask C/D/Q after the
-        # decode, so their edges are decoded afresh.
+        # decode, so their edges are decoded afresh, and so are the LM
+        # matcher's, as in the reference.
         track_pair = None
-        if self.dual is None and self.easi3r is None:
+        if self.dual is None and self.easi3r is None and self.match_mode != "lm":
             track_pair = dict(kf_idx=kf_idx, out=out, idx=idx_f2k, valid=valid_match_k)
         self._pending.append(dict(
             frame_id=frame_id, frame=frame, res=res, summary=summary, uimg=uimg,
@@ -860,6 +1015,32 @@ class SLAMSystem:
             t6 = time.perf_counter()
             self._resolve_pending()
             p.setdefault("resolve_sync", []).append((time.perf_counter() - t6) * 1e3)
+
+    # ------------------------------------------------------------------
+    # Chunked tracking (app/chunked.py)
+    # ------------------------------------------------------------------
+
+    @property
+    def supports_chunking(self) -> bool:
+        """Chunked tracking covers the plain MASt3R pipeline with a tiled
+        matcher: the dual and Easi3R pipelines run host stages per frame,
+        and the LM matcher is not fused into the tracking step.
+        `use_dynamic_mask` alone is no obstacle: masks need the dual models."""
+        return self.dual is None and self.easi3r is None and self.match_mode != "lm"
+
+    def process_chunk(self, frame_ids, timestamps, imgs_dev, uimgs=None, hook_xs=None,
+                      decode_hook=None) -> bool:
+        """Track a (C, h, w, 3) uint8 or normalized batch on the system's
+        device with one host read per event-free chunk; the decisions of
+        `process_frame` with `defer_tracking_sync: 0`. Returns False once
+        the viewer asked to terminate (app/chunked.py)."""
+        from monst3r_slam_torch.app import chunked
+
+        if not self.supports_chunking:
+            raise RuntimeError("chunked tracking requires the plain MASt3R pipeline (no "
+                               "dual or Easi3R models) and the tiled or kernel matcher")
+        return chunked.process_chunk(self, frame_ids, timestamps, imgs_dev, uimgs=uimgs,
+                                     hook_xs=hook_xs, decode_hook=decode_hook)
 
     def _masked_decode(self, frame: Frame, uimg, kf_idx: int, kf_feat, kf_pos, kf_T_WC, kf_uimg):
         """The dual decode of a tracked frame and its dynamic mask. The
@@ -909,8 +1090,10 @@ class SLAMSystem:
             except Exception as e:  # best-effort, as in the reference
                 print(f"dynamic-mask overlay failed for {frame.frame_id}: {e}")
         if m.any():
+            C1_before = out.C1
             C1, D1, Q1 = dyn.apply_dynamic_mask_native(out.C1, out.D1, out.Q1, m)
             out = out._replace(C1=C1, D1=D1, Q1=Q1)
+            self._save_pointmap_dumps(frame.frame_id, out.X1, C1_before, C1)
         kf_mask = self.kf_dyn_masks[kf_idx] if kf_idx < len(self.kf_dyn_masks) else None
         if kf_mask is not None and kf_mask.any():
             C2, D2, Q2 = dyn.apply_dynamic_mask_native(out.C2, out.D2, out.Q2, kf_mask)
@@ -991,6 +1174,31 @@ class SLAMSystem:
                 uimg, valid_opt, color=(0, 255, 0), alpha=0.5)
         except Exception as e:  # best-effort, as in the reference
             print(f"valid_opt overlay failed for {frame_id}: {e}")
+
+    def _save_pointmap_dumps(self, frame_id: int, X1, C1_before, C1_after):
+        """The pointmap panels and the 3D scatter before and after the
+        dynamic mask (config keys `debug_save_pointmap_visualization`,
+        `debug_save_3d_pointclouds`; off by default); best-effort, as in the
+        reference."""
+        panels = self.cfg.get("debug_save_pointmap_visualization", False)
+        scatter = self.cfg.get("debug_save_3d_pointclouds", False)
+        if not (panels or scatter):
+            return
+        try:
+            from monst3r_slam_torch.viz import debug as dbgviz
+
+            h, w = self.img_size
+            Xhw = X1.float().cpu().numpy().reshape(h, w, 3)
+            Cb = C1_before.float().cpu().numpy().reshape(h, w)
+            Ca = C1_after.float().cpu().numpy().reshape(h, w)
+            if panels:
+                dbgviz.save_pointmap_visualization(
+                    Xhw, Cb, Xhw, Ca, frame_id, self._debug_dir("debug_pointmap_visualization"))
+            if scatter:
+                dbgviz.save_3d_pointcloud_comparison(
+                    Xhw, Cb, Xhw, Ca, frame_id, self._debug_dir("debug_3d_pointclouds"))
+        except Exception as e:  # best-effort, as in the reference
+            print(f"pointmap debug dump failed for {frame_id}: {e}")
 
     def _debug_dir(self, name: str):
         """logs/<dataset>/<sequence>/<name>, the reference's layout."""

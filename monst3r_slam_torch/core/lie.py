@@ -39,7 +39,8 @@ def quat_mul(qi: torch.Tensor, qj: torch.Tensor) -> torch.Tensor:
 
 def quat_inv(q: torch.Tensor) -> torch.Tensor:
     """Conjugate of a unit quaternion."""
-    return q * q.new_tensor([-1.0, -1.0, -1.0, 1.0])
+    # built on the device: a host-made sign vector would be a blocking copy
+    return torch.cat([-q[..., 0:3], q[..., 3:4]], dim=-1)
 
 
 def quat_rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -221,7 +222,7 @@ def sim3_matrix(T: torch.Tensor) -> torch.Tensor:
     t, q, s = T[..., 0:3], T[..., 3:7], T[..., 7:8]
     R = so3_matrix(q) * s[..., None]
     top = torch.cat([R, t[..., None]], dim=-1)
-    bottom = T.new_tensor([0.0, 0.0, 0.0, 1.0]).expand(T.shape[:-1] + (4,))[..., None, :]
+    bottom = torch.cat([torch.zeros_like(t), torch.ones_like(s)], dim=-1)[..., None, :]
     return torch.cat([top, bottom], dim=-2)
 
 

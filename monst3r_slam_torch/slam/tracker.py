@@ -2,7 +2,10 @@
 keyframe.
 
 Port of the JAX package's `slam/tracker.py`. The JAX `lax.while_loop`s
-become Python loops with one host read per iteration (the stop test); the
+become Python loops with one host read per iteration (the stop test), or,
+with `fixed_iters` (chunked tracking, which reads nothing back inside a
+chunk), masked loops of `max_iters` steps in which a stopped loop's steps
+select the old pose exactly, so both give the same result; the
 uncalibrated ray/distance normal equations are built from the closed-form
 Jacobian rows of the reference's structure-of-arrays body, vectorized over
 pixels, and the calibrated ones (`opt_pose_calib_sim3`: pixel and
@@ -48,7 +51,7 @@ class TrackResult(NamedTuple):
     low_match: torch.Tensor  # () bool — match_frac below min => RELOC
     solver_failed: torch.Tensor  # () bool — Cholesky failed / non-finite step
     match_frac: torch.Tensor  # () float
-    iters: int
+    iters: object  # int, or a () int tensor with fixed_iters
 
 
 def _cholesky_solve(H: torch.Tensor, g: torch.Tensor):
@@ -77,11 +80,13 @@ def _solve_7x7(sqrt_info, r, J, huber_k: float):
     return tau, cost, ok
 
 
-def _gn_loop(cfg: TrackingConfig, system, T_init: torch.Tensor):
+def _gn_loop(cfg: TrackingConfig, system, T_init: torch.Tensor, fixed_iters: bool = False):
     """GN driver with the reference's stop rule. `system(T)` returns the
     normal equations (H (7, 7), g (7,), cost). Returns (T, iters, ok)."""
     T = T_init
     old_cost = torch.full((), torch.inf, dtype=T.dtype, device=T.device)
+    if fixed_iters:
+        return _gn_loop_masked(cfg, system, T, old_cost)
     it = 0
     while True:
         H, g, new_cost = system(T)
@@ -94,7 +99,26 @@ def _gn_loop(cfg: TrackingConfig, system, T_init: torch.Tensor):
             return T, it, ok
 
 
-def opt_pose_ray_dist_sim3(Xf, Xk, T_CkCf_init, Qk, valid, cfg: TrackingConfig):
+def _gn_loop_masked(cfg: TrackingConfig, system, T, old_cost):
+    """`_gn_loop` without a host read: always `max_iters` steps; once the
+    stop rule has fired, every later step keeps T and ok as they were."""
+    stopped = torch.zeros((), dtype=torch.bool, device=T.device)
+    ok_out = torch.ones((), dtype=torch.bool, device=T.device)
+    iters = torch.zeros((), dtype=torch.int32, device=T.device)
+    for _ in range(cfg.max_iters):
+        H, g, new_cost = system(T)
+        tau, ok = _cholesky_solve(H, g)
+        T = torch.where(stopped | ~ok, T, lie.sim3_retr(T, tau))
+        ok_out = torch.where(stopped, ok_out, ok)
+        iters = iters + (~stopped).to(torch.int32)
+        stopped = stopped | robust.converged(cfg.rel_error, cfg.delta_norm, old_cost, new_cost,
+                                             tau) | ~ok
+        old_cost = new_cost
+    return T, iters, ok_out
+
+
+def opt_pose_ray_dist_sim3(Xf, Xk, T_CkCf_init, Qk, valid, cfg: TrackingConfig,
+                           fixed_iters: bool = False):
     """Uncalibrated frame-to-keyframe alignment on the ray/distance residual.
 
     Xf: (n, 3) frame points (gathered through idx_f2k), Xk: (n, 3),
@@ -133,11 +157,11 @@ def opt_pose_ray_dist_sim3(Xf, Xk, T_CkCf_init, Qk, valid, cfg: TrackingConfig):
         g = -(wJ.T @ e.reshape(-1))
         return H, g, cost
 
-    return _gn_loop(cfg, system, T_CkCf_init)
+    return _gn_loop(cfg, system, T_CkCf_init, fixed_iters)
 
 
 def opt_pose_calib_sim3(Xf, Xk, T_CkCf_init, Qk, valid, meas_k, valid_meas_k, K, img_size,
-                        cfg: TrackingConfig):
+                        cfg: TrackingConfig, fixed_iters: bool = False):
     """Calibrated frame-to-keyframe alignment (tracker.py:216-266): residual
     [pixel (2), log depth (1)] of the frame's points projected into the
     keyframe, against the keyframe's pixel grid and log depth `meas_k`
@@ -154,7 +178,7 @@ def opt_pose_calib_sim3(Xf, Xk, T_CkCf_init, Qk, valid, meas_k, valid_meas_k, K,
         J = -(dpz_dX @ dX_dT)
         return _normal_equations(sqrt_info * (valid_proj & valid_meas_k), meas_k - pz, J, cfg.huber)
 
-    return _gn_loop(cfg, system, T_CkCf_init)
+    return _gn_loop(cfg, system, T_CkCf_init, fixed_iters)
 
 
 def unique_fraction(idx: torch.Tensor, valid: torch.Tensor, n_total: int) -> torch.Tensor:
@@ -180,6 +204,7 @@ def track_pose(
     T_WCf: torch.Tensor,  # (8,) current frame pose estimate
     T_WCk: torch.Tensor,  # (8,) keyframe pose
     K=None,  # (3, 3) intrinsics of the resized frame, with use_calib
+    fixed_iters: bool = False,  # GN without host reads (chunked tracking)
 ) -> TrackResult:
     """Validity gates, GN, and the keyframe decision for one frame."""
     hw = idx_f2k.shape[0]
@@ -203,9 +228,10 @@ def track_pose(
         meas_k = torch.cat([uv_k, torch.where(valid_meas_k, logz, torch.zeros_like(logz))], dim=-1)
         meas_k = torch.where(valid_meas_k, meas_k, torch.zeros_like(meas_k))
         T_CkCf, iters, ok = opt_pose_calib_sim3(Xf_c, Xk_c, T_CkCf_init, Qk, valid_opt, meas_k,
-                                                valid_meas_k, K, img_size, cfg)
+                                                valid_meas_k, K, img_size, cfg, fixed_iters)
     else:
-        T_CkCf, iters, ok = opt_pose_ray_dist_sim3(Xf, Xk_canon, T_CkCf_init, Qk, valid_opt, cfg)
+        T_CkCf, iters, ok = opt_pose_ray_dist_sim3(Xf, Xk_canon, T_CkCf_init, Qk, valid_opt, cfg,
+                                                   fixed_iters)
     T_WCf_new = lie.sim3_mul(T_WCk, T_CkCf)
 
     match_frac_k = valid_kf.float().mean()

@@ -35,7 +35,7 @@ from monst3r_slam_torch.models.config import TINY as TTINY
 from monst3r_slam_torch.native.build import solver_available
 from tests.test_ate_regression import H, W, OracleSLAM, gt_trajectory
 from tests.test_torch_slam import (  # noqa: F401
-    TorchOracleSLAM, _oracle_cfg, _run_oracle, one_torch_thread,
+    TorchOracleSLAM, _oracle_cfg, _run_oracle, close_backend_workers, one_torch_thread,
 )
 
 

@@ -2,7 +2,9 @@
 instantiations) on the card against their plain versions, through the
 dispatch the model and the matcher call; and the dynamic pipeline's parts
 on the card: RAFT against its CPU path, the fused flow program's readback
-ordering around `overlap_cb`, and the dual decode's kernel A launches.
+ordering around `overlap_cb`, and the dual decode's kernel A launches; the
+LM matcher against its CPU run; and chunked tracking against the per-frame
+path, with each chunk's dispatch free of host synchronization.
 
 They need a CUDA device and nvcc, and skip without them. On a machine with
 the card, from the repository root:
@@ -418,3 +420,97 @@ def test_dual_decode_launches_kernel_a_per_decoder(cuda):
     for got, ref in ((out.X1, ref_m.X1), (out.C2, ref_m.C2), (out.D1, ref_a.D1),
                      (out.Q2, ref_a.Q2)):
         assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+def test_lm_matcher_on_the_card_matches_the_cpu(cuda):
+    """The LM matcher (`ops/matching.py`, plain PyTorch) on the card against
+    its CPU run on the same pointmaps and descriptors: indices and `valid`
+    equal on at least 99.9% of the pixels (an LM iterate may land in the
+    next integer cell when the card's f32 sums round otherwise, and then
+    refines in another window)."""
+    from monst3r_slam_torch.ops import matching
+
+    h, w = 64, 80
+    rng = np.random.default_rng(4)
+
+    def surface(dx, dy):  # a smooth surface, sampled (dx, dy) px off the grid
+        yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+        u, v = (xx + dx - w / 2) / 60, (yy + dy - h / 2) / 60
+        z = 2.0 + 0.3 * np.sin(3 * u) * np.cos(4 * v)
+        return np.stack([u * z, v * z, z], -1)[None].astype(np.float32)
+
+    X, X21 = surface(0, 0), surface(1.3, 0.4)
+    D = rng.standard_normal((1, h, w, 24)).astype(np.float32)
+    D /= np.linalg.norm(D, axis=-1, keepdims=True)
+    D21 = np.roll(D, 1, axis=2)
+    args = [torch.from_numpy(a) for a in (X, X21, D, D21)]
+    ref = matching.match(*args)
+    got = matching.match(*(a.to(cuda) for a in args))
+    assert (got[0].cpu() == ref[0]).float().mean() >= 0.999
+    assert (got[1].cpu() == ref[1]).float().mean() >= 0.999
+
+
+@pytest.mark.cuda
+def test_chunked_tracking_on_the_card_decides_as_the_perframe_path(cuda, monkeypatch):
+    """`process_chunk` on the card against the per-frame path with
+    `defer_tracking_sync: 0`, at MAST3R_512 widths with cut depth (bf16,
+    tied random weights, one frame repeated, 64x80), with a keyframe at every
+    frame (gate above 1): the same keyframes, poses within 1e-5; each
+    chunk's dispatch runs under `torch.cuda.set_sync_debug_mode("error")`,
+    so a hidden host synchronization fails the test; kernels A and B run.
+    And a uint8 chunk normalizes on the card bit for bit as the host does."""
+    import dataclasses
+
+    from monst3r_slam_torch.app import chunked
+    from monst3r_slam_torch.app.config import load_config
+    from monst3r_slam_torch.app.pipeline import SLAMSystem
+    from monst3r_slam_torch.models.config import MAST3R_512
+    from monst3r_slam_torch.models.convert import cast_params_for_inference
+    from monst3r_slam_torch.models.init import init_params
+
+    cfg_m = dataclasses.replace(MAST3R_512, enc_depth=2, dec_depth=2)
+    p = init_params(torch.Generator(device=cuda).manual_seed(0), cfg_m)
+    p["dec_blocks2"], p["head2"] = p["dec_blocks"], p["head1"]
+    p = cast_params_for_inference(p)
+    h, w = 64, 80
+    img = np.random.default_rng(0).uniform(-1, 1, (h, w, 3)).astype(np.float32)
+
+    def make(thresh):
+        c = load_config("config/base.yaml", set_global=False)
+        c["single_thread"] = True
+        c["tracking"].update(Q_conf=0.0, match_frac_thresh=thresh)
+        c["local_opt"].update(Q_conf=0.0, solver="device")
+        c["parallel"] = {"mesh": "off"}
+        return SLAMSystem(params=p, model_cfg=cfg_m, cfg=c, img_size=(h, w), kf_capacity=16,
+                          device="cuda")
+
+    track = chunked.chunk_track
+
+    def strict(*a, **k):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return track(*a, **k)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    monkeypatch.setattr(chunked, "chunk_track", strict)
+    u8 = np.arange(256, dtype=np.uint8).reshape(1, 16, 16, 1).repeat(3, -1)
+    dev = chunked._norm_slice(torch.from_numpy(u8).to(cuda), 0).cpu().numpy()
+    np.testing.assert_array_equal(dev, (u8.astype(np.float32) / 255.0 - 0.5) / 0.5)
+    for thresh in (0.0, 1.01):
+        ref, got = make(thresh), make(thresh)
+        for i in range(6):
+            ref.process_frame(i, i / 30.0, img)
+        a0, b0 = attention.fused_attention.launches, matching_pallas.tile_match_kernel.launches
+        for c0 in (0, 3):
+            got.process_chunk(list(range(c0, c0 + 3)), [i / 30.0 for i in range(c0, c0 + 3)],
+                              torch.from_numpy(np.stack([img] * 3)).to(cuda))
+        assert attention.fused_attention.launches > a0
+        assert matching_pallas.tile_match_kernel.launches > b0
+        for s in (ref, got):
+            s.finalize()
+        assert got.mem.frame_id[: got.n_kf].tolist() == ref.mem.frame_id[: ref.n_kf].tolist()
+        assert got.n_kf == (1 if thresh == 0.0 else 6) and got.mode == ref.mode
+        np.testing.assert_allclose(np.stack(got.frame_poses), np.stack(ref.frame_poses),
+                                   atol=1e-5)

@@ -37,7 +37,7 @@ def test_port_imports_without_jax_or_the_jax_package():
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     n_modules, bad = out.stdout.split(maxsplit=1)
-    assert int(n_modules) >= 48  # every subpackage and module was walked
+    assert int(n_modules) >= 50  # every subpackage and module was walked
     assert bad.strip() == "[]"
 
 

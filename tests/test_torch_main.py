@@ -24,7 +24,7 @@ from monst3r_slam_torch.data.preprocess import resize_img
 from monst3r_slam_torch.models.convert import cast_params_for_inference, load_checkpoint
 from monst3r_slam_torch.slam import retrieval
 from tests.test_torch_checkpoint import write_tiny_checkpoint
-from tests.test_torch_slam import one_torch_thread  # noqa: F401
+from tests.test_torch_slam import close_backend_workers, one_torch_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 N_FRAMES = 3

@@ -31,7 +31,7 @@ from monst3r_slam_torch.dynamic import mask as dyn_mask
 from monst3r_slam_torch.viz import live
 from tests.test_torch_checkpoint import write_tiny_checkpoint
 from tests.test_torch_main_monster import write_tiny_monst3r_checkpoint
-from tests.test_torch_slam import one_torch_thread  # noqa: F401
+from tests.test_torch_slam import close_backend_workers, one_torch_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 N_FRAMES = 3

@@ -25,7 +25,7 @@ from monst3r_slam_torch.dynamic.inference import DualParams
 from monst3r_slam_torch.models.config import MONST3R_512, TINY
 from monst3r_slam_torch.models.convert import config_from_arch_string
 from tests.test_torch_checkpoint import TINY_ARCH, tiny_state_dict, write_tiny_checkpoint
-from tests.test_torch_slam import one_torch_thread  # noqa: F401
+from tests.test_torch_slam import close_backend_workers, one_torch_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 MONST3R_ARCH = (
@@ -237,14 +237,26 @@ def test_install_flow_fallbacks(tmp_path, capsys):
         dyn_mask.set_flow_error_program(None)
 
 
-def test_dual_system_refuses_the_pointmap_debug_dumps():
+def test_dual_system_refuses_the_pointmap_debug_dumps(tmp_path, monkeypatch):
+    """The pointmap debug dumps were refused before they were ported; now a
+    dual system with each key takes it and writes its dump under logs/."""
+    monkeypatch.chdir(tmp_path)
     dual = DualParams({}, dataclasses.replace(TINY, desc_dim=None, two_confs=False), {}, TINY)
-    for key in ("debug_save_pointmap_visualization", "debug_save_3d_pointclouds"):
-        cfg = load_config("config/base.yaml", set_global=False)
+    h, w = 64, 80
+    rng = np.random.default_rng(0)
+    X1 = torch.from_numpy(rng.standard_normal((1, h, w, 3)).astype(np.float32) + [0, 0, 3])
+    C1 = torch.from_numpy(rng.uniform(1.0, 3.0, (1, h, w)).astype(np.float32))
+    for key, folder, n_files in (("debug_save_pointmap_visualization",
+                                  "debug_pointmap_visualization", 2),
+                                 ("debug_save_3d_pointclouds", "debug_3d_pointclouds", 1)):
+        cfg = load_config(str(ROOT / "config/base.yaml"), set_global=False)
         cfg.update({"single_thread": True, key: True})
-        with pytest.raises(NotImplementedError, match="pointmap debug dumps"):
-            SLAMSystem(params={}, model_cfg=TINY, cfg=cfg, img_size=(64, 80), kf_capacity=2,
+        s = SLAMSystem(params={}, model_cfg=TINY, cfg=cfg, img_size=(h, w), kf_capacity=2,
                        device="cpu", dual=dual)
+        s._save_pointmap_dumps(3, X1, C1, C1 * (torch.arange(w) < w // 2))
+        files = sorted((tmp_path / "logs" / "unknown_dataset" / "unknown_video" / folder)
+                       .glob("*_frame_000003.png"))
+        assert len(files) == n_files and all(f.stat().st_size > 0 for f in files)
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="a card is present")

@@ -16,10 +16,13 @@ TINY-model twin is in tests/test_torch_slam_model.py).
   moves the poses by up to ~2e-3, so that mode is held to 5e-3.
 """
 
+import gc
+
 import numpy as np
 import pytest
 import torch
 
+from monst3r_slam_tpu.app import pipeline as jpipe
 from monst3r_slam_tpu.app.config import load_config as jload_config
 from monst3r_slam_tpu.app.evaluate import ate_rmse
 from monst3r_slam_tpu.models.config import TINY as JTINY
@@ -44,6 +47,22 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture(autouse=True)
+def close_backend_workers():
+    """Stop the backend worker of every system, of either package, that a
+    test left running: each worker thread waits for jobs, and holds its
+    system and the system's memory, until the process ends, and a test
+    process runs many files. The JAX package's systems have no `close`; the
+    job queue's None ends their worker as it ends the port's. Modules that
+    start asynchronous systems import this."""
+    yield
+    for obj in gc.get_objects():
+        if isinstance(obj, (tpipe.SLAMSystem, jpipe.SLAMSystem)) and obj._worker is not None:
+            obj._backend_jobs.put(None)
+            obj._worker.join()
+            obj._worker = None
 
 
 class TorchOracleSLAM(tpipe.SLAMSystem):
@@ -131,13 +150,14 @@ def test_oracle_slam_matches_jax(jmode, tmode, pose_tol):
     assert rmse < 0.01  # the bound tests/test_ate_regression.py holds JAX to
 
 
-def test_port_refuses_unported_configurations():
+def test_port_refuses_unported_configurations(tmp_path):
     """config/base.yaml as shipped (async worker, `solver: auto`, `mesh:
     auto` on one device) is accepted, and so are the calibrated and
     host-solve settings, the dynamic pipeline's dual models, the Easi3R
-    models and a viewer; what is still unported raises (with the dual
-    models: the pointmap debug dumps), and so do dual and Easi3R models
-    together."""
+    models, a viewer, the LM matcher and the pointmap debug dumps with the
+    dual models, and a system writes and reads its state file; the
+    multi-device mesh, the one part still unported, raises, and so do dual
+    and Easi3R models together."""
     def make(fields=None, **over):
         c = tload_config("config/base.yaml", set_global=False)
         c.update(over)
@@ -154,13 +174,18 @@ def test_port_refuses_unported_configurations():
     easi3r = {"easi3r": EasiParams({}, TTINY, {}, TTINY)}
     make(easi3r, single_thread=True)
     make({"viewer": object()}, single_thread=True)
-    for over, fields in (({"parallel": {"mesh": "on"}}, None), ({"matching": {"mode": "lm"}}, None),
-                         ({"debug_save_3d_pointclouds": True}, dual)):
-        with pytest.raises(NotImplementedError):
-            make(fields, single_thread=True, **over)
+    with pytest.raises(NotImplementedError):
+        make(single_thread=True, parallel={"mesh": "on"})
+    lm = make(single_thread=True, matching={"mode": "lm"})
+    assert lm.match_mode == "lm" and lm.match_tcfg is None and not lm.supports_chunking
+    make(dual, single_thread=True, debug_save_3d_pointclouds=True,
+         debug_save_pointmap_visualization=True)
     with pytest.raises(ValueError, match="not both"):
         make({**dual, **easi3r}, single_thread=True)
+    with pytest.raises(ValueError, match="unknown matching mode"):
+        make(single_thread=True, matching={"mode": "brute"})
     s = make(single_thread=True)
-    for method in (s.save_state, s.load_state):
-        with pytest.raises(NotImplementedError):
-            method("state.npz")
+    s.save_state(tmp_path / "state.npz")
+    s2 = make(single_thread=True)
+    s2.load_state(tmp_path / "state.npz")
+    assert s2.mem.count == 0 and s2.graph.n_edges == 0 and s2.mode == s.mode

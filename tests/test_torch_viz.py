@@ -50,7 +50,7 @@ from monst3r_slam_torch.viz import headless
 from monst3r_slam_torch.viz.live import LiveViewer
 from tests.test_pipeline import H, W, synth_video
 from tests.test_torch_pipeline_dynamic import jax_f32  # noqa: F401
-from tests.test_torch_slam import one_torch_thread  # noqa: F401
+from tests.test_torch_slam import close_backend_workers, one_torch_thread  # noqa: F401
 
 
 def test_depth2rgb():
