@@ -86,7 +86,25 @@ phase printing one line:
      `/frame.bin` fetched over 127.0.0.1 during the run and checked, runs
      with and without it in turns, `_surfel_snapshot` on the card against
      the CPU, a run ended by a POSTed terminate, and `main_torch.py`
-     without `--no-viz` in a subprocess.
+     without `--no-viz` in a subprocess;
+ 12. the rest of SLAMSystem (`phase_rest`: the LM matcher, the fusion
+     modes, symmetric and fused-head decode, state files, chunked tracking;
+     alone with `--only-rest`);
+ 13. the training path (`phase_train`; alone with `--only-train`): the
+     backend workers of earlier phases stopped; `train_torch.py` unchanged
+     in a subprocess at MAST3R_512 (8 steps, batch 4, 224x224, with
+     `--save` and `--ckpt-dir`), and beside its file writes, which use
+     the card only to copy the weights out: kernel A's autograd Function (kernel A forward, plain backward)
+     on both routes at every (B, heads, N, 64) of the timed steps below,
+     encoder and decoder, and at (1,16,768,64), against the f32 plain
+     autograd; steps timed in-process at 224x224 batch 4 and 384x512 batch
+     2 (back to back, synchronized, device time from torch.profiler,
+     launches, peak memory, MFU against 989 TFLOP/s; the host's launch cost
+     here and in a fresh process beside them), the launch counters zeroed
+     just before and read just after (96 kernel A launches a step,
+     asserted); one step at batch 1 on the card against the CPU path; and
+     a resumed run against an uninterrupted one under deterministic
+     algorithms, in a subprocess, which must match bit for bit.
 
 Random weights carry no geometry: two views of one scene, even one shifted
 by a pixel, decode to pointmaps that do not match, and every frame would be
@@ -2252,6 +2270,505 @@ def phase_rest(seed: int, card: str) -> dict:
     return out
 
 
+TRAIN_DIR = ROOT / "build" / "smoke_train"  # the train phase's checkpoints and weights
+TRAIN_SHAPES = ((4, 224, 224), (2, 384, 512))  # (batch, H, W): the CLI's default, SLAM frames
+TRAIN_CHECK_SIZE = 112  # the card-vs-CPU step: 49 tokens, a ragged tile, CPU-affordable
+
+
+def train_attention_shapes(cfg) -> list:
+    """The (B, heads, N, 64) of every kernel A call on the training path at
+    TRAIN_SHAPES (encoder and decoder heads; 196 tokens a ragged last tile),
+    then one pair at 384x512."""
+    shapes = [(b, heads, (h // cfg.patch_size) * (w // cfg.patch_size), d)
+              for b, h, w in TRAIN_SHAPES
+              for heads, d in ((cfg.enc_heads, cfg.head_dim), (cfg.dec_heads, cfg.dec_head_dim))]
+    return shapes + [(1, cfg.enc_heads, 768, cfg.head_dim)]
+
+
+def train_gradient_check(seed: int) -> dict:
+    """Kernel A's autograd Function (`attention.KernelAttention`) on both
+    routes at each shape of `train_attention_shapes(MAST3R_512)`: the forward
+    within `attention.error_bound` of the f32 plain version and dq, dk, dv
+    within `attention.backward_error_bound` of the f32 plain autograd; one
+    kernel A launch forward, none backward. Times of a forward and backward
+    (`ms`, back to back) beside the plain version's and SDPA's."""
+    import torch
+    import torch.nn.functional as F
+
+    from monst3r_slam_torch.models.config import MAST3R_512
+    from monst3r_slam_torch.ops import attention
+
+    rng = np.random.default_rng(seed)
+    fa = attention.fused_attention
+    rows = {}
+    for route, dtype in (("bf16_tc", torch.bfloat16), ("f32", torch.float32)):
+        for shape in train_attention_shapes(MAST3R_512):
+            q, k, v, dout = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+                             .to("cuda", dtype) for _ in range(4))
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            n0 = fa.route_launches[route]
+            out = attention.sdpa(*leaves)
+            n1 = fa.route_launches[route]
+            out.backward(dout)
+            torch.cuda.synchronize()
+            n2 = fa.route_launches[route]
+            backward_fn = type(out.grad_fn).__name__
+            if backward_fn != "KernelAttentionBackward" or (n1 - n0, n2 - n1) != (1, 0):
+                fail(f"attention gradient {route} {shape}: grad_fn {backward_fn}, "
+                     f"{n1 - n0} forward and {n2 - n1} backward launches (want 1 and 0)")
+            ref = [t.float().clone().requires_grad_() for t in (q, k, v)]
+            ref_out = attention.sdpa_plain(*ref)
+            ref_out.backward(dout.float())
+            out, ref_out = out.detach(), ref_out.detach()
+            fwd_err = float((out.float() - ref_out).abs().max())
+            fwd_tol = attention.error_bound(q, k, v, ref_out)
+            bounds = attention.backward_error_bound(q, k, v, dout)
+            grad_err = {n: float((t.grad.float() - r.grad).abs().max())
+                        for n, t, r in zip("qkv", leaves, ref)}
+            ratio = max(float(((t.grad.float() - r.grad).abs() / b).max())
+                        for t, r, b in zip(leaves, ref, bounds))
+            if not (fwd_err <= fwd_tol and ratio <= 1.0):
+                fail(f"attention gradient {route} {shape}: forward err {fwd_err:.3e} (tol "
+                     f"{fwd_tol:.3e}), gradients at {ratio:.3f} of their bound {grad_err}")
+
+            def fwd_bwd(fn):
+                ls = [t.detach().requires_grad_() for t in (q, k, v)]
+                fn(*ls).backward(dout)
+
+            ms = time_ms(lambda: fwd_bwd(attention.sdpa), iters=10)
+            plain = time_ms(lambda: fwd_bwd(attention.sdpa_plain), iters=10)
+            lib = time_ms(lambda: fwd_bwd(F.scaled_dot_product_attention), iters=10)
+            rows[route, shape] = dict(fwd_err=fwd_err, fwd_tol=fwd_tol, grad_err=grad_err,
+                                      grad_bound_ratio=ratio, ms=ms, plain_ms=plain,
+                                      library_ms=lib)
+            print(f"attention gradient {route} {shape}: forward err {fwd_err:.3e} <= "
+                  f"{fwd_tol:.3e}; dq/dk/dv err {grad_err['q']:.3e}/{grad_err['k']:.3e}/"
+                  f"{grad_err['v']:.3e}, at most {ratio:.3f} of the bound; 1 kernel A launch "
+                  f"forward, 0 backward; forward+backward ms: Function {ms:.4f}, plain "
+                  f"{plain:.4f}, sdpa {lib:.4f}", flush=True)
+    return {f"{route} {tuple(shape)}": r for (route, shape), r in rows.items()}
+
+
+def launch_us(n: int = 5000) -> float:
+    """The host's time per launch of a one-element add, in microseconds,
+    over `n` launches back to back (the device finishes each long before
+    the next is enqueued): what a host-bound step pays per kernel."""
+    import torch
+
+    x = torch.zeros(1, device="cuda")
+    for _ in range(100):
+        x.add_(1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        x.add_(1)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e6 / n
+
+
+def launch_us_around_profiler() -> tuple:
+    """(before, after): `launch_us` in this process before and after one
+    torch.profiler session of a few launches."""
+    import torch
+
+    before = launch_us()
+    x = torch.zeros(1, device="cuda")
+    profiled_ms(lambda: x.add_(1), iters=1, warmup=0)
+    return before, launch_us()
+
+
+def train_host_state() -> dict:
+    """What the process brings to the timed steps from earlier work: the
+    host's launch cost here, and in a fresh process before and after one
+    profiler session; the threads alive, the objects the garbage collector
+    tracks, and the load on the host."""
+    import gc
+    import os
+    import threading
+
+    fresh = subprocess.run([sys.executable, "-c", "import chip_smoke; "
+                            "print(*chip_smoke.launch_us_around_profiler())"], cwd=ROOT,
+                           capture_output=True, text=True, timeout=120)
+    if fresh.returncode != 0:
+        fail(f"the fresh launch-cost probe exited {fresh.returncode}:\n{fresh.stderr[-2000:]}")
+    before, after = (float(x) for x in fresh.stdout.split()[-2:])
+    row = dict(launch_us=launch_us(), fresh_launch_us=before, fresh_after_profiler_us=after,
+               threads=sorted(t.name for t in threading.enumerate()),
+               gc_objects=len(gc.get_objects()), loadavg=os.getloadavg())
+    print(f"train host state: {row['launch_us']:.2f} us a launch here; in a fresh process "
+          f"{before:.2f} us, {after:.2f} us after one profiler session; threads "
+          f"{row['threads']}; {row['gc_objects']} objects tracked by gc; load "
+          f"{row['loadavg']}", flush=True)
+    return row
+
+
+def train_state(cfg, seed: int, device):
+    """A training state of random weights drawn on the CPU from `seed`."""
+    import torch
+
+    from monst3r_slam_torch.models.init import init_params
+    from monst3r_slam_torch.train.step import init_train_state, make_optimizer
+
+    params = _to_device(init_params(torch.Generator().manual_seed(seed), cfg), device)
+    return init_train_state(params, make_optimizer())
+
+
+def train_step_flops(cfg, b: int, h: int, w: int) -> float:
+    """Forward and backward (3x the forward) of `b` pairs: 2 encodes + 1 decode each."""
+    from monst3r_slam_torch.utils.flops import decode_flops, encode_flops
+
+    return 3.0 * b * (2 * encode_flops(cfg, h, w) + decode_flops(cfg, h, w))
+
+
+def train_timing(state, cfg, b: int, h: int, w: int, card: str, held: int):
+    """Steps of `train_step` at (b, h, w): 2 to warm up, one whose launches
+    are counted alone, 5 back to back (synchronized at the end) and 3
+    synchronized one by one. Peak memory is counted above `held`, the bytes
+    the process held on the card before the training state was made. The
+    device time comes later (`train_device_time`): a torch.profiler session
+    can leave later launches in the process slower on the host (see
+    `train_host_state`). Returns (state, row)."""
+    import torch
+
+    import train_torch
+    from monst3r_slam_torch.train.step import named_leaves, train_step
+    from monst3r_slam_torch.utils.flops import mfu
+
+    batches = [train_torch.synthetic_batch(i, b, h, w, "cuda") for i in range(4)]
+    losses = []
+    for i in range(2):  # warm-up
+        state, loss = train_step(state, cfg, batches[i])
+        losses.append(loss)
+    torch.cuda.synchronize()
+    before = read_counts()
+    state, loss = train_step(state, cfg, batches[2])
+    torch.cuda.synchronize()
+    per_step = {name: n - before[name] for name, n in read_counts().items()}
+    losses.append(loss)
+    torch.cuda.reset_peak_memory_stats()
+    n = 5
+    t0 = time.perf_counter()
+    for i in range(n):
+        state, loss = train_step(state, cfg, batches[i % 4])
+        losses.append(loss)
+    torch.cuda.synchronize()
+    b2b_ms = (time.perf_counter() - t0) * 1e3 / n
+    peak_gb = (torch.cuda.max_memory_allocated() - held) / 1e9
+    sync_ms = []
+    for i in range(3):
+        t0 = time.perf_counter()
+        state, loss = train_step(state, cfg, batches[i])
+        torch.cuda.synchronize()
+        sync_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss)
+    losses = [float(x) for x in losses]
+    flops = train_step_flops(cfg, b, h, w)
+    n_params = sum(t.numel() for _, t in named_leaves(state.params))
+    batch_bytes = sum(t.numel() * t.element_size() for t in batches[0].values())
+    # weights and both AdamW moments read and written once, f32; the batch read
+    b_ms, b_by = bound_ms(6 * 4 * n_params + batch_bytes, flops / PEAK_BF16)
+    row = dict(batch=b, size=[h, w], launches_per_step=per_step, step_ms=b2b_ms,
+               sync_step_ms=sync_ms, peak_gb=peak_gb, tflop=flops / 1e12, bound_ms=b_ms,
+               bound_by=b_by, mfu=mfu(flops, b2b_ms / 1e3), losses=losses, steps=len(losses))
+    print(f"train step ({card}) MAST3R_512 batch {b} {h}x{w}: {b2b_ms:.1f} ms back to back, "
+          f"synchronized {[round(t, 1) for t in sync_ms]} ms; kernel A "
+          f"{per_step['fused_attention']} launches a step; peak {peak_gb:.2f} GB; "
+          f"{flops / 1e12:.3f} TFLOP, bound {b_ms:.3f} ms ({b_by}); MFU {row['mfu']['mfu_pct']}% "
+          f"back to back (989 TFLOP/s); losses {[round(x, 4) for x in losses]}", flush=True)
+    if not all(np.isfinite(losses)):
+        fail(f"train step at batch {b} {h}x{w}: a loss is not finite: {losses}")
+    want = 2 * cfg.enc_depth + 4 * cfg.dec_depth
+    if per_step["fused_attention"] != want or per_step["tile_match_kernel"] != 0:
+        fail(f"a train step launched {per_step} (want {want} kernel A, no kernel B)")
+    return state, row
+
+
+def train_device_time(state, cfg, row: dict, card: str):
+    """One step at the row's shape under torch.profiler: the device time of
+    a step, its launches and the MFU of that time, added to `row`."""
+    import train_torch
+    from monst3r_slam_torch.train.step import train_step
+    from monst3r_slam_torch.utils.flops import mfu
+
+    b, (h, w) = row["batch"], row["size"]
+    batch = train_torch.synthetic_batch(3, b, h, w, "cuda")
+    losses = []
+
+    def one():
+        nonlocal state
+        state, loss = train_step(state, cfg, batch)
+        losses.append(loss)
+
+    dev_ms, dev_launches = profiled_ms(one, iters=1, warmup=0)
+    row.update(device_ms=dev_ms, device_launches=dev_launches,
+               device_mfu=mfu(row["tflop"] * 1e12, dev_ms / 1e3), steps=row["steps"] + 1)
+    row["losses"].append(float(losses[0]))
+    print(f"train step device time ({card}) MAST3R_512 batch {b} {h}x{w}: {dev_ms:.2f} ms in "
+          f"{dev_launches:.0f} launches; MFU {row['device_mfu']['mfu_pct']}% of device time "
+          f"(989 TFLOP/s); loss {row['losses'][-1]:.4f}", flush=True)
+    if not np.isfinite(row["losses"][-1]):
+        fail(f"the profiled train step at batch {b} {h}x{w} gave a loss that is not finite")
+    return state
+
+
+def train_leaf_grads(params, cfg, batch, device: str, dtype) -> tuple:
+    """(loss, [(path, f32 gradient on the CPU)]) of one `loss_fn` on a copy of
+    `params` on `device` in `dtype`; zeros where the loss does not reach."""
+    import torch
+
+    from monst3r_slam_torch.train.step import loss_fn, named_leaves
+
+    p = torch.utils._pytree.tree_map(lambda t: t.to(device, copy=True), params)
+    leaves = named_leaves(p)
+    for _, t in leaves:
+        t.requires_grad_()
+    loss = loss_fn(p, cfg, {k: t.to(device) for k, t in batch.items()}, dtype=dtype)
+    loss.backward()
+    return loss.item(), [(n, torch.zeros_like(t, device="cpu") if t.grad is None
+                          else t.grad.float().cpu()) for n, t in leaves]
+
+
+def train_cpu_grads(seed: int, cfg, size: int) -> dict:
+    """The CPU half of `train_card_vs_cpu`: one step's loss and gradients at
+    batch 1 on the CPU in f32 and in bf16, on weights and a pair from
+    `seed`."""
+    import torch
+
+    import train_torch
+    from monst3r_slam_torch.models.init import init_params
+
+    params = init_params(torch.Generator().manual_seed(seed), cfg)
+    batch = train_torch.synthetic_batch(seed, 1, size, size)
+    t0 = time.perf_counter()
+    l32, g32 = train_leaf_grads(params, cfg, batch, "cpu", torch.float32)
+    l16, g16 = train_leaf_grads(params, cfg, batch, "cpu", torch.bfloat16)
+    return dict(params=params, batch=batch, size=size, l32=l32, g32=g32, l16=l16, g16=g16,
+                cpu_s=time.perf_counter() - t0)
+
+
+def train_card_vs_cpu(cpu: dict, cfg) -> dict:
+    """The same step at batch 1 on the card (bf16) against the CPU path's
+    (`train_cpu_grads`): the loss and each leaf's gradient within twice the
+    CPU path's bf16-vs-f32 distance (both bf16 runs round at the same
+    places; the card's kernel A and cuBLAS sum in another order, a rounding
+    difference of the size the bf16 run already carries). The worst leaf is
+    printed with its f32 gradient's norm beside the bf16-vs-f32 distance it
+    is measured in."""
+    import torch
+
+    l32, g32, l16, g16, size = (cpu[k] for k in ("l32", "g32", "l16", "g16", "size"))
+    lc, gc = train_leaf_grads(cpu["params"], cfg, cpu["batch"], "cuda", torch.bfloat16)
+    own, err = abs(l16 - l32), abs(lc - l16)
+    worst, worst_name, worst_norms = 0.0, "", (0.0, 0.0)
+    for (name, a), (_, b), (_, c) in zip(g32, g16, gc):
+        d_own, d = float((b - a).norm()), float((c - b).norm())
+        r = d / d_own if d_own > 0 else (0.0 if d == 0 else np.inf)
+        if r > worst:
+            worst, worst_name, worst_norms = r, name, (float(a.norm()), d_own)
+    row = dict(size=size, loss_card=lc, loss_cpu_bf16=l16, loss_cpu_f32=l32,
+               loss_ratio=err / own if own > 0 else np.inf, worst_grad_ratio=worst,
+               worst_grad_leaf=worst_name, worst_grad_f32_norm=worst_norms[0],
+               worst_grad_bf16_dist=worst_norms[1], cpu_s=cpu["cpu_s"])
+    print(f"train card vs CPU (MAST3R_512, batch 1, {size}x{size}): loss {lc:.6f} against "
+          f"{l16:.6f} (CPU bf16) and {l32:.6f} (CPU f32): {row['loss_ratio']:.3f} of the CPU "
+          f"path's bf16-vs-f32 distance; per-leaf gradient distance at most {worst:.3f} of it "
+          f"({worst_name}: f32 gradient norm {worst_norms[0]:.4g}, bf16-vs-f32 distance "
+          f"{worst_norms[1]:.4g}); CPU runs {cpu['cpu_s']:.1f} s", flush=True)
+    if not (row["loss_ratio"] <= 2.0 and worst <= 2.0):
+        fail(f"the card's training step is further from the CPU path's bf16 step than twice "
+             f"the CPU path's own bf16 distance: {row}")
+    return row
+
+
+def train_resume_check(seed: int) -> dict:
+    """2 steps, `save`, `restore_latest` into a state from another seed, 2
+    more, against 4 uninterrupted steps: losses and weights compared bit for
+    bit, at MAST3R_512 width cut to 2 encoder and 2 decoder blocks, batch 2,
+    224x224. Run with `torch.use_deterministic_algorithms(True)` in a
+    process whose cuBLAS workspace is fixed (`CUBLAS_WORKSPACE_CONFIG`)."""
+    import dataclasses
+    import shutil
+
+    import torch
+
+    import train_torch
+    from monst3r_slam_torch.models.config import MAST3R_512
+    from monst3r_slam_torch.train import checkpoint
+    from monst3r_slam_torch.train.step import named_leaves, train_step
+
+    torch.use_deterministic_algorithms(True)
+    cfg = dataclasses.replace(MAST3R_512, enc_depth=2, dec_depth=2)
+    batches = [train_torch.synthetic_batch(i, 2, 224, 224, "cuda") for i in range(4)]
+    ref, ref_losses = train_state(cfg, seed, "cuda"), []
+    for i in range(4):
+        ref, loss = train_step(ref, cfg, batches[i])
+        ref_losses.append(float(loss))
+    ref_w = [t.detach().cpu() for _, t in named_leaves(ref.params)]
+    del ref
+    state = train_state(cfg, seed, "cuda")
+    for i in range(2):
+        state, _ = train_step(state, cfg, batches[i])
+    ckdir = TRAIN_DIR / "resume"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    mngr = checkpoint.make_manager(ckdir)
+    checkpoint.save(mngr, state)
+    del state
+    resumed = checkpoint.restore_latest(mngr, train_state(cfg, seed + 1, "cuda"))
+    losses = []
+    for i in range(2, 4):
+        resumed, loss = train_step(resumed, cfg, batches[i])
+        losses.append(float(loss))
+    diffs = {n: float((t.detach().cpu() - r).abs().max())
+             for (n, t), r in zip(named_leaves(resumed.params), ref_w)}
+    shutil.rmtree(ckdir, ignore_errors=True)
+    differ = {n: d for n, d in diffs.items() if d != 0}
+    return dict(bit_exact=losses == ref_losses[2:] and not differ, losses=losses,
+                ref_losses=ref_losses[2:], leaves_differ=len(differ), leaves=len(diffs),
+                max_weight_diff=max(diffs.values()),
+                worst=sorted(differ.items(), key=lambda kv: -kv[1])[:5])
+
+
+def stop_backend_workers() -> int:
+    """End the backend worker of every asynchronous SLAMSystem the earlier
+    phases left running (each waits for jobs and holds its system, keyframe
+    memory and weights on the card until the process ends), then release
+    what they held. Returns how many were running."""
+    import gc
+
+    import torch
+
+    from monst3r_slam_torch.app.pipeline import SLAMSystem
+
+    n = 0
+    for obj in gc.get_objects():
+        if isinstance(obj, SLAMSystem) and obj._worker is not None:
+            obj._backend_jobs.put(None)
+            obj._worker.join()
+            obj._worker = None
+            n += 1
+    gc.collect()
+    torch.cuda.empty_cache()
+    return n
+
+
+def phase_train(seed: int, card: str) -> dict:
+    """The training path (`train_torch.py`, `monst3r_slam_torch/train/`) at
+    MAST3R_512 full width. The CLI runs unchanged in a subprocess; its card
+    work ends where it starts writing its files, which then take minutes of
+    one core (the `--save` file's deflate) and of the disk, and of the card
+    only a copy of the weights to the host. First the backend workers the
+    earlier phases left running are stopped. The CPU half of the card-vs-CPU
+    step runs beside the CLI's steps; beside its writes run, in turn: the
+    host's launch cost here and in a fresh process (a torch.profiler
+    session can slow later launches in its process); kernel A's gradient;
+    steps timed in-process at both shapes, then one step each under the
+    profiler, the launch counters zeroed just before and read just after;
+    the card half of the card-vs-CPU step; and the resume check under
+    deterministic algorithms (in a subprocess)."""
+    import os
+    import shutil
+
+    import torch
+
+    from monst3r_slam_torch.models.config import MAST3R_512
+
+    t_phase = time.perf_counter()
+    before = torch.cuda.memory_allocated()
+    workers = stop_backend_workers()
+    print(f"train: the earlier phases left {workers} backend workers running; stopping them "
+          f"took the card's allocated memory from {before / 1e9:.2f} to "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB", flush=True)
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    TRAIN_DIR.mkdir(parents=True)
+    save, ckdir = TRAIN_DIR / "params.npz", TRAIN_DIR / "ckpt"
+    cmd = [sys.executable, "train_torch.py", "--synthetic", "--steps", "8", "--batch", "4",
+           "--save", str(save), "--ckpt-dir", str(ckdir)]
+    with open(TRAIN_DIR / "cli.out", "w") as so, open(TRAIN_DIR / "cli.err", "w") as se:
+        proc = subprocess.Popen(cmd, cwd=ROOT, stdout=so, stderr=se, text=True)
+        try:
+            cpu = train_cpu_grads(seed, MAST3R_512, TRAIN_CHECK_SIZE)
+            while proc.poll() is None and not any(ckdir.glob("step_8*")):
+                if time.perf_counter() - t_phase > 300:
+                    fail("train_torch.py wrote no checkpoint within 300 s")
+                time.sleep(0.2)
+            cli_steps_s = time.perf_counter() - t_phase
+
+            host = train_host_state()
+            grad = train_gradient_check(seed)
+            held = torch.cuda.memory_allocated()  # what the earlier phases left on the card
+            t0 = time.perf_counter()
+            state = train_state(MAST3R_512, seed, "cuda")
+            init_s = time.perf_counter() - t0
+            zero_counts()
+            rows = []
+            for b, h, w in TRAIN_SHAPES:
+                state, row = train_timing(state, MAST3R_512, b, h, w, card, held)
+                rows.append(row)
+            for row in rows:
+                state = train_device_time(state, MAST3R_512, row, card)
+            launches = read_counts()
+            n_steps = sum(r["steps"] for r in rows)
+            if launches["fused_attention"] != n_steps * 96:
+                fail(f"the timed training steps launched {launches} over {n_steps} steps "
+                     "(want 96 kernel A a step)")
+            del state
+            torch.cuda.empty_cache()
+            timed_s = time.perf_counter() - t0
+
+            check = train_card_vs_cpu(cpu, MAST3R_512)
+            del cpu
+            env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+            code = ("import json, chip_smoke; "
+                    f"print('RESUME ' + json.dumps(chip_smoke.train_resume_check({seed})))")
+            out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                                 capture_output=True, text=True, timeout=300)
+            checks_s = time.perf_counter() - t_phase
+            rc = proc.wait(timeout=900)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+    cli_s = time.perf_counter() - t_phase
+    cli_out = (TRAIN_DIR / "cli.out").read_text()
+    if rc != 0:
+        fail(f"train_torch.py exited {rc}:\n{cli_out[-2000:]}\n"
+             f"{(TRAIN_DIR / 'cli.err').read_text()[-4000:]}")
+    cli_losses = [float(ln.split("loss ")[1].split()[0]) for ln in cli_out.splitlines()
+                  if ln.startswith("step ")]
+    with np.load(save) as f:
+        n_arrays = len(f.files)
+        saved_finite = all(np.isfinite(f[name]).all() for name in f.files)
+    ckpts = sorted(p.name for p in ckdir.iterdir())
+    ck_gb = sum(p.stat().st_size for p in ckdir.iterdir()) / 1e9
+    print(f"train CLI: {' '.join(cmd[1:])}: exit 0 in {cli_s:.1f} s ({cli_steps_s:.1f} s to "
+          f"its checkpoint); printed losses {cli_losses}; {save.name} "
+          f"{save.stat().st_size / 1e9:.2f} GB, {n_arrays} arrays, finite {saved_finite}; "
+          f"checkpoints {ckpts} ({ck_gb:.2f} GB)", flush=True)
+    if (cli_out.splitlines()[0] != "mesh: {'dp': 1, 'tp': 1}" or not cli_losses
+            or not all(np.isfinite(cli_losses)) or not saved_finite or ckpts != ["step_8.pt"]):
+        fail(f"train_torch.py's run is not well-formed:\n{cli_out[-2000:]}")
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+
+    if out.returncode != 0:
+        fail(f"the resume check exited {out.returncode}:\n{out.stderr[-4000:]}")
+    resume = json.loads(out.stdout.split("RESUME ", 1)[1])
+    print(f"train resume on the card (MAST3R_512 width, 2+2 blocks, batch 2, 224x224, "
+          f"deterministic algorithms): bit-exact {resume['bit_exact']}; losses "
+          f"{resume['losses']} against {resume['ref_losses']}; {resume['leaves_differ']} of "
+          f"{resume['leaves']} leaves differ, at most {resume['max_weight_diff']:.3g} "
+          f"{resume['worst']}", flush=True)
+    if not resume["bit_exact"]:
+        fail("a resumed training run on the card did not continue bit for bit")
+    secs = time.perf_counter() - t_phase
+    print(f"train phase: {secs:.1f} s (the CLI {cli_s:.1f} s, {cli_steps_s:.1f} s of it to its "
+          f"checkpoint; the checks beside it done at {checks_s:.1f} s, state init "
+          f"{init_s:.1f} s, timed steps {timed_s:.1f} s); the earlier phases held "
+          f"{held / 1e9:.2f} GB of the card", flush=True)
+    return dict(host=host, gradient=grad, cli_s=cli_s, cli_steps_s=cli_steps_s,
+                cli_losses=cli_losses, steps=rows, launches=launches, card_vs_cpu=check,
+                resume=resume, held_gb=held / 1e9, stopped_workers=workers,
+                checks_s=checks_s, seconds=secs)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2259,6 +2776,8 @@ def main() -> int:
     ap.add_argument("--only-rest", action="store_true",
                     help="build the kernels and run only the phases of the rest of SLAMSystem "
                          "(lm, fusion, decode_sym, state, chunked); prints no result line")
+    ap.add_argument("--only-train", action="store_true",
+                    help="build the kernels and run only the train phase; prints no result line")
     args = ap.parse_args()
 
     import torch
@@ -2278,6 +2797,11 @@ def main() -> int:
         print(json.dumps({"rest_run": rest}), flush=True)
         print(f"card: {card}; only the rest of SLAMSystem's phases ran", flush=True)
         return 0
+    if args.only_train:
+        train_run = phase_train(args.seed, card)
+        print(json.dumps({"train_run": train_run}), flush=True)
+        print(f"card: {card}; only the train phase ran", flush=True)
+        return 0
     attn = phase_attention(args.seed)
     tm = phase_tile_match(args.seed)
     tmp = phase_tile_match_phases(args.seed)
@@ -2290,6 +2814,7 @@ def main() -> int:
     easi3r_run = phase_easi3r(args.seed, card, dual)
     viewer_run = phase_viewer(args.seed, card)
     rest = phase_rest(args.seed, card)
+    train_run = phase_train(args.seed, card)
     by_path = {name: dict(slice=launches[name], main=main_run["launches"][name],
                           dynamic=dyn["launches"][name] + dyn["split"]["launches"][name],
                           sam2=sam2_run["launches"][name],
@@ -2297,7 +2822,8 @@ def main() -> int:
                           + easi3r_run["split_launches"][name],
                           viewer=viewer_run["launches"][name],
                           lm=rest["lm"]["launches"][name],
-                          chunked=sum(r["launches"][name] for r in rest["chunked"].values()))
+                          chunked=sum(r["launches"][name] for r in rest["chunked"].values()),
+                          train=train_run["launches"][name])
                for name in launches}
     total = {name: sum(paths.values()) for name, paths in by_path.items()}
 
@@ -2315,7 +2841,9 @@ def main() -> int:
              kernel="attn_fwd_bf16_tc (wgmma, TMA)",
              decoder_shape=attn["bf16_tc", "decoder"],
              f32_route=dict(kernel="attn_fwd_f32 (CUDA cores)", encoder=attn["f32", "encoder"],
-                            decoder=attn["f32", "decoder"])),
+                            decoder=attn["f32", "decoder"]),
+             backward="plain PyTorch, attention.sdpa_backward_plain (the reference has no "
+                      "backward kernel)", gradient=train_run["gradient"]),
         dict(name="tile_match", route="cuda", source="monst3r_slam_torch/csrc/tile_match.cu",
              replaces="monst3r_slam_tpu/ops/matching_pallas.py:213",
              launches=total["tile_match_kernel"], launches_by_path=by_path["tile_match_kernel"],
@@ -2341,6 +2869,7 @@ def main() -> int:
     print(json.dumps({"sam2_run": sam2_run}), flush=True)
     print(json.dumps({"easi3r_run": easi3r_run, "viewer_run": viewer_run}), flush=True)
     print(json.dumps({"rest_run": rest}), flush=True)
+    print(json.dumps({"train_run": train_run}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {

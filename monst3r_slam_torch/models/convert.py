@@ -7,7 +7,9 @@ build it), with numpy leaves, and returns the port's tree:
   * conv HWIO (kh, kw, I, O)         -> OIHW
   * transposed conv (k, k, I, O)     -> (I, O, k, k) for `F.conv_transpose2d`
   * blocks stacked on a depth axis   -> a list of per-block dicts
-`cast_params_for_inference` is the port of the reference's bf16 cast.
+`params_to_jax` is its inverse (numpy leaves in the JAX layout, blocks
+stacked), for files either package reads. `cast_params_for_inference` is
+the port of the reference's bf16 cast.
 
 `load_checkpoint` reads a reference `.pth` checkpoint (MASt3R/MonST3R/DUSt3R
 state-dict naming, `{'args': Namespace(model=arch), 'model': state_dict}`):
@@ -66,6 +68,32 @@ def params_from_jax(tree, device="cpu"):
             out[key] = [_convert(_unstack(sub, i), (key,), device) for i in range(depth)]
         else:
             out[key] = _convert(sub, (key,), device)
+    return out
+
+
+def _to_jax(tree, path):
+    if isinstance(tree, dict):
+        return {k: _to_jax(v, path + (k,)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_to_jax(v, path + (str(i),)) for i, v in enumerate(tree)]
+    x = tree.detach().float().cpu().numpy()
+    if path[-1] == "w":
+        if x.ndim == 2:
+            x = x.T
+        elif x.ndim == 4:
+            x = x.transpose(2, 3, 0, 1) if path[-2] == "up" else x.transpose(2, 3, 1, 0)
+    return np.ascontiguousarray(x)
+
+
+def params_to_jax(params):
+    """The port's parameter tree -> the JAX package's layout, float32 numpy
+    leaves: the inverse of `params_from_jax`."""
+    out = {}
+    for key, sub in params.items():
+        if key in _BLOCK_KEYS:
+            out[key] = _stack([_to_jax(blk, (key,)) for blk in sub])
+        else:
+            out[key] = _to_jax(sub, (key,))
     return out
 
 

@@ -11,6 +11,12 @@ card) go to the tensor-core kernel, float32 inputs to the CUDA-core kernel.
 Both read q, k and v through their strides and write the output into a
 (B, N, H, 64) buffer, returned as its (B, H, N, 64) view, so that neither
 the heads split before nor the merge after is a copy.
+
+Kernel A has no backward, and neither has the reference's Pallas kernel
+(training there differentiates its einsum attention). For training on the
+card, `sdpa` wraps kernel A in an autograd Function whose backward is
+`sdpa_backward_plain`: P recomputed from q and k, rounded where the
+autograd of `sdpa_plain` rounds.
 """
 
 from __future__ import annotations
@@ -40,6 +46,27 @@ def sdpa_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tenso
     return torch.matmul(probs, v).to(q.dtype)
 
 
+def sdpa_backward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        dout: torch.Tensor) -> tuple:
+    """(dq, dk, dv) of `sdpa_plain` at (q, k, v) for the output gradient
+    `dout`, rounded where its autograd rounds: P = softmax(QK^T/sqrt(d))
+    recomputed in f32, dP = dout V^T and dV = P^T dout in v's type, the
+    softmax backward and the products with k and q in f32, dq and dk cast
+    to their inputs' types. The operations are the autograd's own, so on
+    one device the result equals it bit for bit."""
+    scale = q.shape[-1] ** -0.5
+    qf, kf = q.float(), k.float()
+    logits = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    probs = torch.softmax(logits, dim=-1)
+    dout = dout.to(v.dtype)
+    dv = torch.matmul(probs.to(v.dtype).transpose(-1, -2), dout)
+    dprobs = torch.matmul(dout, v.transpose(-1, -2)).float()
+    dlogits = torch._softmax_backward_data(dprobs, probs, -1, torch.float32) * scale
+    dq = torch.matmul(dlogits, kf).to(q.dtype)
+    dk = torch.matmul(qf.transpose(-1, -2), dlogits).transpose(-1, -2).to(k.dtype)
+    return dq, dk, dv
+
+
 def error_bound(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, ref: torch.Tensor) -> float:
     """Largest error kernel A may show against `ref`, the plain version
     computed in f32 from the same inputs.
@@ -61,6 +88,32 @@ def error_bound(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, ref: torch.Te
     p = torch.softmax(q.float() @ k.float().transpose(-1, -2) * q.shape[-1] ** -0.5, dim=-1)
     spread = torch.sqrt(p.square() @ v.float().square())
     return 2.0**-8 * float(ref.abs().max()) + 2.0**-9 * float(spread.max())
+
+
+def backward_error_bound(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         dout: torch.Tensor) -> tuple:
+    """Per-element bounds on how far `sdpa_backward_plain` in q's type may
+    lie from the f32 autograd of `sdpa_plain` on the same values:
+    (bound on dq, on dk, on dv), f32 tensors.
+
+    In bf16 the backward rounds P before dV = P^T dout, dP = dout V^T, and
+    the outputs, each within 2^-9 of its value. dV's error is then within
+    2^-9 |P|^T |dout| for P's rounding and as much for the output's. dP's
+    rounding moves dS = P (dP - sum_k P dP) by at most 2^-9 P (|dP| +
+    sum_k P |dP|), which the product with k (with q) carries into dq (dk),
+    whose own rounding adds 2^-9 |dS| |k| at most. Each bound is twice its
+    sum, which leaves as much again for the f32 summation order. f32
+    inputs: 2^-20 of the same terms, for the summation order alone."""
+    u = 2.0**-8 if q.dtype == torch.bfloat16 else 2.0**-20
+    qf, kf, vf, df = (t.float() for t in (q, k, v, dout))
+    scale = q.shape[-1] ** -0.5
+    p = torch.softmax(qf @ kf.transpose(-1, -2) * scale, dim=-1)
+    dp = df @ vf.transpose(-1, -2)
+    ds = p * (dp - (p * dp).sum(-1, keepdim=True))
+    ds_terms = p * (dp.abs() + (p * dp.abs()).sum(-1, keepdim=True)) + ds.abs()
+    return (u * scale * (ds_terms @ kf.abs()),
+            u * scale * (ds_terms.transpose(-1, -2) @ qf.abs()),
+            2 * u * (p.transpose(-1, -2) @ df.abs()))
 
 
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -104,8 +157,27 @@ fused_attention.launches = 0  # every launch
 fused_attention.route_launches = {"bf16_tc": 0, "f32": 0}  # launches per route
 
 
+class KernelAttention(torch.autograd.Function):
+    """Kernel A forward, `sdpa_backward_plain` backward. Saves q, k and v,
+    not P: the backward recomputes P, never the forward's output."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        ctx.save_for_backward(q, k, v)
+        return fused_attention(q, k, v)
+
+    @staticmethod
+    def backward(ctx, dout):
+        return sdpa_backward_plain(*ctx.saved_tensors, dout)
+
+
 def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Kernel A for CUDA tensors, the plain version for CPU tensors."""
+    """Kernel A for CUDA tensors, the plain version for CPU tensors. On the
+    card a call that autograd records (grad enabled, an input that requires
+    grad) goes through `KernelAttention`; every other call launches kernel
+    A directly."""
     if q.device.type == "cpu":
         return sdpa_plain(q, k, v)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return KernelAttention.apply(q, k, v)
     return fused_attention(q, k, v)

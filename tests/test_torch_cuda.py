@@ -1,6 +1,7 @@
-"""Kernels A (attention, both routes) and B (tile matcher, and its phase
-instantiations) on the card against their plain versions, through the
-dispatch the model and the matcher call; and the dynamic pipeline's parts
+"""Kernels A (attention, both routes, and its autograd Function with the
+plain backward) and B (tile matcher, and its phase instantiations) on the
+card against their plain versions, through the dispatch the model and the
+matcher call; and the dynamic pipeline's parts
 on the card: RAFT against its CPU path, the fused flow program's readback
 ordering around `overlap_cb`, and the dual decode's kernel A launches; the
 LM matcher against its CPU run; and chunked tracking against the per-frame
@@ -101,6 +102,43 @@ def test_attention_kernel_refuses_what_it_does_not_take(cuda):
     for bad in (odd, wide):
         with pytest.raises(ValueError):
             attention.fused_attention(ok, ok, bad)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,nk", [((4, 16, 196, 64), 196), ((1, 16, 768, 64), 768),
+                                      ((2, 3, 130, 64), 7)])
+def test_attention_function_gradient_matches_the_plain_autograd(cuda, dtype, shape, nk):
+    """Kernel A's autograd Function, as the training forward reaches it
+    through `sdpa` with grad enabled: one kernel A launch forward and none
+    backward; the forward within `attention.error_bound` and dq, dk, dv
+    within `attention.backward_error_bound` of the f32 plain autograd, at
+    the 224x224 training shape, at 768 tokens and at a ragged count. With
+    grad disabled `sdpa` launches kernel A directly and records nothing."""
+    rng = np.random.default_rng(shape[2] + nk)
+    b, h, nq, d = shape
+    q, dout = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(cuda, dtype)
+               for _ in range(2))
+    k, v = (torch.from_numpy(rng.standard_normal((b, h, nk, d), dtype=np.float32)).to(cuda, dtype)
+            for _ in range(2))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    n0 = attention.fused_attention.launches
+    out = attention.sdpa(*leaves)
+    n1 = attention.fused_attention.launches
+    out.backward(dout)
+    torch.cuda.synchronize()
+    assert (n1 - n0, attention.fused_attention.launches - n1) == (1, 0)
+    assert type(out.grad_fn).__name__ == "KernelAttentionBackward"
+    ref = [t.float().clone().requires_grad_() for t in (q, k, v)]
+    ref_out = attention.sdpa_plain(*ref)
+    ref_out.backward(dout.float())
+    assert (float((out.detach().float() - ref_out.detach()).abs().max())
+            <= attention.error_bound(q, k, v, ref_out.detach()))
+    for t, r, bound in zip(leaves, ref, attention.backward_error_bound(q, k, v, dout)):
+        assert t.grad.dtype == dtype and bool(((t.grad.float() - r.grad).abs() <= bound).all())
+    with torch.no_grad():
+        assert attention.sdpa(*leaves).grad_fn is None
+    assert attention.fused_attention.launches == n1 + 1
 
 
 def _tile_args(cuda, seed, fd, T, desc=None, qd=None):

@@ -1,5 +1,6 @@
 """The port stands alone: `monst3r_slam_torch`, its entry points
-`main_torch.py`, `main_monster_torch.py` and `main_easier_torch.py`, and
+`main_torch.py`, `main_monster_torch.py`, `main_easier_torch.py` and
+`train_torch.py`, and
 `chip_smoke.py` import neither JAX nor anything of the JAX package, not even its numpy-only modules or its native solver (the port
 keeps its own copies of those, C++ source included)."""
 
@@ -21,11 +22,14 @@ for name in names:
     importlib.import_module(name)
 assert {"monst3r_slam_torch.dynamic." + m
         for m in ("easi3r", "inference", "mask", "raft", "refine", "sam2", "sam2_video")} \
-    | {"monst3r_slam_torch.viz." + m for m in ("debug", "headless", "live")} <= set(names), names
+    | {"monst3r_slam_torch.viz." + m for m in ("debug", "headless", "live")} \
+    | {"monst3r_slam_torch.train." + m for m in ("checkpoint", "loss", "step")} \
+    | {"monst3r_slam_torch.utils." + m for m in ("flops", "timing")} <= set(names), names
 import chip_smoke
 import main_easier_torch
 import main_monster_torch
 import main_torch
+import train_torch
 bad = sorted(m for m, mod in sys.modules.items() if mod is not None
              and (m.startswith("monst3r_slam_tpu") or m.split(".")[0] in ("jax", "jaxlib")))
 print(len(names), bad)
@@ -47,12 +51,13 @@ def test_port_sources_name_neither_jax_nor_the_jax_package():
             text = path.read_text()
             assert not re.search(r"\bjax\b|monst3r_slam_tpu", text), path
     assert (PORT / "native" / "solver.cpp").is_file()  # read above
-    for script in ("main_torch.py", "main_monster_torch.py", "main_easier_torch.py"):
+    for script in ("main_torch.py", "main_monster_torch.py", "main_easier_torch.py",
+                   "train_torch.py"):
         assert not re.search(r"\bjax\b|monst3r_slam_tpu", (ROOT / script).read_text()), script
     # chip_smoke.py names the TPU kernels it replaces by path, but imports
     # nothing of theirs.
     for script in ("chip_smoke.py", "main_torch.py", "main_monster_torch.py",
-                   "main_easier_torch.py"):
+                   "main_easier_torch.py", "train_torch.py"):
         tree = ast.parse((ROOT / script).read_text())
         for node in ast.walk(tree):
             if isinstance(node, ast.Import):
