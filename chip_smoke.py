@@ -90,7 +90,24 @@ phase printing one line:
  12. the rest of SLAMSystem (`phase_rest`: the LM matcher, the fusion
      modes, symmetric and fused-head decode, state files, chunked tracking;
      alone with `--only-rest`);
- 13. the training path (`phase_train`; alone with `--only-train`): the
+ 13. the SLAM path's device mesh (`phase_mesh`; alone with `--only-mesh`)
+     at MAST3R_512, 384x512, on the slice's tied weights and frame: with one
+     card a (4, 2) mesh whose entries all name cuda:0 (the dp shards run
+     one after the other), with several `make_mesh()` over the cards too
+     (else it prints that the multi-card mesh was not run). The sharded
+     edge decode at E = 3 and 8 equal to its shards decoded alone, its D
+     and Q equal to one decode of the batch, and with cuDNN off (whose
+     convolution algorithms vary with the batch size) every output equal
+     to that decode's; the synchronous and the worker SLAMSystem on 10
+     frames with a forced keyframe event, with the mesh (`solver: auto`,
+     which the mesh makes the device solve) and without it, in the order
+     off, on, on, off: decisions equal, poses within 1e-3, kernels A and B
+     counted on the first run with the mesh, the keyframe event timed in
+     each run;
+     the sharded Gauss-Newton against the unsharded one on the end state,
+     its edges spread over the shards (1e-4); and the dual decode on the
+     first two mesh devices against `monst3r_asymmetric_inference` (equal);
+ 14. the training path (`phase_train`; alone with `--only-train`): the
      backend workers of earlier phases stopped; `train_torch.py` unchanged
      in a subprocess at MAST3R_512 (8 steps, batch 4, 224x224, with
      `--save` and `--ckpt-dir`), and beside its file writes, which use
@@ -118,7 +135,7 @@ of the camera (`front_depth`), which the calibrated tracker and the
 ego-motion flow need, and raises the mask threshold (`DYN_THRESHOLD`).
 
 Then one JSON line with the kernel table (each kernel's launches on every
-path, `sam2`, `easi3r` and `viewer` included) and, last, the
+path, `sam2`, `easi3r`, `viewer` and `mesh` included) and, last, the
 `{"ok": true, ...}` line. Exits
 non-zero without that line when there is no CUDA device, when the port is
 not importable, or when any phase fails.
@@ -2270,6 +2287,285 @@ def phase_rest(seed: int, card: str) -> dict:
     return out
 
 
+MESH_FRAMES, MESH_KF_AT = 10, 5  # the mesh phase's run: one forced keyframe event
+
+
+def mesh_config(single_thread: bool, solver: str) -> dict:
+    """`slice_config` with every tracking decision resolved at once, in
+    synchronous or worker mode, with the `solver` given."""
+    cfg = slice_config()
+    cfg.update(single_thread=single_thread, defer_tracking_sync=0)
+    cfg["local_opt"]["solver"] = solver
+    return cfg
+
+
+def mesh_slam_run(params, mesh, single_thread: bool, seed: int) -> dict:
+    """The synchronous (or worker) SLAMSystem at MAST3R_512 on MESH_FRAMES
+    copies of the slice's frame, the keyframe forced at MESH_KF_AT and no
+    other, the device synchronized (and the worker waited for) after each
+    frame; with `mesh`, `solver: auto` (which the mesh makes the device
+    solve), else `solver: device`. The launch counters are zeroed just
+    before and read just after."""
+    import torch
+
+    from monst3r_slam_torch.app.pipeline import SLAMSystem
+    from monst3r_slam_torch.models.config import MAST3R_512
+
+    slam = SLAMSystem(params=params, model_cfg=MAST3R_512,
+                      cfg=mesh_config(single_thread, "auto" if mesh is not None else "device"),
+                      img_size=(H, W), kf_capacity=16, device="cuda", mesh=mesh)
+    if slam.host_solve or (mesh is not None and slam._mesh_params is None):
+        fail(f"mesh run: host solve {slam.host_solve}, replicas {slam._mesh_params is not None}")
+    img = synthetic_frame(seed, H, W)
+    zero_counts()
+    wall, modes = [], []
+    for i in range(MESH_FRAMES):
+        t0 = time.perf_counter()
+        slam.process_frame(i, i / 30.0, img, force_kf=i == MESH_KF_AT)
+        if not single_thread:
+            slam._backend_jobs.join()
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+        modes.append(slam.mode.name)
+    slam.finalize()
+    launches = read_counts()
+    if slam._worker is not None:  # stop the worker: the system is dropped after the phase
+        slam._backend_jobs.put(None)
+        slam._worker.join()
+        slam._worker = None
+    return dict(slam=slam, wall_ms=wall, modes=modes, launches=launches,
+                kf_ids=slam.keyframe_trajectory()[1].tolist(),
+                poses=slam.full_trajectory()[1], solves=slam.graph.n_solves,
+                backend_job_ms=slam.prof.get("backend_job", []))
+
+
+def mesh_decode_check(mesh, params, E: int, seed: int) -> dict:
+    """`sharded_edge_decode` of E pairs of distinct 384x512 frames (pair e:
+    frame e and frame e+1) in bf16, held bit for bit to each shard's rows
+    (zero pad rows included) decoded alone on its device at the shard's
+    batch size, and its D and Q bit for bit to one decode of the whole
+    batch. That one decode's X and C may differ from the shards': cuDNN
+    picks a convolution algorithm per batch size, which rounds otherwise.
+    So the decoder tokens are compared across the two batch sizes, and
+    with cuDNN off every output of the sharded decode must equal the one
+    decode's. Both decodes timed with cuDNN on, as the pipeline runs."""
+    import torch
+
+    from monst3r_slam_torch.models import croco
+    from monst3r_slam_torch.models import mast3r as model_api
+    from monst3r_slam_torch.models.config import MAST3R_512
+    from monst3r_slam_torch.ops.build import on_card
+    from monst3r_slam_torch.parallel.inference import place_replicated, sharded_edge_decode
+
+    cfg = MAST3R_512
+    imgs = torch.from_numpy(np.stack([synthetic_frame(seed + e, H, W) for e in range(E)]))
+    feat, pos = model_api.encode(params, cfg, imgs.to("cuda"))
+    args = (feat, pos, feat.roll(-1, 0), pos.roll(-1, 0))
+    replicas = place_replicated(params, mesh)
+    sharded = lambda: sharded_edge_decode(mesh, replicas, cfg, *args, (H, W))  # noqa: E731
+    whole = lambda: model_api.decode(params, cfg, *args, (H, W))  # noqa: E731
+    out, ref = sharded(), whole()
+    devs = mesh.shard_devices("dp")
+    rows = -(-E // len(devs))
+    padded = [torch.cat([a, a.new_zeros((rows * len(devs) - E,) + tuple(a.shape[1:]))])
+              for a in args]
+    blocks = [[a[d * rows:(d + 1) * rows].to(dev) for a in padded] for d, dev in enumerate(devs)]
+    alone = []
+    for dev, blk in zip(devs, blocks):
+        with on_card(dev):
+            alone.append(model_api.decode(replicas[dev], cfg, *blk, (H, W)))
+    diff = {}
+    for name, r, s, *shards in zip(ref._fields, ref, out, *alone):
+        want = torch.cat([t.to(mesh.home) for t in shards])[:E]
+        if s.shape != r.shape or s.device != r.device or s.stride() != r.stride():
+            fail(f"sharded decode E={E}: {name} {tuple(s.shape)} {s.stride()} on {s.device}, "
+                 f"not {tuple(r.shape)} {r.stride()} on {r.device}")
+        if not torch.equal(s, want):
+            fail(f"sharded decode E={E} on {mesh}: {name} differs from its shards decoded alone "
+                 f"by {float((s.float() - want.float()).abs().max()):.4g}")
+        diff[name] = float((s.float() - r.float()).abs().max())
+        if name[0] in "DQ" and diff[name] != 0.0:
+            fail(f"sharded decode E={E} on {mesh}: {name} {diff[name]:.4g} from the unsharded "
+                 "decode, not equal")
+    full = croco.decode_pair(params, cfg, *args)
+    split = [croco.decode_pair(params, cfg, *(a.to(mesh.home) for a in blk)) for blk in blocks]
+    tokens_equal = all(
+        torch.equal(f, torch.cat([sp[v][k] for sp in split])[:E])
+        for v in range(2) for k, f in enumerate(full[v]))
+    cudnn_was = torch.backends.cudnn.enabled
+    torch.backends.cudnn.enabled = False
+    try:
+        out_off, ref_off = sharded(), whole()
+    finally:
+        torch.backends.cudnn.enabled = cudnn_was
+    for name, s, r in zip(ref._fields, out_off, ref_off):
+        if not torch.equal(s, r):
+            fail(f"sharded decode E={E} on {mesh}, cuDNN off: {name} "
+                 f"{float((s.float() - r.float()).abs().max()):.4g} from the unsharded decode, "
+                 "not equal")
+    ms = time_ms(sharded, 3, 1)
+    plain = time_ms(whole, 3, 1)
+    return dict(E=E, rows_per_shard=rows, equal_to_shards_alone=True, max_abs_diff=diff,
+                tokens_equal_across_batch=tokens_equal, equal_with_cudnn_off=True, ms=ms,
+                unsharded_ms=plain)
+
+
+def mesh_gn_check(mesh, slam, seed: int) -> dict:
+    """`gauss_newton_sharded` against `gauss_newton` on the keyframe state
+    at the end of a run: its edges spread over the dp shards (edge k at
+    slot k E / n of E = 2 dp slots, the rest masked padding, so that the
+    shards' systems are summed), every pose but the pinned one moved off
+    the solution by a seeded 0.01 step so that the solve iterates; both
+    timed (synchronized), poses within 1e-4."""
+    import torch
+
+    from monst3r_slam_torch.core import lie
+    from monst3r_slam_torch.slam import backend
+    from monst3r_slam_torch.slam.factor_graph import _next_pow2
+
+    g, mem, n, cfg = slam.graph, slam.mem, slam.n_kf, slam.backend_cfg
+    P = min(_next_pow2(n, cfg.pose_pad_lo), mem.capacity)
+    ne, E = g.n_edges, 2 * mesh.shape["dp"]
+    slot = torch.arange(ne) * E // ne
+    src = torch.zeros(E, dtype=torch.long)  # each slot's edge; padding repeats edge 0
+    src[slot] = torch.arange(ne)
+    dev = mem.T_WC.device
+    step = torch.from_numpy(np.random.default_rng(seed).normal(0, 0.01, (P, 7))).float().to(dev)
+    step[: cfg.pin] = 0
+    args = (lie.sim3_retr(mem.T_WC[:P], step), mem.X_canon[:P],
+            mem.C[:P] / torch.clamp(mem.N[:P, None, None].float(), min=1.0),
+            torch.from_numpy(g.ii[:ne])[src].to(dev), torch.from_numpy(g.jj[:ne])[src].to(dev),
+            g.idx[src.to(dev)], g.valid_match[src.to(dev)], g.Q[src.to(dev)],
+            torch.zeros(E, dtype=torch.bool, device=dev).index_fill_(0, slot.to(dev), True))
+    out = {}
+    for name, solve in (("sharded", lambda: backend.gauss_newton_sharded(mesh, *args, cfg, P)),
+                        ("unsharded", lambda: backend.gauss_newton(*args, cfg, P))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        T, iters = solve()
+        torch.cuda.synchronize()
+        out[name] = (T, iters, (time.perf_counter() - t0) * 1e3)
+    diff = float((out["sharded"][0] - out["unsharded"][0]).abs().max())
+    moved = float((out["unsharded"][0] - args[0]).abs().max())
+    if not diff <= 1e-4:
+        fail(f"sharded GN on {mesh}: poses {diff} from the unsharded solve's")
+    return dict(max_pose_diff=diff, moved=moved, keyframes=n, edges=ne, edge_slots=E,
+                iters=[out[k][1] for k in ("sharded", "unsharded")],
+                ms=out["sharded"][2], unsharded_ms=out["unsharded"][2])
+
+
+def phase_mesh(seed: int, card: str) -> dict:
+    """The SLAM path's device mesh (`parallel/`, `gauss_newton_sharded`,
+    `SLAMSystem(mesh=...)`) at MAST3R_512, 384x512, on the slice phase's
+    tied weights and frame. With one card the mesh is (4, 2) entries of
+    cuda:0: the dp shards of a four-way split run one after the other on
+    it. With several, `make_mesh()` over the distinct cards runs too.
+    Checks: the sharded edge decode at E = 3 and 8 against its shards
+    decoded alone (equal) and one decode (D, Q equal; all equal with cuDNN
+    off); the synchronous and
+    the worker SLAMSystem with the mesh against the same without it, run
+    in the order off, on, on, off (decisions equal, poses within 1e-3, the
+    two runs with the mesh launch alike), kernels A and B launched and
+    counted in the first run with the mesh; the sharded GN against the
+    unsharded one on the end state, its edges spread over the shards
+    (1e-4); the dual decode on two mesh devices against
+    `monst3r_asymmetric_inference` (equal)."""
+    import torch
+
+    from monst3r_slam_torch.dynamic.inference import DualParams, monst3r_asymmetric_inference
+    from monst3r_slam_torch.models import mast3r as model_api
+    from monst3r_slam_torch.models.config import MAST3R_512, MONST3R_512
+    from monst3r_slam_torch.parallel.inference import (
+        dual_decode_two_device, dual_device_pair, place_dual,
+    )
+    from monst3r_slam_torch.parallel.mesh import make_mesh
+
+    t_start = time.perf_counter()
+    params = tied_params(MAST3R_512, seed)
+    meshes = {"one_card": make_mesh(devices=[torch.device("cuda")] * 8)}
+    if torch.cuda.device_count() > 1:
+        meshes["cards"] = make_mesh()
+    else:
+        print(f"mesh ({card}): the multi-card mesh was not run (1 card)", flush=True)
+    out = dict(decode={}, gn={}, runs={}, launches={name: 0 for name in read_counts()})
+    for mname, mesh in meshes.items():
+        out["decode"][mname] = [mesh_decode_check(mesh, params, E, seed) for E in (3, 8)]
+        runs = {}
+        for mode, single in (("sync", True), ("async", False)):
+            offs, ons = [mesh_slam_run(params, None, single, seed)], []
+            ons += [mesh_slam_run(params, mesh, single, seed) for _ in range(2)]
+            offs.append(mesh_slam_run(params, None, single, seed))
+            on, off = ons[0], offs[0]
+            for k, v in on["launches"].items():
+                out["launches"][k] += v
+            dpose = max(float(np.abs(r["poses"] - off["poses"]).max()) for r in ons + offs)
+            runs[mode] = dict(
+                modes=on["modes"], keyframes=on["kf_ids"], max_pose_diff=dpose,
+                launches=on["launches"], launches_off=off["launches"],
+                wall_ms=on["wall_ms"], wall_ms_off=off["wall_ms"],
+                kf_event_ms=[r["wall_ms"][MESH_KF_AT] for r in ons],
+                kf_event_ms_off=[r["wall_ms"][MESH_KF_AT] for r in offs],
+                backend_job_ms=[r["backend_job_ms"] for r in ons],
+                backend_job_ms_off=[r["backend_job_ms"] for r in offs])
+            print(f"mesh {mname} {mesh.shape} {mode} ({card}) MAST3R_512 {H}x{W}, "
+                  f"{MESH_FRAMES} frames: modes {on['modes']}; keyframes {on['kf_ids']} "
+                  f"(no mesh {off['kf_ids']}); poses within {dpose:.3g} of the run without "
+                  f"the mesh; keyframe event ms in run order off, on, on, off: "
+                  f"{runs[mode]['kf_event_ms_off'][0]:.1f}, {runs[mode]['kf_event_ms'][0]:.1f}, "
+                  f"{runs[mode]['kf_event_ms'][1]:.1f}, {runs[mode]['kf_event_ms_off'][1]:.1f}; "
+                  f"launches {on['launches']} (no mesh {off['launches']}); worker jobs ms "
+                  f"{runs[mode]['backend_job_ms']} (no mesh {runs[mode]['backend_job_ms_off']})",
+                  flush=True)
+            if ons[1]["launches"] != on["launches"] or offs[1]["launches"] != off["launches"]:
+                fail(f"mesh {mname} {mode}: a repeated run launched otherwise: "
+                     f"{ons[1]['launches']}, {offs[1]['launches']}")
+            for r in ons + offs[1:]:
+                if (r["modes"] != off["modes"] or r["kf_ids"] != off["kf_ids"]
+                        or r["slam"].graph.edge_list() != off["slam"].graph.edge_list()):
+                    fail(f"mesh {mname} {mode}: decisions differ from the run without the mesh")
+            if not dpose <= 1e-3 or on["solves"] < 1 or on["modes"][1:].count("TRACKING") < 1:
+                fail(f"mesh {mname} {mode}: poses {dpose} apart, {on['solves']} solves, "
+                     f"modes {on['modes']}")
+            if min(on["launches"]["fused_attention"], on["launches"]["tile_match_kernel"]) < 1:
+                fail(f"mesh {mname} {mode}: a kernel of the path never launched")
+            if mode == "sync":
+                out["gn"][mname] = mesh_gn_check(mesh, on["slam"], seed)
+            del ons, offs, on, off
+        out["runs"][mname] = runs
+        print(f"mesh {mname} checks ({card}): sharded decode {out['decode'][mname]} "
+              f"(equal to its shards decoded alone, and with cuDNN off to one decode of the "
+              f"batch; max difference from that decode with cuDNN on); sharded GN "
+              f"{out['gn'][mname]}",
+              flush=True)
+    # the dual decode on the first two mesh devices (one card: cuda:0 twice)
+    mon = tied_params(MONST3R_512, seed + 1)
+    dual = DualParams(mon, MONST3R_512, params, MAST3R_512)
+    img = torch.from_numpy(np.stack([synthetic_frame(seed, H, W), synthetic_frame(seed + 1, H, W)]))
+    feat, pos = model_api.encode(mon, MONST3R_512, img.to("cuda"))
+    pair = (feat[:1], pos[:1], feat[1:], pos[1:], (H, W))
+    ref = monst3r_asymmetric_inference(dual, *pair)
+    out["dual"] = {}
+    for mname, mesh in meshes.items():
+        dev_a, dev_b = dual_device_pair(mesh)
+        placed = place_dual(dual, dev_a, dev_b)
+        got = dual_decode_two_device(placed, dev_a, dev_b, *pair)
+        # the one-device decode's calls, on one card or two of one kind: equal bits
+        rel = max(float((s.float() - r.float()).abs().max() / r.float().abs().max())
+                  for s, r in zip(got, ref) if r is not None)
+        if any(s is not None and s.device != dev_a for s in got) or rel:
+            fail(f"dual decode on ({dev_a}, {dev_b}): {rel:.3g} of scale from the one-device "
+                 "decode, or an output off dev_a")
+        ms = time_ms(lambda: dual_decode_two_device(placed, dev_a, dev_b, *pair), 3, 1)
+        out["dual"][mname] = dict(devices=[str(dev_a), str(dev_b)], max_rel_diff=rel, ms=ms)
+    plain = time_ms(lambda: monst3r_asymmetric_inference(dual, *pair), 3, 1)
+    out["dual_plain_ms"] = plain
+    out["seconds"] = time.perf_counter() - t_start
+    print(f"mesh dual decode ({card}) MONST3R_512 + MAST3R_512 {H}x{W}: {out['dual']} "
+          f"(one device: {plain:.2f} ms); phase {out['seconds']:.1f} s; mesh-path launches "
+          f"{out['launches']}", flush=True)
+    return out
+
+
 TRAIN_DIR = ROOT / "build" / "smoke_train"  # the train phase's checkpoints and weights
 TRAIN_SHAPES = ((4, 224, 224), (2, 384, 512))  # (batch, H, W): the CLI's default, SLAM frames
 TRAIN_CHECK_SIZE = 112  # the card-vs-CPU step: 49 tokens, a ragged tile, CPU-affordable
@@ -2778,6 +3074,8 @@ def main() -> int:
                          "(lm, fusion, decode_sym, state, chunked); prints no result line")
     ap.add_argument("--only-train", action="store_true",
                     help="build the kernels and run only the train phase; prints no result line")
+    ap.add_argument("--only-mesh", action="store_true",
+                    help="build the kernels and run only the mesh phase; prints no result line")
     args = ap.parse_args()
 
     import torch
@@ -2797,6 +3095,11 @@ def main() -> int:
         print(json.dumps({"rest_run": rest}), flush=True)
         print(f"card: {card}; only the rest of SLAMSystem's phases ran", flush=True)
         return 0
+    if args.only_mesh:
+        mesh_run = phase_mesh(args.seed, card)
+        print(json.dumps({"mesh_run": mesh_run}), flush=True)
+        print(f"card: {card}; only the mesh phase ran", flush=True)
+        return 0
     if args.only_train:
         train_run = phase_train(args.seed, card)
         print(json.dumps({"train_run": train_run}), flush=True)
@@ -2814,6 +3117,7 @@ def main() -> int:
     easi3r_run = phase_easi3r(args.seed, card, dual)
     viewer_run = phase_viewer(args.seed, card)
     rest = phase_rest(args.seed, card)
+    mesh_run = phase_mesh(args.seed, card)
     train_run = phase_train(args.seed, card)
     by_path = {name: dict(slice=launches[name], main=main_run["launches"][name],
                           dynamic=dyn["launches"][name] + dyn["split"]["launches"][name],
@@ -2823,7 +3127,7 @@ def main() -> int:
                           viewer=viewer_run["launches"][name],
                           lm=rest["lm"]["launches"][name],
                           chunked=sum(r["launches"][name] for r in rest["chunked"].values()),
-                          train=train_run["launches"][name])
+                          mesh=mesh_run["launches"][name], train=train_run["launches"][name])
                for name in launches}
     total = {name: sum(paths.values()) for name, paths in by_path.items()}
 
@@ -2859,7 +3163,8 @@ def main() -> int:
                                    sam2=sam2_run["launches"]["tile_match_phase_kernel"],
                                    lm=rest["lm"]["launches"]["tile_match_phase_kernel"],
                                    chunked=sum(r["launches"]["tile_match_phase_kernel"]
-                                               for r in rest["chunked"].values())),
+                                               for r in rest["chunked"].values()),
+                                   mesh=mesh_run["launches"]["tile_match_phase_kernel"]),
              ms=full["ms"], plain_ms=full["plain_ms"], bound_ms=full["bound_ms"],
              bound_by=full["bound_by"], library_ms=None, shape=tmp["shape"],
              device_ms=full["device_ms"], phases=tmp["phases"]),
@@ -2869,6 +3174,7 @@ def main() -> int:
     print(json.dumps({"sam2_run": sam2_run}), flush=True)
     print(json.dumps({"easi3r_run": easi3r_run, "viewer_run": viewer_run}), flush=True)
     print(json.dumps({"rest_run": rest}), flush=True)
+    print(json.dumps({"mesh_run": mesh_run}), flush=True)
     print(json.dumps({"train_run": train_run}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {card}", flush=True)

@@ -50,8 +50,14 @@ read the SLAM state as an `.npz` with the JAX package's keys, dtypes and
 shapes. `process_chunk` tracks a batch of frames with one host read per
 event-free chunk (app/chunked.py).
 
-Not ported, and refused with an error rather than ignored: a mesh across
-more than one card.
+`parallel.mesh: auto` (config/base.yaml) builds a device mesh over every
+visible card when there is more than one (parallel/mesh.py); `off`, or one
+card, or the CPU builds none. With a mesh the factor-graph edge decode of
+the plain MASt3R pipeline splits its pair batch over the mesh's dp axis
+(`sharded_edge_decode`), the global Gauss-Newton splits its edges over dp
+(`gauss_newton_sharded`), and `solver: auto` takes the device solve. The
+`mesh` field passes a mesh of the caller's own (a grid that repeats one
+card, say) in place of the configuration's.
 """
 
 from __future__ import annotations
@@ -77,6 +83,8 @@ from monst3r_slam_torch.models import mast3r as model_api
 from monst3r_slam_torch.models.config import ModelConfig
 from monst3r_slam_torch.native.build import solver_available
 from monst3r_slam_torch.ops import matching, matching_tiled
+from monst3r_slam_torch.parallel.inference import place_replicated, sharded_edge_decode
+from monst3r_slam_torch.parallel.mesh import canonical_device, make_mesh
 from monst3r_slam_torch.slam import retrieval as retrieval_mod
 from monst3r_slam_torch.slam import tracker as tracker_mod
 from monst3r_slam_torch.slam.backend import BackendConfig
@@ -348,10 +356,14 @@ class SLAMSystem:
     # stage times are the device's and not the host's enqueue times (it
     # serializes what the pipeline overlaps: for measurement only).
     sync_stages: bool = False
+    # A device mesh (parallel/mesh.py Mesh) whose home device is `device`;
+    # None: built from the config's `parallel.mesh`.
+    mesh: Optional[object] = None
 
     def __post_init__(self):
         cfg = self.cfg
-        self._refuse_unported(cfg)
+        if self.dual is not None and self.easi3r is not None:
+            raise ValueError("SLAMSystem takes the MonST3R (dual) or the Easi3R models, not both")
         h, w = self.img_size
         self.hw = h * w
         self.kf_capacity = int(cfg.get("kf_capacity", self.kf_capacity))
@@ -438,22 +450,41 @@ class SLAMSystem:
             self.host_solve = not self.single_thread and solver_available()
         else:
             self.host_solve = mode == "host"
+        self._setup_mesh(cfg, mode)
         self._worker: Optional[threading.Thread] = None
         if not self.single_thread:
             self._worker = threading.Thread(target=self._backend_worker, name="slam-backend",
                                             daemon=True)
             self._worker.start()
 
-    def _refuse_unported(self, cfg: dict):
-        def refuse(what):
-            raise NotImplementedError(f"{what} is not ported to the PyTorch package yet")
-
-        mesh = str(cfg.get("parallel", {}).get("mesh", "auto"))
-        multi = torch.device(self.device).type == "cuda" and torch.cuda.device_count() > 1
-        if mesh not in ("off", "auto") or (mesh == "auto" and multi):
-            refuse("the multi-device mesh (set parallel.mesh: off)")
-        if self.dual is not None and self.easi3r is not None:
-            raise ValueError("SLAMSystem takes the MonST3R (dual) or the Easi3R models, not both")
+    def _setup_mesh(self, cfg: dict, solver_mode: str):
+        """The device mesh (config `parallel.mesh`: auto | off): with `auto`
+        a mesh over every visible card when there is more than one, unless
+        the caller passed one. A mesh flips `solver: auto` to the device
+        solve, and with the plain decoder (no dual or Easi3R models, and
+        `_decode_pair` not overridden) puts a replica of the weights on
+        each dp device for the edge decode (`_mesh_params`)."""
+        pkey = cfg.get("parallel", {}).get("mesh", "auto")
+        pkey = "off" if pkey is False else str(pkey)  # YAML reads a bare `off` as false
+        if pkey not in ("auto", "off"):
+            raise ValueError(f"parallel.mesh must be auto or off, got {pkey!r}")
+        if (self.mesh is None and pkey == "auto" and torch.device(self.device).type == "cuda"
+                and torch.cuda.device_count() > 1):
+            self.mesh = make_mesh()
+        self._mesh_params = None
+        if self.mesh is None:
+            return
+        if self.mesh.home != canonical_device(self.device):
+            raise ValueError(f"the mesh's home device {self.mesh.home} is not the system's "
+                             f"device {self.device}")
+        if solver_mode == "auto":
+            self.host_solve = False
+        plain_decode = (type(self)._decode_pair is SLAMSystem._decode_pair
+                        and self.dual is None and self.easi3r is None)
+        if plain_decode:
+            self._mesh_params = place_replicated(self.params, self.mesh)
+        print(f"parallel: {self.mesh.size}-device mesh {self.mesh.shape} (edge decode over dp, "
+              "sharded global GN; parallel.mesh: off to disable)")
 
     # ------------------------------------------------------------------
     # Model wrappers
@@ -585,8 +616,13 @@ class SLAMSystem:
         src_b += [src_b[0]] * (B_pad - B)
         aa = torch.tensor(src_a, device=self.device)
         bb = torch.tensor(src_b, device=self.device)
-        out2 = self._decode_pair(self.mem.feat[aa], self.mem.pos[aa],
-                                 self.mem.feat[bb], self.mem.pos[bb])
+        if self._mesh_params is not None:  # the pair batch split over the mesh's dp axis
+            out2 = sharded_edge_decode(self.mesh, self._mesh_params, self.model_cfg,
+                                       self.mem.feat[aa], self.mem.pos[aa], self.mem.feat[bb],
+                                       self.mem.pos[bb], self.img_size, self.dtype)
+        else:
+            out2 = self._decode_pair(self.mem.feat[aa], self.mem.pos[aa],
+                                     self.mem.feat[bb], self.mem.pos[bb])
         idx_all, valid_all = self.match_fn(out2.X1, out2.X2, out2.D1, out2.D2)
         hw = self.hw
         Q1b = out2.Q1.reshape(B_pad, hw, 1)
@@ -628,7 +664,7 @@ class SLAMSystem:
         """Global solve on the live keyframe memory (main thread)."""
         t0 = time.perf_counter()
         self.graph.solve(self.mem, self.backend_cfg, use_calib=self.use_calib, K=self.K,
-                         img_size=self.img_size, host_solve=self.host_solve)
+                         img_size=self.img_size, host_solve=self.host_solve, mesh=self.mesh)
         self._log_solve(t0)
         self._kf_cache = None  # the solve rewrote keyframe poses
 
@@ -791,7 +827,7 @@ class SLAMSystem:
             t0 = time.perf_counter()
             Twc_new = self.graph.solve_poses(
                 Twc, Xs, Cs, n_kf, self.backend_cfg, use_calib=self.use_calib, K=self.K,
-                img_size=self.img_size, host_solve=self.host_solve,
+                img_size=self.img_size, host_solve=self.host_solve, mesh=self.mesh,
             )
             if Twc_new is not None:
                 self._log_solve(t0)

@@ -73,6 +73,16 @@ namespace {
 
 constexpr int D = 64;  // head dim
 
+// Function attributes hold per device: a process that launches on several
+// cards sets them on each card at its first launch there.
+constexpr int MAX_DEVICES = 64;
+
+cudaError_t current_device(int* dev) {
+  cudaError_t err = cudaGetDevice(dev);
+  if (err == cudaSuccess && (*dev < 0 || *dev >= MAX_DEVICES)) err = cudaErrorInvalidDevice;
+  return err;
+}
+
 struct Strides {  // in elements
   long long b, h, r;
 };
@@ -218,12 +228,15 @@ attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 
 int launch_f32(const void* q, const void* k, const void* v, void* o, const Strides* st,
                int batch, int heads, int nq, int nk, cudaStream_t stream) {
-  static bool configured = false;
-  if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(
-        attn_fwd_f32, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)F_SMEM_BYTES);
+  static bool configured[MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t err = current_device(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (!configured[dev]) {
+    err = cudaFuncSetAttribute(attn_fwd_f32, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)F_SMEM_BYTES);
     if (err != cudaSuccess) return (int)err;
-    configured = true;
+    configured[dev] = true;
   }
   const dim3 grid((nq + F_BQ - 1) / F_BQ, batch * heads);
   attn_fwd_f32<<<grid, F_NTHREAD, F_SMEM_BYTES, stream>>>(
@@ -662,12 +675,15 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, const Stri
   if (!cached_map(&tq, q, st[0], nq, heads, batch) ||
       !cached_map(&tk, k, st[1], nk, heads, batch) || !cached_map(&tv, v, st[2], nk, heads, batch))
     return 1001;
-  static bool configured = false;
-  if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(
-        attn_fwd_bf16_tc, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_TC);
+  static bool configured[MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t err = current_device(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (!configured[dev]) {
+    err = cudaFuncSetAttribute(attn_fwd_bf16_tc, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               SMEM_TC);
     if (err != cudaSuccess) return (int)err;
-    configured = true;
+    configured[dev] = true;
   }
   const dim3 grid((nq + BM - 1) / BM, batch * heads);
   attn_fwd_bf16_tc<<<grid, NTHREAD, SMEM_TC, stream>>>(

@@ -89,6 +89,16 @@ constexpr int MAX_TSZ = 256;           // queries per tile (a 16x16 source tile)
 constexpr int NTHREAD = 2 * MAX_TSZ;   // two ray-scan threads per query; 16 warps
 constexpr int PHASE_STAGE = 0, PHASE_RAY = 1, PHASE_STENCIL = 2, PHASE_FULL = 3;
 constexpr int SMEM_LIMIT = 232448;     // bytes of shared memory one Hopper block may use
+
+// Function attributes hold per device: a process that launches on several
+// cards sets them on each card at its first launch there.
+constexpr int MAX_DEVICES = 64;
+
+cudaError_t current_device(int* dev) {
+  cudaError_t err = cudaGetDevice(dev);
+  if (err == cudaSuccess && (*dev < 0 || *dev >= MAX_DEVICES)) err = cudaErrorInvalidDevice;
+  return err;
+}
 // After the crops: the second scan half's partial maxima (score, index), the
 // ray matches, and three mbarriers (rays slot 0, rays slot 1, descriptors).
 constexpr int SMEM_EXTRA = 3 * MAX_TSZ * 4 + 32;
@@ -513,24 +523,26 @@ int launch(const void* rays_img, const void* desc_img, const void* q_rays, const
            const void* corners, void* u_out, void* v_out, void* conv_out, int T, int tsz, int w,
            int crop, int window, float conv_thresh, cudaStream_t stream) {
   const int smem = smem_bytes(crop, FD);
-  static int configured = 0, per_sm = 0, sms = 0;
-  if (smem != configured) {
-    cudaError_t err = cudaFuncSetAttribute(
-        tile_match_kernel<FD, PHASE>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  static int configured[MAX_DEVICES] = {}, per_sm[MAX_DEVICES] = {}, sms[MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t err = current_device(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (smem != configured[dev]) {
+    err = cudaFuncSetAttribute(tile_match_kernel<FD, PHASE>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, tile_match_kernel<FD, PHASE>,
-                                                          NTHREAD, smem);
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm[dev], tile_match_kernel<FD, PHASE>, NTHREAD, smem);
     if (err != cudaSuccess) return (int)err;
-    configured = smem;
+    configured[dev] = smem;
   }
-  if (sms == 0) {
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (sms[dev] == 0) {
+    err = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return (int)err;
   }
-  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  const int grid = T < sms * per_sm ? T : sms * per_sm;  // persistent: CTAs walk the tiles
+  if (per_sm[dev] < 1) return (int)cudaErrorInvalidConfiguration;
+  const int slots = sms[dev] * per_sm[dev];
+  const int grid = T < slots ? T : slots;  // persistent: CTAs walk the tiles
   tile_match_kernel<FD, PHASE><<<grid, NTHREAD, smem, stream>>>(
       static_cast<const float*>(rays_img), static_cast<const __nv_bfloat16*>(desc_img),
       static_cast<const float*>(q_rays), static_cast<const __nv_bfloat16*>(q_desc),

@@ -140,7 +140,9 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     args = _PACK(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *q.stride(),
                  *k.stride(), *v.stride(), *out.stride(), b, h, nq, nk, d, _DTYPES[dtype],
                  torch._C._cuda_getCurrentRawStream(dev))
-    err = build.load("attention", _SIGNATURES).attn_forward(args)
+    lib = build.load("attention", _SIGNATURES)
+    with build.on_card(dev):
+        err = lib.attn_forward(args)
     if err == 1000:
         raise ValueError(
             f"fused_attention cannot read this layout: strides {q.stride()}, {k.stride()}, "

@@ -8,6 +8,7 @@ its source; `build()` starts one nvcc per stale source, all at once.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import os
 import shutil
@@ -87,3 +88,16 @@ def load(name: str, signatures: dict) -> ctypes.CDLL:
                 getattr(lib, fn).restype = restype
             _libs[name] = lib
     return lib
+
+
+def on_card(device):
+    """The context in which a kernel launches on `device` (a torch.device or
+    a card index; the C entries launch on the current card): none for a CPU
+    device or for the card that is current already, so the common one-card
+    call pays one query."""
+    import torch
+
+    index = device if isinstance(device, int) else device.index if device.type == "cuda" else -1
+    if index is None or index < 0 or torch._C._cuda_getDevice() == index:
+        return contextlib.nullcontext()
+    return torch.cuda.device(index)

@@ -226,11 +226,12 @@ def _launch(entry: str, rays_img, desc_img, q_rays, q_desc, corners, crop: int, 
     v = torch.empty_like(u)
     conv = torch.empty_like(u)
     stream = torch.cuda.current_stream(rays_img.device).cuda_stream
-    err = getattr(lib, entry)(
-        rays_img.data_ptr(), desc_img.data_ptr(), q_rays.data_ptr(), q_desc.data_ptr(),
-        corners.data_ptr(), u.data_ptr(), v.data_ptr(), conv.data_ptr(),
-        T, tsz, h, w, fd, crop, window, conv_thresh, stream, *extra,
-    )
+    with build.on_card(rays_img.get_device()):
+        err = getattr(lib, entry)(
+            rays_img.data_ptr(), desc_img.data_ptr(), q_rays.data_ptr(), q_desc.data_ptr(),
+            corners.data_ptr(), u.data_ptr(), v.data_ptr(), conv.data_ptr(),
+            T, tsz, h, w, fd, crop, window, conv_thresh, stream, *extra,
+        )
     if err == 1000:
         raise ValueError(
             f"tile_match_kernel does not take fd {fd}, {tsz} queries a tile, crop {crop} on a "

@@ -11,7 +11,8 @@ the f32 Jacobi-preconditioned Cholesky (`_solve_dense`) and reads the step
 norm on the host once per iteration; `gauss_newton_host_solve` reads the
 assembled (H, g) back once per iteration and solves it in float64 with the
 native solver (`native/solver.cpp`), the reference's GPU-kernel +
-CPU-Eigen split.
+CPU-Eigen split. `gauss_newton_sharded` splits the edges over a device
+mesh (parallel/mesh.py) and sums the shards' dense systems each iteration.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ import numpy as np
 import torch
 
 from monst3r_slam_torch.core import geometry, lie, robust
+from monst3r_slam_torch.parallel.mesh import replicate, split_rows
 
 
 class BackendConfig(NamedTuple):
@@ -242,6 +244,49 @@ def gauss_newton(Twc, Xs, Cs, ii, jj, idx_ii2jj, valid_match, Q, edge_valid,
     while it < cfg.max_iters:
         A, b = _edge_terms(Twc, ii, jj, gat, cfg, calib)
         H_opt, g_opt = _assemble_dense(A, b, ii, jj, edge_valid, n_poses, cfg)
+        dx = _solve_dense(H_opt, g_opt, n_poses, cfg)
+        Twc = lie.sim3_retr(Twc, dx)
+        it += 1
+        if float(torch.linalg.vector_norm(dx)) < cfg.delta_norm:
+            break
+    return Twc, it
+
+
+@torch.no_grad()
+def gauss_newton_sharded(mesh, Twc, Xs, Cs, ii, jj, idx_ii2jj, valid_match, Q, edge_valid,
+                         cfg: BackendConfig, n_poses: int, use_calib: bool = False, K=None,
+                         img_size=None, axis: str = "dp"):
+    """`gauss_newton` with the edges split over the mesh's `axis`: the
+    edge tensors (E, ...) in contiguous blocks, one per shard device, with
+    the poses, points and confidences (and K) copied to each distinct one.
+    Each shard gathers its edges once; each iteration it linearizes and
+    assembles its dense (dim, dim) system, the systems are summed in shard
+    order on the home device, and the one solve and retraction there give
+    the poses, copied back to the other devices. Same stop rule as
+    `gauss_newton`. E must divide by the axis size (the factor graph pads
+    it). Returns (new Twc on the home device, iterations)."""
+    devs = mesh.shard_devices(axis)
+    if ii.shape[0] % len(devs):
+        raise ValueError(f"edge count {ii.shape[0]} must divide by {axis} size {len(devs)} "
+                         "(pad the edges)")
+    home = mesh.home
+    Twc = Twc.to(home)
+    Xs_r, Cs_r = replicate(mesh, Xs, axis), replicate(mesh, Cs, axis)
+    K_r = replicate(mesh, K, axis) if use_calib else None
+    edges = list(zip(*(split_rows(mesh, t, axis)
+                       for t in (ii, jj, idx_ii2jj, valid_match, Q, edge_valid))))
+    gats = [_gather_edges(Xs_r[dev], Cs_r[dev], *shard, cfg) for dev, shard in zip(devs, edges)]
+    it = 0
+    while it < cfg.max_iters:
+        Twc_r = replicate(mesh, Twc, axis)
+        H_opt = g_opt = None
+        for dev, (ii_s, jj_s, _, _, _, ev_s), gat in zip(devs, edges, gats):
+            calib = (K_r[dev], img_size) if use_calib else None
+            A, b = _edge_terms(Twc_r[dev], ii_s, jj_s, gat, cfg, calib)
+            H_s, g_s = _assemble_dense(A, b, ii_s, jj_s, ev_s, n_poses, cfg)
+            H_s, g_s = H_s.to(home), g_s.to(home)
+            H_opt = H_s if H_opt is None else H_opt + H_s
+            g_opt = g_s if g_opt is None else g_opt + g_s
         dx = _solve_dense(H_opt, g_opt, n_poses, cfg)
         Twc = lie.sim3_retr(Twc, dx)
         it += 1

@@ -4,12 +4,14 @@ Port of the JAX package's `slam/factor_graph.py`. Both directions of every
 accepted edge are stored; edge e relates keyframes (ii[e], jj[e]), and
 `idx[e][k]` maps pixel k of keyframe jj[e] to a pixel of keyframe ii[e].
 Edge tensors grow by doubling; a solve pads the pose and edge counts to
-powers of two, with the padding masked out of the normal equations. The
-calibrated solve first snaps every keyframe point onto its pixel ray.
+powers of two (and, over a device mesh, up to a multiple of its dp size),
+with the padding masked out of the normal equations. The calibrated solve
+first snaps every keyframe point onto its pixel ray.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import List
 
 import numpy as np
@@ -68,10 +70,11 @@ class FactorGraph:
         return [(int(self.ii[e]), int(self.jj[e])) for e in range(0, self.n_edges, 2)]
 
     def solve(self, mem: KeyframeMemory, cfg: backend_mod.BackendConfig, use_calib: bool = False,
-              K=None, img_size=None, host_solve: bool = False) -> None:
+              K=None, img_size=None, host_solve: bool = False, mesh=None) -> None:
         """Run the global GN on the live keyframe memory and write the poses
         back into `mem` in place. `host_solve` solves each step in float64 on
-        the host (config `local_opt.solver: host`)."""
+        the host (config `local_opt.solver: host`); otherwise `mesh` splits
+        the edges over its dp axis (config `parallel.mesh`)."""
         n_kf = mem.count
         if self.n_edges == 0 or n_kf <= cfg.pin:
             return
@@ -79,15 +82,18 @@ class FactorGraph:
         Cs = mem.C[:P] / torch.clamp(mem.N[:P, None, None].float(), min=1.0)
         Twc_new = self.solve_poses(mem.T_WC[:P], mem.X_canon[:P], Cs, n_kf, cfg,
                                    use_calib=use_calib, K=K, img_size=img_size,
-                                   host_solve=host_solve)
+                                   host_solve=host_solve, mesh=mesh)
         kf_update_poses(mem, Twc_new, torch.arange(P, device=mem.T_WC.device))
 
     def solve_poses(self, Twc, Xs, Cs, n_kf: int, cfg: backend_mod.BackendConfig,
-                    use_calib: bool = False, K=None, img_size=None, host_solve: bool = False):
+                    use_calib: bool = False, K=None, img_size=None, host_solve: bool = False,
+                    mesh=None):
         """Global GN on explicit (P, ...) snapshots of the keyframe state
         (P >= n_kf, a power of two): the updated (P, 8) poses, or None when
         there is nothing to solve. The async backend solves its snapshot
-        copies with this, never the live memory."""
+        copies with this, never the live memory. With a `mesh` and no host
+        solve, the padded edge count is rounded up to a multiple of the dp
+        size and the edges split over dp (`gauss_newton_sharded`)."""
         if self.n_edges == 0 or n_kf <= cfg.pin:
             return None
         P = Twc.shape[0]
@@ -95,7 +101,14 @@ class FactorGraph:
         dev = Twc.device
         if use_calib:
             Xs = geometry.constrain_points_to_ray(img_size, Xs, K)
-        solve = backend_mod.gauss_newton_host_solve if host_solve else backend_mod.gauss_newton
+        if host_solve:
+            solve = backend_mod.gauss_newton_host_solve
+        elif mesh is not None:
+            dp = mesh.shape["dp"]
+            E = -(-E // dp) * dp
+            solve = functools.partial(backend_mod.gauss_newton_sharded, mesh)
+        else:
+            solve = backend_mod.gauss_newton
         Twc_new, self.last_iters = solve(
             Twc, Xs, Cs,
             torch.from_numpy(np.resize(self.ii[: self.n_edges], E)).to(dev),

@@ -1,7 +1,8 @@
 """Training step: the two-view forward with gradients, AdamW.
 
-Port of the JAX package's `train/step.py` on one device (the dp x tp mesh
-of the reference waits for the port's `parallel/`). The weights stay the
+Port of the JAX package's `train/step.py` on one device (the reference's
+dp x tp training mesh is not ported yet: `parallel/` holds the SLAM path's
+mesh only). The weights stay the
 f32 leaf tensors of the port's parameter tree (`models/init.py`) and each
 operation casts them to the compute type, as the serving path does. On the
 card every attention of the encoder and decoder runs kernel A, forward

@@ -4,8 +4,10 @@ card against their plain versions, through the dispatch the model and the
 matcher call; and the dynamic pipeline's parts
 on the card: RAFT against its CPU path, the fused flow program's readback
 ordering around `overlap_cb`, and the dual decode's kernel A launches; the
-LM matcher against its CPU run; and chunked tracking against the per-frame
-path, with each chunk's dispatch free of host synchronization.
+LM matcher against its CPU run; chunked tracking against the per-frame
+path, with each chunk's dispatch free of host synchronization; and the
+sharded edge decode and Gauss-Newton on a mesh that repeats one card
+against their unsharded forms.
 
 They need a CUDA device and nvcc, and skip without them. On a machine with
 the card, from the repository root:
@@ -552,3 +554,137 @@ def test_chunked_tracking_on_the_card_decides_as_the_perframe_path(cuda, monkeyp
         assert got.n_kf == (1 if thresh == 0.0 else 6) and got.mode == ref.mode
         np.testing.assert_allclose(np.stack(got.frame_poses), np.stack(ref.frame_poses),
                                    atol=1e-5)
+
+
+def _one_card_mesh(cuda):
+    """A (4, 2) mesh whose eight entries are all this card: the dp shards of
+    a multi-card mesh, run one after the other on one card."""
+    from monst3r_slam_torch.parallel.mesh import make_mesh
+
+    return make_mesh(devices=[cuda] * 8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E", [3, 8])
+def test_sharded_edge_decode_on_one_card_equals_its_shards_decoded_alone(cuda, E):
+    """`sharded_edge_decode` over the one-card (4, 2) mesh at MAST3R_512
+    widths (cut depth, bf16 as the pipeline decodes; 64x80), E = 3 (pad
+    rows) and 8: kernel A launches for every shard (4 a decoder block, both
+    streams), and every output, in the unsharded decode's shape, layout and
+    device, equals each shard's rows (zero pad rows included) decoded alone
+    at the shard's batch size, bit for bit; with cuDNN off, whose algorithm
+    choice is the decode's only dependence on the batch size, every output
+    also equals one decode of the whole batch."""
+    import dataclasses
+
+    from monst3r_slam_torch.models import mast3r as model_api
+    from monst3r_slam_torch.models.config import MAST3R_512
+    from monst3r_slam_torch.models.convert import cast_params_for_inference
+    from monst3r_slam_torch.models.init import init_params
+    from monst3r_slam_torch.parallel.inference import place_replicated, sharded_edge_decode
+
+    cfg = dataclasses.replace(MAST3R_512, enc_depth=2, dec_depth=2)
+    p = cast_params_for_inference(init_params(torch.Generator(device=cuda).manual_seed(0), cfg))
+    h, w = 64, 80
+    img = torch.from_numpy(np.random.default_rng(0).uniform(-1, 1, (E, h, w, 3))
+                           .astype(np.float32)).to(cuda)
+    feat, pos = model_api.encode(p, cfg, img)
+    args = (feat, pos, feat.roll(1, 0), pos.roll(1, 0))
+    mesh = _one_card_mesh(cuda)
+    ref = model_api.decode(p, cfg, *args, (h, w))
+    before = attention.fused_attention.launches
+    out = sharded_edge_decode(mesh, place_replicated(p, mesh), cfg, *args, (h, w))
+    torch.cuda.synchronize()
+    assert attention.fused_attention.launches - before == 4 * 2 * 2 * cfg.dec_depth
+    rows = -(-E // 4)
+    padded = [torch.cat([a, a.new_zeros((4 * rows - E,) + tuple(a.shape[1:]))]) for a in args]
+    alone = [model_api.decode(p, cfg, *(a[d * rows:(d + 1) * rows] for a in padded), (h, w))
+             for d in range(4)]
+    for r, s, *shards in zip(ref, out, *alone):
+        assert s.shape == r.shape and s.device == r.device and s.stride() == r.stride()
+        assert torch.equal(s, torch.cat(shards)[:E])
+    torch.backends.cudnn.enabled = False  # its convolution algorithms vary with the batch
+    try:
+        out = sharded_edge_decode(mesh, place_replicated(p, mesh), cfg, *args, (h, w))
+        ref = model_api.decode(p, cfg, *args, (h, w))
+    finally:
+        torch.backends.cudnn.enabled = True
+    for r, s in zip(ref, out):
+        assert torch.equal(s, r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("calibrated", [False, True])
+def test_sharded_gauss_newton_on_one_card_matches_the_unsharded_solve(cuda, calibrated):
+    """`gauss_newton_sharded` over the one-card (4, 2) mesh against
+    `gauss_newton` on a 5-keyframe graph (8 edges, two a consecutive pair)
+    of one point cloud, initial poses perturbed; within 1e-4, and both near
+    the true poses."""
+    from monst3r_slam_torch.core import lie
+    from monst3r_slam_torch.slam import backend
+
+    g = torch.Generator().manual_seed(4)
+    P, h, w = 5, 24, 32
+    K = torch.tensor([[30.0, 0, 16.0], [0, 30.0, 12.0], [0, 0, 1.0]])
+    if calibrated:  # every camera sees the cloud at one pixel grid: true poses identity
+        vv, uu = torch.meshgrid(torch.arange(h, dtype=torch.float32),
+                                torch.arange(w, dtype=torch.float32), indexing="ij")
+        z = 3.0 + torch.sin(uu * 0.3) * torch.cos(vv * 0.2)
+        Wd = torch.stack([(uu - 16.0) / 30.0 * z, (vv - 12.0) / 30.0 * z, z], -1).reshape(-1, 3)
+        xi = torch.zeros(P, 7)
+    else:
+        Wd = torch.randn(h * w, 3, generator=g) * torch.tensor([1.0, 1.0, 0.4]) \
+            + torch.tensor([0.0, 0.0, 4.0])
+        xi = 0.1 * torch.randn(P, 7, generator=g)
+        xi[0] = 0.0
+    T_true = lie.sim3_exp(xi)
+    Xs = lie.sim3_act(lie.sim3_inv(T_true)[:, None], Wd[None])
+    pert = 0.03 * torch.randn(P, 7, generator=g)
+    pert[0] = 0.0
+    T_init = lie.sim3_retr(T_true, pert)
+    ii = torch.tensor(list(range(P - 1)) + list(range(1, P)))
+    jj = torch.tensor(list(range(1, P)) + list(range(P - 1)))
+    E, hw = ii.shape[0], h * w
+    args = [t.to(cuda) for t in (
+        T_init, Xs, torch.full((P, hw, 1), 10.0), ii, jj,
+        torch.arange(hw).expand(E, hw), torch.ones(E, hw, dtype=torch.bool),
+        torch.full((E, hw), 4.0), torch.ones(E, dtype=torch.bool))]
+    cfg = backend.BackendConfig(max_iters=10)
+    kw = dict(n_poses=P, use_calib=calibrated, K=K.to(cuda), img_size=(h, w))
+    T_s, _ = backend.gauss_newton_sharded(_one_card_mesh(cuda), *args, cfg, **kw)
+    T_u, _ = backend.gauss_newton(*args, cfg, **kw)
+    assert T_s.device == T_u.device
+    np.testing.assert_allclose(T_s.cpu().numpy(), T_u.cpu().numpy(), atol=1e-4)
+    err = torch.linalg.vector_norm(lie.sim3_log(lie.sim3_mul(lie.sim3_inv(T_s.cpu()), T_true)),
+                                   dim=-1)
+    assert float(err.max()) < 2e-3
+
+
+@pytest.mark.cuda
+def test_kernels_launch_on_every_card(cuda):
+    """With the current device left at card 0, kernels A and B on tensors of
+    each card launch there and give card 0's result: each library sets its
+    kernels' shared-memory attribute on every card at its first launch
+    there, and each wrapper launches on its tensors' card. Needs two cards
+    or more."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two CUDA devices or more: a launch on a second card")
+    rng = np.random.default_rng(0)
+    qkv = [torch.from_numpy(rng.standard_normal((2, 3, 130, 64), dtype=np.float32))
+           .to(torch.bfloat16) for _ in range(3)]
+    targs = _tile_args(cuda, 7, 24, 6)
+    ref_a = attention.sdpa(*(t.to("cuda:0") for t in qkv))
+    ref_b = matching_pallas.tile_match_kernel(*_kernel_args([t.to("cuda:0") for t in targs]))
+    for c in range(1, n):
+        dev = torch.device("cuda", c)
+        before = (attention.fused_attention.launches, matching_pallas.tile_match_kernel.launches)
+        got_a = attention.sdpa(*(t.to(dev) for t in qkv))
+        got_b = matching_pallas.tile_match_kernel(*_kernel_args([t.to(dev) for t in targs]))
+        torch.cuda.synchronize(dev)
+        assert torch.cuda.current_device() == 0
+        assert (attention.fused_attention.launches,
+                matching_pallas.tile_match_kernel.launches) == (before[0] + 1, before[1] + 1)
+        assert got_a.device == dev and torch.equal(got_a.cpu(), ref_a.cpu())
+        assert all(g.device == dev and torch.equal(g.cpu(), r.cpu())
+                   for g, r in zip(got_b, ref_b))

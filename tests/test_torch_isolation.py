@@ -24,7 +24,8 @@ assert {"monst3r_slam_torch.dynamic." + m
         for m in ("easi3r", "inference", "mask", "raft", "refine", "sam2", "sam2_video")} \
     | {"monst3r_slam_torch.viz." + m for m in ("debug", "headless", "live")} \
     | {"monst3r_slam_torch.train." + m for m in ("checkpoint", "loss", "step")} \
-    | {"monst3r_slam_torch.utils." + m for m in ("flops", "timing")} <= set(names), names
+    | {"monst3r_slam_torch.utils." + m for m in ("flops", "timing")} \
+    | {"monst3r_slam_torch.parallel." + m for m in ("inference", "mesh")} <= set(names), names
 import chip_smoke
 import main_easier_torch
 import main_monster_torch

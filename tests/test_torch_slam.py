@@ -32,6 +32,7 @@ from monst3r_slam_torch.core import lie as tlie
 from monst3r_slam_torch.dynamic.inference import DualParams, EasiParams
 from monst3r_slam_torch.models import mast3r as tmodel
 from monst3r_slam_torch.models.config import TINY as TTINY
+from monst3r_slam_torch.parallel.mesh import make_mesh
 from tests.test_ate_regression import (
     DESC_F, H, W, OracleSLAM, gt_trajectory, render_frame, world_desc,
 )
@@ -152,12 +153,13 @@ def test_oracle_slam_matches_jax(jmode, tmode, pose_tol):
 
 def test_port_refuses_unported_configurations(tmp_path):
     """config/base.yaml as shipped (async worker, `solver: auto`, `mesh:
-    auto` on one device) is accepted, and so are the calibrated and
-    host-solve settings, the dynamic pipeline's dual models, the Easi3R
-    models, a viewer, the LM matcher and the pointmap debug dumps with the
-    dual models, and a system writes and reads its state file; the
-    multi-device mesh, the one part still unported, raises, and so do dual
-    and Easi3R models together."""
+    auto` on the CPU, which builds no mesh, as JAX builds none on one
+    device) is accepted, and so are the calibrated and host-solve settings,
+    the dynamic pipeline's dual models, the Easi3R models, a viewer, the LM
+    matcher and the pointmap debug dumps with the dual models, and a system
+    writes and reads its state file; a system given a mesh holds it and
+    takes the device solve under `solver: auto`; a `parallel.mesh` other
+    than auto or off raises, and so do dual and Easi3R models together."""
     def make(fields=None, **over):
         c = tload_config("config/base.yaml", set_global=False)
         c.update(over)
@@ -165,7 +167,11 @@ def test_port_refuses_unported_configurations(tmp_path):
                                 kf_capacity=2, device="cpu", **(fields or {}))
 
     s = make()
-    assert s._worker is not None and s.defer_depth == 2 and s.host_solve
+    assert s._worker is not None and s.defer_depth == 2 and s.host_solve and s.mesh is None
+    s.finalize()
+    mesh = make_mesh(devices=[torch.device("cpu")] * 8)
+    s = make({"mesh": mesh})
+    assert s.mesh is mesh and s._worker is not None and not s.host_solve
     s.finalize()
     make(single_thread=True, use_calib=True, fields={"K": torch.eye(3)})
     make(single_thread=True, local_opt={"solver": "host"})
@@ -174,7 +180,7 @@ def test_port_refuses_unported_configurations(tmp_path):
     easi3r = {"easi3r": EasiParams({}, TTINY, {}, TTINY)}
     make(easi3r, single_thread=True)
     make({"viewer": object()}, single_thread=True)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="parallel.mesh must be auto or off"):
         make(single_thread=True, parallel={"mesh": "on"})
     lm = make(single_thread=True, matching={"mode": "lm"})
     assert lm.match_mode == "lm" and lm.match_tcfg is None and not lm.supports_chunking
