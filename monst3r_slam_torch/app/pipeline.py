@@ -602,18 +602,9 @@ class SLAMSystem:
             and kf_i_list[-1] == kf_j_list[-1] - 1
             and track_cache.get("kf_idx") == kf_i_list[-1]
         )
-        src_a = list(kf_i_list)
-        src_b = list(kf_j_list)
-        n_ji = E - 1 if use_cache else E
-        for e in range(n_ji):
-            src_a.append(kf_j_list[e])
-            src_b.append(kf_i_list[e])
-        B = len(src_a)
-        B_pad = 1 if B == 1 else 2 * self.edge_bucket_lo
-        while B_pad < B:
-            B_pad *= 2
-        src_a += [src_a[0]] * (B_pad - B)
-        src_b += [src_b[0]] * (B_pad - B)
+        B = 2 * E - 1 if use_cache else 2 * E
+        src_a, src_b = self._edge_pair_slots(kf_i_list, kf_j_list, use_cache)
+        B_pad = len(src_a)
         aa = torch.tensor(src_a, device=self.device)
         bb = torch.tensor(src_b, device=self.device)
         if self._mesh_params is not None:  # the pair batch split over the mesh's dp axis
@@ -659,6 +650,20 @@ class SLAMSystem:
             )
             added = True
         return added
+
+    def _edge_pair_slots(self, kf_i_list: List[int], kf_j_list: List[int], use_cache: bool):
+        """The keyframe slots of the edge decode's pair rows: every i -> j,
+        then every j -> i but the last one's when the tracking step's decode
+        is reused, padded with the first row to a power-of-two bucket of at
+        least 2 * edge_bucket_lo (one row alone stays one)."""
+        n_ji = len(kf_i_list) - 1 if use_cache else len(kf_i_list)
+        src_a = list(kf_i_list) + list(kf_j_list[:n_ji])
+        src_b = list(kf_j_list) + list(kf_i_list[:n_ji])
+        B = len(src_a)
+        B_pad = 1 if B == 1 else 2 * self.edge_bucket_lo
+        while B_pad < B:
+            B_pad *= 2
+        return src_a + [src_a[0]] * (B_pad - B), src_b + [src_b[0]] * (B_pad - B)
 
     def solve_backend(self):
         """Global solve on the live keyframe memory (main thread)."""

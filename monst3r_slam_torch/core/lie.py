@@ -43,6 +43,10 @@ def quat_inv(q: torch.Tensor) -> torch.Tensor:
     return torch.cat([-q[..., 0:3], q[..., 3:4]], dim=-1)
 
 
+def quat_normalize(q: torch.Tensor) -> torch.Tensor:
+    return q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+
+
 def quat_rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Rotate vectors v by unit quaternions q."""
     qv = q[..., :3]

@@ -205,6 +205,19 @@ def get_dynamic_mask(
     return mask
 
 
+def apply_dynamic_mask_to_pointmaps(X, C, D, Q, mask_flat):
+    """Zero confidences and descriptors on dynamic pixels
+    (monst3r_utils.py:300-344): C, Q and D to 0 where `mask_flat` (..., hw)
+    is set, X unchanged; Q and D may be None."""
+    keep = (~mask_flat)[..., None]
+    C = C * keep
+    if Q is not None:
+        Q = Q * keep
+    if D is not None:
+        D = D * keep
+    return X, C, D, Q
+
+
 def apply_dynamic_mask_native(C: torch.Tensor, D: torch.Tensor, Q: torch.Tensor, mask_hw):
     """Zero C, D and Q on dynamic pixels, decoder-native shapes: C/Q (B, H,
     W), D (B, H, W, F), mask (H, W) bool (host or device)."""

@@ -48,10 +48,17 @@ def _same_pad(n: int, k: int, s: int):
     return total // 2, total - total // 2
 
 
-def conv(p, x: torch.Tensor, stride: int = 1) -> torch.Tensor:
+def conv(p, x: torch.Tensor, stride: int = 1, padding="SAME") -> torch.Tensor:
+    """A convolution padded as XLA pads: "SAME", "VALID" or
+    ((top, bottom), (left, right))."""
     kh, kw = p["w"].shape[2:]
-    top, bottom = _same_pad(x.shape[2], kh, stride)
-    left, right = _same_pad(x.shape[3], kw, stride)
+    if padding == "SAME":
+        (top, bottom), (left, right) = (_same_pad(x.shape[2], kh, stride),
+                                        _same_pad(x.shape[3], kw, stride))
+    elif padding == "VALID":
+        top = bottom = left = right = 0
+    else:
+        (top, bottom), (left, right) = padding
     if top or bottom or left or right:
         x = F.pad(x, (left, right, top, bottom))
     b = p.get("b")

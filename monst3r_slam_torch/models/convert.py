@@ -299,3 +299,106 @@ def load_checkpoint(path: str, cfg: Optional[ModelConfig] = None, device="cpu"):
     if cfg is None:
         cfg = config_from_arch_string(ckpt["args"].model if "args" in ckpt else "")
     return params_from_jax(params_from_state_dict(sd, cfg), device=device), cfg
+
+
+# ---------------------------------------------------------------------------
+# The port's params -> a reference checkpoint (the inverse of the above)
+# ---------------------------------------------------------------------------
+
+
+def _put_linear(sd, name, p):
+    sd[f"{name}.weight"] = p["w"].T
+    if "b" in p:
+        sd[f"{name}.bias"] = p["b"]
+
+
+def _put_conv(sd, name, p, transpose=False):
+    # HWIO -> OIHW; a transposed convolution's (k, k, I, O) -> (I, O, k, k)
+    sd[f"{name}.weight"] = p["w"].transpose(2, 3, 0, 1) if transpose else p["w"].transpose(3, 2, 0, 1)
+    if "b" in p:
+        sd[f"{name}.bias"] = p["b"]
+
+
+def _index(tree, i):
+    if isinstance(tree, dict):
+        return {k: _index(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def state_dict_from_params(tree, cfg: ModelConfig) -> Dict[str, np.ndarray]:
+    """The JAX package's layout (numpy leaves, `params_to_jax` of the port's
+    tree) -> a reference-format state dict: the inverse of
+    `params_from_state_dict`."""
+    sd = {}
+    w = tree["patch_embed"]["proj"]["w"]
+    P, d = cfg.patch_size, w.shape[1]
+    sd["patch_embed.proj.weight"] = w.reshape(P, P, 3, d).transpose(3, 2, 0, 1)
+    sd["patch_embed.proj.bias"] = tree["patch_embed"]["proj"]["b"]
+    for key, dec in (("enc_blocks", False), ("dec_blocks", True), ("dec_blocks2", True)):
+        for i in range(tree[key]["norm1"]["w"].shape[0]):
+            blk, pfx = _index(tree[key], i), f"{key}.{i}"
+            for n in ("norm1", "norm2", "norm3", "norm_y") if dec else ("norm1", "norm2"):
+                sd[f"{pfx}.{n}.weight"], sd[f"{pfx}.{n}.bias"] = blk[n]["w"], blk[n]["b"]
+            for name, sub in (("attn.qkv", blk["attn"]["qkv"]), ("attn.proj", blk["attn"]["proj"]),
+                              ("mlp.fc1", blk["mlp"]["fc1"]), ("mlp.fc2", blk["mlp"]["fc2"])):
+                _put_linear(sd, f"{pfx}.{name}", sub)
+            if dec:
+                for ref, ours in (("projq", "q"), ("projk", "k"), ("projv", "v"), ("proj", "proj")):
+                    _put_linear(sd, f"{pfx}.cross_attn.{ref}", blk["cross"][ours])
+    for n in ("enc_norm", "dec_norm"):
+        sd[f"{n}.weight"], sd[f"{n}.bias"] = tree[n]["w"], tree[n]["b"]
+    _put_linear(sd, "decoder_embed", tree["decoder_embed"])
+    for h in (1, 2):
+        dpt, pfx = tree[f"head{h}"]["dpt"], f"downstream_head{h}.dpt"
+        for i, act in enumerate(dpt["act"]):
+            _put_conv(sd, f"{pfx}.act_postprocess.{i}.0", act["conv"])
+            if "up" in act:
+                _put_conv(sd, f"{pfx}.act_postprocess.{i}.1", act["up"], transpose=True)
+            if "down" in act:
+                _put_conv(sd, f"{pfx}.act_postprocess.{i}.1", act["down"])
+        for i, c in enumerate(dpt["layer_rn"]):
+            _put_conv(sd, f"{pfx}.scratch.layer{i + 1}_rn", c)
+        for r in (1, 2, 3, 4):
+            ref = dpt[f"refine{r}"]
+            for u in (1, 2):
+                for c in (1, 2):
+                    _put_conv(sd, f"{pfx}.scratch.refinenet{r}.resConfUnit{u}.conv{c}",
+                              ref[f"res{u}"][f"conv{c}"])
+            _put_conv(sd, f"{pfx}.scratch.refinenet{r}.out_conv", ref["out_conv"])
+        for i, c in ((0, "conv1"), (2, "conv2"), (4, "conv3")):
+            _put_conv(sd, f"{pfx}.head.{i}", dpt["head"][c])
+        if "local_feat" in tree[f"head{h}"]:
+            lf = tree[f"head{h}"]["local_feat"]
+            _put_linear(sd, f"downstream_head{h}.head_local_features.fc1", lf["fc1"])
+            _put_linear(sd, f"downstream_head{h}.head_local_features.fc2", lf["fc2"])
+    return {k: np.ascontiguousarray(v) for k, v in sd.items()}
+
+
+def arch_string(cfg: ModelConfig) -> str:
+    """The reference's stored constructor string for `cfg`, as
+    `config_from_arch_string` reads it."""
+    def mode(m):
+        return "(" + ", ".join(f"'{v}'" if isinstance(v, str) else
+                               ("inf" if v == INF else "-inf" if v == -INF else repr(v))
+                               for v in m) + ")"
+
+    out = "pts3d" + (f"+desc{cfg.desc_dim}" if cfg.desc_dim is not None else "")
+    return (f"AsymmetricMASt3R(pos_embed='RoPE100', patch_embed_cls='ManyAR_PatchEmbed', "
+            f"img_size=(512, 512), head_type='catmlp+dpt', output_mode='{out}', "
+            f"depth_mode={mode(cfg.depth_mode)}, conf_mode={mode(cfg.conf_mode)}, "
+            f"patch_size={cfg.patch_size}, enc_embed_dim={cfg.enc_dim}, "
+            f"enc_depth={cfg.enc_depth}, enc_num_heads={cfg.enc_heads}, "
+            f"dec_embed_dim={cfg.dec_dim}, dec_depth={cfg.dec_depth}, "
+            f"dec_num_heads={cfg.dec_heads}, two_confs={cfg.two_confs}, "
+            f"desc_conf_mode={mode(cfg.desc_conf_mode)})")
+
+
+def save_checkpoint(path: str, params, cfg: ModelConfig):
+    """Write the port's `params` as a reference torch checkpoint
+    ({'args': Namespace(model=<constructor string>), 'model': state dict}),
+    which `load_checkpoint` of either package reads back."""
+    import argparse
+
+    sd = state_dict_from_params(params_to_jax(params), cfg)
+    torch.save({"args": argparse.Namespace(model=arch_string(cfg)),
+                "model": {k: torch.from_numpy(v) for k, v in sd.items()}}, path)

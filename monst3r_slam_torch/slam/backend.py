@@ -5,8 +5,8 @@ pose-independent gathers and gates run once per solve (`_gather_edges`);
 each iteration accumulates the per-edge 7x7 blocks A = Jj^T W Jj and
 b = Jj^T W err (Ji = -Jj), on the ray/distance residual in
 structure-of-arrays form (`_edge_terms_ray_soa`) or on the calibrated
-reprojection residual (`_edge_terms_calib`), and scatters them into the
-dense reduced system (`_assemble_dense`). `gauss_newton` solves that with
+reprojection or the 3D point residual (`_edge_terms_local`), and scatters
+them into the dense reduced system (`_assemble_dense`). `gauss_newton` solves that with
 the f32 Jacobi-preconditioned Cholesky (`_solve_dense`) and reads the step
 norm on the host once per iteration; `gauss_newton_host_solve` reads the
 assembled (H, g) back once per iteration and solves it in float64 with the
@@ -37,6 +37,7 @@ class BackendConfig(NamedTuple):
     sigma_dist: float = 10.0
     sigma_pixel: float = 1.0
     sigma_depth: float = 10.0
+    sigma_point: float = 0.05
     delta_norm: float = 1e-8
     pixel_border: float = -10.0
     depth_eps: float = 1e-6
@@ -45,6 +46,11 @@ class BackendConfig(NamedTuple):
     # Pad-bucket floors for the (P poses, E edges) shapes of a solve.
     pose_pad_lo: int = 8
     edge_pad_lo: int = 8
+    # Extra ridge on each keyframe's scale coordinate of the Jacobi-scaled
+    # (unit-diagonal) system, a prior on the weakly determined scale gauge
+    # under sigma_dist whitening; it leaves rotation and translation alone.
+    # 0 = off.
+    scale_gauge: float = 0.0
 
 
 def _point_jac_local(P):
@@ -88,6 +94,25 @@ def _calib_residual(Xi, Xj_Ci, ind_Xi, K, height, width, border, z_eps):
         torch.stack([zero, zero, zj_inv], dim=-1),
     ], dim=-2)
     return err, dP @ _point_jac_local(Xj_Ci), valid_z & valid_uv
+
+
+def _point_residual(Xi, Xj_Ci):
+    """Residual and local Jacobian of the 3D point alignment
+    (gn_kernels.cu:455-811 point_align_kernel; exposed by the reference but
+    unused by its mains): err = Xj_Ci - Xi, J_local = [I | -skew | P]."""
+    return Xj_Ci - Xi, _point_jac_local(Xj_Ci)
+
+
+def _sig_inv(cfg: BackendConfig, calib, residual_kind: str, like):
+    """Per-row inverse sigmas of the residual: pixel (u, v) and depth when
+    calibrated, else point (x, y, z), else ray (3) and distance."""
+    if calib is not None:
+        sig_a, sig_b, rep_a = cfg.sigma_pixel, cfg.sigma_depth, 2
+    elif residual_kind == "point":
+        sig_a, sig_b, rep_a = cfg.sigma_point, cfg.sigma_point, 2
+    else:
+        sig_a, sig_b, rep_a = cfg.sigma_ray, cfg.sigma_dist, 3
+    return like.new_tensor([1.0 / sig_a] * rep_a + [1.0 / sig_b])
 
 
 class Gathered(NamedTuple):
@@ -163,29 +188,38 @@ def _edge_terms_ray_soa(Twc, ii, jj, gat: Gathered, cfg: BackendConfig):
     return A, b
 
 
-def _edge_terms_calib(Twc, ii, jj, gat: Gathered, cfg: BackendConfig, K, img_size):
-    """Per-edge A (E, 7, 7) and b (E, 7) of the calibrated reprojection
-    system: the local Jacobian moved to the absolute pose of j,
-    Jj = Adj(T_i)^-T J_local (Ji = -Jj, gn_kernels.cu:988-1000)."""
+def _edge_terms_local(Twc, ii, jj, gat: Gathered, cfg: BackendConfig, calib, residual_kind):
+    """Per-edge A (E, 7, 7) and b (E, 7) of the calibrated reprojection or
+    the point residual, from its local Jacobian moved to the absolute pose
+    of j, Jj = Adj(T_i)^-T J_local (Ji = -Jj, gn_kernels.cu:988-1000)."""
     Ti = Twc[ii]
     Tij = lie.sim3_rel(Ti, Twc[jj])
     Xj_Ci = lie.sim3_act(Tij[:, None, :], gat.Xj)
-    err, J_local, valid_px = _calib_residual(
-        gat.Xi, Xj_Ci, gat.ind, K, img_size[0], img_size[1], cfg.pixel_border, cfg.depth_eps)
-    sig = err.new_tensor([1.0 / cfg.sigma_pixel] * 2 + [1.0 / cfg.sigma_depth])
-    sqrt_w = torch.where((gat.valid & valid_px)[..., None], sig * gat.wq[..., None],
-                         torch.zeros_like(err))
+    valid = gat.valid
+    if calib is not None:
+        K, img_size = calib
+        err, J_local, valid_px = _calib_residual(
+            gat.Xi, Xj_Ci, gat.ind, K, img_size[0], img_size[1], cfg.pixel_border,
+            cfg.depth_eps)
+        valid = valid & valid_px
+    else:
+        err, J_local = _point_residual(gat.Xi, Xj_Ci)
+    sig = _sig_inv(cfg, calib, residual_kind, err)
+    sqrt_w = torch.where(valid[..., None], sig * gat.wq[..., None], torch.zeros_like(err))
     w = robust.huber(sqrt_w * err) * sqrt_w * sqrt_w  # (E, n, 3)
     Jj = lie.sim3_adj_inv_T_apply(Ti[:, None, None, :], J_local)  # (E, n, 3, 7)
     wJ = w[..., None] * Jj
     return torch.einsum("enrp,enrq->epq", wJ, Jj), torch.einsum("enrp,enr->ep", wJ, err)
 
 
-def _edge_terms(Twc, ii, jj, gat: Gathered, cfg: BackendConfig, calib):
-    """A and b of either residual; `calib` is (K, img_size) or None."""
-    if calib is None:
+def _edge_terms(Twc, ii, jj, gat: Gathered, cfg: BackendConfig, calib,
+                residual_kind: str = "ray"):
+    """A and b of the residual: `calib` is (K, img_size) or None, and
+    without it `residual_kind` picks 'ray' (the structure-of-arrays route)
+    or 'point'."""
+    if calib is None and residual_kind == "ray":
         return _edge_terms_ray_soa(Twc, ii, jj, gat, cfg)
-    return _edge_terms_calib(Twc, ii, jj, gat, cfg, *calib)
+    return _edge_terms_local(Twc, ii, jj, gat, cfg, calib, residual_kind)
 
 
 def _assemble_dense(A, b, ii, jj, edge_valid, n_poses: int, cfg: BackendConfig):
@@ -223,6 +257,12 @@ def _solve_dense(H_opt, g_opt, n_poses: int, cfg: BackendConfig):
     s = torch.rsqrt(torch.maximum(diag, damp))
     Hs = H_opt * s[:, None] * s[None, :]
     Hs = Hs + 1e-6 * torch.eye(dim, dtype=Hs.dtype, device=Hs.device)
+    if cfg.scale_gauge > 0.0:
+        # The prior on the scale coordinate (index 6 of each 7-block) in the
+        # unit-diagonal space; see BackendConfig.scale_gauge.
+        sg = torch.zeros(dim, dtype=Hs.dtype, device=Hs.device)
+        sg[6::7] = cfg.scale_gauge
+        Hs = Hs + torch.diag(sg)
     L, info = torch.linalg.cholesky_ex(Hs)
     dx = -(s * torch.cholesky_solve((s * g_opt)[:, None], L)[:, 0])
     dx = torch.where(torch.isfinite(dx) & (info == 0), dx, torch.zeros_like(dx))
@@ -233,16 +273,17 @@ def _solve_dense(H_opt, g_opt, n_poses: int, cfg: BackendConfig):
 @torch.no_grad()
 def gauss_newton(Twc, Xs, Cs, ii, jj, idx_ii2jj, valid_match, Q, edge_valid,
                  cfg: BackendConfig, n_poses: int, use_calib: bool = False, K=None,
-                 img_size=None):
+                 img_size=None, residual_kind: str = "ray"):
     """Global GN with the f32 device solve. Twc (P, 8); Xs (P, hw, 3);
     Cs (P, hw, 1); ii/jj (E,); idx_ii2jj (E, hw); valid_match (E, hw);
     Q (E, hw); edge_valid (E,); `use_calib` takes the reprojection residual
-    with K (3, 3) at img_size (h, w). Returns (new Twc, iterations)."""
+    with K (3, 3) at img_size (h, w), else `residual_kind` 'ray' or 'point'.
+    Returns (new Twc, iterations)."""
     calib = (K, img_size) if use_calib else None
     gat = _gather_edges(Xs, Cs, ii, jj, idx_ii2jj, valid_match, Q, edge_valid, cfg)
     it = 0
     while it < cfg.max_iters:
-        A, b = _edge_terms(Twc, ii, jj, gat, cfg, calib)
+        A, b = _edge_terms(Twc, ii, jj, gat, cfg, calib, residual_kind)
         H_opt, g_opt = _assemble_dense(A, b, ii, jj, edge_valid, n_poses, cfg)
         dx = _solve_dense(H_opt, g_opt, n_poses, cfg)
         Twc = lie.sim3_retr(Twc, dx)
@@ -255,7 +296,7 @@ def gauss_newton(Twc, Xs, Cs, ii, jj, idx_ii2jj, valid_match, Q, edge_valid,
 @torch.no_grad()
 def gauss_newton_sharded(mesh, Twc, Xs, Cs, ii, jj, idx_ii2jj, valid_match, Q, edge_valid,
                          cfg: BackendConfig, n_poses: int, use_calib: bool = False, K=None,
-                         img_size=None, axis: str = "dp"):
+                         img_size=None, residual_kind: str = "ray", axis: str = "dp"):
     """`gauss_newton` with the edges split over the mesh's `axis`: the
     edge tensors (E, ...) in contiguous blocks, one per shard device, with
     the poses, points and confidences (and K) copied to each distinct one.
@@ -282,7 +323,7 @@ def gauss_newton_sharded(mesh, Twc, Xs, Cs, ii, jj, idx_ii2jj, valid_match, Q, e
         H_opt = g_opt = None
         for dev, (ii_s, jj_s, _, _, _, ev_s), gat in zip(devs, edges, gats):
             calib = (K_r[dev], img_size) if use_calib else None
-            A, b = _edge_terms(Twc_r[dev], ii_s, jj_s, gat, cfg, calib)
+            A, b = _edge_terms(Twc_r[dev], ii_s, jj_s, gat, cfg, calib, residual_kind)
             H_s, g_s = _assemble_dense(A, b, ii_s, jj_s, ev_s, n_poses, cfg)
             H_s, g_s = H_s.to(home), g_s.to(home)
             H_opt = H_s if H_opt is None else H_opt + H_s

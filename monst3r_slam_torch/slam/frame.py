@@ -47,6 +47,33 @@ class Frame:
     img: Optional[torch.Tensor] = None
     N_updates: Optional[torch.Tensor] = None  # None: zero
 
+    def get_average_conf(self) -> torch.Tensor:
+        """C over the fusion count (at least 1)."""
+        return self.C / torch.clamp(self.N.to(self.C.dtype), min=1.0)
+
+
+def make_empty_frame(h: int, w: int, enc_dim: int, patch: int, device=None) -> Frame:
+    """A zero frame at the identity pose, in the port's layout (batched
+    feat, pos and img)."""
+    hw = h * w
+    n = hw // patch**2
+
+    def zeros(*shape, dtype=torch.float32):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    return Frame(
+        frame_id=0,
+        T_WC=lie.sim3_identity(device=device),
+        X_canon=zeros(hw, 3),
+        C=zeros(hw, 1),
+        N=zeros(dtype=torch.int32),
+        feat=zeros(1, n, enc_dim),
+        pos=zeros(1, n, 2, dtype=torch.int32),
+        score=zeros(),
+        img=zeros(1, h, w, 3),
+        N_updates=zeros(dtype=torch.int32),
+    )
+
 
 def conf_score(C: torch.Tensor, filtering_score: str = "median") -> torch.Tensor:
     """Scalar pointmap-quality score over all of C. The median of an even

@@ -108,10 +108,12 @@ def retrieval_params_from_numpy(tree, device="cpu"):
     return torch.from_numpy(np.array(tree, dtype=np.float32)).to(device)
 
 
-def retrieval_params_from_checkpoint(path: str, device="cpu"):
+def retrieval_params_from_checkpoint(path: str, dim: int = 1024, device="cpu"):
     """The reference retrieval checkpoint
     (`MASt3R_..._retrieval_trainingfree.pth`) -> (feature-head params, nfeat).
-    The file is unpickled in full: load only trusted checkpoints."""
+    The widths come from the checkpoint; `dim` is accepted, and unused, as
+    in the reference. The file is unpickled in full: load only trusted
+    checkpoints."""
     ckpt = torch.load(path, map_location="cpu", weights_only=False)
     sd = {k: v.numpy() for k, v in ckpt["model"].items() if not k.startswith("backbone")}
     args = ckpt["args"]
@@ -299,6 +301,15 @@ class ASMKDatabase:
         if add_after_query:
             self.add(feat)
         return topk
+
+
+def make_random_codebook(n_words: int, dim: int, generator: Optional[torch.Generator] = None
+                         ) -> np.ndarray:
+    """Untrained fallback codebook (n_words, dim) f32 of standard normals
+    from `generator` (a fresh unseeded one by default). The reference draws
+    from a JAX key, so the same seed gives other numbers here."""
+    dev = None if generator is None else generator.device
+    return torch.randn((n_words, dim), generator=generator, device=dev).cpu().numpy()
 
 
 def kmeans_codebook(feats: np.ndarray, n_words: int, iters: int = 15, seed: int = 0) -> np.ndarray:

@@ -102,3 +102,58 @@ def test_edge_terms_and_dense_system_match_jax():
     dscale = float(jnp.max(jnp.abs(jdx)))
     np.testing.assert_allclose(tdx.numpy(), np.asarray(jdx), atol=1e-3 * dscale)
     assert not tdx[: tcfg.pin].any()  # pinned rows
+
+
+def test_gauss_newton_point_residual_matches_jax():
+    """`residual_kind="point"` on tests/test_backend.py's synthetic graph
+    (its test_gauss_newton_points_converges), in `gauss_newton` and in
+    `gauss_newton_sharded` over a 2-entry CPU mesh, against JAX's
+    `gauss_newton` and its sharded solve on a 2-device mesh, at 1e-4."""
+    from monst3r_slam_tpu.parallel import mesh as jmesh
+    from monst3r_slam_torch.parallel import mesh as tmesh
+
+    T_true, args = _graph(7)
+    P = T_true.shape[0]
+    jargs = [jnp.asarray(a) for a in args]
+    jcfg = jb.BackendConfig(max_iters=10, chunk=512)
+    T_j, _ = jb.gauss_newton(*jargs, jcfg, n_poses=P, residual_kind="point")
+    T_js, _ = jb.gauss_newton_sharded(jmesh.make_mesh(2), *jargs, jcfg, n_poses=P,
+                                      residual_kind="point")
+    targs = [torch.from_numpy(a.copy()) for a in args]
+    tcfg = tb.BackendConfig(max_iters=10)
+    T_t, it_t = tb.gauss_newton(*targs, tcfg, n_poses=P, residual_kind="point")
+    mesh = tmesh.make_mesh(devices=[torch.device("cpu")] * 2)
+    T_ts, it_ts = tb.gauss_newton_sharded(mesh, *targs, tcfg, n_poses=P, residual_kind="point")
+    np.testing.assert_allclose(T_t.numpy(), np.asarray(T_j), atol=POSE_TOL)
+    np.testing.assert_allclose(T_ts.numpy(), np.asarray(T_js), atol=POSE_TOL)
+    np.testing.assert_allclose(T_ts.numpy(), T_t.numpy(), atol=POSE_TOL)
+    assert abs(it_ts - it_t) <= 1
+    err = _pose_err(T_t.numpy(), T_true)
+    assert err[0] < 1e-6 and err[1:].max() < 1e-3
+    # the point route differs from the ray route it replaces
+    T_ray, _ = tb.gauss_newton(*targs, tcfg, n_poses=P)
+    assert not torch.equal(T_ray, T_t)
+
+
+@pytest.mark.parametrize("scale_gauge", [0.0, 0.05, 1.0])
+def test_solve_dense_scale_gauge_matches_jax(scale_gauge):
+    """`_solve_dense` with the ridge on each scale coordinate against JAX's
+    on the same dense system of the synthetic graph; the step within 1e-3 of
+    its own largest entry, as test_edge_terms_and_dense_system_match_jax
+    holds the solve step (f32 Cholesky in both, factorized in different
+    orders; the weak scale direction amplifies that to ~2e-4)."""
+    T_true, args = _graph(0)
+    P = T_true.shape[0]
+    tcfg = tb.BackendConfig(scale_gauge=scale_gauge)
+    targs = [torch.from_numpy(a.copy()) for a in args]
+    gat = tb._gather_edges(*targs[1:], tcfg)
+    A, b = tb._edge_terms(targs[0], targs[3], targs[4], gat, tcfg, None)
+    H, g = tb._assemble_dense(A, b, targs[3], targs[4], targs[8], P, tcfg)
+    dx_t = tb._solve_dense(H, g, P, tcfg)
+    dx_j = jb._solve_dense(jnp.asarray(H.numpy()), jnp.asarray(g.numpy()), P,
+                           jb.BackendConfig(scale_gauge=scale_gauge))
+    scale = float(np.abs(np.asarray(dx_j)).max())
+    np.testing.assert_allclose(dx_t.numpy(), np.asarray(dx_j), atol=1e-3 * scale)
+    if scale_gauge > 0:  # the prior shrinks the scale steps and leaves the rest near
+        dx_0 = tb._solve_dense(H, g, P, tb.BackendConfig())
+        assert dx_t[1:, 6].abs().sum() < dx_0[1:, 6].abs().sum()

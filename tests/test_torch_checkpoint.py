@@ -3,11 +3,10 @@ against the JAX package's on one synthetic TINY-width checkpoint in the
 reference's on-disk layout: torch.save of {'args': Namespace(model=<ctor
 string>), 'model': state_dict}, as tests/test_model_parity.py writes it.
 The state dict is the JAX TINY init written back into the reference's
-names and layouts (`tiny_state_dict`), so no reference model is needed.
+names and layouts by the port's `save_checkpoint`, so no reference model
+is needed.
 The port's loaded tree must equal `params_from_jax` of the JAX loader's,
 exactly."""
-
-import argparse
 
 import jax
 import numpy as np
@@ -27,19 +26,6 @@ TINY_ARCH = (
     f"dec_depth={JTINY.dec_depth}, dec_num_heads={JTINY.dec_heads}, "
     "two_confs=True, desc_conf_mode=('exp', 0, inf))"
 )
-
-
-def _lin(sd, name, p):
-    sd[f"{name}.weight"] = p["w"].T
-    if "b" in p:
-        sd[f"{name}.bias"] = p["b"]
-
-
-def _conv(sd, name, p, transpose=False):
-    # HWIO -> OIHW; a transposed conv's (k, k, I, O) -> (I, O, k, k)
-    sd[f"{name}.weight"] = p["w"].transpose(2, 3, 0, 1) if transpose else p["w"].transpose(3, 2, 0, 1)
-    if "b" in p:
-        sd[f"{name}.bias"] = p["b"]
 
 
 def tiny_tree(seed: int = 0):
@@ -63,61 +49,18 @@ def tiny_tree(seed: int = 0):
 
 def tiny_state_dict(seed: int = 0):
     """(reference-layout state dict of torch tensors, the JAX tree it came
-    from with numpy leaves)."""
+    from with numpy leaves), through the port's `state_dict_from_params`."""
     tree = tiny_tree(seed)
-    sd = {}
-    w = tree["patch_embed"]["proj"]["w"]
-    P, d = JTINY.patch_size, w.shape[1]
-    sd["patch_embed.proj.weight"] = w.reshape(P, P, 3, d).transpose(3, 2, 0, 1)
-    sd["patch_embed.proj.bias"] = tree["patch_embed"]["proj"]["b"]
-    for key, dec in (("enc_blocks", False), ("dec_blocks", True), ("dec_blocks2", True)):
-        blocks = tree[key]
-        for i in range(blocks["norm1"]["w"].shape[0]):
-            blk = jax.tree.map(lambda a, i=i: a[i], blocks)
-            pfx = f"{key}.{i}"
-            norms = ("norm1", "norm2", "norm3", "norm_y") if dec else ("norm1", "norm2")
-            for n in norms:
-                sd[f"{pfx}.{n}.weight"], sd[f"{pfx}.{n}.bias"] = blk[n]["w"], blk[n]["b"]
-            _lin(sd, f"{pfx}.attn.qkv", blk["attn"]["qkv"])
-            _lin(sd, f"{pfx}.attn.proj", blk["attn"]["proj"])
-            _lin(sd, f"{pfx}.mlp.fc1", blk["mlp"]["fc1"])
-            _lin(sd, f"{pfx}.mlp.fc2", blk["mlp"]["fc2"])
-            if dec:
-                for ref, ours in (("projq", "q"), ("projk", "k"), ("projv", "v"), ("proj", "proj")):
-                    _lin(sd, f"{pfx}.cross_attn.{ref}", blk["cross"][ours])
-    for n in ("enc_norm", "dec_norm"):
-        sd[f"{n}.weight"], sd[f"{n}.bias"] = tree[n]["w"], tree[n]["b"]
-    _lin(sd, "decoder_embed", tree["decoder_embed"])
-    for h in (1, 2):
-        dpt, pfx = tree[f"head{h}"]["dpt"], f"downstream_head{h}.dpt"
-        for i, act in enumerate(dpt["act"]):
-            _conv(sd, f"{pfx}.act_postprocess.{i}.0", act["conv"])
-            if "up" in act:
-                _conv(sd, f"{pfx}.act_postprocess.{i}.1", act["up"], transpose=True)
-            if "down" in act:
-                _conv(sd, f"{pfx}.act_postprocess.{i}.1", act["down"])
-        for i, c in enumerate(dpt["layer_rn"]):
-            _conv(sd, f"{pfx}.scratch.layer{i + 1}_rn", c)
-        for r in (1, 2, 3, 4):
-            ref = dpt[f"refine{r}"]
-            for u in (1, 2):
-                for c in (1, 2):
-                    _conv(sd, f"{pfx}.scratch.refinenet{r}.resConfUnit{u}.conv{c}",
-                          ref[f"res{u}"][f"conv{c}"])
-            _conv(sd, f"{pfx}.scratch.refinenet{r}.out_conv", ref["out_conv"])
-        for i, c in ((0, "conv1"), (2, "conv2"), (4, "conv3")):
-            _conv(sd, f"{pfx}.head.{i}", dpt["head"][c])
-        lf = tree[f"head{h}"]["local_feat"]
-        _lin(sd, f"downstream_head{h}.head_local_features.fc1", lf["fc1"])
-        _lin(sd, f"downstream_head{h}.head_local_features.fc2", lf["fc2"])
-    sd = {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}
-    return sd, tree
+    sd = tconvert.state_dict_from_params(tree, tconvert.config_from_arch_string(TINY_ARCH))
+    return {k: torch.from_numpy(v) for k, v in sd.items()}, tree
 
 
 def write_tiny_checkpoint(path, seed: int = 0):
-    """A TINY-width checkpoint in the reference's on-disk layout at `path`."""
-    sd, tree = tiny_state_dict(seed)
-    torch.save({"args": argparse.Namespace(model=TINY_ARCH), "model": sd}, path)
+    """A TINY-width checkpoint in the reference's on-disk layout at `path`,
+    written by the port's `save_checkpoint`; returns the JAX tree it holds."""
+    tree = tiny_tree(seed)
+    tconvert.save_checkpoint(str(path), tconvert.params_from_jax(tree),
+                             tconvert.config_from_arch_string(TINY_ARCH))
     return tree
 
 
@@ -157,3 +100,20 @@ def test_config_from_arch_string_matches_jax():
                  "dec_embed_dim=768, dec_depth=12, dec_num_heads=12)"):
         j, t = jconvert.config_from_arch_string(arch), tconvert.config_from_arch_string(arch)
         assert {k: v for k, v in vars(t).items()} == {k: v for k, v in vars(j).items()}
+
+
+def test_save_checkpoint_round_trips_through_both_loaders(tmp_path):
+    """`save_checkpoint` writes the port's params in the reference layout:
+    the port's loader reads back the same tree and config, and so does the
+    JAX package's loader (scripts/make_tiny_checkpoint_torch.py writes the
+    run_real_torch.sh checkpoint so)."""
+    params = tconvert.params_from_jax(tiny_tree(3))
+    path = str(tmp_path / "saved.pth")
+    tconvert.save_checkpoint(path, params, tconvert.config_from_arch_string(TINY_ARCH))
+    tparams, tcfg = tconvert.load_checkpoint(path)
+    assert tcfg == tconvert.config_from_arch_string(TINY_ARCH)
+    _assert_trees_equal(tparams, params)
+    jparams, jcfg = jconvert.load_checkpoint(path)
+    assert (jcfg.enc_depth, jcfg.dec_dim, jcfg.desc_dim) == (tcfg.enc_depth, tcfg.dec_dim,
+                                                             tcfg.desc_dim)
+    _assert_trees_equal(tconvert.params_from_jax(jax.tree.map(np.asarray, jparams)), params)

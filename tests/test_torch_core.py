@@ -54,6 +54,7 @@ CASES = {  # name: (module, function, keyword arguments, inputs)
     "quat_mul": ("lie", "quat_mul", {}, lambda: (_quat(), _quat())),
     "quat_inv": ("lie", "quat_inv", {}, lambda: (_quat(),)),
     "quat_rotate": ("lie", "quat_rotate", {}, lambda: (_quat(), _vec())),
+    "quat_normalize": ("lie", "quat_normalize", {}, lambda: (3.0 * _vec(4),)),
     "so3_exp": ("lie", "so3_exp", {}, lambda: (_xi()[..., 3:6],)),
     "so3_log": ("lie", "so3_log", {}, lambda: (_quat(),)),
     "so3_matrix": ("lie", "so3_matrix", {}, lambda: (_quat(),)),

@@ -205,3 +205,25 @@ def test_save_mask_overlay_is_byte_identical(tmp_path):
         tdebug.save_mask_overlay(tmp_path / "t" / f"{name}.png", src, blob, color=(0, 255, 0))
         assert (tmp_path / "t" / f"{name}.png").read_bytes() == \
             (tmp_path / "j" / f"{name}.png").read_bytes()
+
+
+@pytest.mark.parametrize("with_dq", [True, False])
+def test_apply_dynamic_mask_to_pointmaps_matches_jax(with_dq):
+    """The flat-layout zeroing (B, hw, ...) with and without D and Q,
+    equal to JAX's."""
+    rng = np.random.default_rng(5)
+    X = rng.standard_normal((2, H * W, 3)).astype(np.float32)
+    C, Q = (rng.random((2, H * W, 1)).astype(np.float32) for _ in range(2))
+    D = rng.standard_normal((2, H * W, 24)).astype(np.float32)
+    m = rng.random((2, H * W)) < 0.3
+    args = (X, C, D, Q) if with_dq else (X, C, None, None)
+    ref = jmask.apply_dynamic_mask_to_pointmaps(
+        *(None if a is None else jnp.asarray(a) for a in args), jnp.asarray(m))
+    got = tmask.apply_dynamic_mask_to_pointmaps(
+        *(None if a is None else torch.from_numpy(a) for a in args), torch.from_numpy(m))
+    for g, r in zip(got, ref):
+        if r is None:
+            assert g is None
+        else:
+            np.testing.assert_array_equal(g.numpy(), np.asarray(r))
+    assert got[0] is not None and not got[1][torch.from_numpy(m)].any()

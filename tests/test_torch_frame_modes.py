@@ -156,3 +156,26 @@ def test_keyframe_slot_access_matches_jax():
                                    rtol=5e-7 if name == "score" else 0, err_msg=name)
     with pytest.raises(RuntimeError, match="outside the memory"):
         tf.kf_set(tm, 4, t0)
+
+
+def test_make_empty_frame_and_average_conf_match_jax():
+    """`make_empty_frame` against JAX's field by field (the port keeps feat,
+    pos and img batched), and `get_average_conf` on it and on a fused frame
+    (N = 0 divides by 1), exactly."""
+    h, w, enc_dim, patch = 8, 12, 6, 4
+    jfr, tfr = jf.make_empty_frame(h, w, enc_dim, patch), tf.make_empty_frame(h, w, enc_dim, patch)
+    for name in ("T_WC", "X_canon", "C", "N", "N_updates", "feat", "pos", "score", "img"):
+        a, b = getattr(tfr, name), np.asarray(getattr(jfr, name))
+        assert str(a.dtype).removeprefix("torch.") == str(b.dtype), name
+        np.testing.assert_array_equal(a.numpy().reshape(b.shape), b, err_msg=name)
+    assert tfr.frame_id == int(jfr.frame_id) == 0
+    np.testing.assert_array_equal(tfr.get_average_conf().numpy(),
+                                  np.asarray(jfr.get_average_conf()))
+    X, C = _obs(7, h * w)
+    for n in (0, 3):
+        jfr = dataclasses.replace(jfr, X_canon=jnp.asarray(X), C=jnp.asarray(C),
+                                  N=jnp.asarray(n, jnp.int32))
+        tfr = dataclasses.replace(tfr, X_canon=torch.from_numpy(X), C=torch.from_numpy(C),
+                                  N=torch.tensor(n, dtype=torch.int32))
+        np.testing.assert_array_equal(tfr.get_average_conf().numpy(),
+                                      np.asarray(jfr.get_average_conf()))

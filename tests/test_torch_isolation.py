@@ -1,8 +1,9 @@
 """The port stands alone: `monst3r_slam_torch`, its entry points
 `main_torch.py`, `main_monster_torch.py`, `main_easier_torch.py` and
-`train_torch.py`, and
+`train_torch.py`, its scripts `scripts/*_torch.py`, and
 `chip_smoke.py` import neither JAX nor anything of the JAX package, not even its numpy-only modules or its native solver (the port
-keeps its own copies of those, C++ source included)."""
+keeps its own copies of those, C++ source included); and its shell drivers
+`scripts/*_torch.sh` run none of the JAX package's entry points."""
 
 import ast
 import pathlib
@@ -14,7 +15,7 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "monst3r_slam_torch"
 
 _IMPORT_ALL = """
-import importlib, pkgutil, sys
+import importlib, pathlib, pkgutil, sys
 sys.modules["jax"] = None  # any import of jax now raises ImportError
 import monst3r_slam_torch
 names = [m.name for m in pkgutil.walk_packages(monst3r_slam_torch.__path__, "monst3r_slam_torch.")]
@@ -27,6 +28,10 @@ assert {"monst3r_slam_torch.dynamic." + m
     | {"monst3r_slam_torch.utils." + m for m in ("flops", "timing")} \
     | {"monst3r_slam_torch.parallel." + m for m in ("inference", "mesh")} <= set(names), names
 import chip_smoke
+import importlib.util
+for path in sorted(pathlib.Path("scripts").glob("*_torch.py")):
+    spec = importlib.util.spec_from_file_location("script_" + path.stem, path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 import main_easier_torch
 import main_monster_torch
 import main_torch
@@ -52,13 +57,15 @@ def test_port_sources_name_neither_jax_nor_the_jax_package():
             text = path.read_text()
             assert not re.search(r"\bjax\b|monst3r_slam_tpu", text), path
     assert (PORT / "native" / "solver.cpp").is_file()  # read above
-    for script in ("main_torch.py", "main_monster_torch.py", "main_easier_torch.py",
-                   "train_torch.py"):
+    scripts = sorted(str(p.relative_to(ROOT)) for p in (ROOT / "scripts").glob("*_torch.py"))
+    assert {"scripts/eval_ate_torch.py", "scripts/demo_pair_torch.py"} <= set(scripts)
+    for script in ["main_torch.py", "main_monster_torch.py", "main_easier_torch.py",
+                   "train_torch.py"] + scripts:
         assert not re.search(r"\bjax\b|monst3r_slam_tpu", (ROOT / script).read_text()), script
     # chip_smoke.py names the TPU kernels it replaces by path, but imports
     # nothing of theirs.
-    for script in ("chip_smoke.py", "main_torch.py", "main_monster_torch.py",
-                   "main_easier_torch.py", "train_torch.py"):
+    for script in ["chip_smoke.py", "main_torch.py", "main_monster_torch.py",
+                   "main_easier_torch.py", "train_torch.py"] + scripts:
         tree = ast.parse((ROOT / script).read_text())
         for node in ast.walk(tree):
             if isinstance(node, ast.Import):
@@ -69,3 +76,21 @@ def test_port_sources_name_neither_jax_nor_the_jax_package():
                 continue
             assert not any(m.split(".")[0] in ("jax", "jaxlib", "monst3r_slam_tpu")
                            for m in mods), script
+
+
+def test_port_shell_drivers_call_only_the_port():
+    """No `scripts/*_torch.sh` command runs main.py, main_monster_slam.py,
+    main_easier_slam.py or scripts/eval_ate.py; each runs a port entry."""
+    drivers = sorted((ROOT / "scripts").glob("*_torch.sh"))
+    assert {p.name for p in drivers} >= {
+        "run_real_torch.sh", "run_main_monster_slam_torch.sh", "eval_tum_torch.sh",
+        "eval_tum2_torch.sh", "eval_bonn_torch.sh", "eval_euroc_torch.sh", "eval_eth3d_torch.sh",
+        "eval_7_scenes_torch.sh", "eval_tum_metrics_torch.sh", "eval_tum2_metrics_torch.sh",
+        "eval_bonn_metrics_torch.sh"}
+    jax_entry = re.compile(r"(?<![\w/])(scripts/)?(main|main_monster_slam|main_easier_slam|"
+                           r"eval_ate)\.py\b")
+    port_entry = re.compile(r"\b(main_torch|main_monster_torch|eval_ate_torch)\.py\b")
+    for path in drivers:
+        code = [ln for ln in path.read_text().splitlines() if not ln.lstrip().startswith("#")]
+        assert not any(jax_entry.search(ln) for ln in code), path
+        assert any(port_entry.search(ln) for ln in code), path

@@ -200,3 +200,18 @@ def test_raft_params_from_torch_matches_jax_converter(tmp_path, weights):
     f_got = traft.raft_flow(got, torch.from_numpy(u0).float(), torch.from_numpy(u1).float(),
                             traft.RAFTConfig(iters=2))
     np.testing.assert_allclose(f_got.numpy(), np.asarray(f_ref), atol=1e-3)
+
+
+@pytest.mark.parametrize("padding", ["VALID", ((1, 2), (0, 3))])
+def test_conv_padding_matches_jax(weights, padding):
+    """`conv(padding=)` with XLA's VALID and explicit pads, a 3x3 stride-2
+    and the 7x7 stem, within 1e-5."""
+    jp, tp = weights
+    x = np.random.default_rng(9).standard_normal((1, 17, 22, 64)).astype(np.float32)
+    for jc, tc, stride in ((jp["fnet"]["layers"][2]["conv1"], tp["fnet"]["layers"][2]["conv1"], 2),
+                           (jp["fnet"]["layers"][0]["conv1"], tp["fnet"]["layers"][0]["conv1"], 1)):
+        ref = np.asarray(jraft.conv(jc, jnp.asarray(x), stride=stride, padding=padding))
+        got = _nhwc(traft.conv(tc, torch.from_numpy(x).permute(0, 3, 1, 2), stride=stride,
+                               padding=padding))
+        assert got.shape == ref.shape
+        np.testing.assert_allclose(got, ref, atol=1e-5 * max(1.0, np.abs(ref).max()))

@@ -114,3 +114,64 @@ def test_from_config_and_codebook_pickle_match_jax(tmp_path):
         pickle.dump({"params": {"k": 16}, "state": {"centroids": cents}}, f)
     np.testing.assert_array_equal(tr.load_codebook(str(tmp_path / "cb.pkl")),
                                   jr.load_codebook(str(tmp_path / "cb.pkl")))
+
+
+def _write_retrieval_checkpoint(path, d=64, hdims="48_32", nfeat=50):
+    """A reference-format retrieval checkpoint with random weights: the
+    whitening, a projector of one hidden Linear + LayerNorm and the output
+    Linear, a backbone entry the converters skip, and the argparse args."""
+    import argparse
+
+    rng = np.random.default_rng(6)
+    h, o = (int(x) for x in hdims.split("_"))
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+
+    model = {
+        "backbone.x": t(3), "prewhiten.m": t(1, d), "prewhiten.p": t(d, d),
+        "projector.0.weight": t(h, d), "projector.0.bias": t(h),
+        "projector.1.weight": t(h), "projector.1.bias": t(h),
+        "projector.3.weight": t(o, h), "projector.3.bias": t(o),
+        "postwhiten.m": t(1, o), "postwhiten.p": t(o, o),
+    }
+    torch.save({"model": model, "args": argparse.Namespace(hdims=hdims, nfeat=nfeat,
+                                                           residual=False)}, path)
+
+
+def test_retrieval_params_from_checkpoint_dim_matches_jax(tmp_path):
+    """`retrieval_params_from_checkpoint(path, dim=)` takes the reference's
+    `dim` and, as the reference, reads the widths from the file: every leaf
+    equal to JAX's conversion, and to its own without `dim`."""
+    path = str(tmp_path / "retrieval.pth")
+    _write_retrieval_checkpoint(path)
+    jp, jn = jr.retrieval_params_from_checkpoint(path, dim=64)
+    tp, tn = tr.retrieval_params_from_checkpoint(path, dim=64)
+    tp0, _ = tr.retrieval_params_from_checkpoint(path)
+    assert tn == jn == 50
+
+    def same(t, j):
+        if isinstance(t, dict):
+            assert t.keys() == j.keys()
+            return all(same(t[k], j[k]) for k in t)
+        if isinstance(t, list):
+            return len(t) == len(j) and all(same(a, b) for a, b in zip(t, j))
+        if isinstance(t, torch.Tensor):
+            return np.array_equal(t.numpy(), np.asarray(j))
+        return t == bool(j)
+
+    assert same(tp, jp) and same(tp0, jax.tree.map(np.asarray, jp))
+    assert len(tp["projector"]["hidden"]) == 1
+
+
+def test_make_random_codebook_is_seeded():
+    """Shape, dtype and one draw per seed (its bits differ from JAX's, which
+    draws from a JAX key)."""
+    def draw(seed):
+        return tr.make_random_codebook(128, 32, generator=torch.Generator().manual_seed(seed))
+
+    a, b, c = draw(3), draw(3), draw(4)
+    assert a.shape == (128, 32) and a.dtype == np.float32 and np.isfinite(a).all()
+    np.testing.assert_array_equal(a, b)
+    assert not np.array_equal(a, c)
+    assert tr.make_random_codebook(4, 8).shape == (4, 8)
