@@ -138,7 +138,17 @@ phase printing one line:
      just before and read just after (96 kernel A launches a step,
      asserted); one step at batch 1 on the card against the CPU path; and
      a resumed run against an uninterrupted one under deterministic
-     algorithms, in a subprocess, which must match bit for bit.
+     algorithms, in a subprocess, which must match bit for bit; and the
+     sharded step (`phase_train_mesh`; alone with `--only-train-mesh`) on a
+     (2, 2) grid of cuda:0 (with several cards also on `make_mesh()` over
+     them): MAST3R_512 from one seed, 224x224, batch 4, 3 sharded steps
+     against 3 one-device ones from the same weights and batches, in f32
+     (losses, gathered weights) and in bf16 (losses), kernel A launched 96
+     dp tp times a step at (2, 8, 196, 64) and (2, 6, 196, 64), each shape
+     held to its plain version, two planted faults the f32 check must
+     reject, the bf16 sharded step timed beside the one-device one, and the
+     edge decode on the stepped split weights equal to the decode on their
+     replicas. The CLI must print `make_mesh()`'s mesh.
 
 Random weights carry no geometry: two views of one scene, even one shifted
 by a pixel, decode to pointmaps that do not match, and every frame would be
@@ -152,7 +162,7 @@ of the camera (`front_depth`), which the calibrated tracker and the
 ego-motion flow need, and raises the mask threshold (`DYN_THRESHOLD`).
 
 Then one JSON line with the kernel table (each kernel's launches on every
-path, `sam2`, `easi3r`, `viewer`, `mesh` and `oracle` included) and, last, the
+path, `sam2`, `easi3r`, `viewer`, `mesh`, `oracle` and `train_mesh` included) and, last, the
 `{"ok": true, ...}` line. Exits
 non-zero without that line when there is no CUDA device, when the port is
 not importable, or when any phase fails.
@@ -3317,6 +3327,423 @@ def train_resume_check(seed: int) -> dict:
                 worst=sorted(differ.items(), key=lambda kv: -kv[1])[:5])
 
 
+TRAIN_MESH_SHAPE = (4, 224, 224)  # (batch, H, W): the CLI's default
+TRAIN_MESH_STEPS = 3
+TRAIN_MESH_LR = 1e-4  # make_optimizer's default
+# f32, TF32 off. From one state the sharded step differs from the
+# one-device step only in the order of its f32 sums (the row-parallel
+# partials, the batch split over dp, the rows' loss terms): the first
+# step's loss within 2^-13 relative, and each leaf's first gradient within
+# 2^-6 of its norm (a ReLU or clamp whose input sits at its kink can move
+# a few elements by more than rounding). AdamW then steps each weight by
+# lr g/(|g| + eps) on the first step, so where rounding decides a
+# gradient's sign the runs part by 2 lr, and later steps start from other
+# weights: later losses part further, within 2^-8, while in every leaf at
+# least 90% of the weights stay within 2^-4 lr a step. The largest weight
+# difference is read (`max_lr`) but bounded only to be finite: two AdamW
+# runs from one state part by at most (2 + 2^-6) lr a step whatever their
+# gradients (|m|/sqrt(v) <= 1.0004 at these betas, by Cauchy-Schwarz), so
+# no finite bound on it could reject a wrong gradient. On the H100 at full
+# width the first gradients were 1.8e-3 of their norm apart at most, the
+# later losses 2.4e-5-2.3e-4, and at least 95.0% of every leaf agreed (the
+# DPT's refinement convolutions the lowest); `planted_fault`'s defects,
+# which these bounds must reject, are read beside them.
+TRAIN_MESH_LOSS_RTOL = (2.0**-13, 2.0**-8)  # the first step, the later ones
+TRAIN_MESH_GRAD_RTOL = 2.0**-6
+TRAIN_MESH_AGREE_LR = 2.0**-4
+TRAIN_MESH_AGREE_SHARE = 0.90
+# the defects `planted_fault` plants, and those the card's run plants
+TRAIN_MESH_FAULTS = ("dp_row_gradient", "qkv_shards_swapped", "bias_twice", "dp_row_loss")
+TRAIN_MESH_CARD_FAULTS = ("dp_row_gradient", "qkv_shards_swapped")
+
+
+def train_mesh_grids() -> list:
+    """The meshes the sharded step runs on: a (2, 2) grid of cuda:0, and
+    `make_mesh()` over every card when several are visible."""
+    import torch
+
+    from monst3r_slam_torch.parallel.mesh import make_mesh
+
+    grids = [make_mesh(devices=[torch.device("cuda", 0)] * 4)]
+    if torch.cuda.device_count() > 1:
+        grids.append(make_mesh())
+    return grids
+
+
+@contextlib.contextmanager
+def recorded_attention_shapes(shapes: dict):
+    """Every attention of the model's blocks inside (`blocks.sdpa`, kernel A
+    on the card) adds its (B, H, N, 64) to `shapes`; the first call at each
+    shape also holds its output against the plain version computed in f32
+    from the same q, k and v (a shard's heads, with the strides of its qkv
+    chunk), within `attention.error_bound`: `shapes` maps each shape to
+    (max abs err, tol). The plain version launches no kernel."""
+    import torch
+
+    from monst3r_slam_torch.models import blocks
+    from monst3r_slam_torch.ops import attention
+
+    sdpa = blocks.sdpa
+
+    def recording(q, k, v):
+        out = sdpa(q, k, v)
+        shape = tuple(q.shape)
+        if shape not in shapes:
+            with torch.no_grad():
+                ref = attention.sdpa_plain(q.float(), k.float(), v.float())
+                err = float((out.float() - ref).abs().max())
+                tol = attention.error_bound(q, k, v, ref)
+            shapes[shape] = (err, tol)
+            if not (np.isfinite(err) and err <= tol):
+                fail(f"kernel A at the sharded step's {shape} ({q.dtype}, strides {q.stride()}): "
+                     f"max abs err {err} > {tol}")
+        return out
+
+    blocks.sdpa = recording
+    try:
+        yield
+    finally:
+        blocks.sdpa = sdpa
+
+
+@contextlib.contextmanager
+def planted_fault(fault: str):
+    """One of `TRAIN_MESH_FAULTS` planted in the sharded step while inside,
+    for `train_mesh_step_check` to reject: `dp_row_gradient`, the last dp
+    row reaches the weights through detached copies (its loss counts, its
+    gradient is lost: no gradient sum over dp); `qkv_shards_swapped`, each
+    qkv's shard outputs in reverse order (shard t attends with the other
+    shard's heads; on a grid that repeats one device); `bias_twice`, each
+    row-parallel linear adds its bias twice; `dp_row_loss`, the last dp
+    row's loss numerators and denominators left out of the sums."""
+    import dataclasses
+
+    import torch
+
+    from monst3r_slam_torch.models import blocks
+    from monst3r_slam_torch.parallel.mesh import Sharded
+    from monst3r_slam_torch.train import step
+
+    row_params, sum_home, tp_linear = step.row_params, step.sum_home, blocks._tp_linear
+
+    def detach(w):
+        if isinstance(w, Sharded):
+            return dataclasses.replace(w, parts=[t.detach() for t in w.parts])
+        return w.detach()
+
+    def faulty_rows(params, mesh, d):
+        p = row_params(params, mesh, d)
+        return torch.utils._pytree.tree_map(detach, p) if d == mesh.shape["dp"] - 1 else p
+
+    def faulty_linear(p, x):
+        y, w, b = tp_linear(p, x), p["w"], p.get("b")
+        if fault == "qkv_shards_swapped" and w.groups == 3:
+            return y[::-1]
+        if fault == "bias_twice" and w.dim == 1 and b is not None:
+            return y + b.to(y.dtype)
+        return y
+
+    if fault == "dp_row_gradient":
+        step.row_params = faulty_rows
+    elif fault == "dp_row_loss":
+        step.sum_home = lambda parts: sum_home(parts[:-1])
+    elif fault in ("qkv_shards_swapped", "bias_twice"):
+        blocks._tp_linear = faulty_linear
+    else:
+        raise ValueError(f"no planted fault {fault!r}")
+    try:
+        yield
+    finally:
+        step.row_params, step.sum_home, blocks._tp_linear = row_params, sum_home, tp_linear
+
+
+def _whole_grads(params) -> list:
+    """[(path, the gradient the last step left)] of a (sharded) tree, a split
+    weight's parts' gradients joined."""
+    from monst3r_slam_torch.parallel.mesh import Sharded
+    from monst3r_slam_torch.train.step import named_leaves
+
+    return [(n, w.whole([p.grad for p in w.parts]) if isinstance(w, Sharded) else w.grad)
+            for n, w in named_leaves(params)]
+
+
+def train_mesh_step_check(one_params, sharded, mesh, step: int, losses: tuple) -> dict:
+    """The sharded run against the one-device run after step `step` (1-based)
+    of each, their `losses` (one-device, sharded) given: the loss's
+    relative difference; after the first step each leaf's gradient
+    difference over its norm; every step the largest weight difference
+    beyond 4 eps of the weight in units of lr, and the smallest share of a
+    leaf's weights within TRAIN_MESH_AGREE_LR lr a step. `failed` names
+    the bounds stated above TRAIN_MESH_LOSS_RTOL that the step breaks
+    (`loss`, `grad`, `finite`, `share`); `ok` when none."""
+    import torch
+
+    from monst3r_slam_torch.parallel.mesh import gather_params
+    from monst3r_slam_torch.train.step import named_leaves
+
+    eps, lr = 2.0**-23, TRAIN_MESH_LR
+    row = dict(step=step, loss_rel=abs(losses[1] - losses[0]) / abs(losses[0]))
+    with torch.no_grad():
+        if step == 1:
+            got = dict(_whole_grads(sharded))
+            row["grad_rel"], row["grad_leaf"] = max(
+                (float((got[n] - g).norm() / g.norm()) if g.norm() > 0
+                 else float((got[n] != 0).any()) * np.inf, n) for n, g in _whole_grads(one_params))
+            del got
+        worst_lr, worst_share, worst_leaf = 0.0, 1.0, ""
+        got = dict(named_leaves(gather_params(sharded, mesh)))
+        for name, want in named_leaves(one_params):
+            d = (got.pop(name) - want).abs() - 4 * eps * want.abs()
+            worst_lr = max(worst_lr, float(d.max()) / lr)
+            share = float((d <= TRAIN_MESH_AGREE_LR * step * lr).float().mean())
+            if share < worst_share:
+                worst_share, worst_leaf = share, name
+    row.update(max_lr=worst_lr, min_agree_share=worst_share, min_agree_leaf=worst_leaf)
+    row["failed"] = [bound for bound, held in (
+        ("loss", row["loss_rel"] <= TRAIN_MESH_LOSS_RTOL[step > 1]),
+        ("grad", row.get("grad_rel", 0.0) <= TRAIN_MESH_GRAD_RTOL),
+        ("finite", np.isfinite(worst_lr)),
+        ("share", worst_share >= TRAIN_MESH_AGREE_SHARE)) if not held]
+    row["ok"] = not row["failed"]
+    return row
+
+
+def train_mesh_compare(seed: int, mesh, dtype, fault: str | None = None) -> dict:
+    """`TRAIN_MESH_STEPS` steps of `train_step` on `mesh` (`shard_params`
+    weights, `batch_sharding` batches) against as many one-device steps from
+    the same MAST3R_512 weights (drawn on the card from `seed`) and batches,
+    in `dtype`, with `fault` (`planted_fault`) planted in the sharded steps
+    where given: each step's losses, and in f32 each step held by
+    `train_mesh_step_check`; the kernels' launches in the sharded steps
+    alone (the counters zeroed just before each and read just after), and
+    kernel A's on its dtype's route; the shapes kernel A ran at, each held
+    against the plain version (`recorded_attention_shapes`). Returns the
+    row and both states."""
+    import torch
+
+    import train_torch
+    from monst3r_slam_torch.models.config import MAST3R_512
+    from monst3r_slam_torch.models.init import init_params
+    from monst3r_slam_torch.parallel.mesh import batch_sharding, shard_params
+    from monst3r_slam_torch.train.step import init_train_state, make_optimizer, train_step
+
+    b, h, w = TRAIN_MESH_SHAPE
+    params = init_params(torch.Generator(device="cuda").manual_seed(seed), MAST3R_512)
+    mesh_state = init_train_state(shard_params(params, mesh), make_optimizer(TRAIN_MESH_LR))
+    one = init_train_state(params, make_optimizer(TRAIN_MESH_LR))
+    route = "bf16_tc" if dtype == torch.bfloat16 else "f32"
+    row = dict(dtype=str(dtype).split(".")[-1], mesh=dict(mesh.shape), fault=fault, losses=[],
+               one_losses=[], checks=[], launches={}, route_launches=0, attention={})
+    attn = _counters()[0]
+    for i in range(TRAIN_MESH_STEPS):
+        batch = train_torch.synthetic_batch(i, b, h, w, "cuda")
+        one, loss = train_step(one, MAST3R_512, batch, dtype=dtype)
+        row["one_losses"].append(float(loss))
+        placed = {k: batch_sharding(mesh, t) for k, t in batch.items()}
+        with planted_fault(fault) if fault else contextlib.nullcontext():
+            zero_counts()
+            with recorded_attention_shapes(row["attention"]):
+                mesh_state, loss = train_step(mesh_state, MAST3R_512, placed, dtype=dtype,
+                                              mesh=mesh)
+            torch.cuda.synchronize()
+        for name, n in read_counts().items():
+            row["launches"][name] = row["launches"].get(name, 0) + n
+        row["route_launches"] += attn.route_launches[route]
+        row["losses"].append(float(loss))
+        if dtype == torch.float32:
+            row["checks"].append(train_mesh_step_check(
+                one.params, mesh_state.params, mesh, i + 1, (row["one_losses"][-1], float(loss))))
+    row["shapes"] = sorted(row["attention"])
+    return row, one, mesh_state
+
+
+def train_mesh_timing(state, mesh, card: str, held: int) -> dict:
+    """Steps of the bf16 `train_step` at TRAIN_MESH_SHAPE on `mesh`: 3 back
+    to back (synchronized at the end), 2 synchronized one by one, peak
+    memory over them above `held` (the bytes the process held before the
+    training state was made, as `train_timing` counts it), then one under
+    torch.profiler (device time and launches). The kernels' launches in
+    these steps are counted alone (`launches`)."""
+    import torch
+
+    import train_torch
+    from monst3r_slam_torch.models.config import MAST3R_512
+    from monst3r_slam_torch.parallel.mesh import batch_sharding
+    from monst3r_slam_torch.train.step import train_step
+
+    b, h, w = TRAIN_MESH_SHAPE
+    batch = {k: batch_sharding(mesh, t)
+             for k, t in train_torch.synthetic_batch(3, b, h, w, "cuda").items()}
+    losses = []
+
+    def one():
+        nonlocal state
+        state, loss = train_step(state, MAST3R_512, batch, mesh=mesh)
+        losses.append(loss)
+
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        one()
+    torch.cuda.synchronize()
+    b2b_ms = (time.perf_counter() - t0) * 1e3 / 3
+    sync_ms = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        one()
+        torch.cuda.synchronize()
+        sync_ms.append((time.perf_counter() - t0) * 1e3)
+    peak_gb = (torch.cuda.max_memory_allocated() - held) / 1e9
+    dev_ms, dev_launches = profiled_ms(one, iters=1, warmup=0)
+    launches = read_counts()
+    losses = [float(x) for x in losses]
+    row = dict(mesh=dict(mesh.shape), step_ms=b2b_ms, sync_step_ms=sync_ms, peak_gb=peak_gb,
+               device_ms=dev_ms, device_launches=dev_launches, losses=losses, steps=len(losses),
+               launches=launches)
+    print(f"train_mesh step ({card}) {row['mesh']}: {b2b_ms:.1f} ms back to back, synchronized "
+          f"{[round(t, 1) for t in sync_ms]} ms; device {dev_ms:.2f} ms in {dev_launches:.0f} "
+          f"launches; peak {peak_gb:.2f} GB above what the process held before the state; "
+          f"kernel launches in its {len(losses)} steps {launches}", flush=True)
+    if not all(np.isfinite(losses)):
+        fail(f"a timed train_mesh step gave a loss that is not finite: {losses}")
+    return row
+
+
+def train_mesh_decode_check(state, mesh) -> dict:
+    """`sharded_edge_decode` on the stepped split weights against the same
+    decode on their gathered replicas: one edge batch of 3 pairs (an odd
+    count: the pad row is added and stripped) of 224x224 features, equal
+    bit for bit."""
+    import torch
+
+    from monst3r_slam_torch.models.config import MAST3R_512
+    from monst3r_slam_torch.models.rope import patch_positions
+    from monst3r_slam_torch.parallel.inference import place_replicated, sharded_edge_decode
+    from monst3r_slam_torch.parallel.mesh import gather_params
+
+    _, h, w = TRAIN_MESH_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    n_h, n_w = h // MAST3R_512.patch_size, w // MAST3R_512.patch_size
+    feat1, feat2 = (0.1 * torch.randn((3, n_h * n_w, MAST3R_512.enc_dim), generator=gen,
+                                      device="cuda") for _ in range(2))
+    pos = patch_positions(n_h, n_w, 3, device="cuda")
+    args = (feat1, pos, feat2, pos, (h, w))
+    t0 = time.perf_counter()
+    out = sharded_edge_decode(mesh, state.params, MAST3R_512, *args)
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) * 1e3
+    ref = sharded_edge_decode(mesh, place_replicated(gather_params(state.params, mesh), mesh),
+                              MAST3R_512, *args)
+    equal = all((a is None and r is None) or torch.equal(a, r) for a, r in zip(out, ref))
+    finite = all(a is None or bool(torch.isfinite(a).all()) for a in out)
+    return dict(equal=equal, finite=finite, rows=out.X1.shape[0], ms=decode_ms)
+
+
+def phase_train_mesh(seed: int, card: str, one_device: dict | None = None) -> dict:
+    """Training's dp x tp mesh at MAST3R_512 full width, 224x224, batch 4
+    (`parallel/mesh.py`, the tensor-parallel forward of `models/blocks.py`,
+    `train_step(mesh=)`), on each of `train_mesh_grids()`: 3 sharded f32
+    steps (TF32 off) against 3 one-device steps from the same weights and
+    batches (`train_mesh_step_check`: losses, first gradients, gathered
+    weights after each step), then 3 bf16 ones (each loss within
+    twice the one-device bf16 step's distance from the f32 step's), kernel
+    A launched 96 dp tp times a sharded step on the route of its dtype, at
+    (B/dp, H/tp, N, 64), each shape held against the plain version; on the
+    grid of one card, each of `TRAIN_MESH_CARD_FAULTS` planted in 3 f32
+    steps, which the check must reject; the bf16 sharded step timed
+    (`train_mesh_timing`) beside `one_device`, the `train` phase's row of
+    the one-device step at TRAIN_MESH_SHAPE (none with `--only-train-mesh`);
+    and the edge decode on the stepped split weights
+    (`train_mesh_decode_check`). Returns the rows and the kernels' launches
+    in the sharded steps alone (the compared and the timed ones, no fault's
+    and no decode's)."""
+    import torch
+
+    from monst3r_slam_torch.models.config import MAST3R_512 as cfg
+
+    t_phase = time.perf_counter()
+    rows, launches = [], dict.fromkeys(read_counts(), 0)
+    for g, mesh in enumerate(train_mesh_grids()):
+        dp, tp = mesh.shape["dp"], mesh.shape["tp"]
+        want = (2 * cfg.enc_depth + 4 * cfg.dec_depth) * dp * tp
+        f32, one, sharded = train_mesh_compare(seed, mesh, torch.float32)
+        del one, sharded
+        faults = []
+        for fault in TRAIN_MESH_CARD_FAULTS if g == 0 else ():
+            row, one, sharded = train_mesh_compare(seed, mesh, torch.float32, fault)
+            del one, sharded
+            faults.append(dict(fault=fault, losses=row["losses"], one_losses=row["one_losses"],
+                               checks=row["checks"]))
+            print(f"train_mesh {dict(mesh.shape)} ({card}), {fault} planted: bounds failed "
+                  f"{[c['failed'] for c in row['checks']]}; checks {row['checks']}", flush=True)
+            if all(c["ok"] for c in row["checks"]):
+                fail(f"the sharded-step check passed 3 steps with {fault} planted")
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated()
+        bf16, one, sharded = train_mesh_compare(seed, mesh, torch.bfloat16)
+        del one
+        own = [abs(a - b) for a, b in zip(bf16["one_losses"], f32["one_losses"])]
+        ratio = [abs(a - b) / o if o > 0 else np.inf
+                 for a, b, o in zip(bf16["losses"], bf16["one_losses"], own)]
+        print(f"train_mesh {dict(mesh.shape)} ({card}) MAST3R_512 batch {TRAIN_MESH_SHAPE[0]} "
+              f"{TRAIN_MESH_SHAPE[1]}x{TRAIN_MESH_SHAPE[2]}, {TRAIN_MESH_STEPS} steps: f32 "
+              f"losses {f32['losses']} against {f32['one_losses']}; checks {f32['checks']}; "
+              f"bf16 losses {bf16['losses']} against {bf16['one_losses']} "
+              f"({[round(r, 3) for r in ratio]} of "
+              f"the one-device bf16-vs-f32 distance); kernel A {f32['route_launches']} (f32) and "
+              f"{bf16['route_launches']} (bf16) launches on the dtype's route, at "
+              f"{bf16['shapes']}; against the plain version (max abs err, tol): f32 "
+              f"{f32['attention']}, bf16 {bf16['attention']}", flush=True)
+        if not all(np.isfinite(f32["losses"] + bf16["losses"])):
+            fail("a sharded train step gave a loss that is not finite")
+        if not all(c["ok"] for c in f32["checks"]):
+            fail(f"the sharded f32 step on {dict(mesh.shape)} strays from the one-device step")
+        if max(ratio) > 2.0:
+            fail(f"the sharded bf16 step on {dict(mesh.shape)} strays from the one-device step "
+                 f"by more than twice its own bf16 distance: {ratio}")
+        for row, route in ((f32, "f32"), (bf16, "bf16_tc")):
+            n = row["launches"]["fused_attention"]
+            if not n == row["route_launches"] == want * TRAIN_MESH_STEPS:
+                fail(f"{TRAIN_MESH_STEPS} sharded {route} steps on {dict(mesh.shape)} launched "
+                     f"kernel A {n} times ({row['route_launches']} on its route), not {want} a "
+                     "step")
+        b = TRAIN_MESH_SHAPE[0] // dp
+        n = (TRAIN_MESH_SHAPE[1] // cfg.patch_size) * (TRAIN_MESH_SHAPE[2] // cfg.patch_size)
+        if not f32["shapes"] == bf16["shapes"] == sorted({(b, cfg.enc_heads // tp, n, cfg.head_dim),
+                                                          (b, cfg.dec_heads // tp, n,
+                                                           cfg.dec_head_dim)}):
+            fail(f"kernel A ran the sharded step at {f32['shapes']} / {bf16['shapes']}")
+        timing = train_mesh_timing(sharded, mesh, card, held)
+        if timing["launches"]["fused_attention"] != want * timing["steps"]:
+            fail(f"{timing['steps']} timed sharded steps launched {timing['launches']}, not "
+                 f"{want} kernel A a step")
+        for counts in (f32["launches"], bf16["launches"], timing["launches"]):
+            for name, k in counts.items():
+                launches[name] += k
+        decode = train_mesh_decode_check(sharded, mesh)
+        print(f"train_mesh decode on the stepped split weights ({card}): {decode}", flush=True)
+        if not (decode["equal"] and decode["finite"] and decode["rows"] == 3):
+            fail(f"the edge decode on split weights is not the decode on their replicas: {decode}")
+        del sharded
+        torch.cuda.empty_cache()
+        rows.append(dict(f32=f32, bf16=bf16, bf16_ratio=ratio, faults=faults, timing=timing,
+                         decode=decode))
+    if one_device is not None:
+        print(f"train_mesh: the one-device step at {TRAIN_MESH_SHAPE} (the train phase's row): "
+              f"{one_device['step_ms']:.1f} ms back to back, synchronized "
+              f"{[round(t, 1) for t in one_device['sync_step_ms']]} ms; device "
+              f"{one_device['device_ms']:.2f} ms in {one_device['device_launches']:.0f} launches; "
+              f"peak {one_device['peak_gb']:.2f} GB", flush=True)
+    for row in rows:
+        for v in (row["f32"], row["bf16"]):
+            v["attention"] = [[list(s), err, tol] for s, (err, tol) in v["attention"].items()]
+    secs = time.perf_counter() - t_phase
+    print(f"train_mesh: {secs:.1f} s; kernel launches in the sharded steps {launches}",
+          flush=True)
+    return dict(rows=rows, launches=launches, seconds=secs)
+
+
 def stop_backend_workers() -> int:
     """End the backend worker of every asynchronous SLAMSystem the earlier
     phases left running (each waits for jobs and holds its system, keyframe
@@ -3352,14 +3779,17 @@ def phase_train(seed: int, card: str) -> dict:
     session can slow later launches in its process); kernel A's gradient;
     steps timed in-process at both shapes, then one step each under the
     profiler, the launch counters zeroed just before and read just after;
-    the card half of the card-vs-CPU step; and the resume check under
-    deterministic algorithms (in a subprocess)."""
+    the card half of the card-vs-CPU step; the sharded step on the dp x tp
+    mesh (`phase_train_mesh`); and the resume check under deterministic
+    algorithms (in a subprocess). The CLI must print the mesh that
+    `make_mesh()` builds over the visible cards ((1, 1) on one card)."""
     import os
     import shutil
 
     import torch
 
     from monst3r_slam_torch.models.config import MAST3R_512
+    from monst3r_slam_torch.parallel.mesh import make_mesh
 
     t_phase = time.perf_counter()
     before = torch.cuda.memory_allocated()
@@ -3406,6 +3836,7 @@ def phase_train(seed: int, card: str) -> dict:
 
             check = train_card_vs_cpu(cpu, MAST3R_512)
             del cpu
+            mesh_run = phase_train_mesh(seed, card, rows[0])
             env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
             code = ("import json, chip_smoke; "
                     f"print('RESUME ' + json.dumps(chip_smoke.train_resume_check({seed})))")
@@ -3432,7 +3863,7 @@ def phase_train(seed: int, card: str) -> dict:
           f"its checkpoint); printed losses {cli_losses}; {save.name} "
           f"{save.stat().st_size / 1e9:.2f} GB, {n_arrays} arrays, finite {saved_finite}; "
           f"checkpoints {ckpts} ({ck_gb:.2f} GB)", flush=True)
-    if (cli_out.splitlines()[0] != "mesh: {'dp': 1, 'tp': 1}" or not cli_losses
+    if (cli_out.splitlines()[0] != f"mesh: {dict(make_mesh().shape)}" or not cli_losses
             or not all(np.isfinite(cli_losses)) or not saved_finite or ckpts != ["step_8.pt"]):
         fail(f"train_torch.py's run is not well-formed:\n{cli_out[-2000:]}")
     shutil.rmtree(TRAIN_DIR, ignore_errors=True)
@@ -3454,7 +3885,7 @@ def phase_train(seed: int, card: str) -> dict:
           f"{held / 1e9:.2f} GB of the card", flush=True)
     return dict(host=host, gradient=grad, cli_s=cli_s, cli_steps_s=cli_steps_s,
                 cli_losses=cli_losses, steps=rows, launches=launches, card_vs_cpu=check,
-                resume=resume, held_gb=held / 1e9, stopped_workers=workers,
+                resume=resume, mesh=mesh_run, held_gb=held / 1e9, stopped_workers=workers,
                 checks_s=checks_s, seconds=secs)
 
 
@@ -3467,6 +3898,9 @@ def main() -> int:
                          "(lm, fusion, decode_sym, state, chunked); prints no result line")
     ap.add_argument("--only-train", action="store_true",
                     help="build the kernels and run only the train phase; prints no result line")
+    ap.add_argument("--only-train-mesh", action="store_true",
+                    help="build the kernels and run only the train phase's sharded step "
+                         "(train_mesh); prints no result line")
     ap.add_argument("--only-mesh", action="store_true",
                     help="build the kernels and run only the mesh phase; prints no result line")
     ap.add_argument("--only-oracle", action="store_true",
@@ -3501,6 +3935,11 @@ def main() -> int:
         print(json.dumps({"oracle_run": oracle_run}), flush=True)
         print(f"card: {card}; only the oracle phase ran", flush=True)
         return 0
+    if args.only_train_mesh:
+        mesh_run = phase_train_mesh(args.seed, card)
+        print(json.dumps({"train_mesh_run": mesh_run}), flush=True)
+        print(f"card: {card}; only the train phase's sharded step ran", flush=True)
+        return 0
     if args.only_train:
         train_run = phase_train(args.seed, card)
         print(json.dumps({"train_run": train_run}), flush=True)
@@ -3530,7 +3969,8 @@ def main() -> int:
                           lm=rest["lm"]["launches"][name],
                           chunked=sum(r["launches"][name] for r in rest["chunked"].values()),
                           mesh=mesh_run["launches"][name], oracle=oracle_run["launches"][name],
-                          train=train_run["launches"][name])
+                          train=train_run["launches"][name],
+                          train_mesh=train_run["mesh"]["launches"][name])
                for name in launches}
     total = {name: sum(paths.values()) for name, paths in by_path.items()}
 

@@ -6,6 +6,15 @@ tensors; linear weights are stored torch-style, (out, in), and applied with
 Layernorm runs in float32 whatever the compute type; GELU is the exact (erf)
 variant. In bf16 the products, bias additions and GELU steps round where the
 reference's bf16 program rounds them. Tokens are (B, N, D), heads (B, H, N, hd).
+
+On weights placed by `parallel.mesh.shard_params` the same functions run
+tensor parallel (the reference's GSPMD program on a dp x tp mesh, for one
+dp row): a column-parallel `linear` (its weight a `Sharded` split on its
+output dim) returns the list of its shards' outputs, each on its shard's
+device; what follows up to the row-parallel `linear` runs on each shard
+(`per_shard`: attention on its H/tp heads, GELU); the row-parallel
+`linear` adds the shards' partial products on the first shard's device
+and its bias once. Everything else runs once, on the row's first device.
 """
 
 from __future__ import annotations
@@ -17,14 +26,43 @@ import torch.nn.functional as F
 
 from monst3r_slam_torch.models.rope import apply_rope2d
 from monst3r_slam_torch.ops.attention import sdpa
+from monst3r_slam_torch.parallel.mesh import Sharded, sum_home
 
 
-def linear(p, x: torch.Tensor) -> torch.Tensor:
+def linear(p, x):
+    if isinstance(p["w"], Sharded):
+        return _tp_linear(p, x)
     b = p.get("b")
     if b is None or x.dtype == torch.float32:
         return F.linear(x, p["w"].to(x.dtype), None if b is None else b.to(x.dtype))
     # In bf16 the reference rounds the product to bf16 before it adds the bias.
     return F.linear(x, p["w"].to(x.dtype)) + b.to(x.dtype)
+
+
+def _tp_linear(p, x):
+    """Column-parallel (the weight split on dim 0): `x` goes to each
+    shard's device and the result is the list of shard outputs, the bias
+    split with the weight. Row-parallel (split on dim 1): `x` is such a
+    list; each shard's product without bias, in x's type (in bf16 rounded
+    once, as `F.linear` rounds), is added over the shards in that type and
+    in shard order (`sum_home`), then the bias once. In bf16 that rounds
+    each partial and then each add: with tp 2 this equals one f32 sum of
+    the rounded partials rounded once (a bf16 add rounds the exact sum),
+    but not one `F.linear` of the whole weight."""
+    w, b = p["w"], p.get("b")
+    if w.dim == 0:
+        bs = [None] * len(w.parts) if b is None else b.parts
+        return [linear({"w": wt, "b": bt}, x.to(wt.device)) for wt, bt in zip(w.parts, bs)]
+    y = sum_home([linear({"w": wt}, xt) for wt, xt in zip(w.parts, x)])
+    return y if b is None else y + b.to(y.dtype)
+
+
+def per_shard(fn, *xs):
+    """`fn(*xs)`, or, where `xs` are column-parallel outputs (lists of shard
+    tensors), the list of `fn` on each shard's tensors."""
+    if isinstance(xs[0], list):
+        return [fn(*t) for t in zip(*xs)]
+    return fn(*xs)
 
 
 def layernorm(p, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -42,7 +80,7 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 
 
 def mlp(p, x: torch.Tensor) -> torch.Tensor:
-    return linear(p["fc2"], gelu(linear(p["fc1"], x)))
+    return linear(p["fc2"], per_shard(gelu, linear(p["fc1"], x)))
 
 
 def _heads_split(x: torch.Tensor, n_heads: int) -> torch.Tensor:
@@ -59,12 +97,18 @@ def _heads_merge(x: torch.Tensor) -> torch.Tensor:
 
 def self_attention(p, x: torch.Tensor, pos: torch.Tensor, n_heads: int,
                    rope_freq: Optional[float]) -> torch.Tensor:
-    """Fused-QKV self attention with RoPE2D on q and k."""
-    q, k, v = (_heads_split(t, n_heads) for t in linear(p["qkv"], x).chunk(3, dim=-1))
-    if rope_freq is not None:
-        q = apply_rope2d(q, pos, rope_freq)
-        k = apply_rope2d(k, pos, rope_freq)
-    return linear(p["proj"], _heads_merge(sdpa(q, k, v)))
+    """Fused-QKV self attention with RoPE2D on q and k (on a shard: its
+    heads, whose q, k and v rows `shard_params` keeps together)."""
+    hd = x.shape[-1] // n_heads
+
+    def attend(qkv):
+        q, k, v = (_heads_split(t, t.shape[-1] // hd) for t in qkv.chunk(3, dim=-1))
+        if rope_freq is not None:
+            q = apply_rope2d(q, pos.to(q.device), rope_freq)
+            k = apply_rope2d(k, pos.to(k.device), rope_freq)
+        return _heads_merge(sdpa(q, k, v))
+
+    return linear(p["proj"], per_shard(attend, linear(p["qkv"], x)))
 
 
 def cross_attention(p, x: torch.Tensor, mem: torch.Tensor, xpos: torch.Tensor,
@@ -79,15 +123,21 @@ def cross_attention(p, x: torch.Tensor, mem: torch.Tensor, xpos: torch.Tensor,
     the explicit-logits branch, plain PyTorch as in the reference (which
     computes it outside its attention kernel): f32 logits from q and k, the
     bias and the softmax in f32, the probabilities cast to q's type before
-    the product with v. Without them the call goes to `sdpa` (kernel A)."""
-    q = _heads_split(linear(p["q"], x), n_heads)
-    k = _heads_split(linear(p["k"], mem), n_heads)
-    v = _heads_split(linear(p["v"], mem), n_heads)
-    if rope_freq is not None:
-        q = apply_rope2d(q, xpos, rope_freq)
-        k = apply_rope2d(k, mpos, rope_freq)
+    the product with v; on unsharded weights only. Without them the call
+    goes to `sdpa` (kernel A)."""
+    hd = x.shape[-1] // n_heads
+
+    def heads(q, k, v):
+        q, k, v = (_heads_split(t, t.shape[-1] // hd) for t in (q, k, v))
+        if rope_freq is not None:
+            q = apply_rope2d(q, xpos.to(q.device), rope_freq)
+            k = apply_rope2d(k, mpos.to(k.device), rope_freq)
+        return q, k, v
+
+    q, k, v = linear(p["q"], x), linear(p["k"], mem), linear(p["v"], mem)
     if mem_bias is None and not return_attn_colsum:
-        return linear(p["proj"], _heads_merge(sdpa(q, k, v)))
+        return linear(p["proj"], per_shard(lambda *t: _heads_merge(sdpa(*heads(*t))), q, k, v))
+    q, k, v = heads(q, k, v)
     logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * q.shape[-1] ** -0.5
     if mem_bias is not None:
         logits = logits + mem_bias[:, None, None, :].float()

@@ -7,7 +7,8 @@ Port of the TPU package's `parallel/inference.py`:
     independent per pair, so the batch splits into contiguous row blocks
     over the mesh's `dp` axis, each block decoded on its device, launched
     back to back with no host read between them, and the outputs gathered
-    on the home device;
+    on the home device; it also takes the tp-split weights that training
+    leaves (`shard_params`), which it gathers and replicates first;
   * the dynamic pipeline's dual decode (`dual_decode_two_device`): MonST3R
     (X, C) and MASt3R (D, Q) read the same encoder features with their own
     weights, so the two decodes run on two devices at once, and D and Q
@@ -28,7 +29,7 @@ from monst3r_slam_torch.dynamic.inference import DualParams, combine
 from monst3r_slam_torch.models import mast3r as model_api
 from monst3r_slam_torch.models.config import ModelConfig
 from monst3r_slam_torch.ops.build import on_card
-from monst3r_slam_torch.parallel.mesh import Mesh, canonical_device, split_rows
+from monst3r_slam_torch.parallel.mesh import Mesh, canonical_device, gather_params, split_rows
 
 
 def _tree_to(tree, dev: torch.device):
@@ -57,7 +58,18 @@ def sharded_edge_decode(mesh: Mesh, params: dict, cfg: ModelConfig, feat1, pos1,
     row, so pad rows only waste the remainder), split into contiguous
     blocks, each decoded on its shard device with that device's replica of
     `params` (`place_replicated`), and the outputs gathered in row order on
-    the home device with the pad rows stripped."""
+    the home device with the pad rows stripped.
+
+    `params` may also be a parameter tree placed by `shard_params` (the
+    weights a sharded train step leaves, as the reference decodes with
+    `state.params`). It is gathered (`gather_params`) and replicated, not
+    decoded tensor parallel: rows are independent, so dp alone spreads the
+    decode, and each row then decodes as the unsharded decode of the same
+    weights does, bit for bit, where the tensor-parallel forward would round
+    its row-parallel sums in bf16 another way and launch every attention tp
+    times over. The cost is one copy of the weights per call."""
+    if not all(isinstance(k, torch.device) for k in params):
+        params = place_replicated(gather_params(params, mesh), mesh)
     devs = mesh.shard_devices("dp")
     B = feat1.shape[0]
     Bp = -(-B // len(devs)) * len(devs)

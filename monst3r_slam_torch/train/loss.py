@@ -24,11 +24,13 @@ def normalize_pointmap(X: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     return X / torch.clamp(mean_d, min=1e-8)[:, None, None, None]
 
 
-def conf_regression_loss(pred_X: torch.Tensor, pred_C: torch.Tensor, gt_X: torch.Tensor,
-                         valid: torch.Tensor, alpha: float = 0.2,
-                         normalize: bool = True) -> torch.Tensor:
-    """pred_X, gt_X (B, H, W, 3); pred_C (B, H, W), >= its vmin; valid
-    (B, H, W) bool or float. A scalar f32 tensor."""
+def conf_regression_terms(pred_X: torch.Tensor, pred_C: torch.Tensor, gt_X: torch.Tensor,
+                          valid: torch.Tensor, alpha: float = 0.2,
+                          normalize: bool = True) -> tuple:
+    """The numerator and the denominator of `conf_regression_loss`: the
+    per-pixel loss summed over the valid pixels, and their count. The loss
+    of a batch split into row blocks is the quotient of the blocks' sums,
+    not the mean of their losses, whenever their valid counts differ."""
     valid = valid.float()
     if normalize:
         pred_X = normalize_pointmap(pred_X, valid)
@@ -37,7 +39,16 @@ def conf_regression_loss(pred_X: torch.Tensor, pred_C: torch.Tensor, gt_X: torch
     # conf-aware: C*err - alpha*log(C); C is strictly positive by construction
     logC = torch.log(torch.clamp(pred_C, min=1e-8))
     per_pix = pred_C * err - alpha * logC
-    return torch.sum(per_pix * valid) / (torch.sum(valid) + 1e-8)
+    return torch.sum(per_pix * valid), torch.sum(valid)
+
+
+def conf_regression_loss(pred_X: torch.Tensor, pred_C: torch.Tensor, gt_X: torch.Tensor,
+                         valid: torch.Tensor, alpha: float = 0.2,
+                         normalize: bool = True) -> torch.Tensor:
+    """pred_X, gt_X (B, H, W, 3); pred_C (B, H, W), >= its vmin; valid
+    (B, H, W) bool or float. A scalar f32 tensor."""
+    num, den = conf_regression_terms(pred_X, pred_C, gt_X, valid, alpha, normalize)
+    return num / (den + 1e-8)
 
 
 def two_view_loss(out, batch, alpha: float = 0.2) -> torch.Tensor:

@@ -6,8 +6,8 @@ on the card: RAFT against its CPU path, the fused flow program's readback
 ordering around `overlap_cb`, and the dual decode's kernel A launches; the
 LM matcher against its CPU run; chunked tracking against the per-frame
 path, with each chunk's dispatch free of host synchronization; and the
-sharded edge decode and Gauss-Newton on a mesh that repeats one card
-against their unsharded forms.
+sharded edge decode and Gauss-Newton, and the sharded train step, on a
+mesh that repeats one card against their unsharded forms.
 
 They need a CUDA device and nvcc, and skip without them. On a machine with
 the card, from the repository root:
@@ -658,6 +658,60 @@ def test_sharded_gauss_newton_on_one_card_matches_the_unsharded_solve(cuda, cali
     err = torch.linalg.vector_norm(lie.sim3_log(lie.sim3_mul(lie.sim3_inv(T_s.cpu()), T_true)),
                                    dim=-1)
     assert float(err.max()) < 2e-3
+
+
+@pytest.mark.cuda
+def test_sharded_train_step_on_one_card_matches_the_one_device_step(cuda):
+    """`train_step` on a (2, 2) grid of this card (`shard_params` weights,
+    `batch_sharding` batches) against the one-device step, 3 steps each
+    from the same weights and batches, at MAST3R_512 widths (cut depth),
+    224x224, batch 4: in f32 (TF32 off) each step held by
+    `chip_smoke.train_mesh_step_check` (losses, the first step's gradients,
+    the gathered weights; its bounds are stated beside
+    `chip_smoke.TRAIN_MESH_LOSS_RTOL`); in bf16 each loss within twice the
+    one-device bf16 step's distance from the f32 one's. Kernel A launches (2 encoder + 4 decoder
+    blocks' worth) x dp x tp times a sharded step on its dtype's route, at
+    (2, 8, 196, 64) and (2, 6, 196, 64), never giving way to another path,
+    its output at each shape within `attention.error_bound` of the plain
+    version (`chip_smoke.recorded_attention_shapes`)."""
+    import dataclasses
+
+    import chip_smoke
+    import train_torch
+    from monst3r_slam_torch.models.config import MAST3R_512
+    from monst3r_slam_torch.models.init import init_params
+    from monst3r_slam_torch.parallel.mesh import batch_sharding, make_mesh, shard_params
+    from monst3r_slam_torch.train.step import init_train_state, make_optimizer, train_step
+
+    cfg = dataclasses.replace(MAST3R_512, enc_depth=2, dec_depth=2)
+    mesh = make_mesh(devices=[cuda] * 4)
+    losses = {}
+    for dtype, route in ((torch.float32, "f32"), (torch.bfloat16, "bf16_tc")):
+        params = init_params(torch.Generator(device=cuda).manual_seed(0), cfg)
+        sharded = init_train_state(shard_params(params, mesh), make_optimizer())
+        one = init_train_state(params, make_optimizer())
+        for i in range(3):
+            batch = train_torch.synthetic_batch(i, 4, 224, 224, cuda)
+            one, l1 = train_step(one, cfg, batch, dtype=dtype)
+            before = attention.fused_attention.route_launches[route]
+            shapes = {}
+            with chip_smoke.recorded_attention_shapes(shapes):
+                sharded, l2 = train_step(sharded, cfg, {k: batch_sharding(mesh, t)
+                                                        for k, t in batch.items()},
+                                         dtype=dtype, mesh=mesh)
+            torch.cuda.synchronize()
+            assert (attention.fused_attention.route_launches[route] - before
+                    == (2 * cfg.enc_depth + 4 * cfg.dec_depth) * 4)
+            assert sorted(shapes) == [(2, 6, 196, 64), (2, 8, 196, 64)]
+            assert all(err <= tol for err, tol in shapes.values()), shapes
+            losses[dtype, i] = (float(l1), float(l2))
+            if dtype == torch.float32:
+                check = chip_smoke.train_mesh_step_check(one.params, sharded.params, mesh, i + 1,
+                                                         (float(l1), float(l2)))
+                assert check["ok"], check
+    for i in range(3):
+        (f32, _), (one, got) = losses[torch.float32, i], losses[torch.bfloat16, i]
+        assert abs(got - one) <= 2 * abs(one - f32), (i, losses)
 
 
 @pytest.mark.cuda

@@ -7,11 +7,13 @@
                           [--ckpt-every N] [--device cuda|cpu]
 
 Confidence-weighted pointmap regression with AdamW (`monst3r_slam_torch/
-train/`), the model computing in bf16 on f32 weights, on one device: the
-first CUDA card unless `--device cpu` is given; with `cuda` and no card it
-fails. On the card every attention runs kernel A, forward only. The
-reference's dp x tp mesh is not ported yet: the run is the reference's
-one-device mesh and prints it as such.
+train/`), the model computing in bf16 on f32 weights, on a dp x tp mesh
+(`parallel/mesh.make_mesh`) over every visible CUDA card, as `train.py`
+builds one over every device: the batch split over dp, the ViT weights
+split over tp (Megatron column / row parallel), one process driving every
+card. With one card, or with `--device cpu`, the mesh is (1, 1) and the
+step is the one-device step. With `cuda` and no card it fails. On the card
+every attention runs kernel A, forward only. `--batch` must divide by dp.
 
 Data: a directory of .npz samples with img1/img2 (H, W, 3) normalized,
 gt_X1/gt_X2 (H, W, 3), valid1/valid2 (H, W); or --synthetic, the
@@ -85,7 +87,8 @@ def npz_batch(files, step: int, b: int, device) -> dict:
 
 
 def save_params(path: str, params) -> None:
-    """The weights as `train.py --save` writes them."""
+    """The weights (a tree of plain tensors: `gather_params` of a sharded
+    one) as `train.py --save` writes them."""
     from monst3r_slam_torch.models.convert import params_to_jax
     from monst3r_slam_torch.train.step import named_leaves
 
@@ -99,10 +102,14 @@ def main(argv=None):
 
     from monst3r_slam_torch.models.config import MAST3R_512, TINY
     from monst3r_slam_torch.models.init import init_params
+    from monst3r_slam_torch.parallel.mesh import (batch_sharding, gather_params, make_mesh,
+                                                  shard_params)
     from monst3r_slam_torch.train import checkpoint as ckpt
     from monst3r_slam_torch.train.step import init_train_state, make_optimizer, train_step
 
     device = torch.device(args.device)
+    mesh = make_mesh(devices=None if args.device == "cuda" else [device])
+    device = mesh.home
     cfg = TINY if args.tiny else MAST3R_512
     if args.checkpoint:
         from monst3r_slam_torch.models.convert import load_checkpoint
@@ -111,7 +118,8 @@ def main(argv=None):
     else:
         params = init_params(torch.Generator(device=device).manual_seed(0), cfg)
 
-    print(f"mesh: {dict(dp=1, tp=1)}")
+    print(f"mesh: {dict(mesh.shape)}")
+    params = shard_params(params, mesh)
     state = init_train_state(params, make_optimizer(args.lr))
 
     mngr = None
@@ -129,12 +137,14 @@ def main(argv=None):
 
     def get_batch(step):
         if args.synthetic or not files:
-            return synthetic_batch(step, args.batch, h, w, device)
-        return npz_batch(files, step, args.batch, device)
+            batch = synthetic_batch(step, args.batch, h, w, device)
+        else:
+            batch = npz_batch(files, step, args.batch, device)
+        return {k: batch_sharding(mesh, v) for k, v in batch.items()}
 
     t0 = time.time()
     for step in range(start_step, args.steps):
-        state, loss = train_step(state, cfg, get_batch(step))
+        state, loss = train_step(state, cfg, get_batch(step), mesh=mesh)
         if step % 10 == 0:
             done = step - start_step + 1  # steps completed this run
             print(f"step {step}: loss {float(loss):.4f} "
@@ -146,7 +156,7 @@ def main(argv=None):
         ckpt.save(mngr, state)
 
     if args.save:
-        save_params(args.save, state.params)
+        save_params(args.save, gather_params(state.params, mesh))
         print(f"saved params to {args.save}")
 
 
