@@ -12,14 +12,18 @@ phase printing one line:
      kernel from `monst3r_slam_torch/csrc/` with nvcc, one process per
      source, with each kernel's registers and spills, and a check in the
      SASS that every phase instantiation of kernel B keeps its bulk-copy
-     staging and that its full instantiation runs on the tensor cores;
+     staging and that its full instantiation runs on the tensor cores, and
+     that kernel A's f32 route keeps its asynchronous copies (LDGSTS) and
+     spills nothing to local memory (no LDL or STL);
   2. kernel A (attention) against its plain version at the encoder
      (1, 16, 768, 64) and decoder (1, 12, 768, 64) shapes, on both routes:
-     the bf16 tensor-core kernel (the main path's) and the f32 CUDA-core
-     kernel, with the kernel's, the plain version's and
-     scaled_dot_product_attention's times (`time_ms`: calls back to back,
-     what a host-bound caller sees), and the kernel's and SDPA's device
-     times (`device_ms`);
+     the bf16 tensor-core kernel (the main path's) and the f32
+     register-tiled kernel on the FP32 pipe (also at the training shapes
+     `F32_TRAIN_SHAPES`, with the split it takes), with the kernel's, the
+     plain version's and scaled_dot_product_attention's times (`time_ms`:
+     calls back to back, what a host-bound caller sees), the kernel's and
+     SDPA's device times (`device_ms`), and the kernels SDPA's call runs
+     (torch.profiler's names);
   3. kernel B (tile matcher) against its plain version on one 384x512 pair
      from `--seed`, placed by the matcher's own tile and corner pipeline,
      under `matching_pallas.rounding_check` (the descriptor step sums on the
@@ -181,7 +185,7 @@ import time
 import numpy as np
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores,
-# float32 on the CUDA cores, HBM3 bandwidth.
+# float32 FMA on the FP32 pipe (outside the tensor cores), HBM3 bandwidth.
 PEAK_BF16 = 989e12
 PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
@@ -309,6 +313,30 @@ def kernel_instructions(lib: str, fd: int = 24) -> dict:
     return {ph: tuple(c) for ph, c in counts.items()}
 
 
+F32_COPY_OP = "LDGSTS"  # SASS of cp.async: the f32 route's staging
+LOCAL_OPS = ("LDL", "STL")  # SASS of a spill to local memory
+
+
+def f32_route_instructions(lib: str) -> dict:
+    """{op: count} in the SASS of kernel A's f32 route (`attn_fwd_f32`) for
+    its asynchronous copies and for spills to local memory."""
+    import re
+
+    from monst3r_slam_torch.ops import build
+
+    tool = pathlib.Path(build.nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", lib], capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    counts, inside = dict.fromkeys((F32_COPY_OP, *LOCAL_OPS), 0), False
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            inside = "attn_fwd_f32" in ln
+        elif inside:
+            for op in counts:
+                counts[op] += bool(re.search(rf"\b{op}\b", ln))
+    return counts
+
+
 def phase_build() -> None:
     from monst3r_slam_torch.ops import build
     from monst3r_slam_torch.ops.matching_pallas import PHASES
@@ -330,13 +358,55 @@ def phase_build() -> None:
     print(f"tile_match phase instantiations keep their bulk-copy staging ({'/'.join(COPY_OPS)}) "
           "and the full one runs on the tensor cores (HMMA), per phase copies/HMMA: "
           + ", ".join(f"{ph} {cp}/{mma}" for ph, (cp, mma) in ins.items()), flush=True)
+    f32 = f32_route_instructions(str(build.lib_path("attention")))
+    if f32[F32_COPY_OP] == 0 or any(f32[op] for op in LOCAL_OPS):
+        fail(f"kernel A's f32 route lost its asynchronous copies ({F32_COPY_OP}) or spills to "
+             f"local memory ({'/'.join(LOCAL_OPS)}): {f32}")
+    print(f"attention f32 route keeps its asynchronous copies and spills nothing, SASS counts: "
+          f"{f32}", flush=True)
+
+
+# Kernel A's f32 route at the training path's shapes (MAST3R_512 at 224x224
+# batch 4, encoder and decoder heads, and the sharded step's halves) and at a
+# batch of two 384x512 decoder pairs, beside the encoder and decoder shapes.
+F32_TRAIN_SHAPES = ((2, 8, 196, 64), (2, 6, 196, 64), (4, 16, 196, 64), (2, 12, 768, 64))
+
+
+def sdpa_kernels(q, k, v) -> str:
+    """The device kernels one scaled_dot_product_attention call runs on
+    these inputs, by torch.profiler's names: the yardstick's own kernel."""
+    import torch
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    F.scaled_dot_product_attention(q, k, v)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        F.scaled_dot_product_attention(q, k, v)
+        torch.cuda.synchronize()
+    return " + ".join(ev.key for ev in prof.key_averages()
+                      if ev.device_type == torch.autograd.DeviceType.CUDA) or "not recorded"
+
+
+def f32_split(shape) -> int:
+    """The split (cluster size) kernel A's f32 route takes at (B, H, N, 64)."""
+    import ctypes
+
+    from monst3r_slam_torch.ops import attention, build
+
+    lib = build.load("attention", attention._SIGNATURES)
+    lib.attn_f32_split.argtypes = [ctypes.c_longlong] * 3
+    lib.attn_f32_split.restype = ctypes.c_int
+    return lib.attn_f32_split(shape[0] * shape[1], shape[2], shape[2])
 
 
 def phase_attention(seed: int) -> dict:
     """Kernel A on both routes against the plain version computed in f32
     from the same inputs, within `attention.error_bound` (bf16 tensor-core
     route: from its two bf16 roundings, of the probabilities and of the
-    output; f32 CUDA-core route: 2e-5)."""
+    output; f32 route: 2e-5), at the encoder and decoder shapes, and the f32
+    route also at `F32_TRAIN_SHAPES`; each row with the kernel SDPA's call
+    runs on the same inputs."""
     import torch
     import torch.nn.functional as F
 
@@ -344,40 +414,45 @@ def phase_attention(seed: int) -> dict:
 
     rng = np.random.default_rng(seed)
     rows = {}
-    for route, dtype, peak in (("bf16_tc", torch.bfloat16, PEAK_BF16),
-                               ("f32", torch.float32, PEAK_F32)):
-        for name, heads in (("encoder", 16), ("decoder", 12)):
-            q, k, v = (
-                torch.from_numpy(rng.standard_normal((1, heads, 768, 64), dtype=np.float32))
-                .to("cuda").to(dtype)
-                for _ in range(3)
-            )
-            before = attention.fused_attention.route_launches[route]
-            out = attention.fused_attention(q, k, v)
-            torch.cuda.synchronize()
-            if attention.fused_attention.route_launches[route] != before + 1:
-                fail(f"attention {name} {dtype} did not take the {route} route")
-            ref = attention.sdpa_plain(q.float(), k.float(), v.float())
-            err = float((out.float() - ref).abs().max())
-            tol = attention.error_bound(q, k, v, ref)
-            if not (np.isfinite(err) and err <= tol):
-                fail(f"attention {route} {name}: max abs err {err} > {tol}")
-            ms = time_ms(lambda: attention.fused_attention(q, k, v))
-            plain = time_ms(lambda: attention.sdpa_plain(q, k, v))
-            lib = time_ms(lambda: F.scaled_dot_product_attention(q, k, v))
-            dev = device_ms(lambda: attention.fused_attention(q, k, v))
-            lib_dev = device_ms(lambda: F.scaled_dot_product_attention(q, k, v))
-            n_bytes = 4 * q.numel() * q.element_size()  # q, k, v read, o written
-            flops = 4.0 * heads * 768 * 768 * 64  # QK^T and PV
-            b_ms, b_by = bound_ms(n_bytes, flops / peak)
-            rows[route, name] = dict(
-                shape=[1, heads, 768, 64], dtype=str(dtype).split(".")[-1], max_abs_err=err,
-                tol=tol, ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by,
-                device_ms=dev, library_device_ms=lib_dev)
-            print(f"attention {route} {name} (1,{heads},768,64) {rows[route, name]['dtype']}: "
-                  f"err {err:.3e} <= {tol:.3e}; ms: kernel {ms:.4f}, plain {plain:.4f}, "
-                  f"sdpa {lib:.4f}, bound {b_ms:.5f} ({b_by}); device ms: kernel {dev:.4f}, "
-                  f"sdpa {lib_dev:.4f}", flush=True)
+    cases = [("bf16_tc", torch.bfloat16, PEAK_BF16, name, (1, heads, 768, 64))
+             for name, heads in (("encoder", 16), ("decoder", 12))]
+    cases += [("f32", torch.float32, PEAK_F32, name, (1, heads, 768, 64))
+              for name, heads in (("encoder", 16), ("decoder", 12))]
+    cases += [("f32", torch.float32, PEAK_F32, f"train {shape}", shape) for shape in F32_TRAIN_SHAPES]
+    for route, dtype, peak, name, shape in cases:
+        q, k, v = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to("cuda").to(dtype)
+                   for _ in range(3))
+        before = attention.fused_attention.route_launches[route]
+        out = attention.fused_attention(q, k, v)
+        torch.cuda.synchronize()
+        if attention.fused_attention.route_launches[route] != before + 1:
+            fail(f"attention {name} {dtype} did not take the {route} route")
+        ref = attention.sdpa_plain(q.float(), k.float(), v.float())
+        err = float((out.float() - ref).abs().max())
+        tol = attention.error_bound(q, k, v, ref)
+        if not (np.isfinite(err) and err <= tol):
+            fail(f"attention {route} {name}: max abs err {err} > {tol}")
+        ms = time_ms(lambda: attention.fused_attention(q, k, v))
+        plain = time_ms(lambda: attention.sdpa_plain(q, k, v))
+        lib = time_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+        dev = device_ms(lambda: attention.fused_attention(q, k, v))
+        lib_dev = device_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+        n_bytes = 4 * q.numel() * q.element_size()  # q, k, v read, o written
+        b, h, n, d = shape
+        flops = 4.0 * b * h * n * n * d  # QK^T and PV
+        b_ms, b_by = bound_ms(n_bytes, flops / peak)
+        row = dict(shape=list(shape), dtype=str(dtype).split(".")[-1], max_abs_err=err, tol=tol,
+                   ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by,
+                   device_ms=dev, library_device_ms=lib_dev, library_kernel=sdpa_kernels(q, k, v))
+        if route == "f32":
+            row["split"] = f32_split(shape)
+        rows[route, name] = row
+        label = name if name.startswith("train") else f"{name} {tuple(shape)}"
+        print(f"attention {route} {label} {row['dtype']}"
+              + (f" split {row['split']}" if route == "f32" else "")
+              + f": err {err:.3e} <= {tol:.3e}; ms: kernel {ms:.4f}, plain {plain:.4f}, "
+              f"sdpa {lib:.4f}, bound {b_ms:.5f} ({b_by}); device ms: kernel {dev:.4f}, "
+              f"sdpa {lib_dev:.4f} ({row['library_kernel']})", flush=True)
     return rows
 
 
@@ -3987,8 +4062,13 @@ def main() -> int:
              library_device_ms=enc["library_device_ms"],
              kernel="attn_fwd_bf16_tc (wgmma, TMA)",
              decoder_shape=attn["bf16_tc", "decoder"],
-             f32_route=dict(kernel="attn_fwd_f32 (CUDA cores)", encoder=attn["f32", "encoder"],
-                            decoder=attn["f32", "decoder"]),
+             f32_route=dict(
+                 kernel="attn_fwd_f32 (register-tiled FP32 FFMA, cp.async three-stage K/V ring, "
+                        "key tiles split over a cluster, merged through distributed shared memory)",
+                 encoder=attn["f32", "encoder"], decoder=attn["f32", "decoder"],
+                 train_shapes=[attn["f32", f"train {shape}"] for shape in F32_TRAIN_SHAPES],
+                 launches_by_path=dict(train_mesh=sum(row["f32"]["route_launches"]
+                                                      for row in train_run["mesh"]["rows"]))),
              backward="plain PyTorch, attention.sdpa_backward_plain (the reference has no "
                       "backward kernel)", gradient=train_run["gradient"]),
         dict(name="tile_match", route="cuda", source="monst3r_slam_torch/csrc/tile_match.cu",

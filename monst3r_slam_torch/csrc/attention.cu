@@ -5,9 +5,9 @@
 // probabilities rounded to v's type before the PV product, output in the
 // input's type. The Pallas body holds one (batch, head)'s whole 768x768 f32
 // logit matrix in VMEM; a Hopper SM has 227 KB, so both routes here are
-// flash-style forwards instead: one CTA per (batch*head, 64-query tile), K/V
-// streamed in 64-key tiles, an online softmax with an f32 running max and sum
-// per row, the logit matrix never in device memory.
+// flash-style forwards instead: each CTA owns a tile of query rows, K/V
+// stream through shared memory in key tiles, an online softmax keeps an f32
+// running max and sum per row, the logit matrix never in device memory.
 //
 // Bound on this card: at the MASt3R encoder shape (1 x 16 heads x 768 tokens
 // x d=64, bf16) one call does 4*16*768*768*64 = ~2.4 GFLOP and moves ~6.3 MB,
@@ -51,12 +51,54 @@
 // d = 64), the prologue before the first product, and the SMs that hold two
 // CTAs, which set the time of the wave.
 //
-// f32 route (the reference checks on the card): the CUDA-core design, f32
-// FMAs with f32 probabilities, kept so that an f32 model on the card stays
-// within 1e-3 of the CPU path (TF32 tensor cores would not). Each warp owns
-// 8 queries and each lane two keys (scores) or two output dims (PV), with Q,
-// K, V and P staged in shared memory so every inner-loop read is a broadcast
-// or conflict-free.
+// f32 route (f32 models on the card: training in f32, the f32 checks against
+// the CPU path): f32 logits, f32 probabilities, f32 output, on the FP32 pipe.
+// It exists so that an f32 model on the card stays within 1e-3 of the CPU
+// path; TF32 tensor cores would not, and 3xTF32 on wgmma would need V
+// transposed every tile and twice the staged bytes. So it is bound by f32
+// operations: at (1, 16, 768, 64) 2.42 GFLOP at 67 TFLOP/s is 36.1 us (the
+// 12.6 MB it moves take 3.8 us at 3.35 TB/s); at (1, 12, 768, 64) 27.0 us.
+// The FP32 pipe issues one FFMA per lane per cycle, so every other
+// instruction a warp issues is time the pipe stands idle. The design:
+//   - Register tiles. A warp owns 32 query rows; per 16-key tile each lane
+//     holds a 4x4 block of S and, all along, an 8x8 block of O. S = Q K^T
+//     reads Q and K as 16-byte loads along d (8 loads for 64 FFMA), O += P V
+//     reads P and V as 16-byte loads along the rows and columns (4 loads for
+//     64 FFMA): one shared load per 10.7 FFMA over the tile. The staged rows
+//     are padded to 68 floats, and Q's rows are staged in the order the S
+//     loads read them, so that no load has a bank conflict; P goes through a
+//     key-major slice of shared memory per warp.
+//   - Asynchronous staging. Each thread copies its 16-byte share of Q once
+//     and of every tile's 16 K and 16 V rows with cp.async (LDGSTS), one
+//     copy group per tile, into a three-stage ring: tile i + 2 is in flight
+//     while tile i computes, and one barrier a tile both publishes the tile
+//     that landed and frees the stage of the one before. Rows past the end
+//     copy the last row and are masked, so any row stride that is a multiple
+//     of 4 floats is read in place.
+//   - Filling the SMs. A CTA of four warps owns 128 query rows (96 blocks at
+//     the encoder shape, 72 at the decoder's) and holds 69 KB of shared
+//     memory and at most 168 registers a thread, so an SM holds three (12
+//     warps). Alone, 96 or 72 CTAs would leave most SMs with one CTA and the
+//     rest idle; so the key tiles of a block are split among the `split`
+//     CTAs of a cluster (1-8), which merge their partial (O, max, sum)
+//     through distributed shared memory. The split is chosen per call from
+//     the clusters the card holds at once (cudaOccupancyMaxActiveClusters;
+//     on the H100 396, 198, 124, 92, 69, 62, 47 and 45 for splits 1-8) by a
+//     cost fitted to measured times (`f32_split`): 6 at the encoder shape
+//     (576 CTAs of 8 tiles in two waves) and 3 at the decoder's (216 CTAs of
+//     16 tiles, two or one per SM).
+//   - The softmax: a row's 16 keys of a tile lie on the 4 lanes that share
+//     it, so its max takes two shuffles; each lane keeps its share of the
+//     sum, reduced once at the end. The max is taken on the raw scores and
+//     each probability is one FFMA (scale d^-1/2 log2(e), minus the max) and
+//     one ex2.approx; O is rescaled once a tile and divided by the sum once.
+// The earlier design (a warp's 8 queries over all 32 lanes, scalar K and V
+// loads, synchronous staging, 64-query CTAs) issued one shared load per 4
+// FFMA, computed with nothing in flight, left 72 SMs with one CTA and
+// reduced every query's max and sum over the whole warp. What bounds this
+// one on the H100 is the FFMA issue rate itself: an 8x8 outer product from
+// registers alone reaches 47 of the 67 TFLOP/s (two fresh register operands
+// an FFMA), and the shared loads, the softmax and the merge take the rest.
 //
 // Launches on the caller's stream and returns the launch's cudaGetLastError().
 
@@ -86,165 +128,6 @@ cudaError_t current_device(int* dev) {
 struct Strides {  // in elements
   long long b, h, r;
 };
-
-// ------------------------------------------------------------------ f32 route
-
-constexpr int F_BQ = 64;   // queries per CTA
-constexpr int F_BK = 64;   // keys per shared-memory tile
-constexpr int F_NWARP = 8;
-constexpr int F_NTHREAD = F_NWARP * 32;
-constexpr int F_QPW = F_BQ / F_NWARP;  // queries per warp (8)
-constexpr int F_KPAD = D + 1;          // K row stride: conflict-free column reads
-
-constexpr size_t F_SMEM_BYTES =
-    sizeof(float) * (D * F_BQ + F_BK * F_KPAD + F_BK * D + F_NWARP * F_BK * F_QPW);
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-__global__ void __launch_bounds__(F_NTHREAD)
-attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
-             const float* __restrict__ v, float* __restrict__ o, Strides sq, Strides sk,
-             Strides sv, Strides so, int heads, int nq, int nk, float scale) {
-  extern __shared__ float smem[];
-  float* Qt = smem;                // [D][F_BQ]: d-major, a warp's 8 queries contiguous
-  float* Ks = Qt + D * F_BQ;       // [F_BK][F_KPAD]
-  float* Vs = Ks + F_BK * F_KPAD;  // [F_BK][D]
-  float* Ps = Vs + F_BK * D;       // [F_NWARP][F_BK][F_QPW]: probabilities of the tile
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int q0 = blockIdx.x * F_BQ;
-  const int b = blockIdx.y / heads, h = blockIdx.y % heads;
-  const float* qb = q + b * sq.b + h * sq.h;
-  const float* kb = k + b * sk.b + h * sk.h;
-  const float* vb = v + b * sv.b + h * sv.h;
-  float* ob = o + b * so.b + h * so.h;
-
-  for (int i = tid; i < F_BQ * D; i += F_NTHREAD) {
-    const int r = i / D, c = i % D;
-    const int qi = q0 + r;
-    Qt[c * F_BQ + r] = qi < nq ? qb[qi * sq.r + c] : 0.f;
-  }
-
-  float m[F_QPW], l[F_QPW], acc0[F_QPW], acc1[F_QPW];
-#pragma unroll
-  for (int i = 0; i < F_QPW; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-    acc0[i] = 0.f;
-    acc1[i] = 0.f;
-  }
-  const float* Qw = Qt + warp * F_QPW;
-  float* Pw = Ps + warp * F_BK * F_QPW;
-
-  for (int k0 = 0; k0 < nk; k0 += F_BK) {
-    __syncthreads();  // Q staged / previous tile fully consumed
-    for (int i = tid; i < F_BK * D; i += F_NTHREAD) {
-      const int r = i / D, c = i % D;
-      const int ki = k0 + r;
-      const bool ok = ki < nk;
-      Ks[r * F_KPAD + c] = ok ? kb[ki * sk.r + c] : 0.f;
-      Vs[r * D + c] = ok ? vb[ki * sv.r + c] : 0.f;
-    }
-    __syncthreads();
-
-    // Scores of this warp's 8 queries against keys k0+lane and k0+lane+32.
-    float s0[F_QPW], s1[F_QPW];
-#pragma unroll
-    for (int i = 0; i < F_QPW; ++i) {
-      s0[i] = 0.f;
-      s1[i] = 0.f;
-    }
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      const float4 qa = *reinterpret_cast<const float4*>(Qw + d * F_BQ);
-      const float4 qc = *reinterpret_cast<const float4*>(Qw + d * F_BQ + 4);
-      const float qv[F_QPW] = {qa.x, qa.y, qa.z, qa.w, qc.x, qc.y, qc.z, qc.w};
-      const float ka = Ks[lane * F_KPAD + d];
-      const float kc = Ks[(lane + 32) * F_KPAD + d];
-#pragma unroll
-      for (int i = 0; i < F_QPW; ++i) {
-        s0[i] = fmaf(qv[i], ka, s0[i]);
-        s1[i] = fmaf(qv[i], kc, s1[i]);
-      }
-    }
-
-    const bool ok0 = k0 + lane < nk;
-    const bool ok1 = k0 + lane + 32 < nk;
-#pragma unroll
-    for (int i = 0; i < F_QPW; ++i) {
-      const float a = ok0 ? s0[i] * scale : -INFINITY;
-      const float c = ok1 ? s1[i] * scale : -INFINITY;
-      const float m_new = fmaxf(m[i], warp_max(fmaxf(a, c)));  // finite: key k0 is valid
-      const float corr = expf(m[i] - m_new);
-      const float pa = expf(a - m_new);
-      const float pc = expf(c - m_new);
-      l[i] = l[i] * corr + warp_sum(pa + pc);
-      acc0[i] *= corr;
-      acc1[i] *= corr;
-      m[i] = m_new;
-      Pw[lane * F_QPW + i] = pa;
-      Pw[(lane + 32) * F_QPW + i] = pc;
-    }
-    __syncwarp();
-
-    // O += P V: lane owns output dims lane and lane+32 of the 8 queries.
-#pragma unroll 4
-    for (int j = 0; j < F_BK; ++j) {
-      const float4 pa = *reinterpret_cast<const float4*>(Pw + j * F_QPW);
-      const float4 pc = *reinterpret_cast<const float4*>(Pw + j * F_QPW + 4);
-      const float pv[F_QPW] = {pa.x, pa.y, pa.z, pa.w, pc.x, pc.y, pc.z, pc.w};
-      const float va = Vs[j * D + lane];
-      const float vc = Vs[j * D + lane + 32];
-#pragma unroll
-      for (int i = 0; i < F_QPW; ++i) {
-        acc0[i] = fmaf(pv[i], va, acc0[i]);
-        acc1[i] = fmaf(pv[i], vc, acc1[i]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < F_QPW; ++i) {
-    const int qi = q0 + warp * F_QPW + i;
-    if (qi < nq) {
-      const float inv = 1.f / l[i];
-      ob[qi * so.r + lane] = acc0[i] * inv;
-      ob[qi * so.r + lane + 32] = acc1[i] * inv;
-    }
-  }
-}
-
-int launch_f32(const void* q, const void* k, const void* v, void* o, const Strides* st,
-               int batch, int heads, int nq, int nk, cudaStream_t stream) {
-  static bool configured[MAX_DEVICES] = {};
-  int dev = 0;
-  cudaError_t err = current_device(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (!configured[dev]) {
-    err = cudaFuncSetAttribute(attn_fwd_f32, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)F_SMEM_BYTES);
-    if (err != cudaSuccess) return (int)err;
-    configured[dev] = true;
-  }
-  const dim3 grid((nq + F_BQ - 1) / F_BQ, batch * heads);
-  attn_fwd_f32<<<grid, F_NTHREAD, F_SMEM_BYTES, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), st[0], st[1], st[2], st[3], heads, nq, nk,
-      1.0f / sqrtf((float)D));
-  return (int)cudaGetLastError();
-}
 
 // ----------------------------------------------------------- bf16 route (TC)
 
@@ -692,6 +575,410 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, const Stri
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------------------------------------ f32 route
+//
+// Register-tiled f32 attention on the FP32 pipe (see the note at the top).
+// A CTA of four warps owns 128 query rows, 32 per warp, and one share of the
+// key tiles; the `split` CTAs of a cluster take the shares of one 128-row
+// block and merge their partial (O, max, sum) through distributed shared
+// memory at the end.
+//
+// Lane layouts of a warp (lane = 4 rg + kg = 8 RG + cg):
+//   S = Q K^T, 32 rows x 16 keys: rows 4 rg + i (i < 4), keys kg + 4 t (t < 4).
+//   O, 32 rows x 64 columns: rows 8 RG + x (x < 8), columns 4 cg + c and
+//   32 + 4 cg + c (c < 4).
+// O row 8 RG + 4 h + i is S row 4 (2 RG + h) + i, held by lane
+// 8 RG + 4 h + (cg & 3): one shuffle per row hands a rescale to the O lanes.
+// Q row 4 rg + i of warp w is staged at row 32 w + 8 i + rg, so the eight rows
+// of one S load sit in eight different bank groups.
+
+constexpr int F_WARPS = 4;
+constexpr int F_THREADS = 32 * F_WARPS;
+constexpr int F_WROWS = 32;                       // query rows per warp
+constexpr int F_BQ = F_WARPS * F_WROWS;           // query rows per CTA
+constexpr int F_BK = 16;                          // keys per staged tile
+constexpr int F_STAGES = 3;                       // K/V ring depth
+constexpr int F_LD = D + 4;                       // staged row stride (floats): 68
+constexpr int F_MAX_SPLIT = 8;                    // portable cluster size
+constexpr int F_Q_FLOATS = F_BQ * F_LD;
+constexpr int F_TILE_FLOATS = 2 * F_BK * F_LD;    // a tile's 16 K rows, then its 16 V rows
+constexpr int F_P_FLOATS = F_BK * F_WROWS;        // a warp's P, key-major
+constexpr int F_SMEM = 4 * (F_Q_FLOATS + F_STAGES * F_TILE_FLOATS + F_WARPS * F_P_FLOATS);
+// The merge reuses the staging: partial O over Q's rows, max and sum over the
+// ring, each row's weights over P.
+static_assert(2 * F_BQ <= F_STAGES * F_TILE_FLOATS, "max and sum fit the ring");
+static_assert(F_BQ + F_MAX_SPLIT <= F_WARPS * F_P_FLOATS, "weights fit P");
+
+// 16 bytes from global to shared memory, asynchronously (cp.async, through
+// L2 only): completes at the thread's next cp.async.wait_group that covers it.
+__device__ __forceinline__ void copy16(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void copy_commit() { asm volatile("cp.async.commit_group;" ::: "memory"); }
+
+// Wait until at most `n` of this thread's committed copy groups are pending.
+template <int n>
+__device__ __forceinline__ void copy_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(n) : "memory");
+}
+
+// This thread's share of tile `tile`'s K and V rows into `dst` (16 K rows,
+// then 16 V rows, each 16 chunks of 16 bytes: 4 chunks a thread). Rows past
+// nk copy row nk - 1, so the tile holds finite values; their keys are masked.
+__device__ __forceinline__ void stage_kv(float* dst, const float* kb, const float* vb,
+                                         long long kr, long long vr, int tile, int nk, int tid) {
+#pragma unroll
+  for (int e = tid; e < 2 * F_BK * (D / 4); e += F_THREADS) {
+    const int row = e / (D / 4), c4 = e % (D / 4);
+    const int key = min(tile * F_BK + row % F_BK, nk - 1);
+    copy16(dst + row * F_LD + 4 * c4, (row < F_BK ? kb + key * kr : vb + key * vr) + 4 * c4);
+  }
+}
+
+__device__ __forceinline__ uint32_t cluster_addr(uint32_t addr, int rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(out) : "r"(addr), "r"(rank));
+  return out;
+}
+
+__device__ __forceinline__ float ld_cluster(uint32_t addr) {
+  float x;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];" : "=f"(x) : "r"(addr) : "memory");
+  return x;
+}
+
+__device__ __forceinline__ float4 ld_cluster4(uint32_t addr) {
+  float4 x;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(x.x), "=f"(x.y), "=f"(x.z), "=f"(x.w)
+               : "r"(addr)
+               : "memory");
+  return x;
+}
+
+// Every thread of the cluster arrives; with `release`, its shared-memory
+// writes are visible to the cluster after the wait.
+template <bool release>
+__device__ __forceinline__ void cluster_sync() {
+  if (release)
+    asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+  else
+    asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
+  asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
+}
+
+__global__ void __launch_bounds__(F_THREADS, 3)
+attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
+             const float* __restrict__ v, float* __restrict__ o, Strides sq, Strides sk,
+             Strides sv, Strides so, int heads, int nq, int nk, int split, float scale_log2) {
+  extern __shared__ __align__(16) float fsm[];
+  float* Qs = fsm;
+  float* ring = Qs + F_Q_FLOATS;
+  float* Ps = ring + F_STAGES * F_TILE_FLOATS;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int rank = blockIdx.x % split;  // the cluster is (split, 1, 1): its CTAs are consecutive
+  const int q0 = blockIdx.x / split * F_BQ;
+  const int b = blockIdx.y / heads, h = blockIdx.y % heads;
+  const float* qb = q + b * sq.b + h * sq.h;
+  const float* kb = k + b * sk.b + h * sk.h;
+  const float* vb = v + b * sv.b + h * sv.h;
+  const int ntiles = (nk + F_BK - 1) / F_BK;
+  const int t0 = rank * ntiles / split;  // this CTA's tiles: [t0, t0 + mine), never empty
+  const int mine = (rank + 1) * ntiles / split - t0;
+
+  // Q once and the first F_STAGES - 1 tiles, one copy group each (Q with
+  // the first): row r of the block to its staged row (rows past nq copy row
+  // nq - 1 and are never stored).
+#pragma unroll 4
+  for (int e = tid; e < F_BQ * (D / 4); e += F_THREADS) {
+    const int r = e / (D / 4), c4 = e % (D / 4), rho = r % F_WROWS;
+    const int at = r - rho + 8 * (rho & 3) + (rho >> 2);
+    copy16(Qs + at * F_LD + 4 * c4, qb + min(q0 + r, nq - 1) * sq.r + 4 * c4);
+  }
+  for (int s = 0; s < F_STAGES - 1; ++s) {
+    if (s < mine) stage_kv(ring + s * F_TILE_FLOATS, kb, vb, sk.r, sv.r, t0 + s, nk, tid);
+    copy_commit();
+  }
+
+  const int rg = lane >> 2, kg = lane & 3, RG = lane >> 3, cg = lane & 7;
+  const float* Qw = Qs + (warp * F_WROWS + rg) * F_LD;
+  float* Pw = Ps + warp * F_P_FLOATS;
+  float acc[8][8];
+#pragma unroll
+  for (int x = 0; x < 8; ++x)
+#pragma unroll
+    for (int c = 0; c < 8; ++c) acc[x][c] = 0.f;
+  float m[4], l[4];  // per S row: running max (log2 units), this lane's share of the sum
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+  }
+  for (int it = 0; it < mine; ++it) {
+    // Tile it has landed; every warp is done with tile it - 1, whose stage
+    // takes tile it + F_STAGES - 1 while this one computes.
+    copy_wait<F_STAGES - 2>();
+    __syncthreads();
+    if (it + F_STAGES - 1 < mine)
+      stage_kv(ring + (it + F_STAGES - 1) % F_STAGES * F_TILE_FLOATS, kb, vb, sk.r, sv.r,
+               t0 + it + F_STAGES - 1, nk, tid);
+    copy_commit();
+    const float* Kt = ring + it % F_STAGES * F_TILE_FLOATS;
+    const float* Vt = Kt + F_BK * F_LD;
+
+    // S = Q K^T: per 4 columns of d, 8 loads of 16 bytes feed 64 FMAs.
+    float sc[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int t = 0; t < 4; ++t) sc[i][t] = 0.f;
+#pragma unroll 4
+    for (int c = 0; c < D / 4; ++c) {
+      float4 qv[4], kv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) qv[i] = *reinterpret_cast<const float4*>(Qw + 8 * i * F_LD + 4 * c);
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+        kv[t] = *reinterpret_cast<const float4*>(Kt + (kg + 4 * t) * F_LD + 4 * c);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+          sc[i][t] = fmaf(qv[i].x, kv[t].x, sc[i][t]);
+          sc[i][t] = fmaf(qv[i].y, kv[t].y, sc[i][t]);
+          sc[i][t] = fmaf(qv[i].z, kv[t].z, sc[i][t]);
+          sc[i][t] = fmaf(qv[i].w, kv[t].w, sc[i][t]);
+        }
+    }
+
+    // Online softmax in log2 units over the 4 lanes that share a row. Keys at
+    // or past nk count as -inf; only a ragged last tile has any, and every
+    // tile holds a valid key (its first), so the max is finite.
+    const int key0 = (t0 + it) * F_BK + kg;
+    if ((t0 + it + 1) * F_BK > nk) {
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+        if (key0 + 4 * t >= nk)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) sc[i][t] = -INFINITY;
+    }
+    float corr[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float mx = fmaxf(fmaxf(sc[i][0], sc[i][1]), fmaxf(sc[i][2], sc[i][3]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float mn = fmaxf(m[i], mx * scale_log2);
+      corr[i] = fast_exp2(m[i] - mn);
+      m[i] = mn;
+      float rs = 0.f;
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        sc[i][t] = fast_exp2(fmaf(sc[i][t], scale_log2, -mn));
+        rs += sc[i][t];
+      }
+      l[i] = fmaf(l[i], corr[i], rs);
+    }
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+      *reinterpret_cast<float4*>(Pw + (kg + 4 * t) * F_WROWS + 4 * rg) =
+          make_float4(sc[0][t], sc[1][t], sc[2][t], sc[3][t]);
+    float oc[8];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      oc[i] = __shfl_sync(0xffffffffu, corr[i], lane & ~4);
+      oc[4 + i] = __shfl_sync(0xffffffffu, corr[i], lane | 4);
+    }
+    __syncwarp();  // P is in shared memory
+
+    // O += P V: per key, 4 loads of 16 bytes feed 64 FMAs.
+#pragma unroll
+    for (int x = 0; x < 8; ++x)
+#pragma unroll
+      for (int c = 0; c < 8; ++c) acc[x][c] *= oc[x];
+#pragma unroll
+    for (int j = 0; j < F_BK; ++j) {
+      const float4 pa = *reinterpret_cast<const float4*>(Pw + j * F_WROWS + 8 * RG);
+      const float4 pb = *reinterpret_cast<const float4*>(Pw + j * F_WROWS + 8 * RG + 4);
+      const float4 va = *reinterpret_cast<const float4*>(Vt + j * F_LD + 4 * cg);
+      const float4 vc = *reinterpret_cast<const float4*>(Vt + j * F_LD + 32 + 4 * cg);
+      const float p[8] = {pa.x, pa.y, pa.z, pa.w, pb.x, pb.y, pb.z, pb.w};
+      const float w[8] = {va.x, va.y, va.z, va.w, vc.x, vc.y, vc.z, vc.w};
+#pragma unroll
+      for (int x = 0; x < 8; ++x)
+#pragma unroll
+        for (int c = 0; c < 8; ++c) acc[x][c] = fmaf(p[x], w[c], acc[x][c]);
+    }
+  }
+
+  // Partial results into this CTA's staging (free once every warp is done
+  // with the last tile; no copy in flight): O unnormalized, each row's max
+  // and sum.
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+  }
+  __syncthreads();
+  float* part_o = Qs;
+  float* part_m = ring;
+  float* part_l = ring + F_BQ;
+  float* wts = Ps;
+#pragma unroll
+  for (int x = 0; x < 8; ++x) {
+    float* row = part_o + (warp * F_WROWS + 8 * RG + x) * F_LD;
+    *reinterpret_cast<float4*>(row + 4 * cg) = make_float4(acc[x][0], acc[x][1], acc[x][2], acc[x][3]);
+    *reinterpret_cast<float4*>(row + 32 + 4 * cg) =
+        make_float4(acc[x][4], acc[x][5], acc[x][6], acc[x][7]);
+  }
+  if (kg == 0) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      part_m[warp * F_WROWS + 4 * rg + i] = m[i];
+      part_l[warp * F_WROWS + 4 * rg + i] = l[i];
+    }
+  }
+  cluster_sync<true>();  // every CTA's partials are written
+
+  // This CTA finalizes rows [lo, hi) of the block from the split's partials:
+  // O = sum_g w_g O_g / sum_g w_g l_g with w_g = 2^(m_g - max_g m_g).
+  const int lo = rank * F_BQ / split;
+  const int hi = min((rank + 1) * F_BQ / split, nq - q0);
+  const uint32_t m_at = smem_u32(part_m), l_at = smem_u32(part_l), o_at = smem_u32(part_o);
+  for (int r = lo + tid; r < hi; r += F_THREADS) {
+    float mx = -INFINITY;
+    for (int g = 0; g < split; ++g) mx = fmaxf(mx, ld_cluster(cluster_addr(m_at + 4 * r, g)));
+    float sum = 0.f;
+    for (int g = 0; g < split; ++g) {
+      const float wg = fast_exp2(ld_cluster(cluster_addr(m_at + 4 * r, g)) - mx);
+      sum = fmaf(wg, ld_cluster(cluster_addr(l_at + 4 * r, g)), sum);
+      wts[(r - lo) * split + g] = wg;
+    }
+    const float inv = 1.f / sum;  // >= 1: the largest max's partial sum holds 2^0
+    for (int g = 0; g < split; ++g) wts[(r - lo) * split + g] *= inv;
+  }
+  __syncthreads();
+  float* ob = o + b * so.b + h * so.h;
+  for (int e = tid; e < (hi - lo) * (D / 4); e += F_THREADS) {
+    const int r = lo + e / (D / 4), c4 = e % (D / 4);
+    float4 out = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int g = 0; g < split; ++g) {
+      const float wg = wts[(r - lo) * split + g];
+      const float4 pv = ld_cluster4(cluster_addr(o_at + 4 * (r * F_LD + 4 * c4), g));
+      out.x = fmaf(wg, pv.x, out.x);
+      out.y = fmaf(wg, pv.y, out.y);
+      out.z = fmaf(wg, pv.z, out.z);
+      out.w = fmaf(wg, pv.w, out.w);
+    }
+    *reinterpret_cast<float4*>(ob + (q0 + r) * so.r + 4 * c4) = out;
+  }
+  cluster_sync<false>();  // no CTA leaves while a peer still reads its shared memory
+}
+
+// Per card: the SM count and the most clusters of each size that can be
+// resident at once (cudaOccupancyMaxActiveClusters), read at the first launch.
+struct F32Card {
+  bool ready;
+  int sms;
+  int clusters[F_MAX_SPLIT + 1];
+};
+F32Card f32_cards[MAX_DEVICES];
+std::mutex f32_cards_lock;
+
+cudaError_t f32_card(int dev, const F32Card** out) {
+  std::lock_guard<std::mutex> guard(f32_cards_lock);
+  F32Card& c = f32_cards[dev];
+  if (!c.ready) {
+    cudaError_t err = cudaFuncSetAttribute(attn_fwd_f32,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, F_SMEM);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(attn_fwd_f32, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 (int)cudaSharedmemCarveoutMaxShared);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&c.sms, cudaDevAttrMultiProcessorCount, dev);
+    for (int g = 1; g <= F_MAX_SPLIT && err == cudaSuccess; ++g) {
+      cudaLaunchConfig_t cfg = {};
+      cudaLaunchAttribute attr;
+      attr.id = cudaLaunchAttributeClusterDimension;
+      attr.val.clusterDim.x = g;
+      attr.val.clusterDim.y = 1;
+      attr.val.clusterDim.z = 1;
+      cfg.gridDim = dim3(g, 1, 1);
+      cfg.blockDim = dim3(F_THREADS, 1, 1);
+      cfg.dynamicSmemBytes = F_SMEM;
+      cfg.attrs = &attr;
+      cfg.numAttrs = 1;
+      err = cudaOccupancyMaxActiveClusters(&c.clusters[g], attn_fwd_f32, &cfg);
+    }
+    if (err != cudaSuccess) return err;
+    c.ready = true;
+  }
+  *out = &c;
+  return cudaSuccess;
+}
+
+// The split (cluster size) for `blocks` 128-row blocks over `ntiles` key
+// tiles: the one with the least estimated time. Clusters run in waves of as
+// many as the card holds; a wave takes a CTA's tiles times (the CTAs its
+// busiest SM holds + 0.3), plus 3.6 tiles for the prologue and the merge, in
+// tenths of a tile (fitted to the H100's times over splits 1-8 at the
+// encoder, decoder and training shapes).
+int f32_split(const F32Card& c, long long blocks, int ntiles) {
+  int best = 1;
+  long long best_cost = -1;
+  for (int g = 1; g <= F_MAX_SPLIT && g <= ntiles; ++g) {
+    const long long cap = c.clusters[g];
+    if (cap <= 0) continue;
+    const long long tiles = (ntiles + g - 1) / g;
+    long long cost = 0;
+    for (long long left = blocks; left > 0; left -= cap) {
+      const long long per_sm = ((left < cap ? left : cap) * g + c.sms - 1) / c.sms;
+      cost += tiles * (10 * per_sm + 3) + 36;
+    }
+    if (best_cost < 0 || cost < best_cost) {
+      best = g;
+      best_cost = cost;
+    }
+  }
+  return best;
+}
+
+int launch_f32(const void* q, const void* k, const void* v, void* o, const Strides* st,
+               int batch, int heads, int nq, int nk, cudaStream_t stream) {
+  int dev = 0;
+  cudaError_t err = current_device(&dev);
+  if (err != cudaSuccess) return (int)err;
+  const F32Card* card = nullptr;
+  err = f32_card(dev, &card);
+  if (err != cudaSuccess) return (int)err;
+  const int blocks = (nq + F_BQ - 1) / F_BQ;
+#ifdef F32_SPLIT  // a profiling build fixes the split (scripts/profile_f32_attention.py)
+  const int split = min(F32_SPLIT, (nk + F_BK - 1) / F_BK);
+#else
+  const int split = f32_split(*card, (long long)blocks * batch * heads, (nk + F_BK - 1) / F_BK);
+#endif
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = split;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.gridDim = dim3(blocks * split, batch * heads, 1);
+  cfg.blockDim = dim3(F_THREADS, 1, 1);
+  cfg.dynamicSmemBytes = F_SMEM;
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, attn_fwd_f32, static_cast<const float*>(q),
+                           static_cast<const float*>(k), static_cast<const float*>(v),
+                           static_cast<float*>(o), st[0], st[1], st[2], st[3], heads, nq, nk,
+                           split, 1.4426950408889634f / sqrtf((float)D));
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // The arguments of one call, packed by the wrapper into 27 int64 values, so
@@ -700,14 +987,16 @@ struct AttnArgs {
   long long q, k, v, o;        // device pointers
   long long stride[4][4];      // (batch, head, row, dim) element strides of q, k, v, o
   long long batch, heads, nq, nk, d;
-  long long dtype;             // 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores)
+  long long dtype;             // 0 = float32 (FP32 pipe), 1 = bfloat16 (tensor cores)
   long long stream;            // cudaStream_t
 };
 
 // q (B, H, nq, d), k and v (B, H, nk, d), o (B, H, nq, d), each addressed
 // through its own strides. Every operand's last dimension must be
 // contiguous; in bfloat16, q, k and v must also start 16-byte aligned with
-// every other stride a multiple of 8 elements, which a tensor map needs (the
+// every other stride a multiple of 8 elements, which a tensor map needs; in
+// float32, all four must start 16-byte aligned with every other stride a
+// multiple of 4 elements, which the bulk copies and 16-byte stores need (the
 // stride of a dimension of size 1 is never read, and is not checked).
 // Returns a cudaError_t (0 on success); 1000 for arguments or a layout this
 // kernel does not take, 1001 when a TMA descriptor cannot be encoded.
@@ -724,6 +1013,8 @@ extern "C" int attn_forward(const AttnArgs* a) {
                     rows > 1 ? a->stride[i][2] : D};
     if (a->dtype == 1 && i < 3 && ((ptr[i] & 15) || (st[i].b & 7) || (st[i].h & 7) || (st[i].r & 7)))
       return 1000;
+    if (a->dtype == 0 && ((ptr[i] & 15) || (st[i].b & 3) || (st[i].h & 3) || (st[i].r & 3)))
+      return 1000;
   }
   const void* q = (const void*)a->q;
   const void* k = (const void*)a->k;
@@ -733,4 +1024,28 @@ extern "C" int attn_forward(const AttnArgs* a) {
   if (a->dtype == 0) return launch_f32(q, k, v, o, st, batch, heads, nq, nk, s);
   if (a->dtype == 1) return launch_bf16(q, k, v, o, st, batch, heads, nq, nk, s);
   return 1000;
+}
+
+// The split (cluster size) the f32 route takes for batch x heads = bh and
+// these token counts on the current card; a negative cudaError_t if the card
+// cannot be queried.
+extern "C" int attn_f32_split(long long bh, long long nq, long long nk) {
+  int dev = 0;
+  cudaError_t err = current_device(&dev);
+  const F32Card* card = nullptr;
+  if (err == cudaSuccess) err = f32_card(dev, &card);
+  if (err != cudaSuccess) return -(int)err;
+  return f32_split(*card, (nq + F_BQ - 1) / F_BQ * bh, (int)((nk + F_BK - 1) / F_BK));
+}
+
+// How many clusters of `split` CTAs (1-8) of the f32 route the current card
+// holds at once, which the choice of split reads; a negative cudaError_t if
+// the card cannot be queried.
+extern "C" int attn_f32_clusters(int split) {
+  int dev = 0;
+  cudaError_t err = current_device(&dev);
+  const F32Card* card = nullptr;
+  if (err == cudaSuccess) err = f32_card(dev, &card);
+  if (err != cudaSuccess) return -(int)err;
+  return split >= 1 && split <= F_MAX_SPLIT ? card->clusters[split] : 0;
 }

@@ -7,7 +7,9 @@ version, which has the reference's semantics — f32 logits and softmax,
 probabilities cast to v's type before the PV product, output in q's type.
 
 Kernel A has two routes: bfloat16 inputs (every call of the model on the
-card) go to the tensor-core kernel, float32 inputs to the CUDA-core kernel.
+card) go to the tensor-core kernel, float32 inputs (f32 models: training
+in f32, the f32 checks against the CPU path) to the register-tiled kernel
+on the FP32 pipe, which keeps logits, probabilities and output in f32.
 Both read q, k and v through their strides and write the output into a
 (B, N, H, 64) buffer, returned as its (B, H, N, 64) view, so that neither
 the heads split before nor the merge after is a copy.
@@ -119,10 +121,10 @@ def backward_error_bound(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Kernel A on CUDA tensors q (B, H, Nq, 64), k/v (B, H, Nk, 64), of one
     type, float32 or bfloat16, read through their strides. The last
-    dimension must be contiguous and, in bfloat16, every start 16-byte
-    aligned and every other stride a multiple of 8 elements (the kernel
-    checks, and this raises on a layout it refuses). Returns (B, H, Nq, 64),
-    the transposed view of a contiguous (B, Nq, H, 64) buffer."""
+    dimension must be contiguous, every start 16-byte aligned and every
+    other stride a multiple of 8 elements in bfloat16, of 4 in float32 (the
+    kernel checks, and this raises on a layout it refuses). Returns (B, H,
+    Nq, 64), the transposed view of a contiguous (B, Nq, H, 64) buffer."""
     dev = q.get_device()  # -1 for a CPU tensor
     if dev < 0 or k.get_device() != dev or v.get_device() != dev:
         raise ValueError("fused_attention takes CUDA tensors on one device")
@@ -146,8 +148,9 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     if err == 1000:
         raise ValueError(
             f"fused_attention cannot read this layout: strides {q.stride()}, {k.stride()}, "
-            f"{v.stride()}; {dtype} starts {q.data_ptr() % 16}, {k.data_ptr() % 16}, "
-            f"{v.data_ptr() % 16} bytes past 16-byte alignment")
+            f"{v.stride()} (a multiple of {16 // q.element_size()} elements in {dtype}); starts "
+            f"{q.data_ptr() % 16}, {k.data_ptr() % 16}, {v.data_ptr() % 16} bytes past 16-byte "
+            "alignment")
     if err != 0:
         raise RuntimeError(f"attention kernel launch failed: error {err}")
     fused_attention.launches += 1

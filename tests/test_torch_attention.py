@@ -98,3 +98,51 @@ def test_error_bound_refuses_bf16_logits(nq, nk):
     ref = tatt.sdpa_plain(q.float(), k.float(), v.float())
     err = float((_kernel_a_arithmetic(q, k, v, bf16_logits=True).float() - ref).abs().max())
     assert err > tatt.error_bound(q, k, v, ref)
+
+
+def _kernel_a_f32_arithmetic(q, k, v, split):
+    """Kernel A's f32 route emulated on the CPU: f32 logits in log2 units
+    (scale d^-1/2 log2(e) on the raw scores), 16-key tiles with a running
+    max per row, the tiles split into `split` contiguous shares as the CTAs
+    of a cluster take them, each share's unnormalized (O, max, sum), and the
+    shares merged with weights 2^(max_g - max) and divided once. exp2 is
+    torch's (the card's ex2.approx is within 2 ulp of it)."""
+    scale_log2 = np.float32(q.shape[-1] ** -0.5 * np.log2(np.e))
+    s = q @ k.transpose(-1, -2)
+    nk, ntiles = s.shape[-1], -(-s.shape[-1] // 16)
+    parts = []
+    for g in range(split):
+        m = torch.full(s.shape[:-1] + (1,), -np.inf)
+        acc = torch.zeros(q.shape[:-1] + (v.shape[-1],))
+        l = torch.zeros(s.shape[:-1] + (1,))
+        for t in range(g * ntiles // split, (g + 1) * ntiles // split):
+            sl = slice(16 * t, min(16 * t + 16, nk))
+            m_new = torch.maximum(m, s[..., sl].amax(-1, keepdim=True) * scale_log2)
+            c = torch.exp2(m - m_new)
+            p = torch.exp2(s[..., sl] * scale_log2 - m_new)
+            l = l * c + p.sum(-1, keepdim=True)
+            acc = acc * c + p @ v[..., sl, :]
+            m = m_new
+        parts.append((acc, m, l))
+    mx = torch.stack([m for _, m, _ in parts]).amax(0)
+    w = [torch.exp2(m - mx) for _, m, _ in parts]
+    total = sum(wg * l for wg, (_, _, l) in zip(w, parts))
+    return sum(wg * acc for wg, (acc, _, _) in zip(w, parts)) / total
+
+
+@pytest.mark.parametrize("logit_scale", [1, 8])
+@pytest.mark.parametrize("shape,nk,split", [((2, 3, 768, 64), 768, 6), ((2, 3, 768, 64), 768, 3),
+                                            ((2, 8, 196, 64), 196, 7), ((2, 3, 65, 64), 769, 8),
+                                            ((2, 3, 129, 64), 7, 1)])
+def test_error_bound_admits_the_f32_routes_arithmetic(shape, nk, split, logit_scale):
+    """`error_bound`'s 2e-5 (the card's tolerance for kernel A's f32 route)
+    admits the route's own arithmetic, emulated, with its key tiles split
+    among a cluster's CTAs as the card splits them at these shapes, with
+    unit logits and with logits 8x larger (a peaked softmax)."""
+    rng = np.random.default_rng(shape[2] + nk + split)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape[:2] + (n, 64), dtype=np.float32))
+               for n in (shape[2], nk, nk))
+    q = q * logit_scale
+    ref = tatt.sdpa_plain(q, k, v)
+    err = float((_kernel_a_f32_arithmetic(q, k, v, split) - ref).abs().max())
+    assert err <= tatt.error_bound(q, k, v, ref)

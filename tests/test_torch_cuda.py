@@ -33,20 +33,32 @@ def cuda():
     return torch.device("cuda")
 
 
+# (batch, heads, nq, nk): the main path's 768 tokens, a 224x224 image's 196,
+# and ragged counts below and across one 64-row tile.
+ATTENTION_CASES = [(2, 3, 768, 768), (2, 3, 196, 196), (2, 3, 48, 80), (2, 3, 130, 7)]
+# The f32 route also at the training path's shapes (MAST3R_512 at 224x224
+# batch 4, encoder and decoder heads and the sharded step's halves, and two
+# 384x512 decoder pairs) and at counts across its 128-query blocks, its
+# 32-query warps and its 16-key tiles.
+F32_CASES = [(2, 8, 196, 196), (2, 6, 196, 196), (4, 16, 196, 196), (2, 12, 768, 768)] + [
+    (2, 3, nq, nk) for nq in (1, 31, 33, 65, 129) for nk in (7, 63, 65, 769)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,logit_scale", [(torch.float32, 1), (torch.bfloat16, 1),
-                                               (torch.bfloat16, 8)])
-@pytest.mark.parametrize("nq,nk", [(768, 768), (196, 196), (48, 80), (130, 7)])
-def test_attention_kernel_matches_plain(cuda, dtype, logit_scale, nq, nk):
-    """Both routes at the main path's 768 tokens, at a 224x224 image's 196,
-    and at ragged counts below and across one 64-row tile, within
-    `attention.error_bound` (f32: 2e-5; bf16: from its two bf16 roundings,
-    of P and of O). In bf16 also with logits 8x the unit scale (a peaked
-    softmax), where logits rounded to bf16 would exceed the bound
-    (tests/test_torch_attention.py shows that on the kernel's arithmetic
-    emulated on the CPU)."""
+@pytest.mark.parametrize("dtype,logit_scale,b,h,nq,nk", [
+    (dtype, scale, *case) for dtype, scale in ((torch.float32, 1), (torch.bfloat16, 1),
+                                               (torch.bfloat16, 8), (torch.float32, 8))
+    for case in ATTENTION_CASES] + [
+    (torch.float32, scale, *case) for scale in (1, 8) for case in F32_CASES])
+def test_attention_kernel_matches_plain(cuda, dtype, logit_scale, b, h, nq, nk):
+    """Both routes at `ATTENTION_CASES` and the f32 route at `F32_CASES`,
+    within `attention.error_bound` (f32: 2e-5; bf16: from its two bf16
+    roundings, of P and of O), with unit logits and with logits 8x the unit
+    scale (a peaked softmax), where in bf16 logits rounded to bf16 would
+    exceed the bound (tests/test_torch_attention.py shows that on the
+    kernel's arithmetic emulated on the CPU)."""
     rng = np.random.default_rng(nq + nk)
-    q, k, v = (torch.from_numpy(rng.standard_normal((2, 3, n, 64), dtype=np.float32))
+    q, k, v = (torch.from_numpy(rng.standard_normal((b, h, n, 64), dtype=np.float32))
                .to(cuda, dtype) for n in (nq, nk, nk))
     q = q * logit_scale
     route = "bf16_tc" if dtype == torch.bfloat16 else "f32"
@@ -85,8 +97,9 @@ def test_attention_kernel_reads_and_writes_through_strides(cuda, dtype):
 def test_attention_kernel_refuses_what_it_does_not_take(cuda):
     """Wrong head dim or type; and layouts the kernel cannot read in place,
     which it refuses rather than copy: a last dimension that is not
-    contiguous, and in bf16 a start that is not 16-byte aligned or a row
-    stride that is not a multiple of 8."""
+    contiguous, a start that is not 16-byte aligned, or a row stride that is
+    not a multiple of 8 elements in bf16 and of 4 in f32. The model's
+    transposed views of one fused projection are taken on both routes."""
     x = torch.zeros((1, 2, 16, 32), device=cuda)
     with pytest.raises(ValueError):
         attention.fused_attention(x, x, x)  # head dim 32
@@ -98,12 +111,18 @@ def test_attention_kernel_refuses_what_it_does_not_take(cuda):
         strided = torch.zeros((1, 2, 64, 100), device=cuda, dtype=dtype).transpose(-1, -2)
         with pytest.raises(ValueError):
             attention.fused_attention(ok, strided, ok)
-    ok = torch.zeros((1, 2, 100, 64), device=cuda, dtype=torch.bfloat16)
-    odd = torch.zeros(2 * 100 * 64 + 1, device=cuda, dtype=torch.bfloat16)[1:].reshape(1, 2, 100, 64)
-    wide = torch.zeros((1, 2, 100, 68), device=cuda, dtype=torch.bfloat16)[..., :64]
-    for bad in (odd, wide):
-        with pytest.raises(ValueError):
-            attention.fused_attention(ok, ok, bad)
+    for dtype, pad in ((torch.bfloat16, 68), (torch.float32, 66)):
+        ok = torch.zeros((1, 2, 100, 64), device=cuda, dtype=dtype)
+        odd = torch.zeros(2 * 100 * 64 + 1, device=cuda, dtype=dtype)[1:].reshape(1, 2, 100, 64)
+        wide = torch.zeros((1, 2, 100, pad), device=cuda, dtype=dtype)[..., :64]
+        for bad in (odd, wide):
+            with pytest.raises(ValueError):
+                attention.fused_attention(ok, ok, bad)
+            with pytest.raises(ValueError):
+                attention.fused_attention(bad, ok, ok)
+        qkv = torch.zeros((2, 196, 3 * 3 * 64), device=cuda, dtype=dtype)
+        q, k, v = (t.reshape(2, 196, 3, 64).transpose(1, 2) for t in qkv.chunk(3, dim=-1))
+        assert attention.fused_attention(q, k, v).shape == (2, 3, 196, 64)
 
 
 @pytest.mark.cuda
