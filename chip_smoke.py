@@ -33,15 +33,32 @@ phase printing one line:
      instantiations (stage, ray, stencil, full) against its plain version,
      then the four timed (`ms` and `device_ms`), with the phase counter
      zeroed just before and read just after;
-  4. the model and the matcher on the card against the port's plain CPU
+  4. kernel A at every head width the reference's kernel takes (`phase_heads`;
+     alone with `--only-heads`): widths 8, 12, 16, 24, 32, 48, 64, 80, 96 and
+     128 (the kernel is instantiated at 16, 32, 64 and 128, the wrapper
+     zero-pads the others) on both routes at (1, 16, 768, d), (2, 8, 196, d)
+     and a ragged (1, 4, 100, 300), through the dispatch with its plain
+     version made to fail, each within `error_bound` with a launch counted
+     at its width, timed with the padding's own cost, SDPA's and the bound;
+     width 136 refused; kernel B at fd 20 (padded to 24) under
+     `rounding_check` and timed beside fd 24; then the TINY config's entry
+     points with their default device, the card: `train_torch.py --tiny
+     --synthetic --steps 3` and `demo_pair_torch.py` in-process (finite
+     losses, kernel A through its autograd Function at widths 16 and 12; the
+     demo's X, C, D and Q in f32 within 1e-3 of their scale of the CPU
+     path), and unchanged in subprocesses `scripts/run_real_torch.sh
+     --synthetic --max-frames 3` (trajectory and ATE line),
+     `demo_pair_torch.py` in bf16, and `main_monster_torch.py` and
+     `main_easier_torch.py` on TINY checkpoints (exports checked);
+  5. the model and the matcher on the card against the port's plain CPU
      path on a small pair (MAST3R_512 widths, cut depth, f32);
-  5. the main path: the port's synchronous SLAMSystem at MAST3R_512 full
+  6. the main path: the port's synchronous SLAMSystem at MAST3R_512 full
      width with random bf16 weights from `--seed`, on `--frames` 384x512
      frames, one of them forced to be a keyframe so that a keyframe event
      decodes and matches the new graph edge and runs the global
      Gauss-Newton. The launch counters are zeroed just before and read just
      after; every attention launch must take the bf16 tensor-core route;
-  6. the main path as `main.py` runs it by default, through the port's
+  7. the main path as `main.py` runs it by default, through the port's
      entry point `main_torch.py` with config/base.yaml: the backend on its
      worker thread with the f64 host solve, tracking decisions two frames
      late, retrieval on a k-means-bootstrapped codebook, relocalization and
@@ -50,10 +67,10 @@ phase printing one line:
      repeated frames with one frame of noise, which must track, solve a
      keyframe event on the worker, lose the noise frame and relocalize.
      Frames and the CLI's outputs go under build/smoke_main/ and logs/;
-  7. RAFT on the card against the port's CPU path on a small pair (full
+  8. RAFT on the card against the port's CPU path on a small pair (full
      widths, 3 iterations, f32), and `raft_flow` timed at 384x512 and 20
      iterations (`phase_raft_reference`);
-  8. the dynamic pipeline as `main_monster_slam.py` runs it, through the
+  9. the dynamic pipeline as `main_monster_slam.py` runs it, through the
      port's entry point `main_monster_torch.py` (`phase_dynamic`): the CLI
      unchanged in a subprocess on config/dynamic_mask_test.yaml with the
      calibration and random RAFT; `main_monster_torch.run` in-process at
@@ -65,7 +82,7 @@ phase printing one line:
      which must launch kernel A 120 times and kernel B once per tracked
      frame; and the device busy share of `scripts/profile_torch_slice.py
      --dynamic`. Frames go under build/smoke_dynamic/;
-  9. SAM2 mask refinement on the dynamic path (`phase_sam2`): Hiera-B+
+ 10. SAM2 mask refinement on the dynamic path (`phase_sam2`): Hiera-B+
      (SAM2_BASE_PLUS, 1024x1024) and the video predictor (VIDEO_BASE_PLUS)
      on the card against the port's CPU path, `sam2_encode` and a video
      step timed; `main_monster_torch.py` unchanged in a subprocess with
@@ -75,7 +92,7 @@ phase printing one line:
      (random weights), which must be called on every masked frame while
      both kernels launch, and its host-refinement stage beside the native
      refiner's;
- 10. the Easi3R pipeline as `main_easier_slam.py` runs it, through the port's
+ 11. the Easi3R pipeline as `main_easier_slam.py` runs it, through the port's
      `main_easier_torch.py` (`phase_easi3r`): the double inference at
      MONST3R_512 full depth on the card against the CPU path in f32 (token
      masks equal) and the bf16 masks' difference, pass 1, the double
@@ -85,16 +102,16 @@ phase printing one line:
      attention masks applied and decode keyframe edges, then 3 frames
      synchronized one by one with 120 kernel A and 1 kernel B launches each;
      and the CLI unchanged in a subprocess with `--no-viz`;
- 11. the live viewer (`phase_viewer`): `main_torch.run` on the main phase's
+ 12. the live viewer (`phase_viewer`): `main_torch.run` on the main phase's
      tied setup with a started `LiveViewer`, its `/state.bin` and
      `/frame.bin` fetched over 127.0.0.1 during the run and checked, runs
      with and without it in turns, `_surfel_snapshot` on the card against
      the CPU, a run ended by a POSTed terminate, and `main_torch.py`
      without `--no-viz` in a subprocess;
- 12. the rest of SLAMSystem (`phase_rest`: the LM matcher, the fusion
+ 13. the rest of SLAMSystem (`phase_rest`: the LM matcher, the fusion
      modes, symmetric and fused-head decode, state files, chunked tracking;
      alone with `--only-rest`);
- 13. the SLAM path's device mesh (`phase_mesh`; alone with `--only-mesh`)
+ 14. the SLAM path's device mesh (`phase_mesh`; alone with `--only-mesh`)
      at MAST3R_512, 384x512, on the slice's tied weights and frame: with one
      card a (4, 2) mesh whose entries all name cuda:0 (the dp shards run
      one after the other), with several `make_mesh()` over the cards too
@@ -111,7 +128,7 @@ phase printing one line:
      the sharded Gauss-Newton against the unsharded one on the end state,
      its edges spread over the shards (1e-4); and the dual decode on the
      first two mesh devices against `monst3r_asymmetric_inference` (equal);
- 14. the oracle scene through the full-width SLAM path (`phase_oracle`;
+ 15. the oracle scene through the full-width SLAM path (`phase_oracle`;
      alone with `--only-oracle`): MAST3R_512 random bf16 weights, 384x512,
      config/base.yaml as shipped (worker), 96 frames of `utils/oracle.py`'s
      ground-truth trajectory (0.12 a frame) through `process_frame`, no
@@ -128,7 +145,7 @@ phase printing one line:
      Sim(3)-aligned ATE under 3.3% of the trajectory's extent; then
      `scripts/demo_pair_torch.py` unchanged in a subprocess on oracle
      frames 0 and 1 (its files, time and launch counts);
- 15. the training path (`phase_train`; alone with `--only-train`): the
+ 16. the training path (`phase_train`; alone with `--only-train`): the
      backend workers of earlier phases stopped; `train_torch.py` unchanged
      in a subprocess at MAST3R_512 (8 steps, batch 4, 224x224, with
      `--save` and `--ckpt-dir`), and beside its file writes, which use
@@ -166,9 +183,9 @@ of the camera (`front_depth`), which the calibrated tracker and the
 ego-motion flow need, and raises the mask threshold (`DYN_THRESHOLD`).
 
 Then one JSON line with the kernel table (each kernel's launches on every
-path, `sam2`, `easi3r`, `viewer`, `mesh`, `oracle` and `train_mesh` included) and, last, the
-`{"ok": true, ...}` line. Exits
-non-zero without that line when there is no CUDA device, when the port is
+path, `sam2`, `easi3r`, `viewer`, `mesh`, `oracle`, `train_mesh` and
+`heads` included; kernel A's checked head widths) and, last, the
+`{"ok": true, ...}` line. Exits non-zero without that line when there is no CUDA device, when the port is
 not importable, or when any phase fails.
 """
 
@@ -389,15 +406,16 @@ def sdpa_kernels(q, k, v) -> str:
 
 
 def f32_split(shape) -> int:
-    """The split (cluster size) kernel A's f32 route takes at (B, H, N, 64)."""
+    """The split (cluster size) kernel A's f32 route takes at (B, H, N, d)."""
     import ctypes
 
     from monst3r_slam_torch.ops import attention, build
 
     lib = build.load("attention", attention._SIGNATURES)
-    lib.attn_f32_split.argtypes = [ctypes.c_longlong] * 3
+    lib.attn_f32_split.argtypes = [ctypes.c_longlong] * 3 + [ctypes.c_int]
     lib.attn_f32_split.restype = ctypes.c_int
-    return lib.attn_f32_split(shape[0] * shape[1], shape[2], shape[2])
+    return lib.attn_f32_split(shape[0] * shape[1], shape[2], shape[2],
+                              attention.padded_width(shape[3]))
 
 
 def phase_attention(seed: int) -> dict:
@@ -490,16 +508,17 @@ def window_positions(ti, window: int) -> int:
     return total
 
 
-def tile_match_inputs(seed: int):
-    """Kernel B's arguments on the 384x512 pair from `seed`, placed by the
-    matcher's own tile and corner pipeline, with what bounds the call."""
+def tile_match_inputs(seed: int, fd: int = 24):
+    """Kernel B's arguments on the 384x512 pair from `seed` with `fd`
+    descriptor channels, placed by the matcher's own tile and corner
+    pipeline, with what bounds the call."""
     import torch
 
     from monst3r_slam_torch.ops import matching, matching_tiled
     from monst3r_slam_torch.ops.matching_pallas import quantize_corners
 
     X11, X21, D11, D21 = (torch.from_numpy(a).to("cuda")
-                          for a in synthetic_pointmap_pair(seed))
+                          for a in synthetic_pointmap_pair(seed, fd))
     mcfg = matching.MatchingConfig()
     ti = matching_tiled.tile_inputs(X11, X21, D21, None, matching_tiled.TiledConfig())
     window = mcfg.radius * mcfg.dilation_max
@@ -2003,6 +2022,7 @@ def zero_counts() -> None:
         fn.launches = 0
     for route in attn.route_launches:
         attn.route_launches[route] = 0
+    attn.width_launches.clear()
 
 
 def read_counts() -> dict:
@@ -3963,6 +3983,341 @@ def phase_train(seed: int, card: str) -> dict:
                 resume=resume, mesh=mesh_run, held_gb=held / 1e9, stopped_workers=workers,
                 checks_s=checks_s, seconds=secs)
 
+HEADS_DIR = ROOT / "build" / "smoke_heads"  # checkpoints, frames and outputs of the heads phase
+# Kernel A's head widths in the heads phase: below, at and between its
+# instantiations (16, 32, 64, 128).
+HEAD_WIDTHS = (8, 12, 16, 24, 32, 48, 64, 80, 96, 128)
+# (B, H, Nq, Nk): the encoder's 768 tokens at 16 heads and a 224x224 batch
+# of two at 8 heads (both timed), and one ragged count (checked only).
+HEAD_SHAPES = ((1, 16, 768, 768), (2, 8, 196, 196), (1, 4, 100, 300))
+
+
+def heads_attention(seed: int) -> list:
+    """Kernel A at every width of `HEAD_WIDTHS` on both routes and every
+    shape of `HEAD_SHAPES`, through the dispatch `attention.sdpa` (whose
+    plain version is made to fail for the call): one launch counted at the
+    route and at the true width, the output against the plain version in
+    f32 from the same inputs within `attention.error_bound`; at the square
+    shapes the kernel's time (`time_ms`, padding included) and device time,
+    the padding's own time, the plain version's and SDPA's times beside the
+    bound (4 B H Nq Nk d operations at the route's peak, q, k, v read and o
+    written once). A width of 136 must raise ValueError on both routes."""
+    import torch
+    import torch.nn.functional as F
+
+    from monst3r_slam_torch.ops import attention
+
+    fa, plain = attention.fused_attention, attention.sdpa_plain
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA call reached the plain version")
+
+    rng = np.random.default_rng(seed)
+    rows = []
+    for d in HEAD_WIDTHS:
+        width = attention.padded_width(d)
+        for route, dtype, peak in (("bf16_tc", torch.bfloat16, PEAK_BF16),
+                                   ("f32", torch.float32, PEAK_F32)):
+            for b, h, nq, nk in HEAD_SHAPES:
+                q, k, v = (torch.from_numpy(rng.standard_normal((b, h, n, d), dtype=np.float32))
+                           .to("cuda", dtype) for n in (nq, nk, nk))
+                before = (fa.launches, fa.route_launches[route], fa.width_launches.get(d, 0))
+                attention.sdpa_plain = refuse
+                try:
+                    out = attention.sdpa(q, k, v)
+                finally:
+                    attention.sdpa_plain = plain
+                torch.cuda.synchronize()
+                after = (fa.launches, fa.route_launches[route], fa.width_launches.get(d, 0))
+                if [a - c for a, c in zip(after, before)] != [1, 1, 1]:
+                    fail(f"heads: width {d} {route} at {(b, h, nq, nk)} counted {before} -> {after}")
+                if out.shape != q.shape or out.dtype != dtype:
+                    fail(f"heads: width {d} {route} gave {tuple(out.shape)} {out.dtype}")
+                ref = plain(q.float(), k.float(), v.float())
+                err = float((out.float() - ref).abs().max())
+                tol = attention.error_bound(q, k, v, ref)
+                if not (np.isfinite(err) and err <= tol):
+                    fail(f"heads: width {d} {route} at {(b, h, nq, nk)}: max abs err {err} > {tol}")
+                row = dict(width=d, instantiation=width, route=route, shape=[b, h, nq, nk],
+                           max_abs_err=err, tol=tol)
+                if nq == nk:
+                    n_bytes = (2 * nq + 2 * nk) * b * h * d * q.element_size()
+                    b_ms, b_by = bound_ms(n_bytes, 4.0 * b * h * nq * nk * d / peak)
+                    row.update(
+                        ms=time_ms(lambda: fa(q, k, v)), device_ms=device_ms(lambda: fa(q, k, v)),
+                        pad_ms=(time_ms(lambda: attention.pad_heads(q, k, v)) if width != d
+                                else 0.0),
+                        plain_ms=time_ms(lambda: plain(q, k, v)),
+                        library_ms=time_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
+                        library_device_ms=device_ms(
+                            lambda: F.scaled_dot_product_attention(q, k, v)),
+                        bound_ms=b_ms, bound_by=b_by)
+                    if route == "f32":
+                        row["split"] = f32_split((b, h, nq, d))
+                rows.append(row)
+                print(f"heads attention d {d} (runs at {width}) {route} {(b, h, nq, nk)}"
+                      + (f" split {row['split']}" if "split" in row else "")
+                      + f": err {err:.3e} <= {tol:.3e}"
+                      + (f"; ms: kernel {row['ms']:.4f} (device {row['device_ms']:.4f}, "
+                         f"padding {row['pad_ms']:.4f}), plain {row['plain_ms']:.4f}, sdpa "
+                         f"{row['library_ms']:.4f} (device {row['library_device_ms']:.4f}), bound "
+                         f"{row['bound_ms']:.5f} ({row['bound_by']})" if "ms" in row else ""),
+                      flush=True)
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.zeros((1, 2, 16, 136), device="cuda", dtype=dtype)
+        try:
+            fa(x, x, x)
+        except ValueError as e:
+            print(f"heads attention d 136 {dtype}: refused ({e})", flush=True)
+        else:
+            fail(f"heads: kernel A took a head 136 wide in {dtype}")
+    return rows
+
+
+def heads_tile_match(seed: int) -> dict:
+    """Kernel B at fd 20, which its wrapper zero-pads to 24, on the 384x512
+    pair of `phase_tile_match` drawn with 20 channels: held to the plain
+    version under `rounding_check` (every query passes, >= 99.9% exactly
+    equal), timed beside the same call at fd 24 and the padding alone."""
+    import torch
+
+    from monst3r_slam_torch.ops import matching_pallas
+    from monst3r_slam_torch.ops.matching_pallas import pad_descriptors, tile_match_kernel
+
+    args, ti, bounds = tile_match_inputs(seed, fd=20)
+    before = tile_match_kernel.launches
+    got = tile_match_kernel(*args)
+    torch.cuda.synchronize()
+    if tile_match_kernel.launches != before + 1:
+        fail("heads: kernel B at fd 20 was not counted")
+    agree = check_full(args, got, "tile_match fd 20")
+    args24 = tile_match_inputs(seed)[0]
+    b_ms, b_by = bound_ms(*bounds["full"])
+    row = dict(fd=20, runs_at=24, agree=agree, bound_ms=b_ms, bound_by=b_by,
+               ms=time_ms(lambda: tile_match_kernel(*args)),
+               device_ms=device_ms(lambda: tile_match_kernel(*args)),
+               pad_ms=time_ms(lambda: pad_descriptors(args[1], args[3])),
+               fd24_ms=time_ms(lambda: tile_match_kernel(*args24)),
+               fd24_device_ms=device_ms(lambda: tile_match_kernel(*args24)),
+               plain_ms=time_ms(lambda: matching_pallas.tile_match_plain(*args), iters=3))
+    print(f"heads tile_match fd 20 (runs at 24): every query passes the rounding check, exactly "
+          f"equal {agree:.6f}; ms: kernel {row['ms']:.4f} (device {row['device_ms']:.4f}, padding "
+          f"{row['pad_ms']:.4f}), fd 24 {row['fd24_ms']:.4f} (device {row['fd24_device_ms']:.4f}), "
+          f"plain {row['plain_ms']:.4f}, bound {b_ms:.5f} ({b_by})", flush=True)
+    return row
+
+
+def heads_train() -> dict:
+    """`train_torch.py --tiny --synthetic --steps 3` in-process with its
+    default device: every loss finite, kernel A launched through
+    `attention.KernelAttention` (whose forward is wrapped to count its
+    calls by head width) at TINY's widths 16 and 12, one launch per call."""
+    import train_torch
+    from monst3r_slam_torch.ops import attention
+    from monst3r_slam_torch.train import step as train_step_mod
+
+    losses, calls = [], {}
+    step_fn, forward = train_step_mod.train_step, attention.KernelAttention.forward
+
+    def recording_step(*args, **kwargs):
+        state, loss = step_fn(*args, **kwargs)
+        losses.append(float(loss))
+        return state, loss
+
+    def counting_forward(ctx, q, k, v):
+        calls[q.shape[-1]] = calls.get(q.shape[-1], 0) + 1
+        return forward(ctx, q, k, v)
+
+    save = HEADS_DIR / "tiny_trained.npz"
+    save.unlink(missing_ok=True)
+    zero_counts()
+    train_step_mod.train_step = recording_step
+    attention.KernelAttention.forward = staticmethod(counting_forward)
+    t0 = time.perf_counter()
+    try:
+        train_torch.main(["--tiny", "--synthetic", "--steps", "3", "--save", str(save)])
+    finally:
+        train_step_mod.train_step = step_fn
+        attention.KernelAttention.forward = staticmethod(forward)
+    secs = time.perf_counter() - t0
+    counts, widths = read_counts(), dict(attention.fused_attention.width_launches)
+    if not (len(losses) == 3 and np.isfinite(losses).all()):
+        fail(f"heads: train_torch.py --tiny losses {losses}")
+    if not (calls.get(16) and calls.get(12) and calls == widths
+            and counts["fused_attention"] == sum(calls.values()) and save.is_file()):
+        fail(f"heads: train_torch.py --tiny: KernelAttention calls by width {calls}, kernel A "
+             f"launches by width {widths}, {counts}, saved {save.is_file()}")
+    print(f"heads train_torch.py --tiny --synthetic --steps 3 (cuda, in-process): losses "
+          f"{losses} in {secs:.1f} s; KernelAttention calls by width {calls}, kernel A launches "
+          f"{counts['fused_attention']} by width {widths}", flush=True)
+    return dict(losses=losses, seconds=secs, kernel_attention_calls=calls, launches=counts,
+                width_launches=widths)
+
+
+def heads_demo(paths, ckpt) -> dict:
+    """`scripts/demo_pair_torch.py` on the TINY checkpoint in-process with
+    the model in f32, once on the card (its default) and once with
+    `--device cpu`: the decoder's outputs (X, C, D, Q of both views) on the
+    card within 1e-3 of their scale of the CPU path's (`phase_reference`'s
+    bound), and the card run's kernel launches."""
+    import functools
+    import runpy
+
+    import torch
+
+    from monst3r_slam_torch.models import mast3r
+
+    encode, decode = mast3r.encode, mast3r.decode
+    outs, counts = {}, {}
+
+    def run(device):
+        def recording(*args, **kwargs):
+            out = decode(*args, **kwargs, dtype=torch.float32)
+            outs[device] = out
+            return out
+
+        argv = ["scripts/demo_pair_torch.py", "--img1", str(paths[0]), "--img2", str(paths[1]),
+                "--checkpoint", str(ckpt), "--out", str(HEADS_DIR / f"demo_f32_{device}")]
+        if device == "cpu":
+            argv += ["--device", "cpu"]
+        old_argv = sys.argv
+        mast3r.encode = functools.partial(encode, dtype=torch.float32)
+        mast3r.decode = recording
+        sys.argv = argv
+        zero_counts()
+        try:
+            runpy.run_path(str(ROOT / argv[0]), run_name="__main__")
+        finally:
+            sys.argv = old_argv
+            mast3r.encode, mast3r.decode = encode, decode
+        counts[device] = read_counts()
+
+    run("cuda")
+    run("cpu")
+    worst = {}
+    for name in outs["cpu"]._fields:
+        a, b = getattr(outs["cpu"], name), getattr(outs["cuda"], name).cpu()
+        worst[name] = float((a - b).abs().max() / a.abs().max())
+        if not (np.isfinite(worst[name]) and worst[name] <= 1e-3):
+            fail(f"heads: demo_pair_torch.py {name} on the card differs from the CPU path by "
+                 f"{worst[name]} of its scale")
+    launches = counts["cuda"]
+    if not (launches["fused_attention"] and launches["tile_match_kernel"]):
+        fail(f"heads: demo_pair_torch.py on the card launched {launches}")
+    print(f"heads demo_pair_torch.py on TINY (f32, in-process): card vs CPU outputs within "
+          f"{max(worst.values()):.2e} of scale ({', '.join(f'{k} {v:.1e}' for k, v in worst.items())}); "
+          f"card launches {launches}", flush=True)
+    return dict(rel_err=worst, launches=launches)
+
+
+def phase_heads(seed: int) -> dict:
+    """Kernel A at every head width the reference's kernel takes (1-128)
+    and kernel B at a padded descriptor width, then the entry points that
+    run the TINY config (heads 16 and 12 wide) with their default device,
+    the card: `train_torch.py --tiny --synthetic --steps 3` and
+    `demo_pair_torch.py` in-process (f32, against the CPU), and unchanged
+    in subprocesses started together after the timings, `scripts/
+    run_real_torch.sh --synthetic --max-frames 3` (a trajectory and the ATE
+    line), `demo_pair_torch.py` in bf16, and `main_monster_torch.py` and
+    `main_easier_torch.py` as README.md runs them on TINY checkpoints (4
+    frames, their exports checked)."""
+    import dataclasses
+    import shutil
+
+    import cv2
+    import torch
+
+    from monst3r_slam_torch.models.config import TINY
+    from monst3r_slam_torch.models.convert import save_checkpoint
+    from monst3r_slam_torch.models.init import init_params
+
+    t0 = time.perf_counter()
+    attn_rows = heads_attention(seed)
+    tm_row = heads_tile_match(seed)
+
+    HEADS_DIR.mkdir(parents=True, exist_ok=True)
+    ckpt, monst3r_ckpt = HEADS_DIR / "tiny.pth", HEADS_DIR / "tiny_monst3r.pth"
+    save_checkpoint(str(ckpt), init_params(torch.Generator().manual_seed(seed), TINY), TINY)
+    tiny_monst3r = dataclasses.replace(TINY, desc_dim=None, two_confs=False)  # DUSt3R layout
+    save_checkpoint(str(monst3r_ckpt),
+                    init_params(torch.Generator().manual_seed(seed + 1), tiny_monst3r),
+                    tiny_monst3r)
+    n_frames = 4
+    frames_dir = HEADS_DIR / "frames"
+    write_frames(frames_dir, dynamic_frames(seed, n_frames))
+    pair = [HEADS_DIR / "pair0.png", HEADS_DIR / "pair1.png"]
+    for i, p in enumerate(pair):
+        cv2.imwrite(str(p), cv2.cvtColor(np.roll(synthetic_rgb(seed), 4 * i, axis=1),
+                                         cv2.COLOR_RGB2BGR))
+    for name in ("smoke_heads_monster", "smoke_heads_easier", "real_drill_torch"):
+        shutil.rmtree(ROOT / "logs" / name, ignore_errors=True)
+    shutil.rmtree(ROOT / "build" / "run_real_torch_synth", ignore_errors=True)
+    py = sys.executable
+    cmds = {
+        "run_real_torch.sh": ["bash", "scripts/run_real_torch.sh", "--synthetic", "--max-frames",
+                              "3"],
+        "demo_pair_torch.py": [py, "scripts/demo_pair_torch.py", "--img1", str(pair[0]), "--img2",
+                               str(pair[1]), "--checkpoint", str(ckpt), "--out",
+                               str(HEADS_DIR / "demo")],
+        "main_monster_torch.py": [py, "main_monster_torch.py", "--dataset", str(frames_dir),
+                                  "--checkpoint", str(ckpt), "--monst3r-checkpoint",
+                                  str(monst3r_ckpt), "--calib", "config/intrinsics.yaml",
+                                  "--raft-checkpoint", "random", "--no-viz", "--max-frames",
+                                  str(n_frames), "--save-as", "smoke_heads_monster"],
+        "main_easier_torch.py": [py, "main_easier_torch.py", "--dataset", str(frames_dir),
+                                 "--checkpoint", str(ckpt), "--easi3r-checkpoint",
+                                 str(monst3r_ckpt), "--no-viz", "--max-frames", str(n_frames),
+                                 "--save-as", "smoke_heads_easier"],
+    }
+    t_cli = time.perf_counter()
+    logs = {name: HEADS_DIR / f"{name}.log" for name in cmds}
+    procs = {}
+    try:
+        for name, cmd in cmds.items():
+            with open(logs[name], "w") as log:
+                procs[name] = subprocess.Popen(cmd, cwd=ROOT, stdout=log,
+                                               stderr=subprocess.STDOUT)
+        train = heads_train()
+        demo = heads_demo(pair, ckpt)
+        for proc in procs.values():
+            proc.wait(timeout=600)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    cli_s = time.perf_counter() - t_cli
+    results = {name: (logs[name].read_text(),) for name in cmds}
+    for name, (out,) in results.items():
+        if procs[name].returncode != 0:
+            fail(f"heads: {name} exited {procs[name].returncode}:\n{out[-5000:]}")
+    real_out = results["run_real_torch.sh"][0]
+    ate = [ln for ln in real_out.splitlines() if ln.startswith("ate_rmse")]
+    if "SYNTHETIC smoke: stitching OK" not in real_out or not ate or "(3 matched poses)" not in ate[0]:
+        fail(f"heads: run_real_torch.sh --synthetic printed no ATE line:\n{real_out[-2000:]}")
+    check_export(ROOT / "logs" / "real_drill_torch", "rgbd_dataset_freiburg1_synth", 3)
+    demo_out = results["demo_pair_torch.py"][0]
+    counts = [ln for ln in demo_out.splitlines() if ln.startswith("kernel launches")]
+    m = np.load(HEADS_DIR / "demo" / "matches.npz")
+    if not counts or m["idx_1_to_2"].shape != (1, H * W) or not (HEADS_DIR / "demo" / "pair.ply").is_file():
+        fail(f"heads: demo_pair_torch.py wrote {m.files}:\n{demo_out[-2000:]}")
+    n_kf = {}
+    for name, save_as in (("main_monster_torch.py", "smoke_heads_monster"),
+                          ("main_easier_torch.py", "smoke_heads_easier")):
+        if "saved results to" not in results[name][0]:
+            fail(f"heads: {name} did not export:\n{results[name][0][-2000:]}")
+        n_kf[name] = check_export(ROOT / "logs" / save_as, frames_dir.name, n_frames)
+    for name, (out,) in results.items():
+        tail = [ln for ln in out.splitlines() if ln.startswith(("done:", "ate_rmse", "kernel launches"))]
+        print(f"heads {name} (default device, subprocess): exit 0; {'; '.join(tail)}", flush=True)
+    secs = time.perf_counter() - t0
+    print(f"heads phase: {secs:.1f} s (the subprocesses {cli_s:.1f} s, beside the in-process "
+          f"train and demo)", flush=True)
+    return dict(attention=attn_rows, tile_match=tm_row, train=train, demo=demo,
+                launches={name: train["launches"][name] + demo["launches"][name]
+                          for name in train["launches"]},
+                ate_line=ate[0], keyframes=n_kf, cli_s=cli_s, seconds=secs)
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -3981,6 +4336,9 @@ def main() -> int:
     ap.add_argument("--only-oracle", action="store_true",
                     help="build the kernels and run only the oracle phase; prints no result "
                          "line")
+    ap.add_argument("--only-heads", action="store_true",
+                    help="build the kernels and run only the heads phase (kernel A at every "
+                         "head width, the TINY entry points on the card); prints no result line")
     args = ap.parse_args()
 
     import torch
@@ -3999,6 +4357,11 @@ def main() -> int:
         rest = phase_rest(args.seed, card)
         print(json.dumps({"rest_run": rest}), flush=True)
         print(f"card: {card}; only the rest of SLAMSystem's phases ran", flush=True)
+        return 0
+    if args.only_heads:
+        heads_run = phase_heads(args.seed)
+        print(json.dumps({"heads_run": heads_run}), flush=True)
+        print(f"card: {card}; only the heads phase ran", flush=True)
         return 0
     if args.only_mesh:
         mesh_run = phase_mesh(args.seed, card)
@@ -4023,6 +4386,7 @@ def main() -> int:
     attn = phase_attention(args.seed)
     tm = phase_tile_match(args.seed)
     tmp = phase_tile_match_phases(args.seed)
+    heads_run = phase_heads(args.seed)
     phase_reference(args.seed)
     launches = phase_slice(args.seed, args.frames)
     main_run = phase_main(args.seed)
@@ -4045,7 +4409,8 @@ def main() -> int:
                           chunked=sum(r["launches"][name] for r in rest["chunked"].values()),
                           mesh=mesh_run["launches"][name], oracle=oracle_run["launches"][name],
                           train=train_run["launches"][name],
-                          train_mesh=train_run["mesh"]["launches"][name])
+                          train_mesh=train_run["mesh"]["launches"][name],
+                          heads=heads_run["launches"][name])
                for name in launches}
     total = {name: sum(paths.values()) for name, paths in by_path.items()}
 
@@ -4070,7 +4435,11 @@ def main() -> int:
                  launches_by_path=dict(train_mesh=sum(row["f32"]["route_launches"]
                                                       for row in train_run["mesh"]["rows"]))),
              backward="plain PyTorch, attention.sdpa_backward_plain (the reference has no "
-                      "backward kernel)", gradient=train_run["gradient"]),
+                      "backward kernel)", gradient=train_run["gradient"],
+             widths=dict(
+                 checked=list(HEAD_WIDTHS), instantiations=[16, 32, 64, 128],
+                 rows=heads_run["attention"],
+                 launches_by_width=dict(train=heads_run["train"]["width_launches"]))),
         dict(name="tile_match", route="cuda", source="monst3r_slam_torch/csrc/tile_match.cu",
              replaces="monst3r_slam_tpu/ops/matching_pallas.py:213",
              launches=total["tile_match_kernel"], launches_by_path=by_path["tile_match_kernel"],
@@ -4078,7 +4447,8 @@ def main() -> int:
              ms=tm["ms"], plain_ms=tm["plain_ms"], bound_ms=tm["bound_ms"],
              bound_by=tm["bound_by"], library_ms=None, shape=tm["shape"],
              device_ms=tm["device_ms"], agree=tm["agree"],
-             kernel="tile_match_kernel<24, full> (mma.sync, cp.async.bulk, persistent)"),
+             kernel="tile_match_kernel<24, full> (mma.sync, cp.async.bulk, persistent)",
+             padded_fd20=heads_run["tile_match"]),
         dict(name="tile_match_phases", route="cuda", source="monst3r_slam_torch/csrc/tile_match.cu",
              replaces="scripts/profile_pallas_phases.py:107",
              launches=tmp["launches"], max_abs_err=tmp["max_abs_err"],
@@ -4101,6 +4471,8 @@ def main() -> int:
     print(json.dumps({"mesh_run": mesh_run}), flush=True)
     print(json.dumps({"oracle_run": oracle_run}), flush=True)
     print(json.dumps({"train_run": train_run}), flush=True)
+    print(json.dumps({"heads_run": {k: v for k, v in heads_run.items() if k != "attention"}}),
+          flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {

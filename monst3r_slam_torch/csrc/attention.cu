@@ -1,4 +1,11 @@
-// Kernel A: fused softmax attention forward, O = softmax(Q K^T d^-1/2) V, d = 64.
+// Kernel A: fused softmax attention forward, O = softmax(Q K^T d^-1/2) V.
+//
+// Both routes are templates on the head width D, instantiated at 16, 32, 64
+// and 128; the wrapper zero-pads any other width from 1 to 128 to the next of
+// them (zero columns of q and k leave Q K^T as it is, zero columns of v give
+// zero columns of O, sliced off) and passes the true width, whose d^-1/2
+// scales the logits. The notes below give the shapes and counts at D = 64,
+// the main path's width.
 //
 // Replaces the JAX package's Pallas kernel in `ops/attention.py`
 // (`fused_attention`, body `_attn_kernel`): f32 logits and an f32 softmax,
@@ -15,11 +22,13 @@
 // peak (1.9 us for the bytes at 3.35 TB/s).
 //
 // bf16 route (every call of the model on the card): tensor cores.
-//   - S = Q K^T is a chain of four wgmma m64n64k16 (bf16 x bf16 -> f32); Q and
-//     the K tile come from shared memory, both K-major.
+//   - S = Q K^T is a chain of D/16 wgmma m64n64k16 (bf16 x bf16 -> f32); Q
+//     and the K tile come from shared memory, both K-major.
 //   - O += P V takes P from registers, rounded to bf16 (the reference's
 //     rounding point), and the V tile from shared memory (B transposed,
 //     MN-major): the S accumulator's register layout is the A fragment's.
+//     It is one wgmma m64nDk16 per 16 keys, at D = 128 two m64n64k16, one
+//     per 64-column half.
 //   - A CTA owns 64 query rows, the m64 of one wgmma. At 768 tokens the grid
 //     is 12 x 16 = 192 CTAs (encoder) or 12 x 12 = 144 (decoder); a CTA holds
 //     ~73 KB of shared memory, so two fit on an SM and the grid runs in one
@@ -28,8 +37,10 @@
 //     CTA's query rows and take every other key tile, each with its own ring
 //     and softmax state, and merge at the end, which halves the chain.
 //   - TMA loads Q once and K/V through a 2-stage ring per warpgroup, completing on
-//     mbarriers, with the 128-byte swizzle (64 bf16 values are exactly one
-//     128-byte row); the wgmma descriptors name the same swizzle. The tensor
+//     mbarriers, with the swizzle of one row of D bf16 values: 128 bytes at
+//     D = 64, 64 at 32, 32 at 16; at 128 a row is two 128-byte atoms, each
+//     tile two 64-column boxes. The wgmma descriptors name the same swizzle.
+//     At D = 128 a CTA holds ~145 KB, so one fits an SM. The tensor
 //     maps are encoded on the host with cuTensorMapEncodeTiled, reached
 //     through cudaGetDriverEntryPoint, so the library needs no -lcuda, and
 //     cached on what the encoding reads, so a call whose buffers recur
@@ -61,13 +72,16 @@
 // The FP32 pipe issues one FFMA per lane per cycle, so every other
 // instruction a warp issues is time the pipe stands idle. The design:
 //   - Register tiles. A warp owns 32 query rows; per 16-key tile each lane
-//     holds a 4x4 block of S and, all along, an 8x8 block of O. S = Q K^T
+//     holds a 4x4 block of S and, all along, an 8x(D/8) block of O. At
+//     D = 128 that block would be 128 registers, so a warp owns 16 rows
+//     there (a 2x4 block of S, a 4x16 block of O, 64-row CTAs). S = Q K^T
 //     reads Q and K as 16-byte loads along d (8 loads for 64 FFMA), O += P V
 //     reads P and V as 16-byte loads along the rows and columns (4 loads for
 //     64 FFMA): one shared load per 10.7 FFMA over the tile. The staged rows
-//     are padded to 68 floats, and Q's rows are staged in the order the S
+//     are padded to D + 4 floats, and Q's rows are staged in the order the S
 //     loads read them, so that no load has a bank conflict; P goes through a
-//     key-major slice of shared memory per warp.
+//     key-major slice of shared memory per warp. At D = 16 a lane's two
+//     columns of O take 8-byte V loads.
 //   - Asynchronous staging. Each thread copies its 16-byte share of Q once
 //     and of every tile's 16 K and 16 V rows with cp.async (LDGSTS), one
 //     copy group per tile, into a three-stage ring: tile i + 2 is in flight
@@ -86,7 +100,8 @@
 //     on the H100 396, 198, 124, 92, 69, 62, 47 and 45 for splits 1-8) by a
 //     cost fitted to measured times (`f32_split`): 6 at the encoder shape
 //     (576 CTAs of 8 tiles in two waves) and 3 at the decoder's (216 CTAs of
-//     16 tiles, two or one per SM).
+//     16 tiles, two or one per SM). Each width's instantiation reads its own
+//     cluster counts.
 //   - The softmax: a row's 16 keys of a tile lie on the 4 lanes that share
 //     it, so its max takes two shuffles; each lane keeps its share of the
 //     sum, reduced once at the end. The max is taken on the raw scores and
@@ -113,7 +128,9 @@
 
 namespace {
 
-constexpr int D = 64;  // head dim
+// Head widths with an instantiation; the wrapper pads every other width to
+// the next of them.
+constexpr int MAX_D = 128;
 
 // Function attributes hold per device: a process that launches on several
 // cards sets them on each card at its first launch there.
@@ -136,12 +153,27 @@ constexpr int BN = 64;          // keys per tile: n of S = Q K^T, k-extent of P 
 constexpr int NWG = 2;          // warpgroups per CTA, each over every other key tile
 constexpr int NTHREAD = 128 * NWG;
 constexpr int STAGES = 2;       // K/V ring of each warpgroup
-constexpr int TILE_ELEMS = 64 * D;
-constexpr int TILE_BYTES = TILE_ELEMS * 2;  // 8 KB: 64 rows of one 128-byte swizzled line
 constexpr int NBAR = 1 + NWG * STAGES;      // Q, then one per (warpgroup, stage)
-constexpr int SMEM_TC = (1 + 2 * NWG * STAGES) * TILE_BYTES + 8 * NBAR + 1024;  // + align slack
-constexpr int MERGE_FLOATS = 36;  // per thread: 32 accumulators, 2 maxima, 2 partial sums
-static_assert(MERGE_FLOATS * 128 * 4 <= 2 * STAGES * TILE_BYTES, "merge fits one ring");
+
+// A tile of 64 rows of D bf16 values in shared memory, as TMA writes it and
+// wgmma reads it: in the swizzle of one row (32, 64 or 128 bytes at D = 16,
+// 32, 64), and at D = 128 as two 64-column atoms of 64 rows each, one after
+// the other, each in the 128-byte swizzle.
+template <int D>
+struct Tc {
+  static_assert(D == 16 || D == 32 || D == 64 || D == 128, "an instantiated head width");
+  static constexpr int SW = D < 64 ? 2 * D : 128;  // swizzle span, bytes
+  static constexpr int ATOM = SW / 2;              // columns of one atom
+  static constexpr int NATOM = D / ATOM;
+  static constexpr int ATOM_ELEMS = 64 * ATOM;
+  static constexpr int TILE_ELEMS = 64 * D;
+  static constexpr int TILE_BYTES = TILE_ELEMS * 2;
+  static constexpr int SMEM = (1 + 2 * NWG * STAGES) * TILE_BYTES + 8 * NBAR + 1024;  // + align slack
+  static constexpr int ACC = D / 2;                // O accumulators per thread
+  static constexpr int MERGE_FLOATS = ACC + 4;     // per thread: accumulators, 2 maxima, 2 partial sums
+  static_assert(MERGE_FLOATS * 128 * 4 <= 2 * STAGES * TILE_BYTES, "merge fits one ring");
+  static_assert(SMEM <= 232448, "a CTA fits an SM's shared memory");
+};
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -172,27 +204,39 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   } while (!done);
 }
 
-// One 64-row x 64-column box of a (batch, head, row, d) tensor into shared
-// memory, 128-byte swizzled; completes `bytes` on `bar`.
-__device__ __forceinline__ void tma_load_tile(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                              int row, int head, int batch) {
+// One box of a (batch, head, row, d) tensor, columns [col, col + box) of 64
+// rows, into shared memory in the map's swizzle; completes its bytes on `bar`.
+__device__ __forceinline__ void tma_load_box(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                             int col, int row, int head, int batch) {
   asm volatile(
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%2, %3, %4, %5}], [%6];" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(0), "r"(row), "r"(head), "r"(batch),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row), "r"(head), "r"(batch),
       "r"(smem_u32(bar))
       : "memory");
 }
 
-// wgmma shared-memory matrix descriptor for a 64-row tile of 128-byte rows
-// in the 128-byte swizzle: start address, leading offset 16 B (unused: the
-// operand's 64-element width is one swizzle atom), stride offset 1024 B
-// between groups of 8 rows, layout type 1 (128-byte swizzle). The tile base
-// is 1024-byte aligned, so advancing the start by 32 B steps 16 columns
-// (K-major) and by 2048 B steps 16 rows (MN-major).
-__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
+// A whole 64-row tile: one box per atom.
+template <int D>
+__device__ __forceinline__ void tma_load_tile(__nv_bfloat16* dst, const CUtensorMap* map,
+                                              uint64_t* bar, int row, int head, int batch) {
+#pragma unroll
+  for (int a = 0; a < Tc<D>::NATOM; ++a)
+    tma_load_box(dst + a * Tc<D>::ATOM_ELEMS, map, bar, a * Tc<D>::ATOM, row, head, batch);
+}
+
+// wgmma shared-memory matrix descriptor for one atom of a tile (64 rows of
+// SW bytes in the SW-byte swizzle): start address, leading offset 16 B
+// (unused: the operand's width is one swizzle atom), stride offset 8 SW bytes
+// between groups of 8 rows, layout type 1/2/3 for the 128/64/32-byte
+// swizzle. The atom base is aligned to its swizzle's 8-row pattern, so
+// advancing the start by 32 B steps 16 columns (K-major) and by 16 SW bytes
+// 16 rows (MN-major).
+template <int SW>
+__device__ __forceinline__ uint64_t sw_desc(const void* p) {
+  constexpr uint64_t layout = SW == 128 ? 1 : SW == 64 ? 2 : 3;
   return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) | (uint64_t(1) << 16) |
-         (uint64_t(1024 >> 4) << 32) | (uint64_t(1) << 62);
+         (uint64_t(8 * SW >> 4) << 32) | (layout << 62);
 }
 
 // Barrier among the 128 threads of one warpgroup (ids 1 and 2; 0 is
@@ -223,23 +267,30 @@ __device__ __forceinline__ void wgmma_wait_all() {
 
 // Keeps the compiler from moving accumulator reads or writes across the
 // asynchronous wgmma boundary.
-__device__ __forceinline__ void fence_regs(float (&d)[32]) {
+template <int N>
+__device__ __forceinline__ void fence_regs(float* d) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+#define WG_D8 "{%0, %1, %2, %3, %4, %5, %6, %7}"
+#define WG_D16 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
 #define WG_D32                                                                               \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
   "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
-#define WG_ACC32(d)                                                                          \
-  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),     \
-      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),           \
-      "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),        \
-      "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),        \
-      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),        \
-      "+f"(d[31])
+#define WG_ACC8(d)                                                                       \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), \
+      "+f"(d[7])
+#define WG_ACC16(d)                                                                       \
+  WG_ACC8(d), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), \
+      "+f"(d[14]), "+f"(d[15])
+#define WG_ACC32(d)                                                                      \
+  WG_ACC16(d), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),          \
+      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]),      \
+      "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
 
-// d (+)= A B, A and B both from shared memory, both K-major.
+// d (+)= A B, m64n64k16, A and B both from shared memory, both K-major.
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db, int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
@@ -249,15 +300,33 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t d
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
-// d += A B, A from registers (four bf16x2 per thread), B from shared memory
-// MN-major (transposed).
-__device__ __forceinline__ void wgmma_rs_bt(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_D32
-      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : WG_ACC32(d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+// d += A B, m64nNk16, A from registers (four bf16x2 per thread), B from
+// shared memory MN-major (transposed); d holds N/2 accumulators.
+template <int N>
+__device__ __forceinline__ void wgmma_rs_bt(float* d, const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (N == 16) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 " WG_D8
+        ", {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+        : WG_ACC8(d)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  } else if constexpr (N == 32) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " WG_D16
+        ", {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+        : WG_ACC16(d)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  } else {
+    static_assert(N == 64, "m64n16, m64n32 or m64n64");
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_D32
+        ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : WG_ACC32(d)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
 }
 
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
@@ -280,7 +349,8 @@ __device__ __forceinline__ float quad_sum(float x) {
 // d[4i + e] (e = 0, 1) is (r0, 8i + 2 (t%4) + e) and d[4i + 2 + e] is
 // (r1, 8i + 2 (t%4) + e). The bf16 A fragment of an m64k16 product has the
 // same layout over its 16 columns, so P is passed to the PV product without
-// leaving registers.
+// leaving registers. At D = 128 the two halves' accumulators lie one after
+// the other, so acc[4i + ...] is column 8i + ... at every width.
 //
 // The problem is small (12 key tiles per 64 queries at 768 tokens, one or
 // two CTAs per SM), so a CTA's serial chain of tiles leaves the SM's units
@@ -289,10 +359,13 @@ __device__ __forceinline__ float quad_sum(float x) {
 // with its own K/V ring, running max, sum and accumulator; at the end
 // warpgroup 1 hands its state to warpgroup 0 through shared memory, which
 // merges the two and stores O.
-__global__ void __launch_bounds__(NTHREAD, 2)
+template <int D>
+__global__ void __launch_bounds__(NTHREAD, D <= 64 ? 2 : 1)
 attn_fwd_bf16_tc(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                  const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
                  Strides so, int heads, int nq, int nk, float scale_log2) {
+  using T = Tc<D>;
+  constexpr int TILE_ELEMS = T::TILE_ELEMS, TILE_BYTES = T::TILE_BYTES, ACC = T::ACC;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(base);
@@ -317,27 +390,27 @@ attn_fwd_bf16_tc(const __grid_constant__ CUtensorMap tq, const __grid_constant__
     for (int i = 0; i < NBAR; ++i) mbar_init(&bar[i], 1);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
     mbar_expect_tx(&bar[0], TILE_BYTES);
-    tma_load_tile(sQ, &tq, &bar[0], q0, h, b);
+    tma_load_tile<D>(sQ, &tq, &bar[0], q0, h, b);
     for (int g = 0; g < NWG; ++g) {
       for (int s = 0; s < STAGES; ++s) {
         const int j = NWG * s + g;
         if (j >= ntiles) break;
         __nv_bfloat16* kg = ring(g);
         mbar_expect_tx(&bar[1 + STAGES * g + s], 2 * TILE_BYTES);
-        tma_load_tile(kg + s * TILE_ELEMS, &tk, &bar[1 + STAGES * g + s], j * BN, h, b);
-        tma_load_tile(kg + (STAGES + s) * TILE_ELEMS, &tv, &bar[1 + STAGES * g + s], j * BN, h,
-                      b);
+        tma_load_tile<D>(kg + s * TILE_ELEMS, &tk, &bar[1 + STAGES * g + s], j * BN, h, b);
+        tma_load_tile<D>(kg + (STAGES + s) * TILE_ELEMS, &tv, &bar[1 + STAGES * g + s], j * BN,
+                         h, b);
       }
     }
   }
   __syncthreads();
 
-  float acc[32];
+  float acc[ACC];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  for (int i = 0; i < ACC; ++i) acc[i] = 0.f;
   float m0 = -INFINITY, m1 = -INFINITY;  // running max of rows r0, r1 (log2 units)
   float l0 = 0.f, l1 = 0.f;              // this thread's share of the running sums
-  const uint64_t dq = sw128_desc(sQ);
+  const uint64_t dq = sw_desc<T::SW>(sQ);
   const int col0 = 2 * (lane & 3);
   mbar_wait(&bar[0], 0);
 
@@ -348,17 +421,23 @@ attn_fwd_bf16_tc(const __grid_constant__ CUtensorMap tq, const __grid_constant__
     const __nv_bfloat16* kt = sK + s * TILE_ELEMS;
     const __nv_bfloat16* vt = sV + s * TILE_ELEMS;
 
-    // S = Q K^T over d = 64: four k16 steps of 32 bytes along the rows.
+    // S = Q K^T over d: D/16 k16 steps of 32 bytes along the rows, atom by
+    // atom.
     float sc[32];
 #pragma unroll
     for (int e = 0; e < 32; ++e) sc[e] = 0.f;
-    const uint64_t dk = sw128_desc(kt);
+    const uint64_t dk = sw_desc<T::SW>(kt);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) wgmma_ss(sc, dq + 2 * kk, dk + 2 * kk, kk);
+    for (int kk = 0; kk < D / 16; ++kk) {
+      // Step kk's columns: atom 16 kk / ATOM, 32 bytes a step inside it (in
+      // the descriptor's 16-byte units).
+      const int at = (16 * kk / T::ATOM * T::ATOM_ELEMS + 16 * kk % T::ATOM) * 2 / 16;
+      wgmma_ss(sc, dq + at, dk + at, kk);
+    }
     wgmma_commit();
     wgmma_wait_all();
-    fence_regs(sc);
+    fence_regs<32>(sc);
 
     // Online softmax in log2 units: the max is taken on the raw scores (the
     // scale is positive) and each probability is one FFMA and one MUFU op.
@@ -402,7 +481,7 @@ attn_fwd_bf16_tc(const __grid_constant__ CUtensorMap tq, const __grid_constant__
     l0 = l0 * c0 + rs0;
     l1 = l1 * c1 + rs1;
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
+    for (int n = 0; n < D / 8; ++n) {
       acc[4 * n] *= c0;
       acc[4 * n + 1] *= c0;
       acc[4 * n + 2] *= c1;
@@ -419,22 +498,27 @@ attn_fwd_bf16_tc(const __grid_constant__ CUtensorMap tq, const __grid_constant__
       pa[c][3] = pack_bf16x2(sc[8 * c + 6], sc[8 * c + 7]);  // r1
     }
 
-    // O += P V: V's rows are keys, its 64 columns contiguous (MN-major B).
-    const uint64_t dv = sw128_desc(vt);
-    fence_regs(acc);
+    // O += P V: V's rows are keys, its columns contiguous (MN-major B), one
+    // product per atom of columns.
+    const uint64_t dv = sw_desc<T::SW>(vt);
+    fence_regs<ACC>(acc);
     wgmma_fence();
 #pragma unroll
-    for (int c = 0; c < 4; ++c) wgmma_rs_bt(acc, pa[c], dv + c * (16 * 128 / 16));
+    for (int c = 0; c < 4; ++c)
+#pragma unroll
+      for (int a = 0; a < T::NATOM; ++a)
+        wgmma_rs_bt<T::ATOM>(acc + a * T::ATOM / 2, pa[c],
+                             dv + (a * T::ATOM_ELEMS + 16 * c * T::ATOM) * 2 / 16);
     wgmma_commit();
     wgmma_wait_all();
-    fence_regs(acc);
+    fence_regs<ACC>(acc);
 
     warpgroup_sync(wg);  // all four warps are done with stage s
     if (wtid == 0 && i + STAGES < mine) {
       const int jn = j + NWG * STAGES;
       mbar_expect_tx(&kv_bar[s], 2 * TILE_BYTES);
-      tma_load_tile(sK + s * TILE_ELEMS, &tk, &kv_bar[s], jn * BN, h, b);
-      tma_load_tile(sV + s * TILE_ELEMS, &tv, &kv_bar[s], jn * BN, h, b);
+      tma_load_tile<D>(sK + s * TILE_ELEMS, &tk, &kv_bar[s], jn * BN, h, b);
+      tma_load_tile<D>(sV + s * TILE_ELEMS, &tv, &kv_bar[s], jn * BN, h, b);
     }
   }
 
@@ -443,23 +527,23 @@ attn_fwd_bf16_tc(const __grid_constant__ CUtensorMap tq, const __grid_constant__
   float* merge = reinterpret_cast<float*>(ring(1));
   if (wg == 1) {
 #pragma unroll
-    for (int e = 0; e < 32; ++e) merge[e * 128 + wtid] = acc[e];
-    merge[32 * 128 + wtid] = m0;
-    merge[33 * 128 + wtid] = m1;
-    merge[34 * 128 + wtid] = l0;
-    merge[35 * 128 + wtid] = l1;
+    for (int e = 0; e < ACC; ++e) merge[e * 128 + wtid] = acc[e];
+    merge[ACC * 128 + wtid] = m0;
+    merge[(ACC + 1) * 128 + wtid] = m1;
+    merge[(ACC + 2) * 128 + wtid] = l0;
+    merge[(ACC + 3) * 128 + wtid] = l1;
   }
   __syncthreads();
   if (wg == 1) return;
   {
-    const float om0 = merge[32 * 128 + wtid], om1 = merge[33 * 128 + wtid];
+    const float om0 = merge[ACC * 128 + wtid], om1 = merge[(ACC + 1) * 128 + wtid];
     const float n0 = fmaxf(m0, om0), n1 = fmaxf(m1, om1);  // finite: tile 0 is warpgroup 0's
     const float a0 = fast_exp2(m0 - n0), a1 = fast_exp2(m1 - n1);
     const float b0 = fast_exp2(om0 - n0), b1 = fast_exp2(om1 - n1);  // 0 for a warpgroup with no tile
-    l0 = l0 * a0 + merge[34 * 128 + wtid] * b0;
-    l1 = l1 * a1 + merge[35 * 128 + wtid] * b1;
+    l0 = l0 * a0 + merge[(ACC + 2) * 128 + wtid] * b0;
+    l1 = l1 * a1 + merge[(ACC + 3) * 128 + wtid] * b1;
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
+    for (int n = 0; n < D / 8; ++n) {
       acc[4 * n] = acc[4 * n] * a0 + merge[(4 * n) * 128 + wtid] * b0;
       acc[4 * n + 1] = acc[4 * n + 1] * a0 + merge[(4 * n + 1) * 128 + wtid] * b0;
       acc[4 * n + 2] = acc[4 * n + 2] * a1 + merge[(4 * n + 2) * 128 + wtid] * b1;
@@ -471,7 +555,7 @@ attn_fwd_bf16_tc(const __grid_constant__ CUtensorMap tq, const __grid_constant__
   const int r0 = q0 + 16 * warp + (lane >> 2), r1 = r0 + 8;
   __nv_bfloat16* ob = o + b * so.b + h * so.h;
 #pragma unroll
-  for (int n = 0; n < 8; ++n) {
+  for (int n = 0; n < D / 8; ++n) {
     const int col = 8 * n + col0;
     if (r0 < nq)
       *reinterpret_cast<__nv_bfloat162*>(ob + r0 * so.r + col) =
@@ -505,46 +589,51 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A (batch, head, row, 64) bf16 tensor with the given element strides, read
-// in 64-row boxes with the 128-byte swizzle; rows past `rows` read as zeros.
-bool make_map(CUtensorMap* map, const void* ptr, const Strides& st, int rows, int heads,
+// A (batch, head, row, d) bf16 tensor with the given element strides, read
+// in boxes of 64 rows by one atom (min(d, 64) columns) in the swizzle of
+// `Tc<d>`; rows past `rows` read as zeros.
+bool make_map(CUtensorMap* map, const void* ptr, const Strides& st, int d, int rows, int heads,
               int batch) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)rows, (cuuint64_t)heads,
+  const int atom = d < 64 ? d : 64;
+  const CUtensorMapSwizzle swizzle = atom == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : atom == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                  : CU_TENSOR_MAP_SWIZZLE_32B;
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)rows, (cuuint64_t)heads,
                               (cuuint64_t)batch};
   const cuuint64_t strides[3] = {(cuuint64_t)st.r * 2, (cuuint64_t)st.h * 2,
                                  (cuuint64_t)st.b * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)D, (cuuint32_t)BN, 1, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)atom, (cuuint32_t)BN, 1, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
-                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // Tensor maps already encoded, direct-mapped on everything the encoding
-// reads (address, extents, strides), so an entry is valid for any tensor with
-// that key: the caching allocator hands the same buffers to the same calls
-// frame after frame, and a hit skips the encode on the host.
+// reads (address, width, extents, strides), so an entry is valid for any
+// tensor with that key: the caching allocator hands the same buffers to the
+// same calls frame after frame, and a hit skips the encode on the host.
 struct MapEntry {
   CUtensorMap map;
-  long long key[7];
+  long long key[8];
   bool valid;
 };
 constexpr int MAP_CACHE = 1024;
 MapEntry map_cache[MAP_CACHE];
 std::mutex map_cache_lock;  // ctypes drops the GIL: callers may be concurrent
 
-bool cached_map(CUtensorMap* map, const void* ptr, const Strides& st, int rows, int heads,
+bool cached_map(CUtensorMap* map, const void* ptr, const Strides& st, int d, int rows, int heads,
                 int batch) {
-  const long long key[7] = {(long long)(uintptr_t)ptr, rows, heads, batch, st.b, st.h, st.r};
+  const long long key[8] = {(long long)(uintptr_t)ptr, d, rows, heads, batch, st.b, st.h, st.r};
   uint64_t hash = 1469598103934665603ull;  // FNV-1a over the key's words
   for (long long w : key) hash = (hash ^ (uint64_t)w) * 1099511628211ull;
   std::lock_guard<std::mutex> guard(map_cache_lock);
   MapEntry& e = map_cache[(hash >> 32) % MAP_CACHE];
   if (!e.valid || memcmp(e.key, key, sizeof key) != 0) {
-    e.valid = make_map(&e.map, ptr, st, rows, heads, batch);
+    e.valid = make_map(&e.map, ptr, st, d, rows, heads, batch);
     if (!e.valid) return false;
     memcpy(e.key, key, sizeof key);
   }
@@ -552,62 +641,79 @@ bool cached_map(CUtensorMap* map, const void* ptr, const Strides& st, int rows, 
   return true;
 }
 
+template <int D>
 int launch_bf16(const void* q, const void* k, const void* v, void* o, const Strides* st,
-                int batch, int heads, int nq, int nk, cudaStream_t stream) {
+                int batch, int heads, int nq, int nk, float scale_log2, cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
-  if (!cached_map(&tq, q, st[0], nq, heads, batch) ||
-      !cached_map(&tk, k, st[1], nk, heads, batch) || !cached_map(&tv, v, st[2], nk, heads, batch))
+  if (!cached_map(&tq, q, st[0], D, nq, heads, batch) ||
+      !cached_map(&tk, k, st[1], D, nk, heads, batch) ||
+      !cached_map(&tv, v, st[2], D, nk, heads, batch))
     return 1001;
   static bool configured[MAX_DEVICES] = {};
   int dev = 0;
   cudaError_t err = current_device(&dev);
   if (err != cudaSuccess) return (int)err;
   if (!configured[dev]) {
-    err = cudaFuncSetAttribute(attn_fwd_bf16_tc, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               SMEM_TC);
+    err = cudaFuncSetAttribute(attn_fwd_bf16_tc<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               Tc<D>::SMEM);
     if (err != cudaSuccess) return (int)err;
     configured[dev] = true;
   }
   const dim3 grid((nq + BM - 1) / BM, batch * heads);
-  attn_fwd_bf16_tc<<<grid, NTHREAD, SMEM_TC, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), st[3], heads, nq, nk,
-      1.4426950408889634f / sqrtf((float)D));
+  attn_fwd_bf16_tc<D><<<grid, NTHREAD, Tc<D>::SMEM, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), st[3], heads, nq, nk, scale_log2);
   return (int)cudaGetLastError();
 }
 
 // ------------------------------------------------------------------ f32 route
 //
 // Register-tiled f32 attention on the FP32 pipe (see the note at the top).
-// A CTA of four warps owns 128 query rows, 32 per warp, and one share of the
-// key tiles; the `split` CTAs of a cluster take the shares of one 128-row
-// block and merge their partial (O, max, sum) through distributed shared
-// memory at the end.
+// A CTA of four warps owns BQ query rows, WROWS per warp, and one share of
+// the key tiles; the `split` CTAs of a cluster take the shares of one block
+// and merge their partial (O, max, sum) through distributed shared memory at
+// the end.
 //
-// Lane layouts of a warp (lane = 4 rg + kg = 8 RG + cg):
-//   S = Q K^T, 32 rows x 16 keys: rows 4 rg + i (i < 4), keys kg + 4 t (t < 4).
-//   O, 32 rows x 64 columns: rows 8 RG + x (x < 8), columns 4 cg + c and
-//   32 + 4 cg + c (c < 4).
-// O row 8 RG + 4 h + i is S row 4 (2 RG + h) + i, held by lane
+// Lane layouts of a warp (lane = 4 rg + kg = 8 RG + cg), with SR = WROWS / 8
+// S rows and OR = WROWS / 4 O rows a lane (4 and 8; 2 and 4 at D = 128):
+//   S = Q K^T, WROWS rows x 16 keys: rows SR rg + i (i < SR), keys kg + 4 t
+//   (t < 4).
+//   O, WROWS rows x D columns: rows OR RG + x (x < OR), columns 32 j + 4 cg + c
+//   (j < D / 32, c < 4); at D = 16, columns 2 cg + c (c < 2).
+// O row OR RG + SR h + i is S row SR (2 RG + h) + i, held by lane
 // 8 RG + 4 h + (cg & 3): one shuffle per row hands a rescale to the O lanes.
-// Q row 4 rg + i of warp w is staged at row 32 w + 8 i + rg, so the eight rows
-// of one S load sit in eight different bank groups.
+// Q row SR rg + i of warp w is staged at row WROWS w + 8 i + rg, so the eight
+// rows of one S load sit in eight different bank groups.
 
 constexpr int F_WARPS = 4;
 constexpr int F_THREADS = 32 * F_WARPS;
-constexpr int F_WROWS = 32;                       // query rows per warp
-constexpr int F_BQ = F_WARPS * F_WROWS;           // query rows per CTA
 constexpr int F_BK = 16;                          // keys per staged tile
 constexpr int F_STAGES = 3;                       // K/V ring depth
-constexpr int F_LD = D + 4;                       // staged row stride (floats): 68
 constexpr int F_MAX_SPLIT = 8;                    // portable cluster size
-constexpr int F_Q_FLOATS = F_BQ * F_LD;
-constexpr int F_TILE_FLOATS = 2 * F_BK * F_LD;    // a tile's 16 K rows, then its 16 V rows
-constexpr int F_P_FLOATS = F_BK * F_WROWS;        // a warp's P, key-major
-constexpr int F_SMEM = 4 * (F_Q_FLOATS + F_STAGES * F_TILE_FLOATS + F_WARPS * F_P_FLOATS);
-// The merge reuses the staging: partial O over Q's rows, max and sum over the
-// ring, each row's weights over P.
-static_assert(2 * F_BQ <= F_STAGES * F_TILE_FLOATS, "max and sum fit the ring");
-static_assert(F_BQ + F_MAX_SPLIT <= F_WARPS * F_P_FLOATS, "weights fit P");
+
+template <int D>
+struct F32 {
+  static_assert(D == 16 || D == 32 || D == 64 || D == 128, "an instantiated head width");
+  static constexpr int WROWS = D > 64 ? 16 : 32;  // query rows per warp
+  static constexpr int SR = WROWS / 8;            // S rows per lane
+  static constexpr int OR = WROWS / 4;            // O rows per lane
+  static constexpr int OC = D / 8;                // O columns per lane
+  static constexpr int BQ = F_WARPS * WROWS;      // query rows per CTA
+  static constexpr int LD = D + 4;                // staged row stride (floats): 68 at D = 64
+  static constexpr int Q_FLOATS = BQ * LD;
+  static constexpr int TILE_FLOATS = 2 * F_BK * LD;  // a tile's 16 K rows, then its 16 V rows
+  static constexpr int P_FLOATS = F_BK * WROWS;      // a warp's P, key-major
+  static constexpr int SMEM = 4 * (Q_FLOATS + F_STAGES * TILE_FLOATS + F_WARPS * P_FLOATS);
+  // The merge reuses the staging: partial O over Q's rows, max and sum over
+  // the ring, each row's weights over P.
+  static_assert(2 * BQ <= F_STAGES * TILE_FLOATS, "max and sum fit the ring");
+  static_assert(BQ + F_MAX_SPLIT <= F_WARPS * P_FLOATS, "weights fit P");
+};
+
+// Column of element e (< OC) of a lane's O columns for column group cg.
+template <int D>
+__device__ __forceinline__ int o_col(int cg, int e) {
+  return D == 16 ? 2 * cg + e : 32 * (e / 4) + 4 * cg + e % 4;
+}
 
 // 16 bytes from global to shared memory, asynchronously (cp.async, through
 // L2 only): completes at the thread's next cp.async.wait_group that covers it.
@@ -625,15 +731,17 @@ __device__ __forceinline__ void copy_wait() {
 }
 
 // This thread's share of tile `tile`'s K and V rows into `dst` (16 K rows,
-// then 16 V rows, each 16 chunks of 16 bytes: 4 chunks a thread). Rows past
-// nk copy row nk - 1, so the tile holds finite values; their keys are masked.
+// then 16 V rows, each D/4 chunks of 16 bytes). Rows past nk copy row
+// nk - 1, so the tile holds finite values; their keys are masked.
+template <int D>
 __device__ __forceinline__ void stage_kv(float* dst, const float* kb, const float* vb,
                                          long long kr, long long vr, int tile, int nk, int tid) {
 #pragma unroll
   for (int e = tid; e < 2 * F_BK * (D / 4); e += F_THREADS) {
     const int row = e / (D / 4), c4 = e % (D / 4);
     const int key = min(tile * F_BK + row % F_BK, nk - 1);
-    copy16(dst + row * F_LD + 4 * c4, (row < F_BK ? kb + key * kr : vb + key * vr) + 4 * c4);
+    copy16(dst + row * F32<D>::LD + 4 * c4,
+           (row < F_BK ? kb + key * kr : vb + key * vr) + 4 * c4);
   }
 }
 
@@ -669,18 +777,21 @@ __device__ __forceinline__ void cluster_sync() {
   asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
 }
 
+template <int D>
 __global__ void __launch_bounds__(F_THREADS, 3)
 attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
              const float* __restrict__ v, float* __restrict__ o, Strides sq, Strides sk,
              Strides sv, Strides so, int heads, int nq, int nk, int split, float scale_log2) {
+  using F = F32<D>;
+  constexpr int WROWS = F::WROWS, SR = F::SR, OR = F::OR, OC = F::OC, BQ = F::BQ, LD = F::LD;
   extern __shared__ __align__(16) float fsm[];
   float* Qs = fsm;
-  float* ring = Qs + F_Q_FLOATS;
-  float* Ps = ring + F_STAGES * F_TILE_FLOATS;
+  float* ring = Qs + F::Q_FLOATS;
+  float* Ps = ring + F_STAGES * F::TILE_FLOATS;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int rank = blockIdx.x % split;  // the cluster is (split, 1, 1): its CTAs are consecutive
-  const int q0 = blockIdx.x / split * F_BQ;
+  const int q0 = blockIdx.x / split * BQ;
   const int b = blockIdx.y / heads, h = blockIdx.y % heads;
   const float* qb = q + b * sq.b + h * sq.h;
   const float* kb = k + b * sk.b + h * sk.h;
@@ -693,27 +804,27 @@ attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   // the first): row r of the block to its staged row (rows past nq copy row
   // nq - 1 and are never stored).
 #pragma unroll 4
-  for (int e = tid; e < F_BQ * (D / 4); e += F_THREADS) {
-    const int r = e / (D / 4), c4 = e % (D / 4), rho = r % F_WROWS;
-    const int at = r - rho + 8 * (rho & 3) + (rho >> 2);
-    copy16(Qs + at * F_LD + 4 * c4, qb + min(q0 + r, nq - 1) * sq.r + 4 * c4);
+  for (int e = tid; e < BQ * (D / 4); e += F_THREADS) {
+    const int r = e / (D / 4), c4 = e % (D / 4), rho = r % WROWS;
+    const int at = r - rho + 8 * (rho & (SR - 1)) + (rho >> (SR == 4 ? 2 : 1));
+    copy16(Qs + at * LD + 4 * c4, qb + min(q0 + r, nq - 1) * sq.r + 4 * c4);
   }
   for (int s = 0; s < F_STAGES - 1; ++s) {
-    if (s < mine) stage_kv(ring + s * F_TILE_FLOATS, kb, vb, sk.r, sv.r, t0 + s, nk, tid);
+    if (s < mine) stage_kv<D>(ring + s * F::TILE_FLOATS, kb, vb, sk.r, sv.r, t0 + s, nk, tid);
     copy_commit();
   }
 
   const int rg = lane >> 2, kg = lane & 3, RG = lane >> 3, cg = lane & 7;
-  const float* Qw = Qs + (warp * F_WROWS + rg) * F_LD;
-  float* Pw = Ps + warp * F_P_FLOATS;
-  float acc[8][8];
+  const float* Qw = Qs + (warp * WROWS + rg) * LD;
+  float* Pw = Ps + warp * F::P_FLOATS;
+  float acc[OR][OC];
 #pragma unroll
-  for (int x = 0; x < 8; ++x)
+  for (int x = 0; x < OR; ++x)
 #pragma unroll
-    for (int c = 0; c < 8; ++c) acc[x][c] = 0.f;
-  float m[4], l[4];  // per S row: running max (log2 units), this lane's share of the sum
+    for (int c = 0; c < OC; ++c) acc[x][c] = 0.f;
+  float m[SR], l[SR];  // per S row: running max (log2 units), this lane's share of the sum
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < SR; ++i) {
     m[i] = -INFINITY;
     l[i] = 0.f;
   }
@@ -723,28 +834,28 @@ attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     copy_wait<F_STAGES - 2>();
     __syncthreads();
     if (it + F_STAGES - 1 < mine)
-      stage_kv(ring + (it + F_STAGES - 1) % F_STAGES * F_TILE_FLOATS, kb, vb, sk.r, sv.r,
-               t0 + it + F_STAGES - 1, nk, tid);
+      stage_kv<D>(ring + (it + F_STAGES - 1) % F_STAGES * F::TILE_FLOATS, kb, vb, sk.r, sv.r,
+                  t0 + it + F_STAGES - 1, nk, tid);
     copy_commit();
-    const float* Kt = ring + it % F_STAGES * F_TILE_FLOATS;
-    const float* Vt = Kt + F_BK * F_LD;
+    const float* Kt = ring + it % F_STAGES * F::TILE_FLOATS;
+    const float* Vt = Kt + F_BK * LD;
 
-    // S = Q K^T: per 4 columns of d, 8 loads of 16 bytes feed 64 FMAs.
-    float sc[4][4];
+    // S = Q K^T: per 4 columns of d, SR + 4 loads of 16 bytes feed 16 SR FMAs.
+    float sc[SR][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < SR; ++i)
 #pragma unroll
       for (int t = 0; t < 4; ++t) sc[i][t] = 0.f;
 #pragma unroll 4
     for (int c = 0; c < D / 4; ++c) {
-      float4 qv[4], kv[4];
+      float4 qv[SR], kv[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = *reinterpret_cast<const float4*>(Qw + 8 * i * F_LD + 4 * c);
+      for (int i = 0; i < SR; ++i) qv[i] = *reinterpret_cast<const float4*>(Qw + 8 * i * LD + 4 * c);
 #pragma unroll
       for (int t = 0; t < 4; ++t)
-        kv[t] = *reinterpret_cast<const float4*>(Kt + (kg + 4 * t) * F_LD + 4 * c);
+        kv[t] = *reinterpret_cast<const float4*>(Kt + (kg + 4 * t) * LD + 4 * c);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < SR; ++i)
 #pragma unroll
         for (int t = 0; t < 4; ++t) {
           sc[i][t] = fmaf(qv[i].x, kv[t].x, sc[i][t]);
@@ -763,11 +874,11 @@ attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
       for (int t = 0; t < 4; ++t)
         if (key0 + 4 * t >= nk)
 #pragma unroll
-          for (int i = 0; i < 4; ++i) sc[i][t] = -INFINITY;
+          for (int i = 0; i < SR; ++i) sc[i][t] = -INFINITY;
     }
-    float corr[4];
+    float corr[SR];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < SR; ++i) {
       float mx = fmaxf(fmaxf(sc[i][0], sc[i][1]), fmaxf(sc[i][2], sc[i][3]));
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
@@ -783,34 +894,56 @@ attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
       l[i] = fmaf(l[i], corr[i], rs);
     }
 #pragma unroll
-    for (int t = 0; t < 4; ++t)
-      *reinterpret_cast<float4*>(Pw + (kg + 4 * t) * F_WROWS + 4 * rg) =
-          make_float4(sc[0][t], sc[1][t], sc[2][t], sc[3][t]);
-    float oc[8];
+    for (int t = 0; t < 4; ++t) {
+      float* dst = Pw + (kg + 4 * t) * WROWS + SR * rg;
+      if constexpr (SR == 4)
+        *reinterpret_cast<float4*>(dst) = make_float4(sc[0][t], sc[1][t], sc[2][t], sc[3][t]);
+      else
+        *reinterpret_cast<float2*>(dst) = make_float2(sc[0][t], sc[1][t]);
+    }
+    float oc[OR];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < SR; ++i) {
       oc[i] = __shfl_sync(0xffffffffu, corr[i], lane & ~4);
-      oc[4 + i] = __shfl_sync(0xffffffffu, corr[i], lane | 4);
+      oc[SR + i] = __shfl_sync(0xffffffffu, corr[i], lane | 4);
     }
     __syncwarp();  // P is in shared memory
 
-    // O += P V: per key, 4 loads of 16 bytes feed 64 FMAs.
+    // O += P V: per key, OR / 4 loads of P and OC / 4 of V (16 bytes each)
+    // feed OR OC FMAs.
 #pragma unroll
-    for (int x = 0; x < 8; ++x)
+    for (int x = 0; x < OR; ++x)
 #pragma unroll
-      for (int c = 0; c < 8; ++c) acc[x][c] *= oc[x];
+      for (int c = 0; c < OC; ++c) acc[x][c] *= oc[x];
 #pragma unroll
     for (int j = 0; j < F_BK; ++j) {
-      const float4 pa = *reinterpret_cast<const float4*>(Pw + j * F_WROWS + 8 * RG);
-      const float4 pb = *reinterpret_cast<const float4*>(Pw + j * F_WROWS + 8 * RG + 4);
-      const float4 va = *reinterpret_cast<const float4*>(Vt + j * F_LD + 4 * cg);
-      const float4 vc = *reinterpret_cast<const float4*>(Vt + j * F_LD + 32 + 4 * cg);
-      const float p[8] = {pa.x, pa.y, pa.z, pa.w, pb.x, pb.y, pb.z, pb.w};
-      const float w[8] = {va.x, va.y, va.z, va.w, vc.x, vc.y, vc.z, vc.w};
+      float p[OR], w[OC];
 #pragma unroll
-      for (int x = 0; x < 8; ++x)
+      for (int x4 = 0; x4 < OR / 4; ++x4) {
+        const float4 pv = *reinterpret_cast<const float4*>(Pw + j * WROWS + OR * RG + 4 * x4);
+        p[4 * x4] = pv.x;
+        p[4 * x4 + 1] = pv.y;
+        p[4 * x4 + 2] = pv.z;
+        p[4 * x4 + 3] = pv.w;
+      }
+      if constexpr (D == 16) {
+        const float2 vv = *reinterpret_cast<const float2*>(Vt + j * LD + 2 * cg);
+        w[0] = vv.x;
+        w[1] = vv.y;
+      } else {
 #pragma unroll
-        for (int c = 0; c < 8; ++c) acc[x][c] = fmaf(p[x], w[c], acc[x][c]);
+        for (int c4 = 0; c4 < OC / 4; ++c4) {
+          const float4 vv = *reinterpret_cast<const float4*>(Vt + j * LD + 32 * c4 + 4 * cg);
+          w[4 * c4] = vv.x;
+          w[4 * c4 + 1] = vv.y;
+          w[4 * c4 + 2] = vv.z;
+          w[4 * c4 + 3] = vv.w;
+        }
+      }
+#pragma unroll
+      for (int x = 0; x < OR; ++x)
+#pragma unroll
+        for (int c = 0; c < OC; ++c) acc[x][c] = fmaf(p[x], w[c], acc[x][c]);
     }
   }
 
@@ -818,35 +951,40 @@ attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   // with the last tile; no copy in flight): O unnormalized, each row's max
   // and sum.
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < SR; ++i) {
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
   }
   __syncthreads();
   float* part_o = Qs;
   float* part_m = ring;
-  float* part_l = ring + F_BQ;
+  float* part_l = ring + BQ;
   float* wts = Ps;
 #pragma unroll
-  for (int x = 0; x < 8; ++x) {
-    float* row = part_o + (warp * F_WROWS + 8 * RG + x) * F_LD;
-    *reinterpret_cast<float4*>(row + 4 * cg) = make_float4(acc[x][0], acc[x][1], acc[x][2], acc[x][3]);
-    *reinterpret_cast<float4*>(row + 32 + 4 * cg) =
-        make_float4(acc[x][4], acc[x][5], acc[x][6], acc[x][7]);
+  for (int x = 0; x < OR; ++x) {
+    float* row = part_o + (warp * WROWS + OR * RG + x) * LD;
+    if constexpr (D == 16) {
+      *reinterpret_cast<float2*>(row + o_col<D>(cg, 0)) = make_float2(acc[x][0], acc[x][1]);
+    } else {
+#pragma unroll
+      for (int c4 = 0; c4 < OC / 4; ++c4)
+        *reinterpret_cast<float4*>(row + o_col<D>(cg, 4 * c4)) =
+            make_float4(acc[x][4 * c4], acc[x][4 * c4 + 1], acc[x][4 * c4 + 2], acc[x][4 * c4 + 3]);
+    }
   }
   if (kg == 0) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      part_m[warp * F_WROWS + 4 * rg + i] = m[i];
-      part_l[warp * F_WROWS + 4 * rg + i] = l[i];
+    for (int i = 0; i < SR; ++i) {
+      part_m[warp * WROWS + SR * rg + i] = m[i];
+      part_l[warp * WROWS + SR * rg + i] = l[i];
     }
   }
   cluster_sync<true>();  // every CTA's partials are written
 
   // This CTA finalizes rows [lo, hi) of the block from the split's partials:
   // O = sum_g w_g O_g / sum_g w_g l_g with w_g = 2^(m_g - max_g m_g).
-  const int lo = rank * F_BQ / split;
-  const int hi = min((rank + 1) * F_BQ / split, nq - q0);
+  const int lo = rank * BQ / split;
+  const int hi = min((rank + 1) * BQ / split, nq - q0);
   const uint32_t m_at = smem_u32(part_m), l_at = smem_u32(part_l), o_at = smem_u32(part_o);
   for (int r = lo + tid; r < hi; r += F_THREADS) {
     float mx = -INFINITY;
@@ -867,7 +1005,7 @@ attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     float4 out = make_float4(0.f, 0.f, 0.f, 0.f);
     for (int g = 0; g < split; ++g) {
       const float wg = wts[(r - lo) * split + g];
-      const float4 pv = ld_cluster4(cluster_addr(o_at + 4 * (r * F_LD + 4 * c4), g));
+      const float4 pv = ld_cluster4(cluster_addr(o_at + 4 * (r * LD + 4 * c4), g));
       out.x = fmaf(wg, pv.x, out.x);
       out.y = fmaf(wg, pv.y, out.y);
       out.z = fmaf(wg, pv.z, out.z);
@@ -878,24 +1016,27 @@ attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   cluster_sync<false>();  // no CTA leaves while a peer still reads its shared memory
 }
 
-// Per card: the SM count and the most clusters of each size that can be
-// resident at once (cudaOccupancyMaxActiveClusters), read at the first launch.
+// Per card and width: the SM count and the most clusters of each size that
+// can be resident at once (cudaOccupancyMaxActiveClusters), read at the
+// first launch.
 struct F32Card {
   bool ready;
   int sms;
   int clusters[F_MAX_SPLIT + 1];
 };
-F32Card f32_cards[MAX_DEVICES];
 std::mutex f32_cards_lock;
 
+template <int D>
 cudaError_t f32_card(int dev, const F32Card** out) {
+  static F32Card cards[MAX_DEVICES];
   std::lock_guard<std::mutex> guard(f32_cards_lock);
-  F32Card& c = f32_cards[dev];
+  F32Card& c = cards[dev];
   if (!c.ready) {
-    cudaError_t err = cudaFuncSetAttribute(attn_fwd_f32,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, F_SMEM);
+    cudaError_t err = cudaFuncSetAttribute(attn_fwd_f32<D>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           F32<D>::SMEM);
     if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(attn_fwd_f32, cudaFuncAttributePreferredSharedMemoryCarveout,
+      err = cudaFuncSetAttribute(attn_fwd_f32<D>, cudaFuncAttributePreferredSharedMemoryCarveout,
                                  (int)cudaSharedmemCarveoutMaxShared);
     if (err == cudaSuccess) err = cudaDeviceGetAttribute(&c.sms, cudaDevAttrMultiProcessorCount, dev);
     for (int g = 1; g <= F_MAX_SPLIT && err == cudaSuccess; ++g) {
@@ -907,10 +1048,10 @@ cudaError_t f32_card(int dev, const F32Card** out) {
       attr.val.clusterDim.z = 1;
       cfg.gridDim = dim3(g, 1, 1);
       cfg.blockDim = dim3(F_THREADS, 1, 1);
-      cfg.dynamicSmemBytes = F_SMEM;
+      cfg.dynamicSmemBytes = F32<D>::SMEM;
       cfg.attrs = &attr;
       cfg.numAttrs = 1;
-      err = cudaOccupancyMaxActiveClusters(&c.clusters[g], attn_fwd_f32, &cfg);
+      err = cudaOccupancyMaxActiveClusters(&c.clusters[g], attn_fwd_f32<D>, &cfg);
     }
     if (err != cudaSuccess) return err;
     c.ready = true;
@@ -919,12 +1060,23 @@ cudaError_t f32_card(int dev, const F32Card** out) {
   return cudaSuccess;
 }
 
-// The split (cluster size) for `blocks` 128-row blocks over `ntiles` key
+// The card's counts for the f32 route at width d (an instantiation).
+cudaError_t f32_card_at(int d, int dev, const F32Card** out) {
+  switch (d) {
+    case 16: return f32_card<16>(dev, out);
+    case 32: return f32_card<32>(dev, out);
+    case 64: return f32_card<64>(dev, out);
+    case 128: return f32_card<128>(dev, out);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// The split (cluster size) for `blocks` query blocks over `ntiles` key
 // tiles: the one with the least estimated time. Clusters run in waves of as
 // many as the card holds; a wave takes a CTA's tiles times (the CTAs its
 // busiest SM holds + 0.3), plus 3.6 tiles for the prologue and the merge, in
 // tenths of a tile (fitted to the H100's times over splits 1-8 at the
-// encoder, decoder and training shapes).
+// encoder, decoder and training shapes, d = 64).
 int f32_split(const F32Card& c, long long blocks, int ntiles) {
   int best = 1;
   long long best_cost = -1;
@@ -945,15 +1097,18 @@ int f32_split(const F32Card& c, long long blocks, int ntiles) {
   return best;
 }
 
+int f32_rows(int d) { return d > 64 ? F32<128>::BQ : F32<64>::BQ; }
+
+template <int D>
 int launch_f32(const void* q, const void* k, const void* v, void* o, const Strides* st,
-               int batch, int heads, int nq, int nk, cudaStream_t stream) {
+               int batch, int heads, int nq, int nk, float scale_log2, cudaStream_t stream) {
   int dev = 0;
   cudaError_t err = current_device(&dev);
   if (err != cudaSuccess) return (int)err;
   const F32Card* card = nullptr;
-  err = f32_card(dev, &card);
+  err = f32_card<D>(dev, &card);
   if (err != cudaSuccess) return (int)err;
-  const int blocks = (nq + F_BQ - 1) / F_BQ;
+  const int blocks = (nq + F32<D>::BQ - 1) / F32<D>::BQ;
 #ifdef F32_SPLIT  // a profiling build fixes the split (scripts/profile_f32_attention.py)
   const int split = min(F32_SPLIT, (nk + F_BK - 1) / F_BK);
 #else
@@ -967,50 +1122,63 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, const Strid
   attr.val.clusterDim.z = 1;
   cfg.gridDim = dim3(blocks * split, batch * heads, 1);
   cfg.blockDim = dim3(F_THREADS, 1, 1);
-  cfg.dynamicSmemBytes = F_SMEM;
+  cfg.dynamicSmemBytes = F32<D>::SMEM;
   cfg.stream = stream;
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, attn_fwd_f32, static_cast<const float*>(q),
+  err = cudaLaunchKernelEx(&cfg, attn_fwd_f32<D>, static_cast<const float*>(q),
                            static_cast<const float*>(k), static_cast<const float*>(v),
                            static_cast<float*>(o), st[0], st[1], st[2], st[3], heads, nq, nk,
-                           split, 1.4426950408889634f / sqrtf((float)D));
+                           split, scale_log2);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* o, const Strides* st, int batch,
+           int heads, int nq, int nk, float scale_log2, long long dtype, cudaStream_t stream) {
+  if (dtype == 0) return launch_f32<D>(q, k, v, o, st, batch, heads, nq, nk, scale_log2, stream);
+  if (dtype == 1) return launch_bf16<D>(q, k, v, o, st, batch, heads, nq, nk, scale_log2, stream);
+  return 1000;
+}
+
 }  // namespace
 
-// The arguments of one call, packed by the wrapper into 27 int64 values, so
-// that the host pays for one foreign argument instead of twelve.
+// The arguments of one call, packed by the wrapper into 28 int64 values, so
+// that the host pays for one foreign argument instead of thirteen.
 struct AttnArgs {
   long long q, k, v, o;        // device pointers
   long long stride[4][4];      // (batch, head, row, dim) element strides of q, k, v, o
   long long batch, heads, nq, nk, d;
+  long long d_scale;           // the true head width, whose d^-1/2 scales the logits (<= d)
   long long dtype;             // 0 = float32 (FP32 pipe), 1 = bfloat16 (tensor cores)
   long long stream;            // cudaStream_t
 };
 
 // q (B, H, nq, d), k and v (B, H, nk, d), o (B, H, nq, d), each addressed
-// through its own strides. Every operand's last dimension must be
-// contiguous; in bfloat16, q, k and v must also start 16-byte aligned with
-// every other stride a multiple of 8 elements, which a tensor map needs; in
-// float32, all four must start 16-byte aligned with every other stride a
-// multiple of 4 elements, which the bulk copies and 16-byte stores need (the
-// stride of a dimension of size 1 is never read, and is not checked).
+// through its own strides, d one of 16, 32, 64 and 128 (a narrower head
+// zero-padded to it by the caller, which passes its true width as d_scale).
+// Every operand's last dimension must be contiguous; in bfloat16, q, k and v
+// must also start 16-byte aligned with every other stride a multiple of 8
+// elements, which a tensor map needs; in float32, all four must start 16-byte
+// aligned with every other stride a multiple of 4 elements, which the bulk
+// copies and 16-byte stores need (the stride of a dimension of size 1 is
+// never read, and is not checked).
 // Returns a cudaError_t (0 on success); 1000 for arguments or a layout this
 // kernel does not take, 1001 when a TMA descriptor cannot be encoded.
 extern "C" int attn_forward(const AttnArgs* a) {
   const int batch = (int)a->batch, heads = (int)a->heads, nq = (int)a->nq, nk = (int)a->nk;
-  if (a->d != D || batch <= 0 || heads <= 0 || nq <= 0 || nk <= 0 || batch * heads > 65535)
+  const long long d = a->d;
+  if ((d != 16 && d != 32 && d != 64 && d != MAX_D) || a->d_scale < 1 || a->d_scale > d ||
+      batch <= 0 || heads <= 0 || nq <= 0 || nk <= 0 || batch * heads > 65535)
     return 1000;
   const long long ptr[4] = {a->q, a->k, a->v, a->o};
   Strides st[4];
   for (int i = 0; i < 4; ++i) {
     if (a->stride[i][3] != 1) return 1000;
     const int rows = i == 1 || i == 2 ? nk : nq;
-    st[i] = Strides{batch > 1 ? a->stride[i][0] : D, heads > 1 ? a->stride[i][1] : D,
-                    rows > 1 ? a->stride[i][2] : D};
+    st[i] = Strides{batch > 1 ? a->stride[i][0] : d, heads > 1 ? a->stride[i][1] : d,
+                    rows > 1 ? a->stride[i][2] : d};
     if (a->dtype == 1 && i < 3 && ((ptr[i] & 15) || (st[i].b & 7) || (st[i].h & 7) || (st[i].r & 7)))
       return 1000;
     if (a->dtype == 0 && ((ptr[i] & 15) || (st[i].b & 3) || (st[i].h & 3) || (st[i].r & 3)))
@@ -1021,31 +1189,36 @@ extern "C" int attn_forward(const AttnArgs* a) {
   const void* v = (const void*)a->v;
   void* o = (void*)a->o;
   cudaStream_t s = (cudaStream_t)a->stream;
-  if (a->dtype == 0) return launch_f32(q, k, v, o, st, batch, heads, nq, nk, s);
-  if (a->dtype == 1) return launch_bf16(q, k, v, o, st, batch, heads, nq, nk, s);
-  return 1000;
+  const float scale_log2 = 1.4426950408889634f / sqrtf((float)a->d_scale);
+  switch (d) {
+    case 16: return launch<16>(q, k, v, o, st, batch, heads, nq, nk, scale_log2, a->dtype, s);
+    case 32: return launch<32>(q, k, v, o, st, batch, heads, nq, nk, scale_log2, a->dtype, s);
+    case 64: return launch<64>(q, k, v, o, st, batch, heads, nq, nk, scale_log2, a->dtype, s);
+    default: return launch<128>(q, k, v, o, st, batch, heads, nq, nk, scale_log2, a->dtype, s);
+  }
 }
 
-// The split (cluster size) the f32 route takes for batch x heads = bh and
-// these token counts on the current card; a negative cudaError_t if the card
-// cannot be queried.
-extern "C" int attn_f32_split(long long bh, long long nq, long long nk) {
+// The split (cluster size) the f32 route takes for batch x heads = bh, these
+// token counts and head width d (an instantiation) on the current card; a
+// negative cudaError_t if the card cannot be queried.
+extern "C" int attn_f32_split(long long bh, long long nq, long long nk, int d) {
   int dev = 0;
   cudaError_t err = current_device(&dev);
   const F32Card* card = nullptr;
-  if (err == cudaSuccess) err = f32_card(dev, &card);
+  if (err == cudaSuccess) err = f32_card_at(d, dev, &card);
   if (err != cudaSuccess) return -(int)err;
-  return f32_split(*card, (nq + F_BQ - 1) / F_BQ * bh, (int)((nk + F_BK - 1) / F_BK));
+  const int rows = f32_rows(d);
+  return f32_split(*card, (nq + rows - 1) / rows * bh, (int)((nk + F_BK - 1) / F_BK));
 }
 
-// How many clusters of `split` CTAs (1-8) of the f32 route the current card
-// holds at once, which the choice of split reads; a negative cudaError_t if
-// the card cannot be queried.
-extern "C" int attn_f32_clusters(int split) {
+// How many clusters of `split` CTAs (1-8) of the f32 route at head width d
+// the current card holds at once, which the choice of split reads; a
+// negative cudaError_t if the card cannot be queried.
+extern "C" int attn_f32_clusters(int split, int d) {
   int dev = 0;
   cudaError_t err = current_device(&dev);
   const F32Card* card = nullptr;
-  if (err == cudaSuccess) err = f32_card(dev, &card);
+  if (err == cudaSuccess) err = f32_card_at(d, dev, &card);
   if (err != cudaSuccess) return -(int)err;
   return split >= 1 && split <= F_MAX_SPLIT ? card->clusters[split] : 0;
 }

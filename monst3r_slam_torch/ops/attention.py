@@ -11,8 +11,15 @@ card) go to the tensor-core kernel, float32 inputs (f32 models: training
 in f32, the f32 checks against the CPU path) to the register-tiled kernel
 on the FP32 pipe, which keeps logits, probabilities and output in f32.
 Both read q, k and v through their strides and write the output into a
-(B, N, H, 64) buffer, returned as its (B, H, N, 64) view, so that neither
+(B, N, H, d) buffer, returned as its (B, H, N, d) view, so that neither
 the heads split before nor the merge after is a copy.
+
+Kernel A is instantiated at head widths 16, 32, 64 and 128 (`HEAD_DIMS`).
+Any other width up to 128 is zero-padded to the next of them (`pad_heads`,
+a plain-PyTorch copy around the kernel): zero columns of q and k leave
+QK^T as it is, zero columns of v give zero output columns, which are sliced
+off, and the kernel scales the logits by the true width's d^-1/2. Wider
+heads raise.
 
 Kernel A has no backward, and neither has the reference's Pallas kernel
 (training there differentiates its einsum attention). For training on the
@@ -30,19 +37,23 @@ import torch
 
 from monst3r_slam_torch.ops import build
 
-HEAD_DIM = 64
+HEAD_DIMS = (16, 32, 64, 128)  # kernel A's instantiations
+MAX_HEAD_DIM = HEAD_DIMS[-1]
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ROUTES = {torch.float32: "f32", torch.bfloat16: "bf16_tc"}
 _SIGNATURES = {"attn_forward": ([ctypes.c_char_p], ctypes.c_int)}
 # One call's arguments as the C entry's `AttnArgs`: 4 pointers, the (batch,
-# head, row, dim) strides of q, k, v and the output, the 5 sizes, the type
-# and the stream, 27 int64 values in one buffer (one foreign argument).
-_PACK = struct.Struct("=27q").pack
+# head, row, dim) strides of q, k, v and the output, the 5 sizes, the true
+# head width, the type and the stream, 28 int64 values in one buffer (one
+# foreign argument).
+_PACK = struct.Struct("=28q").pack
 
 
-def sdpa_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """q (B, H, Nq, D), k/v (B, H, Nk, D) -> (B, H, Nq, D) in q's type."""
-    scale = q.shape[-1] ** -0.5
+def sdpa_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               scale: float | None = None) -> torch.Tensor:
+    """q (B, H, Nq, D), k/v (B, H, Nk, D) -> (B, H, Nq, D) in q's type; the
+    logits scaled by `scale`, D^-1/2 by default."""
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
     logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
     return torch.matmul(probs, v).to(q.dtype)
@@ -118,30 +129,56 @@ def backward_error_bound(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             2 * u * (p.transpose(-1, -2) @ df.abs()))
 
 
+def padded_width(d: int) -> int:
+    """The instantiation kernel A runs a head of width `d` at: the
+    narrowest of `HEAD_DIMS` that holds it. Raises above `MAX_HEAD_DIM`."""
+    for width in HEAD_DIMS:
+        if d <= width:
+            return width
+    raise ValueError(f"fused_attention takes head widths up to {MAX_HEAD_DIM}, got {d}")
+
+
+def pad_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> tuple:
+    """(q, k, v) zero-padded along d to `padded_width(d)`, as new
+    contiguous tensors (the inputs themselves where d is an instantiation).
+    Attention over the padded heads with the true width's d^-1/2, sliced
+    back to d columns, is attention over the originals."""
+    d = q.shape[-1]
+    pad = padded_width(d) - d
+    if pad == 0:
+        return q, k, v
+    return tuple(torch.nn.functional.pad(t, (0, pad)) for t in (q, k, v))
+
+
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Kernel A on CUDA tensors q (B, H, Nq, 64), k/v (B, H, Nk, 64), of one
-    type, float32 or bfloat16, read through their strides. The last
-    dimension must be contiguous, every start 16-byte aligned and every
-    other stride a multiple of 8 elements in bfloat16, of 4 in float32 (the
-    kernel checks, and this raises on a layout it refuses). Returns (B, H,
-    Nq, 64), the transposed view of a contiguous (B, Nq, H, 64) buffer."""
+    """Kernel A on CUDA tensors q (B, H, Nq, d), k/v (B, H, Nk, d), d from
+    1 to 128, of one type, float32 or bfloat16, read through their strides
+    where d is one of `HEAD_DIMS`, else first zero-padded to the next of
+    them (`pad_heads`). The last dimension must be contiguous, every start
+    16-byte aligned and every other stride a multiple of 8 elements in
+    bfloat16, of 4 in float32 (the kernel checks, and this raises on a
+    layout it refuses). Returns (B, H, Nq, d), the transposed view of a
+    contiguous (B, Nq, H, d) buffer, or, for a padded width, that view's
+    first d columns."""
     dev = q.get_device()  # -1 for a CPU tensor
     if dev < 0 or k.get_device() != dev or v.get_device() != dev:
         raise ValueError("fused_attention takes CUDA tensors on one device")
     dtype = q.dtype
     if dtype not in _DTYPES or k.dtype != dtype or v.dtype != dtype:
         raise ValueError(f"fused_attention takes float32 or bfloat16, got {dtype}")
-    if q.dim() != 4 or q.shape[-1] != HEAD_DIM:
-        raise ValueError(f"fused_attention takes (B, H, N, {HEAD_DIM}), got {tuple(q.shape)}")
-    b, h, nq, d = q.shape
+    if q.dim() != 4 or q.shape[-1] < 1:
+        raise ValueError(f"fused_attention takes (B, H, N, d), got {tuple(q.shape)}")
+    b, h, nq, d_true = q.shape
     nk = k.shape[2]
-    if k.shape != (b, h, nk, d) or v.shape != k.shape:
+    if k.shape != (b, h, nk, d_true) or v.shape != k.shape:
         raise ValueError(f"k/v shape {tuple(k.shape)}/{tuple(v.shape)} do not fit q {tuple(q.shape)}")
+    q, k, v = pad_heads(q, k, v)
+    d = q.shape[-1]
     out = torch.empty_strided((b, h, nq, d), (nq * h * d, d, h * d, 1), dtype=dtype,
                               device=q.device)
     args = _PACK(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *q.stride(),
-                 *k.stride(), *v.stride(), *out.stride(), b, h, nq, nk, d, _DTYPES[dtype],
-                 torch._C._cuda_getCurrentRawStream(dev))
+                 *k.stride(), *v.stride(), *out.stride(), b, h, nq, nk, d, d_true,
+                 _DTYPES[dtype], torch._C._cuda_getCurrentRawStream(dev))
     lib = build.load("attention", _SIGNATURES)
     with build.on_card(dev):
         err = lib.attn_forward(args)
@@ -155,11 +192,14 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
         raise RuntimeError(f"attention kernel launch failed: error {err}")
     fused_attention.launches += 1
     fused_attention.route_launches[_ROUTES[dtype]] += 1
-    return out
+    widths = fused_attention.width_launches
+    widths[d_true] = widths.get(d_true, 0) + 1
+    return out if d == d_true else out[..., :d_true]
 
 
 fused_attention.launches = 0  # every launch
 fused_attention.route_launches = {"bf16_tc": 0, "f32": 0}  # launches per route
+fused_attention.width_launches = {}  # launches per true head width
 
 
 class KernelAttention(torch.autograd.Function):

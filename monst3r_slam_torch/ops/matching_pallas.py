@@ -53,6 +53,9 @@ PHASES = ("stage", "ray", "stencil", "full")
 # sequence (`test_tensor_core_descriptor_sums_stay_within_the_rounding_allowance`).
 ROUNDING_C = 256
 _CHECK_CHUNK = 64  # queries `rounding_check` re-scores at once
+# Descriptor widths kernel B is instantiated at; a narrower width is
+# zero-padded to the next of them (`pad_descriptors`).
+DESC_DIMS = (16, 24, 32)
 
 
 class PallasTileConfig(NamedTuple):
@@ -203,9 +206,24 @@ def rounding_check(rays_img, desc_img, q_rays, q_desc, corners, crop: int, windo
     return passes, exact
 
 
+def pad_descriptors(desc_img, q_desc):
+    """(desc_img, q_desc) zero-padded along their last dimension to the
+    narrowest of `DESC_DIMS` that holds it (the inputs themselves at an
+    instantiated width or above 32). Exact: a zero channel adds an exact
+    zero to every descriptor score, in the plain version's sums and on the
+    tensor cores alike, so matches and `rounding_check` do not move."""
+    fd = desc_img.shape[-1]
+    width = next((n for n in DESC_DIMS if fd <= n), fd)
+    if width == fd:
+        return desc_img, q_desc
+    return (torch.nn.functional.pad(desc_img, (0, width - fd)),
+            torch.nn.functional.pad(q_desc, (0, width - fd)))
+
+
 def _launch(entry: str, rays_img, desc_img, q_rays, q_desc, corners, crop: int, window: int,
             conv_thresh: float, *extra):
-    """Check the arguments kernel B takes and launch its C entry `entry`."""
+    """Check the arguments kernel B takes, zero-pad descriptors narrower
+    than 32 to an instantiated width, and launch its C entry `entry`."""
     h, w, _ = rays_img.shape
     T, tsz, _ = q_rays.shape
     fd = desc_img.shape[-1]
@@ -221,6 +239,7 @@ def _launch(entry: str, rays_img, desc_img, q_rays, q_desc, corners, crop: int, 
     if q_desc.shape != (T, tsz, fd) or corners.shape != (T, 2):
         raise ValueError(f"unsupported shapes: desc {tuple(desc_img.shape)}, "
                          f"q_desc {tuple(q_desc.shape)}, corners {tuple(corners.shape)}")
+    desc_img, q_desc = pad_descriptors(desc_img, q_desc)
     lib = build.load("tile_match", _SIGNATURES)
     u = torch.empty((T, tsz), dtype=torch.int32, device=rays_img.device)
     v = torch.empty_like(u)
@@ -230,15 +249,16 @@ def _launch(entry: str, rays_img, desc_img, q_rays, q_desc, corners, crop: int, 
         err = getattr(lib, entry)(
             rays_img.data_ptr(), desc_img.data_ptr(), q_rays.data_ptr(), q_desc.data_ptr(),
             corners.data_ptr(), u.data_ptr(), v.data_ptr(), conv.data_ptr(),
-            T, tsz, h, w, fd, crop, window, conv_thresh, stream, *extra,
+            T, tsz, h, w, desc_img.shape[-1], crop, window, conv_thresh, stream, *extra,
         )
     if err == 1000:
         raise ValueError(
             f"tile_match_kernel does not take fd {fd}, {tsz} queries a tile, crop {crop} on a "
             f"{h}x{w} image, or images {rays_img.data_ptr() % 16} / {desc_img.data_ptr() % 16} / "
-            f"{q_desc.data_ptr() % 16} bytes past 16-byte alignment: it takes fd 16, 24 or 32, at "
-            "most 256 queries, a crop and an image width that are multiples of 4 (its bulk "
-            "copies move whole 16-byte crop rows), and crops that fit a block's shared memory")
+            f"{q_desc.data_ptr() % 16} bytes past 16-byte alignment: it takes fd up to 32 "
+            "(a width other than 16, 24 or 32 zero-padded to the next), at most 256 queries, a "
+            "crop and an image width that are multiples of 4 (its bulk copies move whole "
+            "16-byte crop rows), and crops that fit a block's shared memory")
     if err != 0:
         raise RuntimeError(f"tile_match kernel launch failed: error {err}")
     return u, v, conv.bool()

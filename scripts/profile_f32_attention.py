@@ -10,14 +10,16 @@ decoder shapes and at `chip_smoke.F32_TRAIN_SHAPES`, prints each build's
 device time (`chip_smoke.device_ms`) beside the split the shipped library
 chooses and its time, so the choice can be checked against the measured best,
 and how many clusters of each size the card holds at once (what the choice
-reads).
+reads). With `--width D` it times the route at head width D (padded to
+the instantiation kernel A runs it at, as the wrapper pads it) in place of
+64, to check the choice at each instantiation.
 
 It also times two FMA-only kernels over the whole card, 16 warps an SM: 16
 independent FMA chains a thread (one fresh register operand an FMA), and the
 8x8 outer product from registers that the route's P V product issues (two
 fresh operands an FMA), in TFLOP/s against the 67 TFLOP/s peak.
 
-    python3 scripts/profile_f32_attention.py [--seed 0]
+    python3 scripts/profile_f32_attention.py [--seed 0] [--width 64]
 """
 
 from __future__ import annotations
@@ -92,8 +94,10 @@ def build_split_libraries() -> dict:
     return libs
 
 
-def launch(lib, q, k, v):
-    """`attention.fused_attention`'s launch through another build of the library."""
+def launch(lib, q, k, v, d_true):
+    """`attention.fused_attention`'s launch through another build of the
+    library, on heads already padded to an instantiation (`d_true` the
+    width before padding); returns the padded output."""
     import torch
 
     from monst3r_slam_torch.ops import attention
@@ -102,8 +106,8 @@ def launch(lib, q, k, v):
     out = torch.empty_strided((b, h, nq, d), (nq * h * d, d, h * d, 1), dtype=q.dtype,
                               device=q.device)
     args = attention._PACK(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *q.stride(),
-                           *k.stride(), *v.stride(), *out.stride(), b, h, nq, k.shape[2], d, 0,
-                           torch.cuda.current_stream().cuda_stream)
+                           *k.stride(), *v.stride(), *out.stride(), b, h, nq, k.shape[2], d,
+                           d_true, 0, torch.cuda.current_stream().cuda_stream)
     err = lib.attn_forward(args)
     if err != 0:
         raise RuntimeError(f"attention launch failed: error {err}")
@@ -149,6 +153,8 @@ def fma_ceilings() -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--width", type=int, default=64,
+                    help="head width of the shapes timed (1-128; default 64)")
     args = ap.parse_args()
 
     import numpy as np
@@ -165,26 +171,33 @@ def main() -> int:
 
     libs = build_split_libraries()
     shipped_lib = build.load("attention", attention._SIGNATURES)
-    shipped_lib.attn_f32_clusters.argtypes = [ctypes.c_int]
+    width = attention.padded_width(args.width)
+    shipped_lib.attn_f32_clusters.argtypes = [ctypes.c_int, ctypes.c_int]
     shipped_lib.attn_f32_clusters.restype = ctypes.c_int
-    result_clusters = {g: shipped_lib.attn_f32_clusters(g) for g in SPLITS}
-    print("clusters the card holds at once, by split: " + ", ".join(
+    result_clusters = {g: shipped_lib.attn_f32_clusters(g, width) for g in SPLITS}
+    print(f"clusters the card holds at once at width {width}, by split: " + ", ".join(
         f"{g}: {n}" for g, n in result_clusters.items()), flush=True)
     rng = np.random.default_rng(args.seed)
-    shapes = [(1, 16, 768, 64), (1, 12, 768, 64), *chip_smoke.F32_TRAIN_SHAPES]
-    result = dict(card=card, clusters=result_clusters, shapes=[])
+    shapes = [(*s[:3], args.width) for s in ((1, 16, 768), (1, 12, 768),
+                                             *chip_smoke.F32_TRAIN_SHAPES)]
+    result = dict(card=card, width=args.width, instantiation=width, clusters=result_clusters,
+                  shapes=[])
     for shape in shapes:
         q, k, v = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to("cuda")
                    for _ in range(3))
         ref = attention.sdpa_plain(q, k, v)
+        qp, kp, vp = attention.pad_heads(q, k, v)
         by_split = {}
         for g, lib in libs.items():
-            err = float((launch(lib, q, k, v) - ref).abs().max())
+            got = launch(lib, qp, kp, vp, args.width)[..., :args.width]
+            err = float((got - ref).abs().max())
             if not err <= attention.error_bound(q, k, v, ref):
                 raise RuntimeError(f"split {g} at {shape}: max abs err {err}")
-            by_split[g] = chip_smoke.device_ms(lambda: launch(lib, q, k, v), iters=50)
+            by_split[g] = chip_smoke.device_ms(lambda: launch(lib, qp, kp, vp, args.width),
+                                               iters=50)
         chosen = chip_smoke.f32_split(shape)
-        shipped = chip_smoke.device_ms(lambda: attention.fused_attention(q, k, v), iters=50)
+        shipped = chip_smoke.device_ms(lambda: launch(shipped_lib, qp, kp, vp, args.width),
+                                       iters=50)
         best = min(by_split, key=by_split.get)
         result["shapes"].append(dict(shape=list(shape), device_ms=by_split, chosen=chosen,
                                      shipped_ms=shipped, best=best))

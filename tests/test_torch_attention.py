@@ -30,6 +30,62 @@ def test_plain_sdpa_matches_pallas_interpret(q_shape, kv_shape):
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=2e-5, rtol=1e-4)
 
 
+# Every head width class kernel A takes: below, at and between its
+# instantiations (16, 32, 64, 128); the last case is ragged (Nq != Nk).
+WIDTH_CASES = [((1, 2, 64, d), (1, 2, 64, d)) for d in (8, 12, 16, 24, 32, 48, 80, 96, 128)] + [
+    ((1, 3, 48, 12), (1, 3, 80, 12))]
+
+
+@pytest.mark.parametrize("q_shape,kv_shape", WIDTH_CASES)
+def test_plain_sdpa_matches_pallas_interpret_at_every_width(q_shape, kv_shape):
+    """The reference's kernel reads d from q's shape; the port's plain
+    version matches it at every width kernel A takes (1-128), f32, to the
+    tolerance of tests/test_attention.py."""
+    rng = np.random.default_rng(sum(q_shape) + sum(kv_shape))
+    q, k, v = (rng.standard_normal(s).astype(np.float32) for s in (q_shape, kv_shape, kv_shape))
+    ref = jatt.fused_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), interpret=True)
+    got = tatt.sdpa(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=2e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("d", [16, 12])
+def test_plain_sdpa_bf16_casts_probs_like_jax_at_tiny_widths(d):
+    """TINY's encoder (16) and decoder (12) head widths in bf16: the same
+    rounding points as JAX's XLA path, to one bf16 ulp of the output."""
+    rng = np.random.default_rng(d)
+    q, k, v = (rng.standard_normal((1, 2, 96, d)).astype(np.float32) for _ in range(3))
+    ref = jatt.sdpa(*(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)), use_pallas=False)
+    got = tatt.sdpa(*(torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v)))
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(ref, np.float32), atol=8e-3)
+
+
+@pytest.mark.parametrize("d,width", [(1, 16), (8, 16), (12, 16), (16, 16), (24, 32), (33, 64),
+                                     (48, 64), (64, 64), (80, 128), (96, 128), (127, 128)])
+def test_padded_heads_give_the_unpadded_attention(d, width):
+    """`pad_heads` pads q, k and v with zero columns to kernel A's next
+    instantiation; attention over the padded heads scaled by the true
+    width's d^-1/2 and sliced back to d columns is attention over the
+    originals, within 1e-6 (f32: the zero products add exact zeros; only
+    the matmuls' blocking may differ)."""
+    rng = np.random.default_rng(d)
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, 3, n, d), dtype=np.float32))
+               for n in (40, 56, 56))
+    qp, kp, vp = tatt.pad_heads(q, k, v)
+    assert tatt.padded_width(d) == width
+    assert all(t.shape[-1] == width for t in (qp, kp, vp))
+    assert all(torch.equal(t[..., :d], s) and not t[..., d:].any()
+               for t, s in ((qp, q), (kp, k), (vp, v)))
+    got = tatt.sdpa_plain(qp, kp, vp, scale=d**-0.5)[..., :d]
+    np.testing.assert_allclose(got.numpy(), tatt.sdpa_plain(q, k, v).numpy(), atol=1e-6, rtol=0)
+
+
+def test_heads_wider_than_128_are_refused():
+    x = torch.zeros((1, 1, 8, 136))
+    with pytest.raises(ValueError, match="up to 128"):
+        tatt.pad_heads(x, x, x)
+
+
 def test_plain_sdpa_bf16_casts_probs_like_jax():
     """bf16 inputs: f32 logits/softmax, probabilities rounded to bf16 before
     the PV product, bf16 output — the same rounding points as the JAX XLA

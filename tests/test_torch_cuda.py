@@ -42,67 +42,82 @@ ATTENTION_CASES = [(2, 3, 768, 768), (2, 3, 196, 196), (2, 3, 48, 80), (2, 3, 13
 # 32-query warps and its 16-key tiles.
 F32_CASES = [(2, 8, 196, 196), (2, 6, 196, 196), (4, 16, 196, 196), (2, 12, 768, 768)] + [
     (2, 3, nq, nk) for nq in (1, 31, 33, 65, 129) for nk in (7, 63, 65, 769)]
+# Head widths other than 64: below, at and between kernel A's instantiations
+# (16, 32, 64, 128); the f32 route's 128-wide instantiation takes 64-row
+# blocks of 16-row warps, its 16-wide one 8-byte V loads, so both also at
+# `F32_CASES`' counts.
+WIDTHS = (8, 12, 16, 24, 32, 48, 80, 96, 128)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,logit_scale,b,h,nq,nk", [
-    (dtype, scale, *case) for dtype, scale in ((torch.float32, 1), (torch.bfloat16, 1),
-                                               (torch.bfloat16, 8), (torch.float32, 8))
+@pytest.mark.parametrize("dtype,logit_scale,b,h,nq,nk,d", [
+    (dtype, scale, *case, 64) for dtype, scale in ((torch.float32, 1), (torch.bfloat16, 1),
+                                                   (torch.bfloat16, 8), (torch.float32, 8))
     for case in ATTENTION_CASES] + [
-    (torch.float32, scale, *case) for scale in (1, 8) for case in F32_CASES])
-def test_attention_kernel_matches_plain(cuda, dtype, logit_scale, b, h, nq, nk):
+    (torch.float32, scale, *case, 64) for scale in (1, 8) for case in F32_CASES] + [
+    (dtype, scale, *case, d) for d in WIDTHS for dtype in (torch.float32, torch.bfloat16)
+    for scale in (1, 8) for case in ATTENTION_CASES] + [
+    (torch.float32, 8, *case, d) for d in (16, 128) for case in F32_CASES])
+def test_attention_kernel_matches_plain(cuda, dtype, logit_scale, b, h, nq, nk, d):
     """Both routes at `ATTENTION_CASES` and the f32 route at `F32_CASES`,
-    within `attention.error_bound` (f32: 2e-5; bf16: from its two bf16
-    roundings, of P and of O), with unit logits and with logits 8x the unit
-    scale (a peaked softmax), where in bf16 logits rounded to bf16 would
-    exceed the bound (tests/test_torch_attention.py shows that on the
-    kernel's arithmetic emulated on the CPU)."""
-    rng = np.random.default_rng(nq + nk)
-    q, k, v = (torch.from_numpy(rng.standard_normal((b, h, n, 64), dtype=np.float32))
+    at head width 64 and at `WIDTHS`, within `attention.error_bound` (f32:
+    2e-5; bf16: from its two bf16 roundings, of P and of O), with unit
+    logits and with logits 8x the unit scale (a peaked softmax), where in
+    bf16 logits rounded to bf16 would exceed the bound
+    (tests/test_torch_attention.py shows that on the kernel's arithmetic
+    emulated on the CPU). Each call is one launch, counted at its route and
+    at its true width."""
+    rng = np.random.default_rng(nq + nk + d)
+    q, k, v = (torch.from_numpy(rng.standard_normal((b, h, n, d), dtype=np.float32))
                .to(cuda, dtype) for n in (nq, nk, nk))
     q = q * logit_scale
     route = "bf16_tc" if dtype == torch.bfloat16 else "f32"
     before = attention.fused_attention.launches
     before_route = attention.fused_attention.route_launches[route]
+    before_width = attention.fused_attention.width_launches.get(d, 0)
     got = attention.sdpa(q, k, v)
     torch.cuda.synchronize()
     assert attention.fused_attention.launches == before + 1
     assert attention.fused_attention.route_launches[route] == before_route + 1
+    assert attention.fused_attention.width_launches[d] == before_width + 1
     assert got.dtype == dtype and got.shape == q.shape
     ref = attention.sdpa_plain(q.float(), k.float(), v.float())
     assert float((got.float() - ref).abs().max()) <= attention.error_bound(q, k, v, ref)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_attention_kernel_reads_and_writes_through_strides(cuda, dtype):
+def test_attention_kernel_reads_and_writes_through_strides(cuda, dtype, d):
     """q, k, v as the model's heads split makes them: transposed views of
-    one fused projection output, read in place. The output is the (B, H, N,
-    64) view of a contiguous (B, N, H, 64) buffer, so the heads merge is a
-    view."""
+    one fused projection output, read in place, at each instantiated head
+    width. The output is the (B, H, N, d) view of a contiguous (B, N, H, d)
+    buffer, so the heads merge is a view."""
     b, n, h = 2, 196, 3
     rng = np.random.default_rng(5)
-    qkv = torch.from_numpy(rng.standard_normal((b, n, 3 * h * 64), dtype=np.float32)).to(cuda, dtype)
-    q, k, v = (t.reshape(b, n, h, 64).transpose(1, 2) for t in qkv.chunk(3, dim=-1))
+    qkv = torch.from_numpy(rng.standard_normal((b, n, 3 * h * d), dtype=np.float32)).to(cuda, dtype)
+    q, k, v = (t.reshape(b, n, h, d).transpose(1, 2) for t in qkv.chunk(3, dim=-1))
     assert not v.is_contiguous()
     got = attention.sdpa(q, k, v)
     torch.cuda.synchronize()
-    assert got.shape == (b, h, n, 64) and got.transpose(1, 2).is_contiguous()
-    assert got.transpose(1, 2).reshape(b, n, h * 64).data_ptr() == got.data_ptr()
+    assert got.shape == (b, h, n, d) and got.transpose(1, 2).is_contiguous()
+    assert got.transpose(1, 2).reshape(b, n, h * d).data_ptr() == got.data_ptr()
     ref = attention.sdpa_plain(q.float(), k.float(), v.float())
     assert float((got.float() - ref).abs().max()) <= attention.error_bound(q, k, v, ref)
 
 
 @pytest.mark.cuda
 def test_attention_kernel_refuses_what_it_does_not_take(cuda):
-    """Wrong head dim or type; and layouts the kernel cannot read in place,
-    which it refuses rather than copy: a last dimension that is not
-    contiguous, a start that is not 16-byte aligned, or a row stride that is
-    not a multiple of 8 elements in bf16 and of 4 in f32. The model's
-    transposed views of one fused projection are taken on both routes."""
-    x = torch.zeros((1, 2, 16, 32), device=cuda)
-    with pytest.raises(ValueError):
-        attention.fused_attention(x, x, x)  # head dim 32
+    """A head wider than 128 or a wrong type; and layouts the kernel cannot
+    read in place, which it refuses rather than copy: a last dimension that
+    is not contiguous, a start that is not 16-byte aligned, or a row stride
+    that is not a multiple of 8 elements in bf16 and of 4 in f32. The
+    model's transposed views of one fused projection are taken on both
+    routes."""
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.zeros((1, 2, 16, 136), device=cuda, dtype=dtype)
+        with pytest.raises(ValueError, match="up to 128"):
+            attention.fused_attention(x, x, x)  # head dim 136
     y = torch.zeros((1, 2, 16, 64), device=cuda, dtype=torch.float16)
     with pytest.raises(ValueError):
         attention.fused_attention(y, y, y)
@@ -128,13 +143,15 @@ def test_attention_kernel_refuses_what_it_does_not_take(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape,nk", [((4, 16, 196, 64), 196), ((1, 16, 768, 64), 768),
-                                      ((2, 3, 130, 64), 7)])
+                                      ((2, 3, 130, 64), 7), ((2, 4, 196, 16), 196),
+                                      ((2, 4, 196, 12), 196)])
 def test_attention_function_gradient_matches_the_plain_autograd(cuda, dtype, shape, nk):
     """Kernel A's autograd Function, as the training forward reaches it
     through `sdpa` with grad enabled: one kernel A launch forward and none
     backward; the forward within `attention.error_bound` and dq, dk, dv
     within `attention.backward_error_bound` of the f32 plain autograd, at
-    the 224x224 training shape, at 768 tokens and at a ragged count. With
+    the 224x224 training shape, at 768 tokens, at a ragged count and at the
+    TINY config's head widths (16, 12; the latter zero-padded to 16). With
     grad disabled `sdpa` launches kernel A directly and records nothing."""
     rng = np.random.default_rng(shape[2] + nk)
     b, h, nq, d = shape
@@ -194,12 +211,14 @@ def _kernel_args(args, crop=48, window=15):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("T", [6, 301])
-@pytest.mark.parametrize("fd", [16, 24, 32])
+@pytest.mark.parametrize("fd", [8, 16, 20, 24, 32])
 def test_tile_match_kernel_matches_plain(cuda, fd, T):
     """Through the dispatch, at a tile count under the persistent grid and
-    one that is no multiple of it. The ray match (the stencil cut) and the
-    convergence flags equal the plain version's; the descriptor match passes
-    `rounding_check` (the tensor cores sum in their own order)."""
+    one that is no multiple of it, at the instantiated descriptor widths and
+    at 8 and 20, which the wrapper zero-pads to 16 and 24. The ray match
+    (the stencil cut) and the convergence flags equal the plain version's;
+    the descriptor match passes `rounding_check` (the tensor cores sum in
+    their own order)."""
     args = _tile_args(cuda, fd + T, fd, T)
     before = matching_pallas.tile_match_kernel.launches
     u, v, conv = matching_pallas.tile_match(

@@ -114,3 +114,26 @@ def test_rounding_check_rejects_a_flipped_convergence_flag():
     conv[1, 3] = ~conv[1, 3]
     passes, exact = _check(args, 15, (u, v, conv))
     assert not passes[1, 3] and not exact[1, 3] and passes.sum() == T * TSZ - 1
+
+
+@pytest.mark.parametrize("fd,width", [(8, 16), (12, 16), (20, 24)])
+def test_zero_padded_descriptors_match_bit_for_bit(fd, width):
+    """Kernel B's wrapper zero-pads a descriptor width other than 16, 24 or
+    32 to the next of them (`pad_descriptors`): the plain version on the
+    padded descriptors gives the originals' matches bit for bit, since a
+    zero channel adds an exact zero to every score."""
+    rng = np.random.default_rng(fd)
+    rays = rng.standard_normal((H, W, 3)).astype(np.float32)
+    rays /= np.linalg.norm(rays, axis=-1, keepdims=True)
+    q = rng.standard_normal((T, TSZ, 3)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=-1, keepdims=True)
+    desc, qd = (torch.from_numpy(_bf16(rng.standard_normal(s)))
+                for s in ((H, W, fd), (T, TSZ, fd)))
+    pd, pq = tmp.pad_descriptors(desc, qd)
+    assert pd.shape == (H, W, width) and pq.shape == (T, TSZ, width)
+    assert torch.equal(pd[..., :fd], desc) and not pd[..., fd:].any() and not pq[..., fd:].any()
+    rays, q = torch.from_numpy(rays), torch.from_numpy(q)
+    for window in (3, 15):
+        want = tmp.tile_match_plain(rays, desc, q, qd, CORNERS, CROP, window, THRESH)
+        got = tmp.tile_match_plain(rays, pd, q, pq, CORNERS, CROP, window, THRESH)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
