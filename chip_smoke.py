@@ -40,7 +40,7 @@ phase printing one line:
      and a ragged (1, 4, 100, 300), through the dispatch with its plain
      version made to fail, each within `error_bound` with a launch counted
      at its width, timed with the padding's own cost, SDPA's and the bound;
-     width 136 refused; kernel B at fd 20 (padded to 24) under
+     width 257 refused; kernel B at fd 20 (padded to 24) under
      `rounding_check` and timed beside fd 24; then the TINY config's entry
      points with their default device, the card: `train_torch.py --tiny
      --synthetic --steps 3` and `demo_pair_torch.py` in-process (finite
@@ -50,15 +50,27 @@ phase printing one line:
      --synthetic --max-frames 3` (trajectory and ATE line),
      `demo_pair_torch.py` in bf16, and `main_monster_torch.py` and
      `main_easier_torch.py` on TINY checkpoints (exports checked);
-  5. the model and the matcher on the card against the port's plain CPU
+  5. the shapes the reference's kernels take beyond the main path's
+     (`phase_wide`; alone with `--only-wide`): kernel B through its banded
+     variant at 384x512 with the default `PallasTileConfig()` (crop 64), at
+     crop 48 with fd 48, 64, 96 and 119, at tile 32 (1,024 queries a tile)
+     and at crop 50, each with flags and ray matches equal to the plain
+     version's and under `rounding_check`, timed; kernel A at (1,4,768,256)
+     and (1,6,768,160) on both routes; MAST3R_512 re-headed through
+     `config_from_arch_string` (heads 256 and 192 wide) decoding a pair in
+     f32 and bf16 against the decode with the plain attention; and the
+     oracle SLAM path for 16 frames at `TiledConfig(crop=64)` and
+     `TiledConfig(tile=32, crop=64)`, every kernel B call banded and held to
+     its plain version, against a run with the plain version in its place;
+  6. the model and the matcher on the card against the port's plain CPU
      path on a small pair (MAST3R_512 widths, cut depth, f32);
-  6. the main path: the port's synchronous SLAMSystem at MAST3R_512 full
+  7. the main path: the port's synchronous SLAMSystem at MAST3R_512 full
      width with random bf16 weights from `--seed`, on `--frames` 384x512
      frames, one of them forced to be a keyframe so that a keyframe event
      decodes and matches the new graph edge and runs the global
      Gauss-Newton. The launch counters are zeroed just before and read just
      after; every attention launch must take the bf16 tensor-core route;
-  7. the main path as `main.py` runs it by default, through the port's
+  8. the main path as `main.py` runs it by default, through the port's
      entry point `main_torch.py` with config/base.yaml: the backend on its
      worker thread with the f64 host solve, tracking decisions two frames
      late, retrieval on a k-means-bootstrapped codebook, relocalization and
@@ -67,10 +79,10 @@ phase printing one line:
      repeated frames with one frame of noise, which must track, solve a
      keyframe event on the worker, lose the noise frame and relocalize.
      Frames and the CLI's outputs go under build/smoke_main/ and logs/;
-  8. RAFT on the card against the port's CPU path on a small pair (full
+  9. RAFT on the card against the port's CPU path on a small pair (full
      widths, 3 iterations, f32), and `raft_flow` timed at 384x512 and 20
      iterations (`phase_raft_reference`);
-  9. the dynamic pipeline as `main_monster_slam.py` runs it, through the
+ 10. the dynamic pipeline as `main_monster_slam.py` runs it, through the
      port's entry point `main_monster_torch.py` (`phase_dynamic`): the CLI
      unchanged in a subprocess on config/dynamic_mask_test.yaml with the
      calibration and random RAFT; `main_monster_torch.run` in-process at
@@ -82,7 +94,7 @@ phase printing one line:
      which must launch kernel A 120 times and kernel B once per tracked
      frame; and the device busy share of `scripts/profile_torch_slice.py
      --dynamic`. Frames go under build/smoke_dynamic/;
- 10. SAM2 mask refinement on the dynamic path (`phase_sam2`): Hiera-B+
+ 11. SAM2 mask refinement on the dynamic path (`phase_sam2`): Hiera-B+
      (SAM2_BASE_PLUS, 1024x1024) and the video predictor (VIDEO_BASE_PLUS)
      on the card against the port's CPU path, `sam2_encode` and a video
      step timed; `main_monster_torch.py` unchanged in a subprocess with
@@ -92,7 +104,7 @@ phase printing one line:
      (random weights), which must be called on every masked frame while
      both kernels launch, and its host-refinement stage beside the native
      refiner's;
- 11. the Easi3R pipeline as `main_easier_slam.py` runs it, through the port's
+ 12. the Easi3R pipeline as `main_easier_slam.py` runs it, through the port's
      `main_easier_torch.py` (`phase_easi3r`): the double inference at
      MONST3R_512 full depth on the card against the CPU path in f32 (token
      masks equal) and the bf16 masks' difference, pass 1, the double
@@ -102,16 +114,16 @@ phase printing one line:
      attention masks applied and decode keyframe edges, then 3 frames
      synchronized one by one with 120 kernel A and 1 kernel B launches each;
      and the CLI unchanged in a subprocess with `--no-viz`;
- 12. the live viewer (`phase_viewer`): `main_torch.run` on the main phase's
+ 13. the live viewer (`phase_viewer`): `main_torch.run` on the main phase's
      tied setup with a started `LiveViewer`, its `/state.bin` and
      `/frame.bin` fetched over 127.0.0.1 during the run and checked, runs
      with and without it in turns, `_surfel_snapshot` on the card against
      the CPU, a run ended by a POSTed terminate, and `main_torch.py`
      without `--no-viz` in a subprocess;
- 13. the rest of SLAMSystem (`phase_rest`: the LM matcher, the fusion
+ 14. the rest of SLAMSystem (`phase_rest`: the LM matcher, the fusion
      modes, symmetric and fused-head decode, state files, chunked tracking;
      alone with `--only-rest`);
- 14. the SLAM path's device mesh (`phase_mesh`; alone with `--only-mesh`)
+ 15. the SLAM path's device mesh (`phase_mesh`; alone with `--only-mesh`)
      at MAST3R_512, 384x512, on the slice's tied weights and frame: with one
      card a (4, 2) mesh whose entries all name cuda:0 (the dp shards run
      one after the other), with several `make_mesh()` over the cards too
@@ -128,7 +140,7 @@ phase printing one line:
      the sharded Gauss-Newton against the unsharded one on the end state,
      its edges spread over the shards (1e-4); and the dual decode on the
      first two mesh devices against `monst3r_asymmetric_inference` (equal);
- 15. the oracle scene through the full-width SLAM path (`phase_oracle`;
+ 16. the oracle scene through the full-width SLAM path (`phase_oracle`;
      alone with `--only-oracle`): MAST3R_512 random bf16 weights, 384x512,
      config/base.yaml as shipped (worker), 96 frames of `utils/oracle.py`'s
      ground-truth trajectory (0.12 a frame) through `process_frame`, no
@@ -145,7 +157,7 @@ phase printing one line:
      Sim(3)-aligned ATE under 3.3% of the trajectory's extent; then
      `scripts/demo_pair_torch.py` unchanged in a subprocess on oracle
      frames 0 and 1 (its files, time and launch counts);
- 16. the training path (`phase_train`; alone with `--only-train`): the
+ 17. the training path (`phase_train`; alone with `--only-train`): the
      backend workers of earlier phases stopped; `train_torch.py` unchanged
      in a subprocess at MAST3R_512 (8 steps, batch 4, 224x224, with
      `--save` and `--ckpt-dir`), and beside its file writes, which use
@@ -183,8 +195,10 @@ of the camera (`front_depth`), which the calibrated tracker and the
 ego-motion flow need, and raises the mask threshold (`DYN_THRESHOLD`).
 
 Then one JSON line with the kernel table (each kernel's launches on every
-path, `sam2`, `easi3r`, `viewer`, `mesh`, `oracle`, `train_mesh` and
-`heads` included; kernel A's checked head widths) and, last, the
+path, `sam2`, `easi3r`, `viewer`, `mesh`, `oracle`, `train_mesh`, `heads`
+and `wide` included; kernel A's checked head widths, its 256-wide
+instantiation and kernel B's banded variant as rows of their own) and,
+last, the
 `{"ok": true, ...}` line. Exits non-zero without that line when there is no CUDA device, when the port is
 not importable, or when any phase fails.
 """
@@ -306,11 +320,12 @@ def phase_card() -> str:
 COPY_OPS = ("UBLKCP", "UTMALDG")  # SASS of cp.async.bulk and of a TMA tensor load
 
 
-def kernel_instructions(lib: str, fd: int = 24) -> dict:
+def kernel_instructions(lib: str, fd: int = 24, kernel: str = "tile_match_kernel") -> dict:
     """{phase: (bulk copies, tensor-core mma)} in the SASS of kernel B's
-    phase instantiations for `fd` channels: a cut phase whose staging the
-    compiler dropped would show no copy, and a full instantiation off the
-    tensor cores no HMMA."""
+    phase instantiations for `fd` channels (`kernel`: the whole-crop kernel
+    or `tile_match_banded`): a cut phase whose staging the compiler dropped
+    would show no copy, and a full instantiation off the tensor cores no
+    HMMA."""
     from monst3r_slam_torch.ops import build
     from monst3r_slam_torch.ops.matching_pallas import PHASES
 
@@ -321,7 +336,7 @@ def kernel_instructions(lib: str, fd: int = 24) -> dict:
     for ln in sass.splitlines():
         if "Function :" in ln:
             cur = next((ph for i, ph in enumerate(PHASES)
-                        if f"tile_match_kernelILi{fd}ELi{i}E" in ln), None)
+                        if f"{kernel}ILi{fd}ELi{i}E" in ln), None)
             if cur is not None:
                 counts[cur] = [0, 0]
         elif cur is not None:
@@ -354,6 +369,28 @@ def f32_route_instructions(lib: str) -> dict:
     return counts
 
 
+def ptxas_usage(log: str) -> dict:
+    """{kernel instantiation: (registers, spill bytes stored + loaded)} from
+    nvcc's `-Xptxas=-v` output; the instantiations named short, as
+    `attn_fwd_bf16_tc<256>` or `tile_match_banded<24,3>`."""
+    import re
+
+    usage, entry, spill = {}, None, 0
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '\S*?(attn_fwd_[a-z0-9_]+?|tile_match_[a-z]+)"
+                      r"I((?:Li\d+E)+)E", ln)
+        if m:
+            entry = f"{m.group(1)}<{','.join(re.findall(r'Li(\d+)E', m.group(2)))}>"
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            spill = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and entry:
+            usage[entry] = (int(m.group(1)), spill)
+            entry, spill = None, 0
+    return usage
+
+
 def phase_build() -> None:
     from monst3r_slam_torch.ops import build
     from monst3r_slam_torch.ops.matching_pallas import PHASES
@@ -361,20 +398,26 @@ def phase_build() -> None:
     t0 = time.perf_counter()
     logs = build.build(force=True)
     secs = time.perf_counter() - t0
-    usage = []
-    for name, log in logs.items():
-        regs = [ln.split("info    :")[-1].strip() for ln in log.splitlines() if "Used" in ln or "spill" in ln]
-        usage.append(f"{name}: " + "; ".join(regs))
-    print(f"build: {sorted(logs)} in {secs:.1f} s (one nvcc per source, in parallel) | "
-          + " | ".join(usage), flush=True)
-    ins = kernel_instructions(str(build.lib_path("tile_match")))
-    if (sorted(ins) != sorted(PHASES) or not all(cp > 0 for cp, _ in ins.values())
-            or ins["full"][1] == 0):
-        fail(f"kernel B's phase instantiations lost their bulk-copy staging ({'/'.join(COPY_OPS)} "
-             f"in SASS) or its full instantiation its tensor-core mma (HMMA): {ins}")
-    print(f"tile_match phase instantiations keep their bulk-copy staging ({'/'.join(COPY_OPS)}) "
-          "and the full one runs on the tensor cores (HMMA), per phase copies/HMMA: "
-          + ", ".join(f"{ph} {cp}/{mma}" for ph, (cp, mma) in ins.items()), flush=True)
+    usage = {name: ptxas_usage(log) for name, log in logs.items()}
+    spills = {entry: u for entries in usage.values() for entry, u in entries.items() if u[1]}
+    print(f"build: {sorted(logs)} in {secs:.1f} s (one nvcc per source, in parallel); ptxas "
+          "registers (spill bytes stored + loaded) | "
+          + " | ".join(f"{name}: " + ", ".join(f"{entry} {r} ({sp})" for entry, (r, sp)
+                                                in entries.items())
+                       for name, entries in usage.items()), flush=True)
+    if spills:
+        fail(f"kernels spill to local memory: {spills}")
+    for kernel in ("tile_match_kernel", "tile_match_banded"):
+        ins = kernel_instructions(str(build.lib_path("tile_match")), kernel=kernel)
+        if (sorted(ins) != sorted(PHASES) or not all(cp > 0 for cp, _ in ins.values())
+                or ins["full"][1] == 0):
+            fail(f"{kernel}'s phase instantiations lost their bulk-copy staging "
+                 f"({'/'.join(COPY_OPS)} in SASS) or its full instantiation its tensor-core mma "
+                 f"(HMMA): {ins}")
+        print(f"{kernel} phase instantiations (fd 24) keep their bulk-copy staging "
+              f"({'/'.join(COPY_OPS)}) and the full one runs on the tensor cores (HMMA), per "
+              "phase copies/HMMA: "
+              + ", ".join(f"{ph} {cp}/{mma}" for ph, (cp, mma) in ins.items()), flush=True)
     f32 = f32_route_instructions(str(build.lib_path("attention")))
     if f32[F32_COPY_OP] == 0 or any(f32[op] for op in LOCAL_OPS):
         fail(f"kernel A's f32 route lost its asynchronous copies ({F32_COPY_OP}) or spills to "
@@ -508,10 +551,11 @@ def window_positions(ti, window: int) -> int:
     return total
 
 
-def tile_match_inputs(seed: int, fd: int = 24):
+def tile_match_inputs(seed: int, fd: int = 24, crop: int = 48, tile: int = 16):
     """Kernel B's arguments on the 384x512 pair from `seed` with `fd`
     descriptor channels, placed by the matcher's own tile and corner
-    pipeline, with what bounds the call."""
+    pipeline at `crop` and `tile` (`TiledConfig`'s defaults: the main
+    path's), with what bounds the call."""
     import torch
 
     from monst3r_slam_torch.ops import matching, matching_tiled
@@ -520,7 +564,8 @@ def tile_match_inputs(seed: int, fd: int = 24):
     X11, X21, D11, D21 = (torch.from_numpy(a).to("cuda")
                           for a in synthetic_pointmap_pair(seed, fd))
     mcfg = matching.MatchingConfig()
-    ti = matching_tiled.tile_inputs(X11, X21, D21, None, matching_tiled.TiledConfig())
+    ti = matching_tiled.tile_inputs(X11, X21, D21, None,
+                                    matching_tiled.TiledConfig(tile=tile, crop=crop))
     window = mcfg.radius * mcfg.dilation_max
     args = (
         ti.rays_img.contiguous(), D11[0].to(torch.bfloat16).contiguous(),
@@ -590,8 +635,9 @@ def phase_tile_match(seed: int) -> dict:
 
 def phase_tile_match_phases(seed: int) -> dict:
     """Kernel B's phase split on the input of `phase_tile_match`, at the main
-    path's crop of 48 (at the TPU profiler's crop of 64 the crops' slots do
-    not fit a block's shared memory). Stage, ray and stencil must equal their
+    path's crop of 48 (the whole-crop kernel; at the TPU profiler's crop of
+    64 the banded variant runs, whose cuts `tests/test_torch_cuda.py`
+    holds). Stage, ray and stencil must equal their
     plain versions (the same arithmetic in the same order), full pass the
     rounding check; then the four are timed, which is the phase profiler's
     own path: its launch counter is zeroed just before and read just after.
@@ -2020,6 +2066,8 @@ def zero_counts() -> None:
     attn = _counters()[0]
     for fn in _counters():
         fn.launches = 0
+    for fn in _counters()[1:]:
+        fn.variant_launches.update(whole=0, banded=0)
     for route in attn.route_launches:
         attn.route_launches[route] = 0
     attn.width_launches.clear()
@@ -2845,7 +2893,7 @@ def checked_tile_match(slam, record: list):
         matching_tiled.tile_match = kernel
 
 
-def oracle_slam_run(params, frames, matcher: str, join_worker: bool) -> dict:
+def oracle_slam_run(params, frames, matcher: str, join_worker: bool, tcfg=None) -> dict:
     """The oracle SLAMSystem on config/base.yaml as shipped (the backend on
     its worker, retrieval on a k-means-bootstrapped codebook, the matcher's
     `kernel` mode; `matcher` "kernel" as shipped, "plain" through kernel B's
@@ -2853,7 +2901,8 @@ def oracle_slam_run(params, frames, matcher: str, join_worker: bool) -> dict:
     version by `checked_tile_match`), MAST3R_512 at 384x512, every frame
     through `process_frame` with no keyframe forced. With `join_worker` the worker's jobs are waited for
     after each frame, outside the timed call, so two runs apply the same
-    solves at the same frames. The launch counters are zeroed just before
+    solves at the same frames. `tcfg` replaces the matcher's tiling
+    (`SLAMSystem.match_tcfg`). The launch counters are zeroed just before
     and read just after."""
     import torch
 
@@ -2875,6 +2924,8 @@ def oracle_slam_run(params, frames, matcher: str, join_worker: bool) -> dict:
         retrieval_db=retrieval.ASMKDatabase.from_config(cfg))
     if slam._worker is None or slam.match_mode != "kernel":
         fail(f"oracle run: worker {slam._worker is not None}, matcher {slam.match_mode}")
+    if tcfg is not None:
+        slam.match_tcfg = tcfg
     checks = []
     zero_counts()
     t0 = time.perf_counter()
@@ -2894,6 +2945,7 @@ def oracle_slam_run(params, frames, matcher: str, join_worker: bool) -> dict:
     secs = time.perf_counter() - t0
     launches = read_counts()
     routes = dict(_counters()[0].route_launches)
+    variants = dict(_counters()[1].variant_launches)
     slam._backend_jobs.put(None)  # stop the worker: the system is dropped after the phase
     slam._worker.join()
     slam._worker = None
@@ -2908,7 +2960,7 @@ def oracle_slam_run(params, frames, matcher: str, join_worker: bool) -> dict:
                 solves=slam.graph.n_solves, retrieval_queries=len(slam.prof.get("retrieval", [])),
                 backend_job_ms=slam.prof.get("backend_job", []), stall_s=slam.backend_stall_s,
                 ate=rmse, extent=float(np.linalg.norm(np.ptp(gt_xyz, axis=0))),
-                launches=launches, routes=routes)
+                launches=launches, routes=routes, variants=variants)
 
 
 def oracle_demo_pair(seed: int, u8) -> dict:
@@ -3468,7 +3520,7 @@ def train_mesh_grids() -> list:
 @contextlib.contextmanager
 def recorded_attention_shapes(shapes: dict):
     """Every attention of the model's blocks inside (`blocks.sdpa`, kernel A
-    on the card) adds its (B, H, N, 64) to `shapes`; the first call at each
+    on the card) adds its q's shape (B, H, N, d) to `shapes`; the first call at each
     shape also holds its output against the plain version computed in f32
     from the same q, k and v (a shard's heads, with the strides of its qkv
     chunk), within `attention.error_bound`: `shapes` maps each shape to
@@ -3490,7 +3542,7 @@ def recorded_attention_shapes(shapes: dict):
                 tol = attention.error_bound(q, k, v, ref)
             shapes[shape] = (err, tol)
             if not (np.isfinite(err) and err <= tol):
-                fail(f"kernel A at the sharded step's {shape} ({q.dtype}, strides {q.stride()}): "
+                fail(f"kernel A at {shape} ({q.dtype}, strides {q.stride()}): "
                      f"max abs err {err} > {tol}")
         return out
 
@@ -3992,16 +4044,18 @@ HEAD_WIDTHS = (8, 12, 16, 24, 32, 48, 64, 80, 96, 128)
 HEAD_SHAPES = ((1, 16, 768, 768), (2, 8, 196, 196), (1, 4, 100, 300))
 
 
-def heads_attention(seed: int) -> list:
-    """Kernel A at every width of `HEAD_WIDTHS` on both routes and every
-    shape of `HEAD_SHAPES`, through the dispatch `attention.sdpa` (whose
+def heads_attention(seed: int, widths=HEAD_WIDTHS, shapes=HEAD_SHAPES, phase: str = "heads",
+                    refused: int | None = 257) -> list:
+    """Kernel A at every width of `widths` on both routes and every
+    (B, H, Nq, Nk) of `shapes`, through the dispatch `attention.sdpa` (whose
     plain version is made to fail for the call): one launch counted at the
     route and at the true width, the output against the plain version in
     f32 from the same inputs within `attention.error_bound`; at the square
     shapes the kernel's time (`time_ms`, padding included) and device time,
     the padding's own time, the plain version's and SDPA's times beside the
     bound (4 B H Nq Nk d operations at the route's peak, q, k, v read and o
-    written once). A width of 136 must raise ValueError on both routes."""
+    written once). A width of `refused` (one past the widest) must raise
+    ValueError on both routes."""
     import torch
     import torch.nn.functional as F
 
@@ -4014,11 +4068,11 @@ def heads_attention(seed: int) -> list:
 
     rng = np.random.default_rng(seed)
     rows = []
-    for d in HEAD_WIDTHS:
+    for d in widths:
         width = attention.padded_width(d)
         for route, dtype, peak in (("bf16_tc", torch.bfloat16, PEAK_BF16),
                                    ("f32", torch.float32, PEAK_F32)):
-            for b, h, nq, nk in HEAD_SHAPES:
+            for b, h, nq, nk in shapes:
                 q, k, v = (torch.from_numpy(rng.standard_normal((b, h, n, d), dtype=np.float32))
                            .to("cuda", dtype) for n in (nq, nk, nk))
                 before = (fa.launches, fa.route_launches[route], fa.width_launches.get(d, 0))
@@ -4030,14 +4084,14 @@ def heads_attention(seed: int) -> list:
                 torch.cuda.synchronize()
                 after = (fa.launches, fa.route_launches[route], fa.width_launches.get(d, 0))
                 if [a - c for a, c in zip(after, before)] != [1, 1, 1]:
-                    fail(f"heads: width {d} {route} at {(b, h, nq, nk)} counted {before} -> {after}")
+                    fail(f"{phase}: width {d} {route} at {(b, h, nq, nk)} counted {before} -> {after}")
                 if out.shape != q.shape or out.dtype != dtype:
-                    fail(f"heads: width {d} {route} gave {tuple(out.shape)} {out.dtype}")
+                    fail(f"{phase}: width {d} {route} gave {tuple(out.shape)} {out.dtype}")
                 ref = plain(q.float(), k.float(), v.float())
                 err = float((out.float() - ref).abs().max())
                 tol = attention.error_bound(q, k, v, ref)
                 if not (np.isfinite(err) and err <= tol):
-                    fail(f"heads: width {d} {route} at {(b, h, nq, nk)}: max abs err {err} > {tol}")
+                    fail(f"{phase}: width {d} {route} at {(b, h, nq, nk)}: max abs err {err} > {tol}")
                 row = dict(width=d, instantiation=width, route=route, shape=[b, h, nq, nk],
                            max_abs_err=err, tol=tol)
                 if nq == nk:
@@ -4055,7 +4109,7 @@ def heads_attention(seed: int) -> list:
                     if route == "f32":
                         row["split"] = f32_split((b, h, nq, d))
                 rows.append(row)
-                print(f"heads attention d {d} (runs at {width}) {route} {(b, h, nq, nk)}"
+                print(f"{phase} attention d {d} (runs at {width}) {route} {(b, h, nq, nk)}"
                       + (f" split {row['split']}" if "split" in row else "")
                       + f": err {err:.3e} <= {tol:.3e}"
                       + (f"; ms: kernel {row['ms']:.4f} (device {row['device_ms']:.4f}, "
@@ -4063,14 +4117,14 @@ def heads_attention(seed: int) -> list:
                          f"{row['library_ms']:.4f} (device {row['library_device_ms']:.4f}), bound "
                          f"{row['bound_ms']:.5f} ({row['bound_by']})" if "ms" in row else ""),
                       flush=True)
-    for dtype in (torch.float32, torch.bfloat16):
-        x = torch.zeros((1, 2, 16, 136), device="cuda", dtype=dtype)
+    for dtype in (torch.float32, torch.bfloat16) if refused else ():
+        x = torch.zeros((1, 2, 16, refused), device="cuda", dtype=dtype)
         try:
             fa(x, x, x)
         except ValueError as e:
-            print(f"heads attention d 136 {dtype}: refused ({e})", flush=True)
+            print(f"{phase} attention d {refused} {dtype}: refused ({e})", flush=True)
         else:
-            fail(f"heads: kernel A took a head 136 wide in {dtype}")
+            fail(f"{phase}: kernel A took a head {refused} wide in {dtype}")
     return rows
 
 
@@ -4319,6 +4373,267 @@ def phase_heads(seed: int) -> dict:
                 ate_line=ate[0], keyframes=n_kf, cli_s=cli_s, seconds=secs)
 
 
+# Kernel B's shapes in the wide phase, each on the 384x512 pair of
+# `phase_tile_match` and through the banded variant: (label, crop, fd,
+# tile). The first is `PallasTileConfig()`'s own crop, called through
+# `matching_pallas.tile_match` with that default; tile 32 at crop 64 is the
+# reference's crop sweep (scripts/profile_crop.py:49, :90).
+WIDE_TILE_SHAPES = (("crop 64 (PallasTileConfig())", 64, 24, 16), ("crop 48 fd 48", 48, 48, 16),
+                    ("crop 48 fd 64", 48, 64, 16), ("crop 48 fd 96", 48, 96, 16),
+                    ("crop 48 fd 119", 48, 119, 16), ("tile 32 crop 64", 64, 24, 32),
+                    ("crop 50", 50, 24, 16))
+# Kernel A above head width 128: (B, H, Nq, Nk) per width, 160 padded to 256.
+WIDE_HEAD_SHAPES = ((256, (1, 4, 768, 768)), (160, (1, 6, 768, 768)))
+# The matcher's other tilings (`SLAMSystem.match_tcfg`) on the oracle scene.
+WIDE_TILINGS = (("crop 64", dict(crop=64)), ("tile 32 crop 64", dict(tile=32, crop=64)))
+WIDE_FRAMES = 16
+# MAST3R_512 re-headed as a checkpoint's stored constructor string would
+# give it: 4 encoder heads 256 wide, 4 decoder heads 192 wide.
+WIDE_ARCH = ("AsymmetricMASt3R(enc_embed_dim=1024, enc_depth=24, enc_num_heads=4, "
+             "dec_embed_dim=768, dec_depth=12, dec_num_heads=4, output_mode='pts3d+desc24', "
+             "head_type='catmlp+dpt', depth_mode=('exp', -inf, inf), conf_mode=('exp', 1, inf), "
+             "desc_conf_mode=('exp', 0, inf), two_confs=True)")
+
+
+def wide_tile_match(seed: int, card: str) -> list:
+    """Kernel B at `WIDE_TILE_SHAPES` on the 384x512 pair, each call through
+    the banded variant (counted per variant): the flags and the ray matches
+    (the stencil cut) equal to the plain version's, the full output under
+    `rounding_check` (every query passes, >= 99.9% exactly equal); back to
+    back and device ms, the plain version's ms and the bound."""
+    import torch
+
+    from monst3r_slam_torch.ops import matching_pallas as mp
+
+    kern = mp.tile_match_kernel
+    rows = []
+    for label, crop, fd, tile in WIDE_TILE_SHAPES:
+        args, ti, bounds = tile_match_inputs(seed, fd, crop=crop, tile=tile)
+        T, tsz = ti.q_rays.shape[:2]
+        if label.startswith("crop 64 ("):
+            default = mp.PallasTileConfig()
+            if (default.crop, default.window) != (crop, args[6]):
+                fail(f"wide: PallasTileConfig() is {default}, not crop {crop}, window {args[6]}")
+
+            def call():
+                return mp.tile_match(args[0], args[1], args[2], args[3], ti.corners)
+        else:
+            def call():
+                return kern(*args)
+        before = dict(kern.variant_launches)
+        got = call()
+        torch.cuda.synchronize()
+        if kern.variant_launches != dict(before, banded=before["banded"] + 1):
+            fail(f"wide tile_match {label}: variant launches {before} -> {kern.variant_launches}")
+        agree = check_full(args, got, f"wide tile_match {label}")
+        ray = mp.tile_match_phase_kernel(*args, phase="stencil")
+        torch.cuda.synchronize()
+        ray0 = mp.tile_match_plain(*args, phase="stencil")
+        if not (all(torch.equal(a, b) for a, b in zip(ray, ray0)) and torch.equal(got[2], ray0[2])):
+            fail(f"wide tile_match {label}: the ray matches or flags differ from the plain version")
+        u0, v0, _ = mp.tile_match_plain(*args)
+        b_ms, b_by = bound_ms(*bounds["full"])
+        row = dict(label=label, crop=crop, fd=fd, runs_at=mp.padded_fd(fd), tiles=T, queries=tsz,
+                   bands=list(mp.variant(T, tsz, H, W, mp.padded_fd(fd), crop)[1:]),
+                   agree=agree, max_abs_err=float(torch.maximum((got[0] - u0).abs().max(),
+                                                                (got[1] - v0).abs().max())),
+                   ms=time_ms(call), device_ms=device_ms(call),
+                   plain_ms=time_ms(lambda: mp.tile_match_plain(*args), iters=2, warmup=1),
+                   bound_ms=b_ms, bound_by=b_by, library_ms=None, card=card)
+        rows.append(row)
+        print(f"wide tile_match {label} ({card}): fd {fd} (runs at {row['runs_at']}), {T} tiles x "
+              f"{tsz} queries, banded variant ({row['bands'][0]} / {row['bands'][1]} rows a "
+              f"ray / descriptor band); flags and ray matches equal, every query passes the "
+              f"rounding check, exactly equal {agree:.6f}; ms: kernel {row['ms']:.4f}, device "
+              f"{row['device_ms']:.4f}, plain {row['plain_ms']:.4f}, bound {b_ms:.5f} ({b_by})",
+              flush=True)
+    return rows
+
+
+def wide_decode(seed: int, card: str) -> dict:
+    """One two-view decode of MAST3R_512 re-headed through
+    `config_from_arch_string(WIDE_ARCH)` (heads 256 and 192 wide) with
+    random weights from `seed` on a 384x512 pair, against the same decode
+    with `attention.sdpa_plain` in kernel A's place: in f32 every output
+    within 1e-3 of its scale (`phase_reference`'s bound; only the attention
+    differs); in bf16 (weights cast as the CLIs cast them) each kernel A
+    call's output within `attention.error_bound` of the plain version on its
+    own inputs (`recorded_attention_shapes`), and each output no farther
+    from the f32 plain decode than twice the bf16 plain decode is. Kernel
+    A's launches counted by width."""
+    import dataclasses
+
+    import torch
+
+    from monst3r_slam_torch.models import mast3r
+    from monst3r_slam_torch.models.config import MAST3R_512
+    from monst3r_slam_torch.models.convert import (
+        cast_params_for_inference, config_from_arch_string,
+    )
+    from monst3r_slam_torch.models.init import init_params
+    from monst3r_slam_torch.ops import attention
+
+    cfg = config_from_arch_string(WIDE_ARCH)
+    if cfg != dataclasses.replace(MAST3R_512, enc_heads=4, dec_heads=4):
+        fail(f"wide: {WIDE_ARCH} parsed to {cfg}")
+    params = init_params(torch.Generator(device="cuda").manual_seed(seed), cfg)
+    imgs = torch.from_numpy(np.stack([synthetic_frame(seed, H, W),
+                                      synthetic_frame(seed + 1, H, W)])).cuda()
+    fa = attention.fused_attention
+
+    def decode(ps, dtype):
+        with torch.no_grad():
+            f, p = mast3r.encode(ps, cfg, imgs, dtype)
+            out = mast3r.decode(ps, cfg, f[:1], p[:1], f[1:], p[1:], (H, W), dtype)
+        torch.cuda.synchronize()
+        return {name: getattr(out, name).float() for name in out._fields}
+
+    def plain_decode(ps, dtype):
+        attention.fused_attention = lambda q, k, v: attention.sdpa_plain(q, k, v)
+        try:
+            return decode(ps, dtype)
+        finally:
+            attention.fused_attention = fa
+
+    def rel(a, b):
+        return {n: float((a[n] - b[n]).abs().max() / b[n].abs().max()) for n in b}
+
+    runs, ref32 = {}, None
+    for dtype, ps in ((torch.float32, params), (torch.bfloat16, cast_params_for_inference(params))):
+        name = str(dtype).split(".")[-1]
+        shapes = {}
+        zero_counts()
+        t0 = time.perf_counter()
+        with recorded_attention_shapes(shapes):
+            got = decode(ps, dtype)
+        secs = time.perf_counter() - t0
+        launches, widths = read_counts(), dict(fa.width_launches)
+        routes = dict(fa.route_launches)
+        ref = plain_decode(ps, dtype)
+        if not all(bool(torch.isfinite(t).all()) for t in got.values()):
+            fail(f"wide decode {name}: non-finite outputs")
+        if not (set(widths) == {256, 192} and sum(widths.values()) == launches["fused_attention"]
+                == routes["f32" if dtype == torch.float32 else "bf16_tc"]):
+            fail(f"wide decode {name}: kernel A launches {launches} by width {widths}, routes {routes}")
+        row = dict(launches=launches, width_launches=widths, seconds=secs,
+                   calls={str(list(k)): list(v) for k, v in shapes.items()})
+        if dtype == torch.float32:
+            ref32 = ref
+            row["rel_to_plain"] = rel(got, ref)
+            if not all(np.isfinite(e) and e <= 1e-3 for e in row["rel_to_plain"].values()):
+                fail(f"wide decode f32: kernel vs plain {row['rel_to_plain']} of scale > 1e-3")
+        else:
+            row["rel_to_f32"], row["plain_rel_to_f32"] = rel(got, ref32), rel(ref, ref32)
+            row["rel_to_plain"] = rel(got, ref)
+            worse = {n: (e, row["plain_rel_to_f32"][n]) for n, e in row["rel_to_f32"].items()
+                     if not (np.isfinite(e) and e <= 2 * row["plain_rel_to_f32"][n])}
+            if worse:
+                fail(f"wide decode bf16: farther from the f32 decode than twice the plain bf16 "
+                     f"decode (kernel, plain): {worse}")
+        runs[name] = row
+        print(f"wide decode ({card}) MAST3R_512 re-headed ({cfg.enc_heads} encoder heads "
+              f"{cfg.enc_dim // cfg.enc_heads} wide, {cfg.dec_heads} decoder heads "
+              f"{cfg.dec_dim // cfg.dec_heads} wide), {H}x{W} pair, {name}: kernel A launches by "
+              f"width {widths}, each call shape within error_bound ({len(shapes)} shapes); "
+              f"outputs vs the plain-attention decode, largest share of scale "
+              f"{max(row['rel_to_plain'].values()):.2e}"
+              + (f"; vs the f32 decode {max(row['rel_to_f32'].values()):.2e} (plain bf16: "
+                 f"{max(row['plain_rel_to_f32'].values()):.2e})" if "rel_to_f32" in row else "")
+              + f"; kernel run {secs:.2f} s", flush=True)
+    return runs
+
+
+def wide_slam(seed: int, card: str) -> list:
+    """The oracle scene (`phase_oracle`'s recipe, MAST3R_512 random bf16
+    weights, config/base.yaml, the worker waited for after each frame) for
+    WIDE_FRAMES frames with the matcher's tiling set to each of
+    `WIDE_TILINGS`: once with every kernel B call held to its plain version
+    under `rounding_check` (`checked_tile_match`) and once with the plain
+    version in its place (`plain_tile_match`). Every kernel B call must take
+    the banded variant and pass; both runs track every frame within
+    ORACLE_ATE_SHARE of the extent, with the same keyframes and edges and
+    poses within ORACLE_POSE_TOL (equal if every query was exact)."""
+    import torch
+
+    from monst3r_slam_torch.models.config import MAST3R_512
+    from monst3r_slam_torch.models.convert import cast_params_for_inference
+    from monst3r_slam_torch.models.init import init_params
+    from monst3r_slam_torch.ops.matching_tiled import TiledConfig
+
+    params = cast_params_for_inference(
+        init_params(torch.Generator(device="cuda").manual_seed(seed), MAST3R_512))
+    frames = oracle_frames(WIDE_FRAMES)
+    rows = []
+    for label, kw in WIDE_TILINGS:
+        tcfg = TiledConfig(**kw)
+        plain = oracle_slam_run(params, frames, "plain", join_worker=True, tcfg=tcfg)
+        checked = oracle_slam_run(params, frames, "checked", join_worker=True, tcfg=tcfg)
+        checks = np.asarray(checked["checks"], dtype=np.int64).reshape(-1, 4)
+        n_calls, n_inexact, n_failing = len(checks), int(checks[:, 2].sum()), int(checks[:, 3].sum())
+        n_kernel = checked["launches"]["tile_match_kernel"]
+        for r in (plain, checked):
+            if not r["finite"] or any(m != "TRACKING" for m in r["modes"]) \
+                    or not r["ate"] < ORACLE_ATE_SHARE * r["extent"]:
+                fail(f"wide SLAM {label} {r['mode']}: finite {r['finite']}, modes {r['modes']}, "
+                     f"ATE {r['ate']} over extent {r['extent']}")
+        if not (n_kernel >= 1 and n_calls == n_kernel and checked["variants"]["whole"] == 0
+                and checked["variants"]["banded"] == n_kernel
+                and plain["launches"]["tile_match_kernel"] == 0):
+            fail(f"wide SLAM {label}: {n_calls} checked calls, kernel B launches "
+                 f"{checked['launches']} by variant {checked['variants']}; plain run "
+                 f"{plain['launches']}")
+        gap_by_frame = np.abs(checked["poses"] - plain["poses"]).max(axis=1)
+        gap = float(gap_by_frame.max())
+        if n_failing or checked["kf_fids"] != plain["kf_fids"] \
+                or checked["edges"] != plain["edges"] or not gap <= ORACLE_POSE_TOL \
+                or (gap > 0 and not n_inexact):
+            fail(f"wide SLAM {label}: {n_failing} queries fail the rounding check, {n_inexact} "
+                 f"inexact; keyframes {checked['kf_fids']} / {plain['kf_fids']}, edges "
+                 f"{checked['edges']} / {plain['edges']}, largest pose difference {gap}")
+        row = dict(label=label, tcfg=kw, frames=WIDE_FRAMES, ate=checked["ate"],
+                   plain_ate=plain["ate"], extent=checked["extent"], kf_fids=checked["kf_fids"],
+                   edges=checked["edges"], pose_gap=gap, launches=checked["launches"],
+                   variants=checked["variants"], routes=checked["routes"],
+                   rounding=dict(calls=n_calls, queries=int(checks[:, 1].sum()),
+                                 inexact=n_inexact, failing=n_failing),
+                   frame_ms_median=float(np.median(checked["wall_ms"][1:])),
+                   plain_frame_ms_median=float(np.median(plain["wall_ms"][1:])))
+        rows.append(row)
+        print(f"wide SLAM ({card}) oracle scene, MAST3R_512 {H}x{W}, {WIDE_FRAMES} frames, "
+              f"TiledConfig({', '.join(f'{k}={v}' for k, v in kw.items())}): ATE "
+              f"{row['ate']:.6f} over extent {row['extent']:.4f} ({row['ate'] / row['extent']:.4%}; "
+              f"plain {row['plain_ate'] / row['extent']:.4%}); keyframes {row['kf_fids']}, edges "
+              f"{row['edges']}, equal to the plain run's; largest pose difference {gap:.3e}; kernel "
+              f"B {n_calls} calls, all banded, {row['rounding']['queries']} queries, {n_inexact} "
+              f"inexact, 0 failing; launches {row['launches']}; frame ms median "
+              f"{row['frame_ms_median']:.1f} (plain {row['plain_frame_ms_median']:.1f}, both with "
+              f"the worker waited for)", flush=True)
+    return rows
+
+
+def phase_wide(seed: int, card: str) -> dict:
+    """The shapes the reference's kernels take beyond the main path's
+    (`--only-wide`): kernel B through its banded variant at
+    `WIDE_TILE_SHAPES` (`wide_tile_match`); kernel A at heads 256 and 160
+    wide on both routes (`heads_attention` at `WIDE_HEAD_SHAPES`); the
+    re-headed MAST3R_512 decode (`wide_decode`); and the oracle SLAM path at
+    the matcher's crop-64 and tile-32 tilings (`wide_slam`). The path's
+    launches are the decode's and the SLAM runs' with kernel B."""
+    t0 = time.perf_counter()
+    tile_rows = wide_tile_match(seed, card)
+    attn_rows = [row for d, shape in WIDE_HEAD_SHAPES
+                 for row in heads_attention(seed, widths=(d,), shapes=(shape,), phase="wide",
+                                            refused=None)]
+    decode = wide_decode(seed, card)
+    slam = wide_slam(seed, card)
+    launches = {name: sum(r["launches"][name] for r in decode.values())
+                + sum(r["launches"][name] for r in slam) for name in slam[0]["launches"]}
+    secs = time.perf_counter() - t0
+    print(f"wide phase: {secs:.1f} s; launches {launches}", flush=True)
+    return dict(tile_match=tile_rows, attention=attn_rows, decode=decode, slam=slam,
+                launches=launches, seconds=secs)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4339,6 +4654,10 @@ def main() -> int:
     ap.add_argument("--only-heads", action="store_true",
                     help="build the kernels and run only the heads phase (kernel A at every "
                          "head width, the TINY entry points on the card); prints no result line")
+    ap.add_argument("--only-wide", action="store_true",
+                    help="build the kernels and run only the wide phase (kernel B's banded "
+                         "variant, kernel A at heads 256 wide, the re-headed decode, the SLAM "
+                         "path at crop 64 and tile 32); prints no result line")
     args = ap.parse_args()
 
     import torch
@@ -4362,6 +4681,11 @@ def main() -> int:
         heads_run = phase_heads(args.seed)
         print(json.dumps({"heads_run": heads_run}), flush=True)
         print(f"card: {card}; only the heads phase ran", flush=True)
+        return 0
+    if args.only_wide:
+        wide_run = phase_wide(args.seed, card)
+        print(json.dumps({"wide_run": wide_run}), flush=True)
+        print(f"card: {card}; only the wide phase ran", flush=True)
         return 0
     if args.only_mesh:
         mesh_run = phase_mesh(args.seed, card)
@@ -4387,6 +4711,7 @@ def main() -> int:
     tm = phase_tile_match(args.seed)
     tmp = phase_tile_match_phases(args.seed)
     heads_run = phase_heads(args.seed)
+    wide_run = phase_wide(args.seed, card)
     phase_reference(args.seed)
     launches = phase_slice(args.seed, args.frames)
     main_run = phase_main(args.seed)
@@ -4410,12 +4735,14 @@ def main() -> int:
                           mesh=mesh_run["launches"][name], oracle=oracle_run["launches"][name],
                           train=train_run["launches"][name],
                           train_mesh=train_run["mesh"]["launches"][name],
-                          heads=heads_run["launches"][name])
+                          heads=heads_run["launches"][name], wide=wide_run["launches"][name])
                for name in launches}
     total = {name: sum(paths.values()) for name, paths in by_path.items()}
 
     enc = attn["bf16_tc", "encoder"]
     full = tmp["phases"]["full"]
+    wide256 = next(r for r in wide_run["attention"] if r["width"] == 256 and r["route"] == "bf16_tc")
+    banded64 = wide_run["tile_match"][0]
     kernels = [
         dict(name="attention", route="cuda", source="monst3r_slam_torch/csrc/attention.cu",
              replaces="monst3r_slam_tpu/ops/attention.py:43",
@@ -4437,9 +4764,12 @@ def main() -> int:
              backward="plain PyTorch, attention.sdpa_backward_plain (the reference has no "
                       "backward kernel)", gradient=train_run["gradient"],
              widths=dict(
-                 checked=list(HEAD_WIDTHS), instantiations=[16, 32, 64, 128],
-                 rows=heads_run["attention"],
-                 launches_by_width=dict(train=heads_run["train"]["width_launches"]))),
+                 checked=list(HEAD_WIDTHS) + [d for d, _ in WIDE_HEAD_SHAPES],
+                 instantiations=[16, 32, 64, 128, 256],
+                 rows=heads_run["attention"] + wide_run["attention"],
+                 launches_by_width=dict(
+                     train=heads_run["train"]["width_launches"],
+                     wide={name: r["width_launches"] for name, r in wide_run["decode"].items()}))),
         dict(name="tile_match", route="cuda", source="monst3r_slam_torch/csrc/tile_match.cu",
              replaces="monst3r_slam_tpu/ops/matching_pallas.py:213",
              launches=total["tile_match_kernel"], launches_by_path=by_path["tile_match_kernel"],
@@ -4462,6 +4792,28 @@ def main() -> int:
              ms=full["ms"], plain_ms=full["plain_ms"], bound_ms=full["bound_ms"],
              bound_by=full["bound_by"], library_ms=None, shape=tmp["shape"],
              device_ms=full["device_ms"], phases=tmp["phases"]),
+        dict(name="attention_d256", route="cuda", source="monst3r_slam_torch/csrc/attention.cu",
+             replaces="monst3r_slam_tpu/ops/attention.py:43",
+             launches=sum(sum(r["width_launches"].values()) for r in wide_run["decode"].values()),
+             launches_by_path=dict(wide=sum(sum(r["width_launches"].values())
+                                            for r in wide_run["decode"].values())),
+             kernel="attn_fwd_bf16_tc<256> (one stage a warpgroup), attn_fwd_f32<256> (8-row "
+                    "warps); widths 129-255 zero-padded to 256",
+             **{k: wide256[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                        "library_ms", "shape", "tol", "device_ms",
+                                        "library_device_ms")},
+             rows=wide_run["attention"]),
+        dict(name="tile_match_banded", route="cuda", source="monst3r_slam_torch/csrc/tile_match.cu",
+             replaces="monst3r_slam_tpu/ops/matching_pallas.py:213",
+             launches=sum(r["variants"]["banded"] for r in wide_run["slam"]),
+             launches_by_path=dict(wide={r["label"]: r["variants"]["banded"]
+                                         for r in wide_run["slam"]}),
+             kernel="tile_match_banded<FD, PHASE> (crop rows in bands through two bulk-copy "
+                    "rings, groups of 256 queries), FD 16-128",
+             **{k: banded64[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                         "library_ms", "device_ms", "agree")},
+             shape=[banded64["tiles"], banded64["queries"], banded64["crop"]],
+             rows=wide_run["tile_match"]),
     ]
     print(json.dumps({"main_tracked_run": main_run}), flush=True)
     print(json.dumps({"dynamic_run": dyn, "raft_reference": raft_ref}), flush=True)
@@ -4473,6 +4825,8 @@ def main() -> int:
     print(json.dumps({"train_run": train_run}), flush=True)
     print(json.dumps({"heads_run": {k: v for k, v in heads_run.items() if k != "attention"}}),
           flush=True)
+    print(json.dumps({"wide_run": {k: v for k, v in wide_run.items()
+                                   if k not in ("attention", "tile_match")}}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,10 @@
 // Kernel A: fused softmax attention forward, O = softmax(Q K^T d^-1/2) V.
 //
-// Both routes are templates on the head width D, instantiated at 16, 32, 64
-// and 128; the wrapper zero-pads any other width from 1 to 128 to the next of
-// them (zero columns of q and k leave Q K^T as it is, zero columns of v give
-// zero columns of O, sliced off) and passes the true width, whose d^-1/2
-// scales the logits. The notes below give the shapes and counts at D = 64,
+// Both routes are templates on the head width D, instantiated at 16, 32, 64,
+// 128 and 256; the wrapper zero-pads any other width from 1 to 256 to the
+// next of them (zero columns of q and k leave Q K^T as it is, zero columns
+// of v give zero columns of O, sliced off) and passes the true width, whose
+// d^-1/2 scales the logits. The notes below give the shapes and counts at D = 64,
 // the main path's width.
 //
 // Replaces the JAX package's Pallas kernel in `ops/attention.py`
@@ -38,9 +38,14 @@
 //     and softmax state, and merge at the end, which halves the chain.
 //   - TMA loads Q once and K/V through a 2-stage ring per warpgroup, completing on
 //     mbarriers, with the swizzle of one row of D bf16 values: 128 bytes at
-//     D = 64, 64 at 32, 32 at 16; at 128 a row is two 128-byte atoms, each
-//     tile two 64-column boxes. The wgmma descriptors name the same swizzle.
-//     At D = 128 a CTA holds ~145 KB, so one fits an SM. The tensor
+//     D = 64, 64 at 32, 32 at 16; at 128 (256) a row is two (four) 128-byte
+//     atoms, each tile two (four) 64-column boxes. The wgmma descriptors
+//     name the same swizzle. At D = 128 a CTA holds ~145 KB, so one fits an
+//     SM. At D = 256 a 64-row tile is 32 KB and two stages per warpgroup
+//     would need 288 KB, so each warpgroup has one stage (~161 KB; the
+//     other warpgroup's tile computes while a load is in flight), and the
+//     128 O accumulators a thread (S's 32 beside them) fit the 255
+//     registers one CTA an SM allows. The tensor
 //     maps are encoded on the host with cuTensorMapEncodeTiled, reached
 //     through cudaGetDriverEntryPoint, so the library needs no -lcuda, and
 //     cached on what the encoding reads, so a call whose buffers recur
@@ -74,7 +79,9 @@
 //   - Register tiles. A warp owns 32 query rows; per 16-key tile each lane
 //     holds a 4x4 block of S and, all along, an 8x(D/8) block of O. At
 //     D = 128 that block would be 128 registers, so a warp owns 16 rows
-//     there (a 2x4 block of S, a 4x16 block of O, 64-row CTAs). S = Q K^T
+//     there (a 2x4 block of S, a 4x16 block of O, 64-row CTAs), and at
+//     D = 256 8 rows (a 1x4 block of S, a 2x32 block of O, 32-row CTAs of
+//     ~132 KB, one an SM). S = Q K^T
 //     reads Q and K as 16-byte loads along d (8 loads for 64 FFMA), O += P V
 //     reads P and V as 16-byte loads along the rows and columns (4 loads for
 //     64 FFMA): one shared load per 10.7 FFMA over the tile. The staged rows
@@ -130,7 +137,7 @@ namespace {
 
 // Head widths with an instantiation; the wrapper pads every other width to
 // the next of them.
-constexpr int MAX_D = 128;
+constexpr int MAX_D = 256;
 
 // Function attributes hold per device: a process that launches on several
 // cards sets them on each card at its first launch there.
@@ -152,26 +159,31 @@ constexpr int BM = 64;          // query rows per CTA: wgmma m64
 constexpr int BN = 64;          // keys per tile: n of S = Q K^T, k-extent of P V
 constexpr int NWG = 2;          // warpgroups per CTA, each over every other key tile
 constexpr int NTHREAD = 128 * NWG;
-constexpr int STAGES = 2;       // K/V ring of each warpgroup
-constexpr int NBAR = 1 + NWG * STAGES;      // Q, then one per (warpgroup, stage)
 
 // A tile of 64 rows of D bf16 values in shared memory, as TMA writes it and
 // wgmma reads it: in the swizzle of one row (32, 64 or 128 bytes at D = 16,
-// 32, 64), and at D = 128 as two 64-column atoms of 64 rows each, one after
-// the other, each in the 128-byte swizzle.
+// 32, 64), and at D = 128 (256) as two (four) 64-column atoms of 64 rows
+// each, one after the other, each in the 128-byte swizzle.
 template <int D>
 struct Tc {
-  static_assert(D == 16 || D == 32 || D == 64 || D == 128, "an instantiated head width");
+  static_assert(D == 16 || D == 32 || D == 64 || D == 128 || D == 256,
+                "an instantiated head width");
   static constexpr int SW = D < 64 ? 2 * D : 128;  // swizzle span, bytes
   static constexpr int ATOM = SW / 2;              // columns of one atom
   static constexpr int NATOM = D / ATOM;
   static constexpr int ATOM_ELEMS = 64 * ATOM;
   static constexpr int TILE_ELEMS = 64 * D;
   static constexpr int TILE_BYTES = TILE_ELEMS * 2;
+  static constexpr int STAGES = D > 128 ? 1 : 2;   // K/V ring of each warpgroup
+  static constexpr int NBAR = 1 + NWG * STAGES;    // Q, then one per (warpgroup, stage)
   static constexpr int SMEM = (1 + 2 * NWG * STAGES) * TILE_BYTES + 8 * NBAR + 1024;  // + align slack
   static constexpr int ACC = D / 2;                // O accumulators per thread
   static constexpr int MERGE_FLOATS = ACC + 4;     // per thread: accumulators, 2 maxima, 2 partial sums
-  static_assert(MERGE_FLOATS * 128 * 4 <= 2 * STAGES * TILE_BYTES, "merge fits one ring");
+  // Warpgroup 1 hands its state over through its own ring, or, where that
+  // is too small (one stage at D = 256), through the staging from Q on,
+  // once both warpgroups are done with it.
+  static constexpr bool MERGE_IN_RING = MERGE_FLOATS * 128 * 4 <= 2 * STAGES * TILE_BYTES;
+  static_assert(MERGE_FLOATS * 128 * 4 <= (1 + 2 * NWG * STAGES) * TILE_BYTES, "merge fits");
   static_assert(SMEM <= 232448, "a CTA fits an SM's shared memory");
 };
 
@@ -366,6 +378,7 @@ attn_fwd_bf16_tc(const __grid_constant__ CUtensorMap tq, const __grid_constant__
                  Strides so, int heads, int nq, int nk, float scale_log2) {
   using T = Tc<D>;
   constexpr int TILE_ELEMS = T::TILE_ELEMS, TILE_BYTES = T::TILE_BYTES, ACC = T::ACC;
+  constexpr int STAGES = T::STAGES;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(base);
@@ -387,7 +400,7 @@ attn_fwd_bf16_tc(const __grid_constant__ CUtensorMap tq, const __grid_constant__
   uint64_t* kv_bar = bar + 1 + STAGES * wg;
 
   if (tid == 0) {
-    for (int i = 0; i < NBAR; ++i) mbar_init(&bar[i], 1);
+    for (int i = 0; i < T::NBAR; ++i) mbar_init(&bar[i], 1);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
     mbar_expect_tx(&bar[0], TILE_BYTES);
     tma_load_tile<D>(sQ, &tq, &bar[0], q0, h, b);
@@ -523,8 +536,10 @@ attn_fwd_bf16_tc(const __grid_constant__ CUtensorMap tq, const __grid_constant__
   }
 
   // Warpgroup 1 hands (acc, m, l) to warpgroup 0 through its own ring, which
-  // it no longer reads; same thread index, same rows and columns.
-  float* merge = reinterpret_cast<float*>(ring(1));
+  // it no longer reads (at D = 256, once both are done, through the staging
+  // from Q on); same thread index, same rows and columns.
+  if constexpr (!T::MERGE_IN_RING) __syncthreads();
+  float* merge = reinterpret_cast<float*>(T::MERGE_IN_RING ? ring(1) : sQ);
   if (wg == 1) {
 #pragma unroll
     for (int e = 0; e < ACC; ++e) merge[e * 128 + wtid] = acc[e];
@@ -674,7 +689,8 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, const Stri
 // the end.
 //
 // Lane layouts of a warp (lane = 4 rg + kg = 8 RG + cg), with SR = WROWS / 8
-// S rows and OR = WROWS / 4 O rows a lane (4 and 8; 2 and 4 at D = 128):
+// S rows and OR = WROWS / 4 O rows a lane (4 and 8; 2 and 4 at D = 128; 1
+// and 2 at D = 256):
 //   S = Q K^T, WROWS rows x 16 keys: rows SR rg + i (i < SR), keys kg + 4 t
 //   (t < 4).
 //   O, WROWS rows x D columns: rows OR RG + x (x < OR), columns 32 j + 4 cg + c
@@ -692,8 +708,9 @@ constexpr int F_MAX_SPLIT = 8;                    // portable cluster size
 
 template <int D>
 struct F32 {
-  static_assert(D == 16 || D == 32 || D == 64 || D == 128, "an instantiated head width");
-  static constexpr int WROWS = D > 64 ? 16 : 32;  // query rows per warp
+  static_assert(D == 16 || D == 32 || D == 64 || D == 128 || D == 256,
+                "an instantiated head width");
+  static constexpr int WROWS = D > 128 ? 8 : D > 64 ? 16 : 32;  // query rows per warp
   static constexpr int SR = WROWS / 8;            // S rows per lane
   static constexpr int OR = WROWS / 4;            // O rows per lane
   static constexpr int OC = D / 8;                // O columns per lane
@@ -806,7 +823,7 @@ attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll 4
   for (int e = tid; e < BQ * (D / 4); e += F_THREADS) {
     const int r = e / (D / 4), c4 = e % (D / 4), rho = r % WROWS;
-    const int at = r - rho + 8 * (rho & (SR - 1)) + (rho >> (SR == 4 ? 2 : 1));
+    const int at = r - rho + 8 * (rho & (SR - 1)) + (rho >> (SR == 4 ? 2 : SR == 2 ? 1 : 0));
     copy16(Qs + at * LD + 4 * c4, qb + min(q0 + r, nq - 1) * sq.r + 4 * c4);
   }
   for (int s = 0; s < F_STAGES - 1; ++s) {
@@ -898,8 +915,10 @@ attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
       float* dst = Pw + (kg + 4 * t) * WROWS + SR * rg;
       if constexpr (SR == 4)
         *reinterpret_cast<float4*>(dst) = make_float4(sc[0][t], sc[1][t], sc[2][t], sc[3][t]);
-      else
+      else if constexpr (SR == 2)
         *reinterpret_cast<float2*>(dst) = make_float2(sc[0][t], sc[1][t]);
+      else
+        *dst = sc[0][t];
     }
     float oc[OR];
 #pragma unroll
@@ -918,13 +937,19 @@ attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < F_BK; ++j) {
       float p[OR], w[OC];
+      if constexpr (OR == 2) {
+        const float2 pv = *reinterpret_cast<const float2*>(Pw + j * WROWS + OR * RG);
+        p[0] = pv.x;
+        p[1] = pv.y;
+      } else {
 #pragma unroll
-      for (int x4 = 0; x4 < OR / 4; ++x4) {
-        const float4 pv = *reinterpret_cast<const float4*>(Pw + j * WROWS + OR * RG + 4 * x4);
-        p[4 * x4] = pv.x;
-        p[4 * x4 + 1] = pv.y;
-        p[4 * x4 + 2] = pv.z;
-        p[4 * x4 + 3] = pv.w;
+        for (int x4 = 0; x4 < OR / 4; ++x4) {
+          const float4 pv = *reinterpret_cast<const float4*>(Pw + j * WROWS + OR * RG + 4 * x4);
+          p[4 * x4] = pv.x;
+          p[4 * x4 + 1] = pv.y;
+          p[4 * x4 + 2] = pv.z;
+          p[4 * x4 + 3] = pv.w;
+        }
       }
       if constexpr (D == 16) {
         const float2 vv = *reinterpret_cast<const float2*>(Vt + j * LD + 2 * cg);
@@ -1067,6 +1092,7 @@ cudaError_t f32_card_at(int d, int dev, const F32Card** out) {
     case 32: return f32_card<32>(dev, out);
     case 64: return f32_card<64>(dev, out);
     case 128: return f32_card<128>(dev, out);
+    case 256: return f32_card<256>(dev, out);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1097,7 +1123,9 @@ int f32_split(const F32Card& c, long long blocks, int ntiles) {
   return best;
 }
 
-int f32_rows(int d) { return d > 64 ? F32<128>::BQ : F32<64>::BQ; }
+int f32_rows(int d) {
+  return d > 128 ? F32<256>::BQ : d > 64 ? F32<128>::BQ : F32<64>::BQ;
+}
 
 template <int D>
 int launch_f32(const void* q, const void* k, const void* v, void* o, const Strides* st,
@@ -1156,7 +1184,7 @@ struct AttnArgs {
 };
 
 // q (B, H, nq, d), k and v (B, H, nk, d), o (B, H, nq, d), each addressed
-// through its own strides, d one of 16, 32, 64 and 128 (a narrower head
+// through its own strides, d one of 16, 32, 64, 128 and 256 (a narrower head
 // zero-padded to it by the caller, which passes its true width as d_scale).
 // Every operand's last dimension must be contiguous; in bfloat16, q, k and v
 // must also start 16-byte aligned with every other stride a multiple of 8
@@ -1169,7 +1197,8 @@ struct AttnArgs {
 extern "C" int attn_forward(const AttnArgs* a) {
   const int batch = (int)a->batch, heads = (int)a->heads, nq = (int)a->nq, nk = (int)a->nk;
   const long long d = a->d;
-  if ((d != 16 && d != 32 && d != 64 && d != MAX_D) || a->d_scale < 1 || a->d_scale > d ||
+  if ((d != 16 && d != 32 && d != 64 && d != 128 && d != MAX_D) || a->d_scale < 1 ||
+      a->d_scale > d ||
       batch <= 0 || heads <= 0 || nq <= 0 || nk <= 0 || batch * heads > 65535)
     return 1000;
   const long long ptr[4] = {a->q, a->k, a->v, a->o};
@@ -1194,7 +1223,8 @@ extern "C" int attn_forward(const AttnArgs* a) {
     case 16: return launch<16>(q, k, v, o, st, batch, heads, nq, nk, scale_log2, a->dtype, s);
     case 32: return launch<32>(q, k, v, o, st, batch, heads, nq, nk, scale_log2, a->dtype, s);
     case 64: return launch<64>(q, k, v, o, st, batch, heads, nq, nk, scale_log2, a->dtype, s);
-    default: return launch<128>(q, k, v, o, st, batch, heads, nq, nk, scale_log2, a->dtype, s);
+    case 128: return launch<128>(q, k, v, o, st, batch, heads, nq, nk, scale_log2, a->dtype, s);
+    default: return launch<256>(q, k, v, o, st, batch, heads, nq, nk, scale_log2, a->dtype, s);
   }
 }
 

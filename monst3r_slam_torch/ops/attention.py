@@ -14,8 +14,8 @@ Both read q, k and v through their strides and write the output into a
 (B, N, H, d) buffer, returned as its (B, H, N, d) view, so that neither
 the heads split before nor the merge after is a copy.
 
-Kernel A is instantiated at head widths 16, 32, 64 and 128 (`HEAD_DIMS`).
-Any other width up to 128 is zero-padded to the next of them (`pad_heads`,
+Kernel A is instantiated at head widths 16, 32, 64, 128 and 256
+(`HEAD_DIMS`). Any other width up to 256 is zero-padded to the next of them (`pad_heads`,
 a plain-PyTorch copy around the kernel): zero columns of q and k leave
 QK^T as it is, zero columns of v give zero output columns, which are sliced
 off, and the kernel scales the logits by the true width's d^-1/2. Wider
@@ -37,7 +37,7 @@ import torch
 
 from monst3r_slam_torch.ops import build
 
-HEAD_DIMS = (16, 32, 64, 128)  # kernel A's instantiations
+HEAD_DIMS = (16, 32, 64, 128, 256)  # kernel A's instantiations
 MAX_HEAD_DIM = HEAD_DIMS[-1]
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ROUTES = {torch.float32: "f32", torch.bfloat16: "bf16_tc"}
@@ -152,7 +152,7 @@ def pad_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> tuple:
 
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Kernel A on CUDA tensors q (B, H, Nq, d), k/v (B, H, Nk, d), d from
-    1 to 128, of one type, float32 or bfloat16, read through their strides
+    1 to 256, of one type, float32 or bfloat16, read through their strides
     where d is one of `HEAD_DIMS`, else first zero-padded to the next of
     them (`pad_heads`). The last dimension must be contiguous, every start
     16-byte aligned and every other stride a multiple of 8 elements in

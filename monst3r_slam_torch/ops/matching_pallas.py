@@ -9,6 +9,14 @@ sums the descriptor dot on the tensor cores, in their order;
 `rounding_check` states how far its descriptor match may differ from the
 plain version's.
 
+Kernel B has two variants, chosen by shape in its C entry: the whole-crop
+kernel where a crop's slots fit shared memory whole (the main path's crop
+48, fd 24, 256 queries a tile), and the banded variant for every other crop,
+tile size and descriptor width the reference takes (`variant` says which
+runs a shape; each launch is counted per variant). Descriptors of any width
+up to 119, the reference's limit, are zero-padded to the next instantiated
+width (`DESC_DIMS`).
+
 `tile_match_phase_kernel` launches kernel B cut after one of its steps
 (`PHASES`), the counterpart of the TPU phase profiler
 `scripts/profile_pallas_phases.py`; `tile_match_plain(..., phase=)` stops at
@@ -18,6 +26,7 @@ the same points.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -28,34 +37,53 @@ _ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes
 _SIGNATURES = {
     "tile_match_forward": (_ARGTYPES, ctypes.c_int),
     "tile_match_phase_forward": (_ARGTYPES + [ctypes.c_int], ctypes.c_int),
+    "tile_match_variant": ([ctypes.c_int] * 6 + [ctypes.c_void_p], ctypes.c_int),
 }
 # Kernel B cut after each step: stage the crop; + ray argmax; + convergence
 # test; the whole kernel.
 PHASES = ("stage", "ray", "stencil", "full")
+_CHECK_CHUNK = 64  # queries `rounding_check` re-scores at once
+# Descriptor widths kernel B is instantiated at; any other width up to
+# MAX_FD is zero-padded to the next of them (`pad_descriptors`).
+DESC_DIMS = (16, 24, 32, 48, 64, 96, 128)
+MAX_FD = 119  # the reference's own limit: fd + 9 <= 128 channels in its packed image
 
 
 # The descriptor step's rounding allowance, in units of 2^-24 of the largest
 # window sum of |q_c d_jc|: the bound on how far below the plain window
 # maximum kernel B's descriptor match may score in the plain version's own
-# arithmetic. A bf16 x bf16 product is exact in f32, so each score is a sum of
-# fd <= 32 exact products, S_j = sum_c |q_c d_jc|. The plain version adds them
-# one by one, rounding to nearest: error <= (fd - 1) 2^-24 S_j <= 31 2^-24 S.
-# The tensor cores align the products of one mma (and its accumulator input)
-# to the largest and may truncate each by up to one unit in the last place,
-# 2^-23 S, then round the sum (NVIDIA does not document Hopper's adder; this
-# is the behaviour measured on earlier tensor cores): two mma of k + 2 such
-# terms at most, error <= 2 (16 + 2) 2^-23 S = 72 2^-24 S. The kernel's match
-# jk beats the plain match jp in its own arithmetic, so in the plain one
-# plain(jp) - plain(jk) <= 2 (31 + 72) 2^-24 S = 206 2^-24 S; 256 rounds that
-# up to a power of two. The check is sound while each tensor-core sum lies
-# within ROUNDING_C / 2 units of the plain one, which
-# `tests/test_torch_cuda.py` measures on the card with kernel B's mma
-# sequence (`test_tensor_core_descriptor_sums_stay_within_the_rounding_allowance`).
-ROUNDING_C = 256
-_CHECK_CHUNK = 64  # queries `rounding_check` re-scores at once
-# Descriptor widths kernel B is instantiated at; a narrower width is
-# zero-padded to the next of them (`pad_descriptors`).
-DESC_DIMS = (16, 24, 32)
+# arithmetic, for descriptors kernel B runs at width W (an instantiation,
+# `DESC_DIMS`). A bf16 x bf16 product is exact in f32, so each score is a
+# sum of at most W exact products, S_j = sum_c |q_c d_jc|. The plain version
+# adds them one by one, rounding to nearest: error <= (W - 1) 2^-24 S_j <=
+# (W - 1) 2^-24 S. The tensor cores align the products of one mma (and its
+# accumulator input) to the largest and may truncate each by up to one unit
+# in the last place, 2^-23 S, then round the sum (NVIDIA does not document
+# Hopper's adder; this is the behaviour measured on earlier tensor cores):
+# n = ceil(W / 16) mma of k + 2 <= 18 such terms, error <= 18 n 2^-23 S =
+# 36 n 2^-24 S. The kernel's match jk beats the plain match jp in its own
+# arithmetic, so in the plain one plain(jp) - plain(jk) <= 2 ((W - 1) +
+# 36 n) 2^-24 S: 206 at W = 32, 414 at 64, 830 at 128, rounded up to a
+# power of two and never below 256 (the widths up to 32 share 256). The
+# check is sound while each tensor-core sum lies within half the allowance
+# of the plain one, which `tests/test_torch_cuda.py` measures on the card
+# with kernel B's mma sequence at fd 24, 64 and 128
+# (`test_tensor_core_descriptor_sums_stay_within_the_rounding_allowance`).
+def rounding_allowance(fd: int) -> int:
+    """The rounding allowance (units of 2^-24 S) for descriptors of width
+    `fd`, which kernel B runs at the narrowest instantiation that holds it."""
+    width = next((n for n in DESC_DIMS if fd <= n), fd)
+    bound = 2 * ((width - 1) + 36 * -(-width // 16))
+    return max(256, 1 << (bound - 1).bit_length())
+
+
+def padded_fd(fd: int) -> int:
+    """The instantiation kernel B runs descriptors of width `fd` at: the
+    narrowest of `DESC_DIMS` that holds it. Raises above `MAX_FD`."""
+    if 1 <= fd <= MAX_FD:
+        return next(n for n in DESC_DIMS if fd <= n)
+    raise ValueError(f"tile_match takes descriptor widths from 1 to {MAX_FD} (the reference's "
+                     f"fd + 9 <= 128), got {fd}")
 
 
 class PallasTileConfig(NamedTuple):
@@ -161,8 +189,9 @@ def rounding_check(rays_img, desc_img, q_rays, q_desc, corners, crop: int, windo
     differs is one the tensor cores' rounding admits:
       * it lies in the query's window (around the plain ray match, clipped
         to the crop);
-      * its plain score is within delta = ROUNDING_C 2^-24 max_j sum_c
-        |q_c d_jc| (j over the window) of the plain window maximum;
+      * its plain score is within delta = rounding_allowance(fd) 2^-24
+        max_j sum_c |q_c d_jc| (j over the window) of the plain window
+        maximum;
       * no lower-index window position holds the same descriptor vector
         (equal vectors sum equally in any order, so the lowest-index tie rule
         stays exact there)."""
@@ -179,6 +208,7 @@ def rounding_check(rays_img, desc_img, q_rays, q_desc, corners, crop: int, windo
                                  conv_thresh, phase="stencil")
     h, w, fd = desc_img.shape
     m = crop * crop
+    allowance = rounding_allowance(fd)
     desc_flat = desc_img.reshape(h * w, fd).to(torch.bfloat16).float()
     qd_all = q_desc.to(torch.bfloat16).float()
     off = torch.arange(m, device=desc_img.device)
@@ -199,7 +229,7 @@ def rounding_check(rays_img, desc_img, q_rays, q_desc, corners, crop: int, windo
         jk = (kv * crop + ku).clamp(0, m - 1)
         inside = (ku >= 0) & (ku < crop) & (kv >= 0) & (kv < crop)
         inside &= in_win.gather(1, jk[:, None])[:, 0]
-        near = sd.gather(1, jk[:, None])[:, 0] >= smax - ROUNDING_C * 2.0**-24 * scale
+        near = sd.gather(1, jk[:, None])[:, 0] >= smax - allowance * 2.0**-24 * scale
         same = (dc == dc.gather(1, jk[:, None, None].expand(-1, 1, fd))).all(-1)
         dup = (same & in_win & (off < jk[:, None])).any(-1)
         passes[t, i] = inside & near & ~dup
@@ -207,23 +237,36 @@ def rounding_check(rays_img, desc_img, q_rays, q_desc, corners, crop: int, windo
 
 
 def pad_descriptors(desc_img, q_desc):
-    """(desc_img, q_desc) zero-padded along their last dimension to the
-    narrowest of `DESC_DIMS` that holds it (the inputs themselves at an
-    instantiated width or above 32). Exact: a zero channel adds an exact
-    zero to every descriptor score, in the plain version's sums and on the
-    tensor cores alike, so matches and `rounding_check` do not move."""
+    """(desc_img, q_desc) zero-padded along their last dimension to
+    `padded_fd` (the inputs themselves at an instantiated width). Exact: a
+    zero channel adds an exact zero to every descriptor score, in the plain
+    version's sums and on the tensor cores alike, so matches and
+    `rounding_check` do not move. Raises above `MAX_FD`."""
     fd = desc_img.shape[-1]
-    width = next((n for n in DESC_DIMS if fd <= n), fd)
+    width = padded_fd(fd)
     if width == fd:
         return desc_img, q_desc
     return (torch.nn.functional.pad(desc_img, (0, width - fd)),
             torch.nn.functional.pad(q_desc, (0, width - fd)))
 
 
+@functools.lru_cache(maxsize=256)
+def variant(T: int, tsz: int, h: int, w: int, fd: int, crop: int) -> tuple:
+    """(which kernel takes these arguments, its rows per ray band and per
+    descriptor band): ("whole", 0, 0) for the whole-crop kernel, ("banded",
+    rr, rd) for the banded variant, (None, 0, 0) for neither. `fd` is the
+    padded width. Asks the kernel library's C entry, which `dispatch`
+    follows."""
+    bands = (ctypes.c_int * 2)()
+    which = build.load("tile_match", _SIGNATURES).tile_match_variant(T, tsz, h, w, fd, crop, bands)
+    return ({0: "whole", 1: "banded"}.get(which), bands[0], bands[1])
+
+
 def _launch(entry: str, rays_img, desc_img, q_rays, q_desc, corners, crop: int, window: int,
             conv_thresh: float, *extra):
-    """Check the arguments kernel B takes, zero-pad descriptors narrower
-    than 32 to an instantiated width, and launch its C entry `entry`."""
+    """Check the arguments kernel B takes, zero-pad descriptors to an
+    instantiated width, and launch its C entry `entry`. Returns ((u, v,
+    conv), the variant that ran: "whole" or "banded")."""
     h, w, _ = rays_img.shape
     T, tsz, _ = q_rays.shape
     fd = desc_img.shape[-1]
@@ -240,6 +283,8 @@ def _launch(entry: str, rays_img, desc_img, q_rays, q_desc, corners, crop: int, 
         raise ValueError(f"unsupported shapes: desc {tuple(desc_img.shape)}, "
                          f"q_desc {tuple(q_desc.shape)}, corners {tuple(corners.shape)}")
     desc_img, q_desc = pad_descriptors(desc_img, q_desc)
+    width = desc_img.shape[-1]
+    which = variant(T, tsz, h, w, width, crop)[0]
     lib = build.load("tile_match", _SIGNATURES)
     u = torch.empty((T, tsz), dtype=torch.int32, device=rays_img.device)
     v = torch.empty_like(u)
@@ -249,31 +294,34 @@ def _launch(entry: str, rays_img, desc_img, q_rays, q_desc, corners, crop: int, 
         err = getattr(lib, entry)(
             rays_img.data_ptr(), desc_img.data_ptr(), q_rays.data_ptr(), q_desc.data_ptr(),
             corners.data_ptr(), u.data_ptr(), v.data_ptr(), conv.data_ptr(),
-            T, tsz, h, w, desc_img.shape[-1], crop, window, conv_thresh, stream, *extra,
+            T, tsz, h, w, width, crop, window, conv_thresh, stream, *extra,
         )
     if err == 1000:
         raise ValueError(
-            f"tile_match_kernel does not take fd {fd}, {tsz} queries a tile, crop {crop} on a "
-            f"{h}x{w} image, or images {rays_img.data_ptr() % 16} / {desc_img.data_ptr() % 16} / "
-            f"{q_desc.data_ptr() % 16} bytes past 16-byte alignment: it takes fd up to 32 "
-            "(a width other than 16, 24 or 32 zero-padded to the next), at most 256 queries, a "
-            "crop and an image width that are multiples of 4 (its bulk copies move whole "
-            "16-byte crop rows), and crops that fit a block's shared memory")
+            f"tile_match_kernel does not take crop {crop} on a {h}x{w} image at fd {fd}, or "
+            f"images {rays_img.data_ptr() % 16} / {desc_img.data_ptr() % 16} / "
+            f"{q_desc.data_ptr() % 16} bytes past 16-byte alignment: its bulk copies read "
+            "16-byte rows, so the image width must be a multiple of 4 and every image start "
+            "16-byte aligned; it takes any crop up to min(h, w) of which one row of rays and "
+            "of descriptors, twice, fits a block's shared memory, and any number of queries")
     if err != 0:
         raise RuntimeError(f"tile_match kernel launch failed: error {err}")
-    return u, v, conv.bool()
+    return (u, v, conv.bool()), which
 
 
 def tile_match_kernel(rays_img, desc_img, q_rays, q_desc, corners, crop: int, window: int,
                       conv_thresh: float):
-    """Kernel B on CUDA tensors; corners already quantized."""
-    out = _launch("tile_match_forward", rays_img, desc_img, q_rays, q_desc, corners, crop,
-                  window, conv_thresh)
+    """Kernel B on CUDA tensors; corners already quantized. Counts its
+    launches, and per variant in `variant_launches`."""
+    out, which = _launch("tile_match_forward", rays_img, desc_img, q_rays, q_desc, corners,
+                         crop, window, conv_thresh)
     tile_match_kernel.launches += 1
+    tile_match_kernel.variant_launches[which] += 1
     return out
 
 
 tile_match_kernel.launches = 0
+tile_match_kernel.variant_launches = {"whole": 0, "banded": 0}
 
 
 def tile_match_phase_kernel(rays_img, desc_img, q_rays, q_desc, corners, crop: int,
@@ -282,13 +330,15 @@ def tile_match_phase_kernel(rays_img, desc_img, q_rays, q_desc, corners, crop: i
     already quantized. Its outputs are `tile_match_plain(..., phase=phase)`'s."""
     if phase not in PHASES:
         raise ValueError(f"phase {phase!r} is not one of {PHASES}")
-    out = _launch("tile_match_phase_forward", rays_img, desc_img, q_rays, q_desc, corners, crop,
-                  window, conv_thresh, PHASES.index(phase))
+    out, which = _launch("tile_match_phase_forward", rays_img, desc_img, q_rays, q_desc,
+                         corners, crop, window, conv_thresh, PHASES.index(phase))
     tile_match_phase_kernel.launches += 1
+    tile_match_phase_kernel.variant_launches[which] += 1
     return out
 
 
 tile_match_phase_kernel.launches = 0
+tile_match_phase_kernel.variant_launches = {"whole": 0, "banded": 0}
 
 
 def tile_match(rays_img, desc_img, q_rays, q_desc, corners,

@@ -8,7 +8,9 @@ cluster and picks that split per call (`f32_split` in
 per split 1-8 with the split fixed (`-DF32_SPLIT=g`) and, at the encoder and
 decoder shapes and at `chip_smoke.F32_TRAIN_SHAPES`, prints each build's
 device time (`chip_smoke.device_ms`) beside the split the shipped library
-chooses and its time, so the choice can be checked against the measured best,
+chooses and its time (also at the 4 and 6 heads of 768 tokens that
+`chip_smoke.py`'s wide phase times at widths 256 and 160), so the choice
+can be checked against the measured best,
 and how many clusters of each size the card holds at once (what the choice
 reads). With `--width D` it times the route at head width D (padded to
 the instantiation kernel A runs it at, as the wrapper pads it) in place of
@@ -154,7 +156,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--width", type=int, default=64,
-                    help="head width of the shapes timed (1-128; default 64)")
+                    help="head width of the shapes timed (1-256; default 64)")
     args = ap.parse_args()
 
     import numpy as np
@@ -178,8 +180,8 @@ def main() -> int:
     print(f"clusters the card holds at once at width {width}, by split: " + ", ".join(
         f"{g}: {n}" for g, n in result_clusters.items()), flush=True)
     rng = np.random.default_rng(args.seed)
-    shapes = [(*s[:3], args.width) for s in ((1, 16, 768), (1, 12, 768),
-                                             *chip_smoke.F32_TRAIN_SHAPES)]
+    shapes = [(*s[:3], args.width) for s in ((1, 16, 768), (1, 12, 768), (1, 4, 768),
+                                             (1, 6, 768), *chip_smoke.F32_TRAIN_SHAPES)]
     result = dict(card=card, width=args.width, instantiation=width, clusters=result_clusters,
                   shapes=[])
     for shape in shapes:

@@ -31,15 +31,16 @@ def test_plain_sdpa_matches_pallas_interpret(q_shape, kv_shape):
 
 
 # Every head width class kernel A takes: below, at and between its
-# instantiations (16, 32, 64, 128); the last case is ragged (Nq != Nk).
-WIDTH_CASES = [((1, 2, 64, d), (1, 2, 64, d)) for d in (8, 12, 16, 24, 32, 48, 80, 96, 128)] + [
+# instantiations (16, 32, 64, 128, 256); the last case is ragged (Nq != Nk).
+WIDTH_CASES = [((1, 2, 64, d), (1, 2, 64, d))
+               for d in (8, 12, 16, 24, 32, 48, 80, 96, 128, 160, 256)] + [
     ((1, 3, 48, 12), (1, 3, 80, 12))]
 
 
 @pytest.mark.parametrize("q_shape,kv_shape", WIDTH_CASES)
 def test_plain_sdpa_matches_pallas_interpret_at_every_width(q_shape, kv_shape):
     """The reference's kernel reads d from q's shape; the port's plain
-    version matches it at every width kernel A takes (1-128), f32, to the
+    version matches it at every width kernel A takes (1-256), f32, to the
     tolerance of tests/test_attention.py."""
     rng = np.random.default_rng(sum(q_shape) + sum(kv_shape))
     q, k, v = (rng.standard_normal(s).astype(np.float32) for s in (q_shape, kv_shape, kv_shape))
@@ -61,7 +62,8 @@ def test_plain_sdpa_bf16_casts_probs_like_jax_at_tiny_widths(d):
 
 
 @pytest.mark.parametrize("d,width", [(1, 16), (8, 16), (12, 16), (16, 16), (24, 32), (33, 64),
-                                     (48, 64), (64, 64), (80, 128), (96, 128), (127, 128)])
+                                     (48, 64), (64, 64), (80, 128), (96, 128), (127, 128),
+                                     (129, 256), (160, 256), (192, 256), (256, 256)])
 def test_padded_heads_give_the_unpadded_attention(d, width):
     """`pad_heads` pads q, k and v with zero columns to kernel A's next
     instantiation; attention over the padded heads scaled by the true
@@ -80,9 +82,9 @@ def test_padded_heads_give_the_unpadded_attention(d, width):
     np.testing.assert_allclose(got.numpy(), tatt.sdpa_plain(q, k, v).numpy(), atol=1e-6, rtol=0)
 
 
-def test_heads_wider_than_128_are_refused():
-    x = torch.zeros((1, 1, 8, 136))
-    with pytest.raises(ValueError, match="up to 128"):
+def test_heads_wider_than_256_are_refused():
+    x = torch.zeros((1, 1, 8, 264))
+    with pytest.raises(ValueError, match="up to 256"):
         tatt.pad_heads(x, x, x)
 
 

@@ -43,10 +43,11 @@ ATTENTION_CASES = [(2, 3, 768, 768), (2, 3, 196, 196), (2, 3, 48, 80), (2, 3, 13
 F32_CASES = [(2, 8, 196, 196), (2, 6, 196, 196), (4, 16, 196, 196), (2, 12, 768, 768)] + [
     (2, 3, nq, nk) for nq in (1, 31, 33, 65, 129) for nk in (7, 63, 65, 769)]
 # Head widths other than 64: below, at and between kernel A's instantiations
-# (16, 32, 64, 128); the f32 route's 128-wide instantiation takes 64-row
-# blocks of 16-row warps, its 16-wide one 8-byte V loads, so both also at
-# `F32_CASES`' counts.
-WIDTHS = (8, 12, 16, 24, 32, 48, 80, 96, 128)
+# (16, 32, 64, 128, 256); the f32 route's 128-wide instantiation takes
+# 64-row blocks of 16-row warps, its 256-wide one 32-row blocks of 8-row
+# warps, its 16-wide one 8-byte V loads, so those also at `F32_CASES`'
+# counts.
+WIDTHS = (8, 12, 16, 24, 32, 48, 80, 96, 128, 160, 256)
 
 
 @pytest.mark.cuda
@@ -57,7 +58,7 @@ WIDTHS = (8, 12, 16, 24, 32, 48, 80, 96, 128)
     (torch.float32, scale, *case, 64) for scale in (1, 8) for case in F32_CASES] + [
     (dtype, scale, *case, d) for d in WIDTHS for dtype in (torch.float32, torch.bfloat16)
     for scale in (1, 8) for case in ATTENTION_CASES] + [
-    (torch.float32, 8, *case, d) for d in (16, 128) for case in F32_CASES])
+    (torch.float32, 8, *case, d) for d in (16, 128, 256) for case in F32_CASES])
 def test_attention_kernel_matches_plain(cuda, dtype, logit_scale, b, h, nq, nk, d):
     """Both routes at `ATTENTION_CASES` and the f32 route at `F32_CASES`,
     at head width 64 and at `WIDTHS`, within `attention.error_bound` (f32:
@@ -86,13 +87,13 @@ def test_attention_kernel_matches_plain(cuda, dtype, logit_scale, b, h, nq, nk, 
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 160, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_attention_kernel_reads_and_writes_through_strides(cuda, dtype, d):
     """q, k, v as the model's heads split makes them: transposed views of
     one fused projection output, read in place, at each instantiated head
-    width. The output is the (B, H, N, d) view of a contiguous (B, N, H, d)
-    buffer, so the heads merge is a view."""
+    width and at 160 (padded to 256). The output is the (B, H, N, d) view of
+    a contiguous (B, N, H, d) buffer, so the heads merge is a view."""
     b, n, h = 2, 196, 3
     rng = np.random.default_rng(5)
     qkv = torch.from_numpy(rng.standard_normal((b, n, 3 * h * d), dtype=np.float32)).to(cuda, dtype)
@@ -100,24 +101,26 @@ def test_attention_kernel_reads_and_writes_through_strides(cuda, dtype, d):
     assert not v.is_contiguous()
     got = attention.sdpa(q, k, v)
     torch.cuda.synchronize()
-    assert got.shape == (b, h, n, d) and got.transpose(1, 2).is_contiguous()
-    assert got.transpose(1, 2).reshape(b, n, h * d).data_ptr() == got.data_ptr()
+    assert got.shape == (b, h, n, d)
+    if d in attention.HEAD_DIMS:
+        assert got.transpose(1, 2).is_contiguous()
+        assert got.transpose(1, 2).reshape(b, n, h * d).data_ptr() == got.data_ptr()
     ref = attention.sdpa_plain(q.float(), k.float(), v.float())
     assert float((got.float() - ref).abs().max()) <= attention.error_bound(q, k, v, ref)
 
 
 @pytest.mark.cuda
 def test_attention_kernel_refuses_what_it_does_not_take(cuda):
-    """A head wider than 128 or a wrong type; and layouts the kernel cannot
+    """A head wider than 256 or a wrong type; and layouts the kernel cannot
     read in place, which it refuses rather than copy: a last dimension that
     is not contiguous, a start that is not 16-byte aligned, or a row stride
     that is not a multiple of 8 elements in bf16 and of 4 in f32. The
     model's transposed views of one fused projection are taken on both
     routes."""
     for dtype in (torch.float32, torch.bfloat16):
-        x = torch.zeros((1, 2, 16, 136), device=cuda, dtype=dtype)
-        with pytest.raises(ValueError, match="up to 128"):
-            attention.fused_attention(x, x, x)  # head dim 136
+        x = torch.zeros((1, 2, 16, 257), device=cuda, dtype=dtype)
+        with pytest.raises(ValueError, match="up to 256"):
+            attention.fused_attention(x, x, x)  # head dim 257
     y = torch.zeros((1, 2, 16, 64), device=cuda, dtype=torch.float16)
     with pytest.raises(ValueError):
         attention.fused_attention(y, y, y)
@@ -144,14 +147,16 @@ def test_attention_kernel_refuses_what_it_does_not_take(cuda):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape,nk", [((4, 16, 196, 64), 196), ((1, 16, 768, 64), 768),
                                       ((2, 3, 130, 64), 7), ((2, 4, 196, 16), 196),
-                                      ((2, 4, 196, 12), 196)])
+                                      ((2, 4, 196, 12), 196), ((1, 4, 196, 256), 196),
+                                      ((1, 4, 196, 160), 196)])
 def test_attention_function_gradient_matches_the_plain_autograd(cuda, dtype, shape, nk):
     """Kernel A's autograd Function, as the training forward reaches it
     through `sdpa` with grad enabled: one kernel A launch forward and none
     backward; the forward within `attention.error_bound` and dq, dk, dv
     within `attention.backward_error_bound` of the f32 plain autograd, at
-    the 224x224 training shape, at 768 tokens, at a ragged count and at the
-    TINY config's head widths (16, 12; the latter zero-padded to 16). With
+    the 224x224 training shape, at 768 tokens, at a ragged count, at the
+    TINY config's head widths (16, 12; the latter zero-padded to 16) and at
+    heads 256 and 160 wide (the latter zero-padded to 256). With
     grad disabled `sdpa` launches kernel A directly and records nothing."""
     rng = np.random.default_rng(shape[2] + nk)
     b, h, nq, d = shape
@@ -179,13 +184,13 @@ def test_attention_function_gradient_matches_the_plain_autograd(cuda, dtype, sha
     assert attention.fused_attention.launches == n1 + 1
 
 
-def _tile_args(cuda, seed, fd, T, desc=None, qd=None):
+def _tile_args(cuda, seed, fd, T, desc=None, qd=None, tsz=256):
     """Kernel B's dispatch arguments on a 64x80 image: random unit rays,
     exact ray peaks on a crop border (the stencil's wrap and zero rules),
     corners that need clipping and 16-alignment; random descriptors unless
     given."""
     rng = np.random.default_rng(seed)
-    h, w, tsz = 64, 80, 256
+    h, w = 64, 80
     rays = rng.standard_normal((h, w, 3)).astype(np.float32)
     rays /= np.linalg.norm(rays, axis=-1, keepdims=True)
     q = rng.standard_normal((T, tsz, 3)).astype(np.float32)
@@ -209,23 +214,38 @@ def _kernel_args(args, crop=48, window=15):
             matching_pallas.quantize_corners(args[4], h, w, crop), crop, window, 1e-6)
 
 
+# (fd, tiles, crop, queries a tile) beyond the crop-48 grid of
+# `test_tile_match_kernel_matches_plain`: the default crop of 64, a crop that
+# is no multiple of 4, tiles of 1,024 queries (tile 32) and 384 (a group and
+# a half), each through the banded variant.
+TILE_SHAPES = [(fd, T, 48, 256) for fd in (8, 16, 20, 24, 32, 48, 64, 96, 119)
+               for T in (6, 301)] + [
+    (24, 6, 64, 256), (24, 301, 64, 256), (24, 6, 50, 256), (24, 301, 50, 256),
+    (24, 6, 48, 1024), (24, 37, 64, 1024), (24, 6, 48, 384), (64, 6, 64, 1024),
+    (119, 6, 50, 256), (16, 6, 61, 256)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("T", [6, 301])
-@pytest.mark.parametrize("fd", [8, 16, 20, 24, 32])
-def test_tile_match_kernel_matches_plain(cuda, fd, T):
+@pytest.mark.parametrize("fd,T,crop,tsz", TILE_SHAPES)
+def test_tile_match_kernel_matches_plain(cuda, fd, T, crop, tsz):
     """Through the dispatch, at a tile count under the persistent grid and
     one that is no multiple of it, at the instantiated descriptor widths and
-    at 8 and 20, which the wrapper zero-pads to 16 and 24. The ray match
-    (the stencil cut) and the convergence flags equal the plain version's;
-    the descriptor match passes `rounding_check` (the tensor cores sum in
-    their own order)."""
-    args = _tile_args(cuda, fd + T, fd, T)
+    at 8, 20 and 119, which the wrapper zero-pads to 16, 24 and 128, and at
+    `TILE_SHAPES`' crops and tile sizes. Crop 48 at fd up to 32 with 256
+    queries runs the whole-crop kernel, every other shape the banded
+    variant (counted per variant). The ray match (the stencil cut) and the
+    convergence flags equal the plain version's; the descriptor match passes
+    `rounding_check` (the tensor cores sum in their own order)."""
+    args = _tile_args(cuda, fd + T + crop, fd, T, tsz=tsz)
     before = matching_pallas.tile_match_kernel.launches
+    variants = dict(matching_pallas.tile_match_kernel.variant_launches)
     u, v, conv = matching_pallas.tile_match(
-        *args, tcfg=matching_pallas.PallasTileConfig(crop=48, window=15), conv_thresh=1e-6)
+        *args, tcfg=matching_pallas.PallasTileConfig(crop=crop, window=15), conv_thresh=1e-6)
     torch.cuda.synchronize()
     assert matching_pallas.tile_match_kernel.launches == before + 1
-    kargs = _kernel_args(args)
+    which = "whole" if (crop, tsz) == (48, 256) and fd <= 32 else "banded"
+    assert matching_pallas.tile_match_kernel.variant_launches[which] == variants[which] + 1
+    kargs = _kernel_args(args, crop=crop)
     ray = matching_pallas.tile_match_phase_kernel(*kargs, phase="stencil")
     torch.cuda.synchronize()
     ray0 = matching_pallas.tile_match_plain(*kargs, phase="stencil")
@@ -237,18 +257,20 @@ def test_tile_match_kernel_matches_plain(cuda, fd, T):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("fd", [16, 24, 32])
-def test_tile_match_kernel_keeps_the_lowest_index_among_equal_descriptors(cuda, fd):
+@pytest.mark.parametrize("fd,crop", [(16, 48), (24, 48), (32, 48), (48, 48), (64, 48), (96, 48),
+                                     (119, 48), (24, 64), (24, 50)])
+def test_tile_match_kernel_keeps_the_lowest_index_among_equal_descriptors(cuda, fd, crop):
     """Every position's descriptor is one of four small-integer vectors and
     the queries are small integers, so every sum is an exact integer in any
     order: each window holds many positions with the same descriptor and
     equal scores, and the kernel must pick the lowest index as the plain
-    version does. Equal."""
-    rng = np.random.default_rng(fd)
+    version does, also where the banded variant carries the maximum from
+    band to band (fd above 32, crops 64 and 50). Equal."""
+    rng = np.random.default_rng(fd + crop)
     palette = rng.integers(-2, 3, (4, fd))
     desc = palette[rng.integers(0, 4, (64, 80))]
     qd = rng.integers(-2, 3, (6, 256, fd))
-    kargs = _kernel_args(_tile_args(cuda, 7, fd, 6, desc=desc, qd=qd))
+    kargs = _kernel_args(_tile_args(cuda, 7, fd, 6, desc=desc, qd=qd), crop=crop)
     got = matching_pallas.tile_match_kernel(*kargs)
     torch.cuda.synchronize()
     ref = matching_pallas.tile_match_plain(*kargs)
@@ -257,14 +279,21 @@ def test_tile_match_kernel_keeps_the_lowest_index_among_equal_descriptors(cuda, 
 
 @pytest.mark.cuda
 def test_tile_match_kernel_refuses_what_it_does_not_take(cuda):
-    """What its bulk copies cannot move (a crop or an image width that is no
-    multiple of 4, an image that is not 16-byte aligned) and a crop whose
-    ring of slots exceeds shared memory: refused, no other path."""
+    """What its bulk copies cannot read (an image width that is no multiple
+    of 4, an image that is not 16-byte aligned), a tensor that is not
+    contiguous, descriptors wider than the reference's 119 and a crop
+    wider than the image: refused, no other path."""
     kargs = list(_kernel_args(_tile_args(cuda, 0, 24, 6)))
+    wide = torch.zeros((64, 80, 120), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="1 to 119"):
+        matching_pallas.tile_match_kernel(kargs[0], wide, kargs[2],
+                                          torch.zeros((6, 256, 120), device=cuda,
+                                                      dtype=torch.bfloat16), *kargs[4:])
     with pytest.raises(ValueError):
-        matching_pallas.tile_match_kernel(*kargs[:5], 46, *kargs[6:])
+        matching_pallas.tile_match_kernel(kargs[0], kargs[1], kargs[2].transpose(0, 1)
+                                          .contiguous().transpose(0, 1), *kargs[3:])
     with pytest.raises(ValueError):
-        matching_pallas.tile_match_kernel(*kargs[:4], kargs[4], 64, *kargs[6:])
+        matching_pallas.tile_match_kernel(*kargs[:5], 65, *kargs[6:])
     odd = torch.zeros(64 * 80 * 24 + 1, device=cuda, dtype=torch.bfloat16)[1:].reshape(64, 80, 24)
     with pytest.raises(ValueError):
         matching_pallas.tile_match_kernel(kargs[0], odd, *kargs[2:])
@@ -273,29 +302,35 @@ def test_tile_match_kernel_refuses_what_it_does_not_take(cuda):
         matching_pallas.tile_match_kernel(narrow, kargs[1][:, :78].contiguous(), *kargs[2:])
 
 
-# fd 24 descriptor sums by kernel B's tensor-core instructions: m16n8k16 on
-# channels 0-15, then m16n8k8 on 16-23, from a zero accumulator, with each
-# operand in the k slot `descriptor_window` gives it. One warp per 16 x 8
-# block of s[b] = q[b] d[b]^T; q (batch, n, 24), d (batch, m, 24) bf16.
+# Descriptor sums by kernel B's tensor-core instructions at width FD (a
+# compile-time define): m16n8k16 on each 16 channels in order, then at FD 24
+# m16n8k8 on 16-23, from a zero accumulator, with each operand in the k slot
+# `DescWindow` gives it. One warp per 16 x 8 block of s[b] = q[b] d[b]^T; q
+# (batch, n, FD), d (batch, m, FD) bf16.
 _MMA_SUMS_SRC = r"""
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 __global__ void mma_sums(const uint32_t* q, const uint32_t* d, float* s, int n, int m) {
+  constexpr int KW = FD / 2;  // bf16 pairs a row
   const int g = threadIdx.x >> 2, t = threadIdx.x & 3;
   const size_t b = blockIdx.z, i = (size_t)blockIdx.y * 16 + g, j = (size_t)blockIdx.x * 8 + g;
-  const uint32_t* qa = q + (b * n + i) * 12;  // 12 bf16 pairs a row
-  const uint32_t* qb = qa + 8 * 12;
-  const uint32_t* dc = d + (b * m + j) * 12;
+  const uint32_t* qa = q + (b * n + i) * KW;
+  const uint32_t* qb = qa + 8 * KW;
+  const uint32_t* dc = d + (b * m + j) * KW;
   float c[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(qa[t]), "r"(qb[t]), "r"(qa[4 + t]), "r"(qb[4 + t]), "r"(dc[t]), "r"(dc[4 + t]));
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5}, {%6}, {%0, %1, %2, %3};"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(qa[8 + t]), "r"(qb[8 + t]), "r"(dc[8 + t]));
+#pragma unroll
+  for (int kb = 0; kb < FD / 16; ++kb)
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+        "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(qa[8 * kb + t]), "r"(qb[8 * kb + t]), "r"(qa[8 * kb + 4 + t]),
+          "r"(qb[8 * kb + 4 + t]), "r"(dc[8 * kb + t]), "r"(dc[8 * kb + 4 + t]));
+  if (FD % 16 != 0)
+    asm("mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+        "{%4, %5}, {%6}, {%0, %1, %2, %3};"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(qa[KW - 4 + t]), "r"(qb[KW - 4 + t]), "r"(dc[KW - 4 + t]));
   float* out = s + (b * n + i) * m + (size_t)blockIdx.x * 8 + 2 * t;
   out[0] = c[0];
   out[1] = c[1];
@@ -314,32 +349,36 @@ extern "C" int mma_sums_forward(const void* q, const void* d, void* s, int batch
 
 
 @pytest.mark.cuda
-def test_tensor_core_descriptor_sums_stay_within_the_rounding_allowance(cuda, tmp_path):
+@pytest.mark.parametrize("fd", [24, 64, 128])
+def test_tensor_core_descriptor_sums_stay_within_the_rounding_allowance(cuda, tmp_path, fd):
     """`rounding_check` admits a descriptor match whose plain score is within
-    delta = ROUNDING_C 2^-24 S of the plain window maximum (S the window's
-    largest sum_c |q_c d_c|). That is sound while each tensor-core window
-    sum lies within ROUNDING_C / 2 units of 2^-24 S of the plain sum: then
-    plain(jp) - plain(jk) <= gap(jp) + (mma(jp) - mma(jk)) + gap(jk), and
-    the middle term is <= 0 for the kernel's match jk. On chip_smoke.py's
-    descriptors (384x512, fd 24, unit normal, seed 0), every query of each
-    16x16 tile against every position of its 48x48 crop (a superset of its
-    +-15 px window): the largest gap, in units of 2^-24 sum_c |q_c d_c| of
-    that pair (at most its unit of the window's S), with each sum's
-    distance from the exact one (float64), printed."""
+    delta = rounding_allowance(fd) 2^-24 S of the plain window maximum (S
+    the window's largest sum_c |q_c d_c|). That is sound while each
+    tensor-core window sum lies within half the allowance, in units of
+    2^-24 S, of the plain sum: then plain(jp) - plain(jk) <= gap(jp) +
+    (mma(jp) - mma(jk)) + gap(jk), and the middle term is <= 0 for the
+    kernel's match jk. On chip_smoke.py's descriptors (384x512, unit normal,
+    seed 0) at fd 24 (the main path's), 64 and 128 (the widest
+    instantiation), every query of each 16x16 tile against every position
+    of its 48x48 crop (a superset of its +-15 px window): the largest gap,
+    in units of 2^-24 sum_c |q_c d_c| of that pair (at most its unit of the
+    window's S), with each sum's distance from the exact one (float64),
+    printed."""
     import ctypes
     import subprocess
 
     from monst3r_slam_torch.ops import build
 
-    src, lib_file = tmp_path / "mma_sums.cu", tmp_path / "libmma_sums.so"
+    src, lib_file = tmp_path / "mma_sums.cu", tmp_path / f"libmma_sums{fd}.so"
     src.write_text(_MMA_SUMS_SRC)
-    subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-o", str(lib_file), str(src)], check=True,
-                   capture_output=True, timeout=300)
+    subprocess.run([build.nvcc(), *build.NVCC_FLAGS, f"-DFD={fd}", "-o", str(lib_file), str(src)],
+                   check=True, capture_output=True, timeout=300)
     lib = ctypes.CDLL(str(lib_file))
     lib.mma_sums_forward.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     lib.mma_sums_forward.restype = ctypes.c_int
 
-    h, w, fd, crop, batch = 384, 512, 24, 48, 32
+    h, w, crop, batch = 384, 512, 48, 32
+    allowance = matching_pallas.rounding_allowance(fd)
     d = np.random.default_rng(0).standard_normal((h * w, fd)).astype(np.float32)
     d /= np.linalg.norm(d, axis=-1, keepdims=True)
     flat = torch.from_numpy(d).to(cuda, torch.bfloat16)
@@ -366,21 +405,23 @@ def test_tensor_core_descriptor_sums_stay_within_the_rounding_allowance(cuda, tm
         scale = unit * (q.double().abs() @ dc.double().abs().transpose(1, 2))
         for key, a, ref in (("gap", s, plain), ("mma", s, exact), ("plain", plain, exact)):
             worst[key] = max(worst[key], float(((a.double() - ref.double()).abs() / scale).max()))
-    print(f"fd 24 window sums over {len(q_lin)} tiles x 256 queries x {crop * crop} positions, "
-          f"largest distance in units of 2^-24 sum_c |q_c d_c|: mma.sync from plain "
+    print(f"fd {fd} window sums over {len(q_lin)} tiles x 256 queries x {crop * crop} "
+          f"positions, largest distance in units of 2^-24 sum_c |q_c d_c|: mma.sync from plain "
           f"{worst['gap']:.3f}, mma.sync from exact {worst['mma']:.3f}, plain from exact "
-          f"{worst['plain']:.3f} (allowance per sum: ROUNDING_C / 2 = "
-          f"{matching_pallas.ROUNDING_C / 2:g})")
-    assert worst["gap"] <= matching_pallas.ROUNDING_C / 2
+          f"{worst['plain']:.3f} (allowance per sum: rounding_allowance({fd}) / 2 = "
+          f"{allowance / 2:g})")
+    assert worst["gap"] <= allowance / 2
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("crop", [48, 64])
 @pytest.mark.parametrize("phase", matching_pallas.PHASES)
-def test_tile_match_phase_kernel_matches_plain(cuda, phase):
-    """Each phase instantiation of kernel B against the plain version cut at
-    the same point: stage, ray and stencil do the same arithmetic in the same
-    order, so equal; full passes `rounding_check`."""
-    kargs = _kernel_args(_tile_args(cuda, 2, 24, 6))
+def test_tile_match_phase_kernel_matches_plain(cuda, phase, crop):
+    """Each phase instantiation of kernel B, whole-crop (crop 48) and banded
+    (crop 64), against the plain version cut at the same point: stage, ray
+    and stencil do the same arithmetic in the same order, so equal; full
+    passes `rounding_check`."""
+    kargs = _kernel_args(_tile_args(cuda, 2, 24, 6), crop=crop)
     before = matching_pallas.tile_match_phase_kernel.launches
     got = matching_pallas.tile_match_phase_kernel(*kargs, phase=phase)
     torch.cuda.synchronize()

@@ -112,3 +112,43 @@ def test_kernel_wrapper_refuses_cpu_tensors():
         tmp.tile_match_kernel(torch.zeros((16, 16, 3)), torch.zeros((16, 16, 24)), z,
                               torch.zeros((1, 4, 24)), torch.zeros((1, 2), dtype=torch.int32),
                               16, 15, 1e-6)
+
+
+# (crop, fd, queries a tile): the shapes the reference's kernel takes beyond
+# the main path's, which the card runs through kernel B's banded variant:
+# `PallasTileConfig()`'s own crop of 64, fd 64 and the reference's widest
+# 119, 1,024 queries a tile (tile 32, eight of its `sub_q` blocks) and a
+# crop that is no multiple of 4.
+WIDE_CASES = [(64, 24, 256), (48, 64, 256), (64, 119, 256), (48, 24, 1024), (50, 24, 256)]
+
+
+@pytest.mark.parametrize("crop,fd,tsz", WIDE_CASES)
+def test_tile_match_plain_matches_pallas_interpret_at_wide_shapes(crop, fd, tsz):
+    """Kernel B's plain version against the Pallas kernel at `WIDE_CASES` on
+    a 96x112 target with 2 tiles, corners that need clipping and
+    16-alignment and exact ray peaks on a crop row; the tolerance of
+    `test_tile_match_plain_matches_pallas_interpret`."""
+    rng = np.random.default_rng(crop + fd + tsz)
+    h, w, T = 96, 112, 2
+    rays = rng.standard_normal((h, w, 3)).astype(np.float32)
+    rays /= np.linalg.norm(rays, axis=-1, keepdims=True)
+    desc = rng.standard_normal((h, w, fd)).astype(np.float32)
+    q = rng.standard_normal((T, tsz, 3)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=-1, keepdims=True)
+    q[:, :32] = rays[:1, :32]
+    qd = rng.standard_normal((T, tsz, fd)).astype(np.float32)
+    corners = np.asarray([[-5, 3], [70, 50]], np.int32)
+    ju, jv, jc = jmp.tile_match_pallas(
+        jnp.asarray(rays), jnp.asarray(desc), jnp.asarray(q), jnp.asarray(qd),
+        jnp.asarray(corners), tcfg=jmp.PallasTileConfig(crop=crop, window=15, sub_q=128),
+        conv_thresh=1e-6, interpret=True,
+    )
+    tu, tv, tc = tmp.tile_match(
+        torch.from_numpy(rays), torch.from_numpy(desc), torch.from_numpy(q),
+        torch.from_numpy(qd), torch.from_numpy(corners),
+        tcfg=tmp.PallasTileConfig(crop=crop, window=15), conv_thresh=1e-6,
+    )
+    assert tu.shape == (T, tsz) and tc.dtype == torch.bool
+    assert (tu.numpy() == np.asarray(ju)).mean() >= AGREE
+    assert (tv.numpy() == np.asarray(jv)).mean() >= AGREE
+    assert (tc.numpy() == np.asarray(jc)).mean() >= AGREE

@@ -116,10 +116,12 @@ def test_rounding_check_rejects_a_flipped_convergence_flag():
     assert not passes[1, 3] and not exact[1, 3] and passes.sum() == T * TSZ - 1
 
 
-@pytest.mark.parametrize("fd,width", [(8, 16), (12, 16), (20, 24)])
+@pytest.mark.parametrize("fd,width", [(8, 16), (12, 16), (20, 24), (33, 48), (80, 96),
+                                      (119, 128)])
 def test_zero_padded_descriptors_match_bit_for_bit(fd, width):
-    """Kernel B's wrapper zero-pads a descriptor width other than 16, 24 or
-    32 to the next of them (`pad_descriptors`): the plain version on the
+    """Kernel B's wrapper zero-pads a descriptor width other than 16, 24,
+    32, 48, 64, 96 or 128 to the next of them (`pad_descriptors`, up to the
+    reference's 119): the plain version on the
     padded descriptors gives the originals' matches bit for bit, since a
     zero channel adds an exact zero to every score."""
     rng = np.random.default_rng(fd)
@@ -137,3 +139,52 @@ def test_zero_padded_descriptors_match_bit_for_bit(fd, width):
         want = tmp.tile_match_plain(rays, desc, q, qd, CORNERS, CROP, window, THRESH)
         got = tmp.tile_match_plain(rays, pd, q, pq, CORNERS, CROP, window, THRESH)
         assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def _wide_scene(fd, x):
+    """Arguments (without window) at descriptor width `fd` where query (0, 0)
+    reads channels 0 and 1 only (both 1.0): B = [1, 0, ...] scores exactly
+    1, the window maximum, and A = [1, -x, 0, ...] scores exactly 1 - x,
+    with the window's largest sum of |q_c d_c| S = 1 + x (A's). Every other
+    position scores far lower. Returns the arguments and A, B (u, v)."""
+    rng = np.random.default_rng(fd)
+    rays = rng.standard_normal((H, W, 3)).astype(np.float32)
+    rays /= np.linalg.norm(rays, axis=-1, keepdims=True)
+    q = rng.standard_normal((T, TSZ, 3)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=-1, keepdims=True)
+    desc = _bf16(0.05 * rng.standard_normal((H, W, fd)))
+    qd = _bf16(rng.standard_normal((T, TSZ, fd)))
+    qd[0, 0] = 0.0
+    qd[0, 0, [0, 1]] = 1.0
+    a, b = (3, 5), (9, 5)
+    desc[a[1], a[0]] = 0.0
+    desc[a[1], a[0], [0, 1]] = 1.0, -x
+    desc[b[1], b[0]] = 0.0
+    desc[b[1], b[0], 0] = 1.0
+    assert _bf16(desc).tolist() == desc.tolist()  # x is exact in bf16
+    return [torch.from_numpy(v) for v in (rays, desc, q, qd)] + [CORNERS, CROP], a, b
+
+
+@pytest.mark.parametrize("fd,inside", [(64, True), (64, False), (128, True), (128, False)])
+def test_rounding_allowance_grows_with_the_descriptor_width(fd, inside):
+    """At fd 64 (allowance 512) and 128 (1024) a descriptor match whose plain
+    score lies 15/16 of delta = allowance 2^-24 S below the window maximum
+    passes `rounding_check`, one 9/8 of delta below fails; the 15/16 one lies
+    past the allowance of the widths up to 32 (256), so the check scales with
+    the instantiated width."""
+    allowance = tmp.rounding_allowance(fd)
+    assert allowance == {64: 512, 128: 1024}[fd] and tmp.rounding_allowance(32) == 256
+    x = allowance * 2.0**-24 * (15 / 16 if inside else 9 / 8)
+    args, a, b = _wide_scene(fd, x)
+    out = _plain(args, 15)
+    assert (int(out[0][0, 0]), int(out[1][0, 0])) == b
+    assert x > 256 * 2.0**-24 * (1 + x)  # past the allowance of fd <= 32
+    passes, exact = _check(args, 15, _pick(out, a))
+    assert bool(passes[0, 0]) == inside and not exact[0, 0]
+    assert passes.sum() == T * TSZ - (0 if inside else 1)
+
+
+def test_descriptors_wider_than_the_reference_takes_are_refused():
+    z = torch.zeros((4, 4, 120))
+    with pytest.raises(ValueError, match="1 to 119"):
+        tmp.pad_descriptors(z, z)
