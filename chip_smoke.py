@@ -40,7 +40,7 @@ phase printing one line:
      and a ragged (1, 4, 100, 300), through the dispatch with its plain
      version made to fail, each within `error_bound` with a launch counted
      at its width, timed with the padding's own cost, SDPA's and the bound;
-     width 257 refused; kernel B at fd 20 (padded to 24) under
+     kernel B at fd 20 (padded to 24) under
      `rounding_check` and timed beside fd 24; then the TINY config's entry
      points with their default device, the card: `train_torch.py --tiny
      --synthetic --steps 3` and `demo_pair_torch.py` in-process (finite
@@ -54,14 +54,21 @@ phase printing one line:
      (`phase_wide`; alone with `--only-wide`): kernel B through its banded
      variant at 384x512 with the default `PallasTileConfig()` (crop 64), at
      crop 48 with fd 48, 64, 96 and 119, at tile 32 (1,024 queries a tile)
-     and at crop 50, each with flags and ray matches equal to the plain
-     version's and under `rounding_check`, timed; kernel A at (1,4,768,256)
-     and (1,6,768,160) on both routes; MAST3R_512 re-headed through
-     `config_from_arch_string` (heads 256 and 192 wide) decoding a pair in
-     f32 and bf16 against the decode with the plain attention; and the
+     and at crop 50, and through `tile_match` on a 384x510 image and on one
+     that starts one element past 16-byte alignment (each copied to a row
+     pitch), each with flags and ray matches equal to the plain version's
+     and under `rounding_check`, timed; kernel A on both routes at
+     (1,4,768,256), (1,6,768,160), the wide variant's (1,1,768,1024),
+     (1,2,768,512), (1,1,768,768), (1,2,768,384), (1,3,768,320) and
+     (2,1,196,2048), and batch x heads 65,600 at 8 tokens; MAST3R_512
+     re-headed through `config_from_arch_string` to 4, 2 and 1 encoder and
+     decoder heads (256 / 192, 512 / 384 and 1,024 / 768 wide) decoding a
+     pair in f32 and bf16 against the decode with the plain attention; the
      oracle SLAM path for 16 frames at `TiledConfig(crop=64)` and
      `TiledConfig(tile=32, crop=64)`, every kernel B call banded and held to
      its plain version, against a run with the plain version in its place;
+     and for 8 frames at the one-head model, kernel A counted at widths
+     1,024 and 768;
   6. the model and the matcher on the card against the port's plain CPU
      path on a small pair (MAST3R_512 widths, cut depth, f32);
   7. the main path: the port's synchronous SLAMSystem at MAST3R_512 full
@@ -197,7 +204,8 @@ ego-motion flow need, and raises the mask threshold (`DYN_THRESHOLD`).
 Then one JSON line with the kernel table (each kernel's launches on every
 path, `sam2`, `easi3r`, `viewer`, `mesh`, `oracle`, `train_mesh`, `heads`
 and `wide` included; kernel A's checked head widths, its 256-wide
-instantiation and kernel B's banded variant as rows of their own) and,
+instantiation, its wide variant, kernel B's banded variant and its pitched
+calls as rows of their own) and,
 last, the
 `{"ok": true, ...}` line. Exits non-zero without that line when there is no CUDA device, when the port is
 not importable, or when any phase fails.
@@ -372,15 +380,17 @@ def f32_route_instructions(lib: str) -> dict:
 def ptxas_usage(log: str) -> dict:
     """{kernel instantiation: (registers, spill bytes stored + loaded)} from
     nvcc's `-Xptxas=-v` output; the instantiations named short, as
-    `attn_fwd_bf16_tc<256>` or `tile_match_banded<24,3>`."""
+    `attn_fwd_bf16_tc<256>`, `tile_match_banded<24,3>` or
+    `attn_fwd_bf16_wide`."""
     import re
 
     usage, entry, spill = {}, None, 0
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '\S*?(attn_fwd_[a-z0-9_]+?|tile_match_[a-z]+)"
-                      r"I((?:Li\d+E)+)E", ln)
+                      r"(?:I((?:Li\d+E)+)E|E)", ln)
         if m:
-            entry = f"{m.group(1)}<{','.join(re.findall(r'Li(\d+)E', m.group(2)))}>"
+            entry = m.group(1) + (f"<{','.join(re.findall(r'Li(\d+)E', m.group(2)))}>"
+                                  if m.group(2) else "")
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
         if m:
             spill = int(m.group(1)) + int(m.group(2))
@@ -433,19 +443,25 @@ F32_TRAIN_SHAPES = ((2, 8, 196, 64), (2, 6, 196, 64), (4, 16, 196, 64), (2, 12, 
 
 
 def sdpa_kernels(q, k, v) -> str:
-    """The device kernels one scaled_dot_product_attention call runs on
-    these inputs, by torch.profiler's names: the yardstick's own kernel."""
+    """The backend scaled_dot_product_attention selects for these inputs
+    (`torch._fused_sdp_choice`) and the device kernels one call runs, by
+    torch.profiler's names: the yardstick's own kernel. Late in a long
+    process the profiler has recorded no kernel of such a short call; the
+    backend is named all the same."""
     import torch
     import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend
     from torch.profiler import ProfilerActivity, profile
 
+    backend = SDPBackend(torch._fused_sdp_choice(q, k, v)).name
     F.scaled_dot_product_attention(q, k, v)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         F.scaled_dot_product_attention(q, k, v)
         torch.cuda.synchronize()
-    return " + ".join(ev.key for ev in prof.key_averages()
-                      if ev.device_type == torch.autograd.DeviceType.CUDA) or "not recorded"
+    kernels = " + ".join(ev.key for ev in prof.key_averages()
+                         if ev.device_type == torch.autograd.DeviceType.CUDA)
+    return f"{backend}: {kernels or 'kernels not recorded'}"
 
 
 def f32_split(shape) -> int:
@@ -613,8 +629,11 @@ def phase_tile_match(seed: int) -> dict:
     from monst3r_slam_torch.ops.matching_pallas import tile_match_kernel, tile_match_plain
 
     args, ti, bounds = tile_match_inputs(seed)
+    pitched = tile_match_kernel.pitched_launches
     u, v, conv = tile_match_kernel(*args)
     torch.cuda.synchronize()
+    if tile_match_kernel.pitched_launches != pitched:
+        fail("tile_match: the 384x512 main path copied its images to a pitch")
     agree = check_full(args, (u, v, conv), "tile_match")
     u0, v0, _ = tile_match_plain(*args)
     T, tsz = u.shape
@@ -2068,6 +2087,7 @@ def zero_counts() -> None:
         fn.launches = 0
     for fn in _counters()[1:]:
         fn.variant_launches.update(whole=0, banded=0)
+    _counters()[1].pitched_launches = 0
     for route in attn.route_launches:
         attn.route_launches[route] = 0
     attn.width_launches.clear()
@@ -2893,7 +2913,8 @@ def checked_tile_match(slam, record: list):
         matching_tiled.tile_match = kernel
 
 
-def oracle_slam_run(params, frames, matcher: str, join_worker: bool, tcfg=None) -> dict:
+def oracle_slam_run(params, frames, matcher: str, join_worker: bool, tcfg=None,
+                    model_cfg=None) -> dict:
     """The oracle SLAMSystem on config/base.yaml as shipped (the backend on
     its worker, retrieval on a k-means-bootstrapped codebook, the matcher's
     `kernel` mode; `matcher` "kernel" as shipped, "plain" through kernel B's
@@ -2902,7 +2923,8 @@ def oracle_slam_run(params, frames, matcher: str, join_worker: bool, tcfg=None) 
     through `process_frame` with no keyframe forced. With `join_worker` the worker's jobs are waited for
     after each frame, outside the timed call, so two runs apply the same
     solves at the same frames. `tcfg` replaces the matcher's tiling
-    (`SLAMSystem.match_tcfg`). The launch counters are zeroed just before
+    (`SLAMSystem.match_tcfg`); `model_cfg` (MAST3R_512 by default) is the
+    architecture of `params`. The launch counters are zeroed just before
     and read just after."""
     import torch
 
@@ -2913,14 +2935,15 @@ def oracle_slam_run(params, frames, matcher: str, join_worker: bool, tcfg=None) 
     from monst3r_slam_torch.utils import oracle
 
     gt, u8, norm = frames
+    model_cfg = MAST3R_512 if model_cfg is None else model_cfg
     cfg = load_config("config/base.yaml", set_global=False)
     cfg["single_thread"] = False
-    rff = oracle.make_rff(MAST3R_512.desc_dim, scale=12.0,  # make_rff: 384x512 needs ~12
+    rff = oracle.make_rff(model_cfg.desc_dim, scale=12.0,  # make_rff: 384x512 needs ~12
                           generator=torch.Generator(device="cuda").manual_seed(42))
     slam = oracle_slam_class(rff, 0.6 * W)(
-        params=params, model_cfg=MAST3R_512, cfg=cfg, img_size=(H, W), device="cuda",
+        params=params, model_cfg=model_cfg, cfg=cfg, img_size=(H, W), device="cuda",
         retrieval_params=retrieval.init_retrieval_params(
-            torch.Generator().manual_seed(1), MAST3R_512.enc_dim, device="cuda"),
+            torch.Generator().manual_seed(1), model_cfg.enc_dim, device="cuda"),
         retrieval_db=retrieval.ASMKDatabase.from_config(cfg))
     if slam._worker is None or slam.match_mode != "kernel":
         fail(f"oracle run: worker {slam._worker is not None}, matcher {slam.match_mode}")
@@ -2945,7 +2968,9 @@ def oracle_slam_run(params, frames, matcher: str, join_worker: bool, tcfg=None) 
     secs = time.perf_counter() - t0
     launches = read_counts()
     routes = dict(_counters()[0].route_launches)
+    widths = dict(_counters()[0].width_launches)
     variants = dict(_counters()[1].variant_launches)
+    pitched = _counters()[1].pitched_launches
     slam._backend_jobs.put(None)  # stop the worker: the system is dropped after the phase
     slam._worker.join()
     slam._worker = None
@@ -2960,7 +2985,8 @@ def oracle_slam_run(params, frames, matcher: str, join_worker: bool, tcfg=None) 
                 solves=slam.graph.n_solves, retrieval_queries=len(slam.prof.get("retrieval", [])),
                 backend_job_ms=slam.prof.get("backend_job", []), stall_s=slam.backend_stall_s,
                 ate=rmse, extent=float(np.linalg.norm(np.ptp(gt_xyz, axis=0))),
-                launches=launches, routes=routes, variants=variants)
+                launches=launches, routes=routes, widths=widths, variants=variants,
+                pitched=pitched)
 
 
 def oracle_demo_pair(seed: int, u8) -> dict:
@@ -3521,9 +3547,9 @@ def train_mesh_grids() -> list:
 def recorded_attention_shapes(shapes: dict):
     """Every attention of the model's blocks inside (`blocks.sdpa`, kernel A
     on the card) adds its q's shape (B, H, N, d) to `shapes`; the first call at each
-    shape also holds its output against the plain version computed in f32
-    from the same q, k and v (a shard's heads, with the strides of its qkv
-    chunk), within `attention.error_bound`: `shapes` maps each shape to
+    shape also holds its output against the plain version from the same q,
+    k and v (`attention.reference`; a shard's heads, with the strides of its
+    qkv chunk), within `attention.error_bound`: `shapes` maps each shape to
     (max abs err, tol). The plain version launches no kernel."""
     import torch
 
@@ -3537,8 +3563,8 @@ def recorded_attention_shapes(shapes: dict):
         shape = tuple(q.shape)
         if shape not in shapes:
             with torch.no_grad():
-                ref = attention.sdpa_plain(q.float(), k.float(), v.float())
-                err = float((out.float() - ref).abs().max())
+                ref = attention.reference(q, k, v)
+                err = float((out.double() - ref).abs().max())
                 tol = attention.error_bound(q, k, v, ref)
             shapes[shape] = (err, tol)
             if not (np.isfinite(err) and err <= tol):
@@ -4044,18 +4070,17 @@ HEAD_WIDTHS = (8, 12, 16, 24, 32, 48, 64, 80, 96, 128)
 HEAD_SHAPES = ((1, 16, 768, 768), (2, 8, 196, 196), (1, 4, 100, 300))
 
 
-def heads_attention(seed: int, widths=HEAD_WIDTHS, shapes=HEAD_SHAPES, phase: str = "heads",
-                    refused: int | None = 257) -> list:
+def heads_attention(seed: int, widths=HEAD_WIDTHS, shapes=HEAD_SHAPES,
+                    phase: str = "heads") -> list:
     """Kernel A at every width of `widths` on both routes and every
     (B, H, Nq, Nk) of `shapes`, through the dispatch `attention.sdpa` (whose
     plain version is made to fail for the call): one launch counted at the
     route and at the true width, the output against the plain version in
     f32 from the same inputs within `attention.error_bound`; at the square
     shapes the kernel's time (`time_ms`, padding included) and device time,
-    the padding's own time, the plain version's and SDPA's times beside the
-    bound (4 B H Nq Nk d operations at the route's peak, q, k, v read and o
-    written once). A width of `refused` (one past the widest) must raise
-    ValueError on both routes."""
+    the padding's own time, the plain version's and SDPA's times (and what
+    SDPA runs, `sdpa_kernels`) beside the bound (4 B H Nq Nk d operations at
+    the route's peak, q, k, v read and o written once)."""
     import torch
     import torch.nn.functional as F
 
@@ -4087,13 +4112,13 @@ def heads_attention(seed: int, widths=HEAD_WIDTHS, shapes=HEAD_SHAPES, phase: st
                     fail(f"{phase}: width {d} {route} at {(b, h, nq, nk)} counted {before} -> {after}")
                 if out.shape != q.shape or out.dtype != dtype:
                     fail(f"{phase}: width {d} {route} gave {tuple(out.shape)} {out.dtype}")
-                ref = plain(q.float(), k.float(), v.float())
-                err = float((out.float() - ref).abs().max())
+                ref = attention.reference(q, k, v)
+                err = float((out.double() - ref).abs().max())
                 tol = attention.error_bound(q, k, v, ref)
                 if not (np.isfinite(err) and err <= tol):
                     fail(f"{phase}: width {d} {route} at {(b, h, nq, nk)}: max abs err {err} > {tol}")
-                row = dict(width=d, instantiation=width, route=route, shape=[b, h, nq, nk],
-                           max_abs_err=err, tol=tol)
+                row = dict(width=d, instantiation=width, slices=attention.column_slices(d),
+                           route=route, shape=[b, h, nq, nk], max_abs_err=err, tol=tol)
                 if nq == nk:
                     n_bytes = (2 * nq + 2 * nk) * b * h * d * q.element_size()
                     b_ms, b_by = bound_ms(n_bytes, 4.0 * b * h * nq * nk * d / peak)
@@ -4105,26 +4130,21 @@ def heads_attention(seed: int, widths=HEAD_WIDTHS, shapes=HEAD_SHAPES, phase: st
                         library_ms=time_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
                         library_device_ms=device_ms(
                             lambda: F.scaled_dot_product_attention(q, k, v)),
-                        bound_ms=b_ms, bound_by=b_by)
+                        library_kernel=sdpa_kernels(q, k, v), bound_ms=b_ms, bound_by=b_by)
                     if route == "f32":
                         row["split"] = f32_split((b, h, nq, d))
                 rows.append(row)
-                print(f"{phase} attention d {d} (runs at {width}) {route} {(b, h, nq, nk)}"
+                print(f"{phase} attention d {d} (runs at {width}"
+                      + (f" in {row['slices']} slices" if row["slices"] > 1 else "")
+                      + f") {route} {(b, h, nq, nk)}"
                       + (f" split {row['split']}" if "split" in row else "")
                       + f": err {err:.3e} <= {tol:.3e}"
                       + (f"; ms: kernel {row['ms']:.4f} (device {row['device_ms']:.4f}, "
                          f"padding {row['pad_ms']:.4f}), plain {row['plain_ms']:.4f}, sdpa "
-                         f"{row['library_ms']:.4f} (device {row['library_device_ms']:.4f}), bound "
-                         f"{row['bound_ms']:.5f} ({row['bound_by']})" if "ms" in row else ""),
+                         f"{row['library_ms']:.4f} (device {row['library_device_ms']:.4f}; "
+                         f"{row['library_kernel']}), bound {row['bound_ms']:.5f} "
+                         f"({row['bound_by']})" if "ms" in row else ""),
                       flush=True)
-    for dtype in (torch.float32, torch.bfloat16) if refused else ():
-        x = torch.zeros((1, 2, 16, refused), device="cuda", dtype=dtype)
-        try:
-            fa(x, x, x)
-        except ValueError as e:
-            print(f"{phase} attention d {refused} {dtype}: refused ({e})", flush=True)
-        else:
-            fail(f"{phase}: kernel A took a head {refused} wide in {dtype}")
     return rows
 
 
@@ -4382,17 +4402,37 @@ WIDE_TILE_SHAPES = (("crop 64 (PallasTileConfig())", 64, 24, 16), ("crop 48 fd 4
                     ("crop 48 fd 64", 48, 64, 16), ("crop 48 fd 96", 48, 96, 16),
                     ("crop 48 fd 119", 48, 119, 16), ("tile 32 crop 64", 64, 24, 32),
                     ("crop 50", 50, 24, 16))
-# Kernel A above head width 128: (B, H, Nq, Nk) per width, 160 padded to 256.
-WIDE_HEAD_SHAPES = ((256, (1, 4, 768, 768)), (160, (1, 6, 768, 768)))
+# Kernel A above head width 128: (B, H, Nq, Nk) per width, 160 padded to
+# 256; above 256 the wide variant at MAST3R_512's 768 tokens and the
+# re-headed models' widths (1,024 and 768 at one encoder and one decoder
+# head, 512 and 384 at two), at 320 (a slice and a quarter) and at 2,048 (8
+# slices) at a 224x224 image's 196 tokens; and the main path's width at
+# batch x heads 65,600, past the 65,535 of a grid's y dimension.
+WIDE_HEAD_SHAPES = ((256, (1, 4, 768, 768)), (160, (1, 6, 768, 768)),
+                    (1024, (1, 1, 768, 768)), (512, (1, 2, 768, 768)), (768, (1, 1, 768, 768)),
+                    (384, (1, 2, 768, 768)), (320, (1, 3, 768, 768)), (2048, (2, 1, 196, 196)),
+                    (64, (2, 32800, 8, 8)))
 # The matcher's other tilings (`SLAMSystem.match_tcfg`) on the oracle scene.
 WIDE_TILINGS = (("crop 64", dict(crop=64)), ("tile 32 crop 64", dict(tile=32, crop=64)))
 WIDE_FRAMES = 16
 # MAST3R_512 re-headed as a checkpoint's stored constructor string would
-# give it: 4 encoder heads 256 wide, 4 decoder heads 192 wide.
-WIDE_ARCH = ("AsymmetricMASt3R(enc_embed_dim=1024, enc_depth=24, enc_num_heads=4, "
-             "dec_embed_dim=768, dec_depth=12, dec_num_heads=4, output_mode='pts3d+desc24', "
-             "head_type='catmlp+dpt', depth_mode=('exp', -inf, inf), conf_mode=('exp', 1, inf), "
-             "desc_conf_mode=('exp', 0, inf), two_confs=True)")
+# give it, at 4, 2 and 1 encoder and decoder heads: heads 256 / 192, 512 /
+# 384 and 1,024 / 768 wide; the oracle SLAM path also at 1 head for
+# WIDE_HEAD_FRAMES frames.
+WIDE_HEADS = (4, 2, 1)
+WIDE_HEAD_FRAMES = 8
+# Kernel B on images it reads through a pitched copy: 384x510 (a width that
+# is no multiple of 4) and 384x512 starting one element past alignment.
+WIDE_PITCHED = (("384x510", 510, 0), ("384x512 at an offset start", 512, 1))
+
+
+def wide_arch(heads: int) -> str:
+    """MAST3R_512's constructor string with `heads` encoder and decoder
+    heads."""
+    return (f"AsymmetricMASt3R(enc_embed_dim=1024, enc_depth=24, enc_num_heads={heads}, "
+            f"dec_embed_dim=768, dec_depth=12, dec_num_heads={heads}, "
+            "output_mode='pts3d+desc24', head_type='catmlp+dpt', depth_mode=('exp', -inf, inf), "
+            "conf_mode=('exp', 1, inf), desc_conf_mode=('exp', 0, inf), two_confs=True)")
 
 
 def wide_tile_match(seed: int, card: str) -> list:
@@ -4450,10 +4490,82 @@ def wide_tile_match(seed: int, card: str) -> list:
     return rows
 
 
-def wide_decode(seed: int, card: str) -> dict:
+def wide_pitched_tile_match(seed: int, card: str) -> dict:
+    """Kernel B through `matching_pallas.tile_match` (the default
+    `PallasTileConfig` but crop 48, the main path's) on the images of
+    `phase_tile_match`'s pair at `WIDE_PITCHED`: cut to 384x510, and copied
+    to start one element past 16-byte alignment. Each call copies its images
+    into a pitched buffer (`pitched_launches` counted) and runs the
+    whole-crop kernel; the flags and the ray matches (the stencil cut) equal
+    the plain version's on the same images and the full output passes
+    `rounding_check` (every query, >= 99.9% exactly equal); back to back and
+    device ms (the copy included), the plain version's ms and the bound. The
+    counters are zeroed just before the two calls and read just after."""
+    import torch
+
+    from monst3r_slam_torch.ops import matching_pallas as mp
+
+    args, ti, bounds = tile_match_inputs(seed)
+    crop, window, thresh = args[5:]
+    tcfg = mp.PallasTileConfig(crop=crop, window=window)
+    calls = []
+    for label, w, offset in WIDE_PITCHED:
+        images = []
+        for t in args[:2]:
+            t = t[:, :w].contiguous()
+            buf = torch.empty(t.numel() + offset, device=t.device, dtype=t.dtype)
+            buf[offset:] = t.flatten()
+            images.append(buf[offset:].view(t.shape))
+        calls.append((label, w, images))
+    kern = mp.tile_match_kernel
+    zero_counts()
+    outs = [mp.tile_match(*images, args[2], args[3], ti.corners, tcfg, thresh)
+            for _, _, images in calls]
+    torch.cuda.synchronize()
+    launches = read_counts()
+    if not (launches["tile_match_kernel"] == kern.pitched_launches == len(calls)
+            and kern.variant_launches["whole"] == len(calls)):
+        fail(f"wide pitched tile_match: launches {launches}, pitched {kern.pitched_launches}, "
+             f"variants {kern.variant_launches}")
+    rows = []
+    for (label, w, images), got in zip(calls, outs):
+        kargs = (*images, args[2], args[3], mp.quantize_corners(ti.corners, H, w, crop), crop,
+                 window, thresh)
+        agree = check_full(kargs, got, f"wide tile_match {label}")
+        ray = mp.tile_match_phase_kernel(*kargs, phase="stencil")
+        torch.cuda.synchronize()
+        ray0 = mp.tile_match_plain(*kargs, phase="stencil")
+        if not (all(torch.equal(a, b) for a, b in zip(ray, ray0)) and torch.equal(got[2], ray0[2])):
+            fail(f"wide tile_match {label}: the ray matches or flags differ from the plain version")
+        u0, v0, _ = mp.tile_match_plain(*kargs)
+
+        def call(images=images, w=w):
+            return mp.tile_match(*images, args[2], args[3], ti.corners, tcfg, thresh)
+
+        n_bytes = bounds["full"][0] + sum(t.numel() * t.element_size() for t in images) - sum(
+            t.numel() * t.element_size() for t in args[:2])
+        b_ms, b_by = bound_ms(n_bytes, bounds["full"][1])
+        row = dict(label=label, width=w, offset_elements=int(images[0].storage_offset()),
+                   shape=[*got[0].shape, crop], agree=agree,
+                   max_abs_err=float(torch.maximum((got[0] - u0).abs().max(),
+                                                   (got[1] - v0).abs().max())),
+                   ms=time_ms(call), device_ms=device_ms(call),
+                   plain_ms=time_ms(lambda: mp.tile_match_plain(*kargs), iters=2, warmup=1),
+                   bound_ms=b_ms, bound_by=b_by, library_ms=None, card=card)
+        rows.append(row)
+        print(f"wide tile_match {label} ({card}): through a pitched copy, the whole-crop "
+              f"kernel; flags and ray matches equal, every query passes the rounding check, "
+              f"exactly equal {agree:.6f}; ms (copy included): kernel {row['ms']:.4f}, device "
+              f"{row['device_ms']:.4f}, plain {row['plain_ms']:.4f}, bound {b_ms:.5f} ({b_by})",
+              flush=True)
+    return dict(rows=rows, launches=launches)
+
+
+def wide_decode(seed: int, card: str, heads: int) -> dict:
     """One two-view decode of MAST3R_512 re-headed through
-    `config_from_arch_string(WIDE_ARCH)` (heads 256 and 192 wide) with
-    random weights from `seed` on a 384x512 pair, against the same decode
+    `config_from_arch_string(wide_arch(heads))` (`heads` encoder and decoder
+    heads, 1024 / heads and 768 / heads wide) with random weights from
+    `seed` on a 384x512 pair, against the same decode
     with `attention.sdpa_plain` in kernel A's place: in f32 every output
     within 1e-3 of its scale (`phase_reference`'s bound; only the attention
     differs); in bf16 (weights cast as the CLIs cast them) each kernel A
@@ -4473,9 +4585,11 @@ def wide_decode(seed: int, card: str) -> dict:
     from monst3r_slam_torch.models.init import init_params
     from monst3r_slam_torch.ops import attention
 
-    cfg = config_from_arch_string(WIDE_ARCH)
-    if cfg != dataclasses.replace(MAST3R_512, enc_heads=4, dec_heads=4):
-        fail(f"wide: {WIDE_ARCH} parsed to {cfg}")
+    arch = wide_arch(heads)
+    cfg = config_from_arch_string(arch)
+    if cfg != dataclasses.replace(MAST3R_512, enc_heads=heads, dec_heads=heads):
+        fail(f"wide: {arch} parsed to {cfg}")
+    want = {cfg.enc_dim // heads, cfg.dec_dim // heads}
     params = init_params(torch.Generator(device="cuda").manual_seed(seed), cfg)
     imgs = torch.from_numpy(np.stack([synthetic_frame(seed, H, W),
                                       synthetic_frame(seed + 1, H, W)])).cuda()
@@ -4512,7 +4626,7 @@ def wide_decode(seed: int, card: str) -> dict:
         ref = plain_decode(ps, dtype)
         if not all(bool(torch.isfinite(t).all()) for t in got.values()):
             fail(f"wide decode {name}: non-finite outputs")
-        if not (set(widths) == {256, 192} and sum(widths.values()) == launches["fused_attention"]
+        if not (set(widths) == want and sum(widths.values()) == launches["fused_attention"]
                 == routes["f32" if dtype == torch.float32 else "bf16_tc"]):
             fail(f"wide decode {name}: kernel A launches {launches} by width {widths}, routes {routes}")
         row = dict(launches=launches, width_launches=widths, seconds=secs,
@@ -4611,27 +4725,74 @@ def wide_slam(seed: int, card: str) -> list:
     return rows
 
 
+def wide_slam_heads(seed: int, card: str) -> dict:
+    """The oracle scene (`phase_oracle`'s recipe, config/base.yaml, the
+    matcher as shipped, the worker waited for after each frame) for
+    WIDE_HEAD_FRAMES frames at MAST3R_512 re-headed to one encoder and one
+    decoder head (`wide_arch(1)`: heads 1,024 and 768 wide) with random bf16
+    weights from `seed`: every frame must track within ORACLE_ATE_SHARE of
+    the extent, and kernel A launch at both widths (counted by width) and
+    kernel B on the 384x512 images without a pitched copy."""
+    import torch
+
+    from monst3r_slam_torch.models.convert import (
+        cast_params_for_inference, config_from_arch_string,
+    )
+    from monst3r_slam_torch.models.init import init_params
+
+    cfg = config_from_arch_string(wide_arch(1))
+    params = cast_params_for_inference(
+        init_params(torch.Generator(device="cuda").manual_seed(seed), cfg))
+    r = oracle_slam_run(params, oracle_frames(WIDE_HEAD_FRAMES), "kernel", join_worker=True,
+                        model_cfg=cfg)
+    widths = {cfg.enc_dim, cfg.dec_dim}
+    if not r["finite"] or any(m != "TRACKING" for m in r["modes"]) \
+            or not r["ate"] < ORACLE_ATE_SHARE * r["extent"]:
+        fail(f"wide SLAM at one head: finite {r['finite']}, modes {r['modes']}, ATE {r['ate']} "
+             f"over extent {r['extent']}")
+    if not (set(r["widths"]) == widths and all(n > 0 for n in r["widths"].values())
+            and sum(r["widths"].values()) == r["launches"]["fused_attention"]
+            and r["routes"]["bf16_tc"] == r["launches"]["fused_attention"]
+            and r["launches"]["tile_match_kernel"] >= 1 and r["pitched"] == 0):
+        fail(f"wide SLAM at one head: launches {r['launches']} by width {r['widths']}, routes "
+             f"{r['routes']}, pitched kernel B calls {r['pitched']}")
+    row = dict(frames=WIDE_HEAD_FRAMES, ate=r["ate"], extent=r["extent"], kf_fids=r["kf_fids"],
+               edges=r["edges"], launches=r["launches"], width_launches=r["widths"],
+               frame_ms_median=float(np.median(r["wall_ms"][1:])), seconds=r["seconds"])
+    print(f"wide SLAM ({card}) oracle scene, MAST3R_512 at one encoder and one decoder head, "
+          f"{H}x{W}, {WIDE_HEAD_FRAMES} frames: every frame tracked, ATE {row['ate']:.6f} over "
+          f"extent {row['extent']:.4f} ({row['ate'] / row['extent']:.4%}); kernel A launches by "
+          f"width {row['width_launches']}; launches {row['launches']}; frame ms median "
+          f"{row['frame_ms_median']:.1f} (worker waited for)", flush=True)
+    return row
+
+
 def phase_wide(seed: int, card: str) -> dict:
     """The shapes the reference's kernels take beyond the main path's
     (`--only-wide`): kernel B through its banded variant at
-    `WIDE_TILE_SHAPES` (`wide_tile_match`); kernel A at heads 256 and 160
-    wide on both routes (`heads_attention` at `WIDE_HEAD_SHAPES`); the
-    re-headed MAST3R_512 decode (`wide_decode`); and the oracle SLAM path at
-    the matcher's crop-64 and tile-32 tilings (`wide_slam`). The path's
-    launches are the decode's and the SLAM runs' with kernel B."""
+    `WIDE_TILE_SHAPES` (`wide_tile_match`) and through pitched copies at
+    `WIDE_PITCHED` (`wide_pitched_tile_match`); kernel A at
+    `WIDE_HEAD_SHAPES` on both routes (`heads_attention`): heads 256 and 160
+    wide, the wide variant's widths up to 2,048 and batch x heads 65,600;
+    the MAST3R_512 decode re-headed to `WIDE_HEADS` (`wide_decode`); the
+    oracle SLAM path at the matcher's crop-64 and tile-32 tilings
+    (`wide_slam`) and at one head (`wide_slam_heads`). The path's launches
+    are the pitched calls', the decodes' and the SLAM runs'."""
     t0 = time.perf_counter()
     tile_rows = wide_tile_match(seed, card)
+    pitched = wide_pitched_tile_match(seed, card)
     attn_rows = [row for d, shape in WIDE_HEAD_SHAPES
-                 for row in heads_attention(seed, widths=(d,), shapes=(shape,), phase="wide",
-                                            refused=None)]
-    decode = wide_decode(seed, card)
+                 for row in heads_attention(seed, widths=(d,), shapes=(shape,), phase="wide")]
+    decode = {heads: wide_decode(seed, card, heads) for heads in WIDE_HEADS}
     slam = wide_slam(seed, card)
-    launches = {name: sum(r["launches"][name] for r in decode.values())
-                + sum(r["launches"][name] for r in slam) for name in slam[0]["launches"]}
+    slam_heads = wide_slam_heads(seed, card)
+    runs = [r for by_dtype in decode.values() for r in by_dtype.values()] + slam + [slam_heads]
+    launches = {name: pitched["launches"][name] + sum(r["launches"][name] for r in runs)
+                for name in pitched["launches"]}
     secs = time.perf_counter() - t0
     print(f"wide phase: {secs:.1f} s; launches {launches}", flush=True)
-    return dict(tile_match=tile_rows, attention=attn_rows, decode=decode, slam=slam,
-                launches=launches, seconds=secs)
+    return dict(tile_match=tile_rows, pitched=pitched, attention=attn_rows, decode=decode,
+                slam=slam, slam_heads=slam_heads, launches=launches, seconds=secs)
 
 
 def main() -> int:
@@ -4656,8 +4817,10 @@ def main() -> int:
                          "head width, the TINY entry points on the card); prints no result line")
     ap.add_argument("--only-wide", action="store_true",
                     help="build the kernels and run only the wide phase (kernel B's banded "
-                         "variant, kernel A at heads 256 wide, the re-headed decode, the SLAM "
-                         "path at crop 64 and tile 32); prints no result line")
+                         "variant and its pitched calls at 384x510 and an offset start, kernel A "
+                         "at heads 160-2,048 wide and batch x heads 65,600, the decodes "
+                         "re-headed to 4, 2 and 1 heads, the SLAM path at crop 64, tile 32 and "
+                         "one head); prints no result line")
     args = ap.parse_args()
 
     import torch
@@ -4742,7 +4905,20 @@ def main() -> int:
     enc = attn["bf16_tc", "encoder"]
     full = tmp["phases"]["full"]
     wide256 = next(r for r in wide_run["attention"] if r["width"] == 256 and r["route"] == "bf16_tc")
+    wide1024 = next(r for r in wide_run["attention"]
+                    if r["width"] == 1024 and r["route"] == "bf16_tc")
     banded64 = wide_run["tile_match"][0]
+    pitched510 = wide_run["pitched"]["rows"][0]
+    # Kernel A's launches on the wide path by width: the decodes' (per
+    # heads and dtype) and the one-head SLAM run's.
+    wide_widths = {f"decode {heads} heads {name}": r["width_launches"]
+                   for heads, by_dtype in wide_run["decode"].items()
+                   for name, r in by_dtype.items()}
+    wide_widths["slam 1 head"] = wide_run["slam_heads"]["width_launches"]
+
+    def wide_launches(lo, hi):
+        return {path: sum(n for d, n in widths.items() if lo < d <= hi)
+                for path, widths in wide_widths.items()}
     kernels = [
         dict(name="attention", route="cuda", source="monst3r_slam_torch/csrc/attention.cu",
              replaces="monst3r_slam_tpu/ops/attention.py:43",
@@ -4765,11 +4941,10 @@ def main() -> int:
                       "backward kernel)", gradient=train_run["gradient"],
              widths=dict(
                  checked=list(HEAD_WIDTHS) + [d for d, _ in WIDE_HEAD_SHAPES],
-                 instantiations=[16, 32, 64, 128, 256],
+                 instantiations=[16, 32, 64, 128, 256], wide_variant="multiples of 64 above 256",
                  rows=heads_run["attention"] + wide_run["attention"],
-                 launches_by_width=dict(
-                     train=heads_run["train"]["width_launches"],
-                     wide={name: r["width_launches"] for name, r in wide_run["decode"].items()}))),
+                 launches_by_width=dict(train=heads_run["train"]["width_launches"],
+                                        wide=wide_widths))),
         dict(name="tile_match", route="cuda", source="monst3r_slam_torch/csrc/tile_match.cu",
              replaces="monst3r_slam_tpu/ops/matching_pallas.py:213",
              launches=total["tile_match_kernel"], launches_by_path=by_path["tile_match_kernel"],
@@ -4794,9 +4969,8 @@ def main() -> int:
              device_ms=full["device_ms"], phases=tmp["phases"]),
         dict(name="attention_d256", route="cuda", source="monst3r_slam_torch/csrc/attention.cu",
              replaces="monst3r_slam_tpu/ops/attention.py:43",
-             launches=sum(sum(r["width_launches"].values()) for r in wide_run["decode"].values()),
-             launches_by_path=dict(wide=sum(sum(r["width_launches"].values())
-                                            for r in wide_run["decode"].values())),
+             launches=sum(wide_launches(128, 256).values()),
+             launches_by_path=dict(wide=wide_launches(128, 256)),
              kernel="attn_fwd_bf16_tc<256> (one stage a warpgroup), attn_fwd_f32<256> (8-row "
                     "warps); widths 129-255 zero-padded to 256",
              **{k: wide256[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -4814,6 +4988,29 @@ def main() -> int:
                                          "library_ms", "device_ms", "agree")},
              shape=[banded64["tiles"], banded64["queries"], banded64["crop"]],
              rows=wide_run["tile_match"]),
+        dict(name="attention_wide", route="cuda", source="monst3r_slam_torch/csrc/attention.cu",
+             replaces="monst3r_slam_tpu/ops/attention.py:43",
+             launches=sum(wide_launches(256, float("inf")).values()),
+             launches_by_path=dict(wide=wide_launches(256, float("inf"))),
+             kernel="attn_fwd_bf16_wide (wgmma, TMA: QK^T over 64-column chunks of d, O in "
+                    "256-column slices, one a CTA), attn_fwd_f32_wide (8-row warps, cp.async "
+                    "chunk ring, cluster split); widths above 256 zero-padded to a multiple of 64",
+             **{k: wide1024[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                         "library_ms", "shape", "tol", "device_ms",
+                                         "library_device_ms", "library_kernel")},
+             rows=[r for r in wide_run["attention"]
+                   if r["width"] > 256 or r["shape"][0] * r["shape"][1] > 65535]),
+        dict(name="tile_match_pitched", route="cuda",
+             source="monst3r_slam_torch/csrc/tile_match.cu",
+             replaces="monst3r_slam_tpu/ops/matching_pallas.py:213",
+             launches=wide_run["pitched"]["launches"]["tile_match_kernel"],
+             launches_by_path=dict(wide=wide_run["pitched"]["launches"]["tile_match_kernel"]),
+             kernel="tile_match_kernel<24, full> on images copied to a row pitch "
+                    "(matching_pallas.pad_pitch)",
+             **{k: pitched510[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                           "bound_by", "library_ms", "device_ms", "agree",
+                                           "shape")},
+             rows=wide_run["pitched"]["rows"]),
     ]
     print(json.dumps({"main_tracked_run": main_run}), flush=True)
     print(json.dumps({"dynamic_run": dyn, "raft_reference": raft_ref}), flush=True)
@@ -4826,7 +5023,8 @@ def main() -> int:
     print(json.dumps({"heads_run": {k: v for k, v in heads_run.items() if k != "attention"}}),
           flush=True)
     print(json.dumps({"wide_run": {k: v for k, v in wide_run.items()
-                                   if k not in ("attention", "tile_match")}}), flush=True)
+                                   if k not in ("attention", "tile_match", "pitched")}}),
+          flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -4,8 +4,10 @@
 // 128 and 256; the wrapper zero-pads any other width from 1 to 256 to the
 // next of them (zero columns of q and k leave Q K^T as it is, zero columns
 // of v give zero columns of O, sliced off) and passes the true width, whose
-// d^-1/2 scales the logits. The notes below give the shapes and counts at D = 64,
-// the main path's width.
+// d^-1/2 scales the logits. Wider heads take the wide variant of each route
+// (see "Wide heads" below), at any multiple of 64, to which the wrapper pads
+// them. The notes below give the shapes and counts at D = 64, the main
+// path's width.
 //
 // Replaces the JAX package's Pallas kernel in `ops/attention.py`
 // (`fused_attention`, body `_attn_kernel`): f32 logits and an f32 softmax,
@@ -122,11 +124,34 @@
 // registers alone reaches 47 of the 67 TFLOP/s (two fresh register operands
 // an FFMA), and the shared loads, the softmax and the merge take the rest.
 //
+// Wide heads (d > 256, a multiple of 64; `attn_fwd_bf16_wide`,
+// `attn_fwd_f32_wide`). D = 256's layout does not stretch: at d = 512 a
+// 64-row bf16 tile is 64 KB, so Q, K and V stages pass the 227 KB of shared
+// memory, and O's accumulators alone would take 256 registers a thread. So
+// each CTA owns one column slice of O, 256 columns wide (the last one
+// narrower where d is no multiple of 256), in D = 256's accumulator layout
+// (the bf16 route's 128 accumulators a thread, the f32 route's 8-row warps),
+// and recomputes S = Q K^T for its slice over the whole of d, 64 columns at
+// a time: per key tile, Q's and K's next 64-column chunks are staged (TMA
+// boxes on the bf16 route, cp.async on the f32 route) through a ring while
+// the chunk before is multiplied, then the softmax, then the V tile's slice
+// columns into the O accumulators. The grid is (query tile, slice, batch x
+// head), folded into x. The recompute does the S work once per slice and
+// reads Q and K again per slice and per key tile (from L2); sharing one
+// CTA's P with its slice's peers through distributed shared memory would
+// spare both, at a cluster barrier a tile. The f32 route keeps its cluster
+// split over key tiles (split chosen as for D = 256).
+//
+// Every route folds batch x heads into the grid's x with the query tiles
+// (and the slices), so b h has no limit of its own (the y dimension would
+// stop at 65,535).
+//
 // Launches on the caller's stream and returns the launch's cudaGetLastError().
 
 #include <cuda.h>  // CUtensorMap and its enums only: libcuda is looked up at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 #include <string.h>
@@ -135,9 +160,11 @@
 
 namespace {
 
-// Head widths with an instantiation; the wrapper pads every other width to
-// the next of them.
+// The widest instantiation; wider heads take the wide variants, in slices
+// of W_SLICE columns of O and chunks of W_CHUNK columns of d.
 constexpr int MAX_D = 256;
+constexpr int W_SLICE = 256;
+constexpr int W_CHUNK = 64;
 
 // Function attributes hold per device: a process that launches on several
 // cards sets them on each card at its first launch there.
@@ -363,7 +390,103 @@ __device__ __forceinline__ float quad_sum(float x) {
 // same layout over its 16 columns, so P is passed to the PV product without
 // leaving registers. At D = 128 the two halves' accumulators lie one after
 // the other, so acc[4i + ...] is column 8i + ... at every width.
-//
+
+// One key tile's online softmax in log2 units on S (sc, the 64 keys from
+// key k0 on), with the ACC accumulators of O rescaled, and P rounded to bf16
+// as the A fragments of the PV product's four k16 steps. The max is taken on
+// the raw scores (the scale is positive) and each probability is one FFMA
+// and one MUFU op. Keys at or past nk count as -inf; only a ragged last tile
+// has any.
+template <int ACC>
+__device__ __forceinline__ void tc_softmax(float (&sc)[32], float* acc, float& m0, float& m1,
+                                           float& l0, float& l1, int k0, int nk, int col0,
+                                           float scale_log2, uint32_t (&pa)[4][4]) {
+  if (k0 + BN > nk) {
+    const int kbase = k0 + col0;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        if (kbase + 8 * n + e >= nk) {
+          sc[4 * n + e] = -INFINITY;
+          sc[4 * n + 2 + e] = -INFINITY;
+        }
+      }
+    }
+  }
+  float mx0 = sc[0], mx1 = sc[2];
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    mx0 = fmaxf(mx0, fmaxf(sc[4 * n], sc[4 * n + 1]));
+    mx1 = fmaxf(mx1, fmaxf(sc[4 * n + 2], sc[4 * n + 3]));
+  }
+  // Finite: every tile holds a valid key (its first), and the max only grows.
+  mx0 = fmaxf(m0, quad_max(mx0) * scale_log2);
+  mx1 = fmaxf(m1, quad_max(mx1) * scale_log2);
+  const float c0 = fast_exp2(m0 - mx0), c1 = fast_exp2(m1 - mx1);
+  m0 = mx0;
+  m1 = mx1;
+  float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      sc[4 * n + e] = fast_exp2(fmaf(sc[4 * n + e], scale_log2, -mx0));
+      sc[4 * n + 2 + e] = fast_exp2(fmaf(sc[4 * n + 2 + e], scale_log2, -mx1));
+      rs0 += sc[4 * n + e];
+      rs1 += sc[4 * n + 2 + e];
+    }
+  }
+  l0 = l0 * c0 + rs0;
+  l1 = l1 * c1 + rs1;
+#pragma unroll
+  for (int n = 0; n < ACC / 4; ++n) {
+    acc[4 * n] *= c0;
+    acc[4 * n + 1] *= c0;
+    acc[4 * n + 2] *= c1;
+    acc[4 * n + 3] *= c1;
+  }
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    pa[c][0] = pack_bf16x2(sc[8 * c + 0], sc[8 * c + 1]);  // r0, keys 16c + col0
+    pa[c][1] = pack_bf16x2(sc[8 * c + 2], sc[8 * c + 3]);  // r1
+    pa[c][2] = pack_bf16x2(sc[8 * c + 4], sc[8 * c + 5]);  // r0, keys 16c + 8 + col0
+    pa[c][3] = pack_bf16x2(sc[8 * c + 6], sc[8 * c + 7]);  // r1
+  }
+}
+
+// Warpgroup 1 hands (acc, m, l) to warpgroup 0 through `merge` (ACC + 4
+// floats a thread, in shared memory neither reads any more; same thread
+// index, same rows and columns), and warpgroup 0 merges them into its own.
+// Every thread of the CTA calls it; warpgroup 1 is done after it.
+template <int ACC>
+__device__ __forceinline__ void tc_merge(float* acc, float& m0, float& m1, float& l0, float& l1,
+                                         float* merge, int wg, int wtid) {
+  if (wg == 1) {
+#pragma unroll
+    for (int e = 0; e < ACC; ++e) merge[e * 128 + wtid] = acc[e];
+    merge[ACC * 128 + wtid] = m0;
+    merge[(ACC + 1) * 128 + wtid] = m1;
+    merge[(ACC + 2) * 128 + wtid] = l0;
+    merge[(ACC + 3) * 128 + wtid] = l1;
+  }
+  __syncthreads();
+  if (wg == 1) return;
+  const float om0 = merge[ACC * 128 + wtid], om1 = merge[(ACC + 1) * 128 + wtid];
+  const float n0 = fmaxf(m0, om0), n1 = fmaxf(m1, om1);  // finite: tile 0 is warpgroup 0's
+  const float a0 = fast_exp2(m0 - n0), a1 = fast_exp2(m1 - n1);
+  const float b0 = fast_exp2(om0 - n0), b1 = fast_exp2(om1 - n1);  // 0 for a warpgroup with no tile
+  l0 = l0 * a0 + merge[(ACC + 2) * 128 + wtid] * b0;
+  l1 = l1 * a1 + merge[(ACC + 3) * 128 + wtid] * b1;
+#pragma unroll
+  for (int n = 0; n < ACC / 4; ++n) {
+    acc[4 * n] = acc[4 * n] * a0 + merge[(4 * n) * 128 + wtid] * b0;
+    acc[4 * n + 1] = acc[4 * n + 1] * a0 + merge[(4 * n + 1) * 128 + wtid] * b0;
+    acc[4 * n + 2] = acc[4 * n + 2] * a1 + merge[(4 * n + 2) * 128 + wtid] * b1;
+    acc[4 * n + 3] = acc[4 * n + 3] * a1 + merge[(4 * n + 3) * 128 + wtid] * b1;
+  }
+}
+
 // The problem is small (12 key tiles per 64 queries at 768 tokens, one or
 // two CTAs per SM), so a CTA's serial chain of tiles leaves the SM's units
 // idle between its steps. Two warpgroups therefore share the CTA's 64 query
@@ -391,8 +514,10 @@ attn_fwd_bf16_tc(const __grid_constant__ CUtensorMap tq, const __grid_constant__
   const int wtid = tid & 127;
   const int warp = wtid >> 5;
   const int lane = tid & 31;
-  const int b = blockIdx.y / heads, h = blockIdx.y % heads;
-  const int q0 = blockIdx.x * BM;
+  const int qtiles = (nq + BM - 1) / BM;
+  const int bh = blockIdx.x / qtiles;  // x = (batch x head, query tile)
+  const int b = bh / heads, h = bh % heads;
+  const int q0 = (blockIdx.x - bh * qtiles) * BM;
   const int ntiles = (nk + BN - 1) / BN;
   const int mine = (ntiles - wg + NWG - 1) / NWG;  // tiles of this warpgroup
   __nv_bfloat16* sK = ring(wg);
@@ -452,64 +577,8 @@ attn_fwd_bf16_tc(const __grid_constant__ CUtensorMap tq, const __grid_constant__
     wgmma_wait_all();
     fence_regs<32>(sc);
 
-    // Online softmax in log2 units: the max is taken on the raw scores (the
-    // scale is positive) and each probability is one FFMA and one MUFU op.
-    // Keys at or past nk count as -inf; only a ragged last tile has any.
-    if (j * BN + BN > nk) {
-      const int kbase = j * BN + col0;
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          if (kbase + 8 * n + e >= nk) {
-            sc[4 * n + e] = -INFINITY;
-            sc[4 * n + 2 + e] = -INFINITY;
-          }
-        }
-      }
-    }
-    float mx0 = sc[0], mx1 = sc[2];
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      mx0 = fmaxf(mx0, fmaxf(sc[4 * n], sc[4 * n + 1]));
-      mx1 = fmaxf(mx1, fmaxf(sc[4 * n + 2], sc[4 * n + 3]));
-    }
-    // Finite: every tile holds a valid key (its first), and the max only grows.
-    mx0 = fmaxf(m0, quad_max(mx0) * scale_log2);
-    mx1 = fmaxf(m1, quad_max(mx1) * scale_log2);
-    const float c0 = fast_exp2(m0 - mx0), c1 = fast_exp2(m1 - mx1);
-    m0 = mx0;
-    m1 = mx1;
-    float rs0 = 0.f, rs1 = 0.f;
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        sc[4 * n + e] = fast_exp2(fmaf(sc[4 * n + e], scale_log2, -mx0));
-        sc[4 * n + 2 + e] = fast_exp2(fmaf(sc[4 * n + 2 + e], scale_log2, -mx1));
-        rs0 += sc[4 * n + e];
-        rs1 += sc[4 * n + 2 + e];
-      }
-    }
-    l0 = l0 * c0 + rs0;
-    l1 = l1 * c1 + rs1;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      acc[4 * n] *= c0;
-      acc[4 * n + 1] *= c0;
-      acc[4 * n + 2] *= c1;
-      acc[4 * n + 3] *= c1;
-    }
-
-    // P rounded to bf16, as A fragments of four k16 steps over the tile's keys.
     uint32_t pa[4][4];
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      pa[c][0] = pack_bf16x2(sc[8 * c + 0], sc[8 * c + 1]);  // r0, keys 16c + col0
-      pa[c][1] = pack_bf16x2(sc[8 * c + 2], sc[8 * c + 3]);  // r1
-      pa[c][2] = pack_bf16x2(sc[8 * c + 4], sc[8 * c + 5]);  // r0, keys 16c + 8 + col0
-      pa[c][3] = pack_bf16x2(sc[8 * c + 6], sc[8 * c + 7]);  // r1
-    }
+    tc_softmax<ACC>(sc, acc, m0, m1, l0, l1, j * BN, nk, col0, scale_log2, pa);
 
     // O += P V: V's rows are keys, its columns contiguous (MN-major B), one
     // product per atom of columns.
@@ -535,36 +604,12 @@ attn_fwd_bf16_tc(const __grid_constant__ CUtensorMap tq, const __grid_constant__
     }
   }
 
-  // Warpgroup 1 hands (acc, m, l) to warpgroup 0 through its own ring, which
-  // it no longer reads (at D = 256, once both are done, through the staging
-  // from Q on); same thread index, same rows and columns.
+  // Warpgroup 1's state goes through its own ring, which it no longer reads
+  // (at D = 256, once both are done, through the staging from Q on).
   if constexpr (!T::MERGE_IN_RING) __syncthreads();
-  float* merge = reinterpret_cast<float*>(T::MERGE_IN_RING ? ring(1) : sQ);
-  if (wg == 1) {
-#pragma unroll
-    for (int e = 0; e < ACC; ++e) merge[e * 128 + wtid] = acc[e];
-    merge[ACC * 128 + wtid] = m0;
-    merge[(ACC + 1) * 128 + wtid] = m1;
-    merge[(ACC + 2) * 128 + wtid] = l0;
-    merge[(ACC + 3) * 128 + wtid] = l1;
-  }
-  __syncthreads();
+  tc_merge<ACC>(acc, m0, m1, l0, l1, reinterpret_cast<float*>(T::MERGE_IN_RING ? ring(1) : sQ),
+                wg, wtid);
   if (wg == 1) return;
-  {
-    const float om0 = merge[ACC * 128 + wtid], om1 = merge[(ACC + 1) * 128 + wtid];
-    const float n0 = fmaxf(m0, om0), n1 = fmaxf(m1, om1);  // finite: tile 0 is warpgroup 0's
-    const float a0 = fast_exp2(m0 - n0), a1 = fast_exp2(m1 - n1);
-    const float b0 = fast_exp2(om0 - n0), b1 = fast_exp2(om1 - n1);  // 0 for a warpgroup with no tile
-    l0 = l0 * a0 + merge[(ACC + 2) * 128 + wtid] * b0;
-    l1 = l1 * a1 + merge[(ACC + 3) * 128 + wtid] * b1;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      acc[4 * n] = acc[4 * n] * a0 + merge[(4 * n) * 128 + wtid] * b0;
-      acc[4 * n + 1] = acc[4 * n + 1] * a0 + merge[(4 * n + 1) * 128 + wtid] * b0;
-      acc[4 * n + 2] = acc[4 * n + 2] * a1 + merge[(4 * n + 2) * 128 + wtid] * b1;
-      acc[4 * n + 3] = acc[4 * n + 3] * a1 + merge[(4 * n + 3) * 128 + wtid] * b1;
-    }
-  }
 
   const float inv0 = 1.f / quad_sum(l0), inv1 = 1.f / quad_sum(l1);
   const int r0 = q0 + 16 * warp + (lane >> 2), r1 = r0 + 8;
@@ -674,9 +719,193 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, const Stri
     if (err != cudaSuccess) return (int)err;
     configured[dev] = true;
   }
-  const dim3 grid((nq + BM - 1) / BM, batch * heads);
-  attn_fwd_bf16_tc<D><<<grid, NTHREAD, Tc<D>::SMEM, stream>>>(
+  const long long grid = (long long)((nq + BM - 1) / BM) * batch * heads;
+  if (grid > INT_MAX) return 1000;
+  attn_fwd_bf16_tc<D><<<(unsigned)grid, NTHREAD, Tc<D>::SMEM, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(o), st[3], heads, nq, nk, scale_log2);
+  return (int)cudaGetLastError();
+}
+
+// Wide heads on the bf16 route (see the note at the top): a CTA owns 64
+// query rows and one slice of O, up to W_SLICE columns from column c0; its
+// two warpgroups split the key tiles as in `attn_fwd_bf16_tc`. Warpgroup g's
+// stream of steps t = 0, 1, ...: key tile NWG (t / chunks) + g, d-chunk
+// t % chunks, whose Q and K boxes (64 rows x 64 columns each, in the
+// 128-byte swizzle) land in stage t % W_STAGES of its ring; its V tile's
+// slice (up to four 64-column boxes) lands in one V stage of its own.
+constexpr int W_STAGES = 3;
+struct TcWide {
+  static constexpr int CHUNK_ELEMS = 64 * W_CHUNK;        // one 64 x 64 box
+  static constexpr int CHUNK_BYTES = CHUNK_ELEMS * 2;
+  static constexpr int NATOM = W_SLICE / W_CHUNK;         // V boxes of a whole slice
+  static constexpr int STAGE_ELEMS = 2 * CHUNK_ELEMS;     // Q's chunk, then K's
+  static constexpr int WG_ELEMS = W_STAGES * STAGE_ELEMS + NATOM * CHUNK_ELEMS;  // + V
+  static constexpr int NBAR = NWG * (W_STAGES + 1);       // per warpgroup: stages, then V
+  static constexpr int SMEM = NWG * WG_ELEMS * 2 + 8 * NBAR + 1024;  // + align slack
+  static constexpr int ACC = W_SLICE / 2;
+  static_assert((ACC + 4) * 128 * 4 <= WG_ELEMS * 2, "the merge fits a warpgroup's ring");
+  static_assert(SMEM <= 232448, "a CTA fits an SM's shared memory");
+};
+
+__global__ void __launch_bounds__(NTHREAD, 1)
+attn_fwd_bf16_wide(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
+                   Strides so, int heads, int nq, int nk, int chunks, int slices,
+                   float scale_log2) {
+  using W = TcWide;
+  constexpr int CHUNK_ELEMS = W::CHUNK_ELEMS, STAGE_ELEMS = W::STAGE_ELEMS, ACC = W::ACC;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  auto region = [&](int g) { return reinterpret_cast<__nv_bfloat16*>(base) + g * W::WG_ELEMS; };
+  uint64_t* bars = reinterpret_cast<uint64_t*>(region(NWG));
+
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7;
+  const int wtid = tid & 127;
+  const int warp = wtid >> 5;
+  const int lane = tid & 31;
+  const int qtiles = (nq + BM - 1) / BM;
+  int x = blockIdx.x;  // x = ((batch x head, slice), query tile)
+  const int q0 = x % qtiles * BM;
+  x /= qtiles;
+  const int c0 = x % slices * W_SLICE;
+  const int bh = x / slices;
+  const int b = bh / heads, h = bh % heads;
+  const int natoms = min(W::NATOM, chunks - c0 / W_CHUNK);  // this slice's 64-column boxes
+  const int ntiles = (nk + BN - 1) / BN;
+  const int mine = (ntiles - wg + NWG - 1) / NWG;
+
+  // Warpgroup g's step t into its stage t % W_STAGES; its tile i's V slice.
+  // One thread issues each.
+  const CUtensorMap *mq = &tq, *mk = &tk, *mv = &tv;
+  auto load_step = [&](int g, int t) {
+    __nv_bfloat16* st = region(g) + t % W_STAGES * STAGE_ELEMS;
+    uint64_t* bar = bars + (W_STAGES + 1) * g + t % W_STAGES;
+    const int j = NWG * (t / chunks) + g, col = t % chunks * W_CHUNK;
+    mbar_expect_tx(bar, 2 * W::CHUNK_BYTES);
+    tma_load_box(st, mq, bar, col, q0, h, b);
+    tma_load_box(st + CHUNK_ELEMS, mk, bar, col, j * BN, h, b);
+  };
+  auto load_v = [&](int g, int i) {
+    __nv_bfloat16* sv = region(g) + W_STAGES * STAGE_ELEMS;
+    uint64_t* bar = bars + (W_STAGES + 1) * g + W_STAGES;
+    mbar_expect_tx(bar, natoms * W::CHUNK_BYTES);
+    for (int a = 0; a < natoms; ++a)
+      tma_load_box(sv + a * CHUNK_ELEMS, mv, bar, c0 + a * W_CHUNK, (NWG * i + g) * BN, h, b);
+  };
+
+  if (tid == 0) {
+    for (int i = 0; i < W::NBAR; ++i) mbar_init(&bars[i], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    for (int g = 0; g < NWG; ++g) {
+      const int steps_g = (ntiles - g + NWG - 1) / NWG * chunks;
+      for (int t = 0; t < W_STAGES && t < steps_g; ++t) load_step(g, t);
+      if (steps_g > 0) load_v(g, 0);
+    }
+  }
+  __syncthreads();
+
+  const __nv_bfloat16* ring = region(wg);
+  uint64_t* cbar = bars + (W_STAGES + 1) * wg;
+  const int steps = mine * chunks;
+  float acc[ACC];
+#pragma unroll
+  for (int i = 0; i < ACC; ++i) acc[i] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY;
+  float l0 = 0.f, l1 = 0.f;
+  const int col0 = 2 * (lane & 3);
+
+  for (int i = 0; i < mine; ++i) {
+    // S = Q K^T over d, chunk by chunk: four k16 steps of 32 bytes in each
+    // chunk's one atom. A chunk's products run while the next chunk's wait
+    // is served; once the products of step t - 1 are done, its stage takes
+    // step t - 1 + W_STAGES.
+    float sc[32];
+#pragma unroll
+    for (int e = 0; e < 32; ++e) sc[e] = 0.f;
+    for (int c = 0; c < chunks; ++c) {
+      const int t = i * chunks + c;
+      mbar_wait(&cbar[t % W_STAGES], (t / W_STAGES) & 1);
+      const __nv_bfloat16* st = ring + t % W_STAGES * STAGE_ELEMS;
+      const uint64_t dq = sw_desc<128>(st), dk = sw_desc<128>(st + CHUNK_ELEMS);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_ss(sc, dq + 2 * kk, dk + 2 * kk, 1);
+      wgmma_commit();
+      asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
+      if (t > 0) {
+        warpgroup_sync(wg);  // every warp is done with step t - 1's stage
+        if (wtid == 0 && t - 1 + W_STAGES < steps) load_step(wg, t - 1 + W_STAGES);
+      }
+    }
+    wgmma_wait_all();
+    fence_regs<32>(sc);
+
+    uint32_t pa[4][4];
+    tc_softmax<ACC>(sc, acc, m0, m1, l0, l1, (NWG * i + wg) * BN, nk, col0, scale_log2, pa);
+
+    // O += P V over the slice's boxes (a narrower last slice skips the rest).
+    mbar_wait(&cbar[W_STAGES], i & 1);
+    const uint64_t dv = sw_desc<128>(ring + W_STAGES * STAGE_ELEMS);
+    fence_regs<ACC>(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+#pragma unroll
+      for (int a = 0; a < W::NATOM; ++a)
+        if (a < natoms)
+          wgmma_rs_bt<W_CHUNK>(acc + a * W_CHUNK / 2, pa[c],
+                               dv + (a * CHUNK_ELEMS + 16 * c * W_CHUNK) * 2 / 16);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs<ACC>(acc);
+    warpgroup_sync(wg);  // every warp is done with the V stage
+    if (wtid == 0 && i + 1 < mine) load_v(wg, i + 1);
+  }
+
+  tc_merge<ACC>(acc, m0, m1, l0, l1, reinterpret_cast<float*>(region(1)), wg, wtid);
+  if (wg == 1) return;
+
+  const float inv0 = 1.f / quad_sum(l0), inv1 = 1.f / quad_sum(l1);
+  const int r0 = q0 + 16 * warp + (lane >> 2), r1 = r0 + 8;
+  __nv_bfloat16* ob = o + b * so.b + h * so.h + c0;
+#pragma unroll
+  for (int n = 0; n < ACC / 4; ++n) {
+    if (n / 8 >= natoms) continue;
+    const int col = 8 * n + col0;
+    if (r0 < nq)
+      *reinterpret_cast<__nv_bfloat162*>(ob + r0 * so.r + col) =
+          __floats2bfloat162_rn(acc[4 * n] * inv0, acc[4 * n + 1] * inv0);
+    if (r1 < nq)
+      *reinterpret_cast<__nv_bfloat162*>(ob + r1 * so.r + col) =
+          __floats2bfloat162_rn(acc[4 * n + 2] * inv1, acc[4 * n + 3] * inv1);
+  }
+}
+
+int launch_bf16_wide(const void* q, const void* k, const void* v, void* o, const Strides* st,
+                     int batch, int heads, int nq, int nk, int d, float scale_log2,
+                     cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  if (!cached_map(&tq, q, st[0], d, nq, heads, batch) ||
+      !cached_map(&tk, k, st[1], d, nk, heads, batch) ||
+      !cached_map(&tv, v, st[2], d, nk, heads, batch))
+    return 1001;
+  static bool configured[MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t err = current_device(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (!configured[dev]) {
+    err = cudaFuncSetAttribute(attn_fwd_bf16_wide, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               TcWide::SMEM);
+    if (err != cudaSuccess) return (int)err;
+    configured[dev] = true;
+  }
+  const int chunks = d / W_CHUNK, slices = (d + W_SLICE - 1) / W_SLICE;
+  const long long grid = (long long)((nq + BM - 1) / BM) * slices * batch * heads;
+  if (grid > INT_MAX) return 1000;
+  attn_fwd_bf16_wide<<<(unsigned)grid, NTHREAD, TcWide::SMEM, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), st[3], heads, nq, nk, chunks, slices,
+      scale_log2);
   return (int)cudaGetLastError();
 }
 
@@ -794,6 +1023,185 @@ __device__ __forceinline__ void cluster_sync() {
   asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
 }
 
+// One key tile of the f32 route after S = Q K^T (sc: this lane's SR rows x
+// 4 keys of the 16 from tile `tile` on): the online softmax in log2 units
+// over the 4 lanes that share a row, P through the warp's key-major slice
+// Pw, O rescaled and += P V from the staged V rows Vt (row stride
+// F32<D>::LD). Keys at or past nk count as -inf; only a ragged last tile has
+// any, and every tile holds a valid key (its first), so the max is finite.
+template <int D>
+__device__ __forceinline__ void f32_tile(float (&sc)[F32<D>::SR][4], float (&m)[F32<D>::SR],
+                                         float (&l)[F32<D>::SR],
+                                         float (&acc)[F32<D>::OR][F32<D>::OC], float* Pw,
+                                         const float* Vt, int tile, int nk, float scale_log2,
+                                         int lane) {
+  using F = F32<D>;
+  constexpr int WROWS = F::WROWS, SR = F::SR, OR = F::OR, OC = F::OC, LD = F::LD;
+  const int rg = lane >> 2, kg = lane & 3, RG = lane >> 3, cg = lane & 7;
+  const int key0 = tile * F_BK + kg;
+  if ((tile + 1) * F_BK > nk) {
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+      if (key0 + 4 * t >= nk)
+#pragma unroll
+        for (int i = 0; i < SR; ++i) sc[i][t] = -INFINITY;
+  }
+  float corr[SR];
+#pragma unroll
+  for (int i = 0; i < SR; ++i) {
+    float mx = fmaxf(fmaxf(sc[i][0], sc[i][1]), fmaxf(sc[i][2], sc[i][3]));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float mn = fmaxf(m[i], mx * scale_log2);
+    corr[i] = fast_exp2(m[i] - mn);
+    m[i] = mn;
+    float rs = 0.f;
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      sc[i][t] = fast_exp2(fmaf(sc[i][t], scale_log2, -mn));
+      rs += sc[i][t];
+    }
+    l[i] = fmaf(l[i], corr[i], rs);
+  }
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    float* dst = Pw + (kg + 4 * t) * WROWS + SR * rg;
+    if constexpr (SR == 4)
+      *reinterpret_cast<float4*>(dst) = make_float4(sc[0][t], sc[1][t], sc[2][t], sc[3][t]);
+    else if constexpr (SR == 2)
+      *reinterpret_cast<float2*>(dst) = make_float2(sc[0][t], sc[1][t]);
+    else
+      *dst = sc[0][t];
+  }
+  float oc[OR];
+#pragma unroll
+  for (int i = 0; i < SR; ++i) {
+    oc[i] = __shfl_sync(0xffffffffu, corr[i], lane & ~4);
+    oc[SR + i] = __shfl_sync(0xffffffffu, corr[i], lane | 4);
+  }
+  __syncwarp();  // P is in shared memory
+
+  // O += P V: per key, OR / 4 loads of P and OC / 4 of V (16 bytes each)
+  // feed OR OC FMAs.
+#pragma unroll
+  for (int x = 0; x < OR; ++x)
+#pragma unroll
+    for (int c = 0; c < OC; ++c) acc[x][c] *= oc[x];
+#pragma unroll
+  for (int j = 0; j < F_BK; ++j) {
+    float p[OR], w[OC];
+    if constexpr (OR == 2) {
+      const float2 pv = *reinterpret_cast<const float2*>(Pw + j * WROWS + OR * RG);
+      p[0] = pv.x;
+      p[1] = pv.y;
+    } else {
+#pragma unroll
+      for (int x4 = 0; x4 < OR / 4; ++x4) {
+        const float4 pv = *reinterpret_cast<const float4*>(Pw + j * WROWS + OR * RG + 4 * x4);
+        p[4 * x4] = pv.x;
+        p[4 * x4 + 1] = pv.y;
+        p[4 * x4 + 2] = pv.z;
+        p[4 * x4 + 3] = pv.w;
+      }
+    }
+    if constexpr (D == 16) {
+      const float2 vv = *reinterpret_cast<const float2*>(Vt + j * LD + 2 * cg);
+      w[0] = vv.x;
+      w[1] = vv.y;
+    } else {
+#pragma unroll
+      for (int c4 = 0; c4 < OC / 4; ++c4) {
+        const float4 vv = *reinterpret_cast<const float4*>(Vt + j * LD + 32 * c4 + 4 * cg);
+        w[4 * c4] = vv.x;
+        w[4 * c4 + 1] = vv.y;
+        w[4 * c4 + 2] = vv.z;
+        w[4 * c4 + 3] = vv.w;
+      }
+    }
+#pragma unroll
+    for (int x = 0; x < OR; ++x)
+#pragma unroll
+      for (int c = 0; c < OC; ++c) acc[x][c] = fmaf(p[x], w[c], acc[x][c]);
+  }
+}
+
+// The split's merge, once every warp is done with the last tile and no
+// copy is in flight: this CTA's partials (O unnormalized into part_o, BQ
+// rows of F32<D>::LD floats; each row's max and sum into part_m and part_l)
+// in its own shared memory; then it finalizes rows [lo, hi) of the block
+// from the split's partials through distributed shared memory,
+// O = sum_g w_g O_g / sum_g w_g l_g with w_g = 2^(m_g - max_g m_g) (weights
+// in wts), and writes their first `cols` columns at ob (the block's first
+// row and column; row stride ro). `rows`: the block's rows before nq.
+template <int D>
+__device__ __forceinline__ void f32_merge(float (&acc)[F32<D>::OR][F32<D>::OC],
+                                          float (&m)[F32<D>::SR], float (&l)[F32<D>::SR],
+                                          float* part_o, float* part_m, float* part_l, float* wts,
+                                          int rank, int split, int rows, float* ob, long long ro,
+                                          int cols) {
+  using F = F32<D>;
+  constexpr int WROWS = F::WROWS, SR = F::SR, OR = F::OR, OC = F::OC, BQ = F::BQ, LD = F::LD;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int rg = lane >> 2, kg = lane & 3, RG = lane >> 3, cg = lane & 7;
+#pragma unroll
+  for (int i = 0; i < SR; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+  }
+  __syncthreads();
+#pragma unroll
+  for (int x = 0; x < OR; ++x) {
+    float* row = part_o + (warp * WROWS + OR * RG + x) * LD;
+    if constexpr (D == 16) {
+      *reinterpret_cast<float2*>(row + o_col<D>(cg, 0)) = make_float2(acc[x][0], acc[x][1]);
+    } else {
+#pragma unroll
+      for (int c4 = 0; c4 < OC / 4; ++c4)
+        *reinterpret_cast<float4*>(row + o_col<D>(cg, 4 * c4)) =
+            make_float4(acc[x][4 * c4], acc[x][4 * c4 + 1], acc[x][4 * c4 + 2], acc[x][4 * c4 + 3]);
+    }
+  }
+  if (kg == 0) {
+#pragma unroll
+    for (int i = 0; i < SR; ++i) {
+      part_m[warp * WROWS + SR * rg + i] = m[i];
+      part_l[warp * WROWS + SR * rg + i] = l[i];
+    }
+  }
+  cluster_sync<true>();  // every CTA's partials are written
+
+  const int lo = rank * BQ / split;
+  const int hi = min((rank + 1) * BQ / split, rows);
+  const uint32_t m_at = smem_u32(part_m), l_at = smem_u32(part_l), o_at = smem_u32(part_o);
+  for (int r = lo + tid; r < hi; r += F_THREADS) {
+    float mx = -INFINITY;
+    for (int g = 0; g < split; ++g) mx = fmaxf(mx, ld_cluster(cluster_addr(m_at + 4 * r, g)));
+    float sum = 0.f;
+    for (int g = 0; g < split; ++g) {
+      const float wg = fast_exp2(ld_cluster(cluster_addr(m_at + 4 * r, g)) - mx);
+      sum = fmaf(wg, ld_cluster(cluster_addr(l_at + 4 * r, g)), sum);
+      wts[(r - lo) * split + g] = wg;
+    }
+    const float inv = 1.f / sum;  // >= 1: the largest max's partial sum holds 2^0
+    for (int g = 0; g < split; ++g) wts[(r - lo) * split + g] *= inv;
+  }
+  __syncthreads();
+  for (int e = tid; e < (hi - lo) * (cols / 4); e += F_THREADS) {
+    const int r = lo + e / (cols / 4), c4 = e % (cols / 4);
+    float4 out = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int g = 0; g < split; ++g) {
+      const float wg = wts[(r - lo) * split + g];
+      const float4 pv = ld_cluster4(cluster_addr(o_at + 4 * (r * LD + 4 * c4), g));
+      out.x = fmaf(wg, pv.x, out.x);
+      out.y = fmaf(wg, pv.y, out.y);
+      out.z = fmaf(wg, pv.z, out.z);
+      out.w = fmaf(wg, pv.w, out.w);
+    }
+    *reinterpret_cast<float4*>(ob + r * ro + 4 * c4) = out;
+  }
+  cluster_sync<false>();  // no CTA leaves while a peer still reads its shared memory
+}
+
 template <int D>
 __global__ void __launch_bounds__(F_THREADS, 3)
 attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
@@ -807,9 +1215,12 @@ attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   float* Ps = ring + F_STAGES * F::TILE_FLOATS;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int rank = blockIdx.x % split;  // the cluster is (split, 1, 1): its CTAs are consecutive
-  const int q0 = blockIdx.x / split * BQ;
-  const int b = blockIdx.y / heads, h = blockIdx.y % heads;
+  const int blocks = (nq + BQ - 1) / BQ;
+  const int cl = blockIdx.x / split;  // the cluster is (split, 1, 1): its CTAs are consecutive
+  const int rank = blockIdx.x - cl * split;
+  const int bh = cl / blocks;  // x = ((batch x head, query block), rank)
+  const int q0 = (cl - bh * blocks) * BQ;
+  const int b = bh / heads, h = bh % heads;
   const float* qb = q + b * sq.b + h * sq.h;
   const float* kb = k + b * sk.b + h * sk.h;
   const float* vb = v + b * sv.b + h * sv.h;
@@ -831,7 +1242,7 @@ attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     copy_commit();
   }
 
-  const int rg = lane >> 2, kg = lane & 3, RG = lane >> 3, cg = lane & 7;
+  const int rg = lane >> 2, kg = lane & 3;
   const float* Qw = Qs + (warp * WROWS + rg) * LD;
   float* Pw = Ps + warp * F::P_FLOATS;
   float acc[OR][OC];
@@ -882,163 +1293,147 @@ attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
         }
     }
 
-    // Online softmax in log2 units over the 4 lanes that share a row. Keys at
-    // or past nk count as -inf; only a ragged last tile has any, and every
-    // tile holds a valid key (its first), so the max is finite.
-    const int key0 = (t0 + it) * F_BK + kg;
-    if ((t0 + it + 1) * F_BK > nk) {
+    f32_tile<D>(sc, m, l, acc, Pw, Vt, t0 + it, nk, scale_log2, lane);
+  }
+
+  // The partials go over Q's staging, their maxima and sums over the ring.
+  f32_merge<D>(acc, m, l, Qs, ring, ring + BQ, Ps, rank, split, nq - q0,
+               o + b * so.b + h * so.h + q0 * so.r, so.r, D);
+}
+
+// Wide heads on the f32 route (see the note at the top): a CTA of four
+// 8-row warps owns 32 query rows, one share of the key tiles (the cluster
+// split of `attn_fwd_f32`) and one slice of O, up to W_SLICE columns from
+// column c0, in the layout of `attn_fwd_f32<256>`. Per key tile it takes
+// chunks + 1 steps through one ring of FW_STAGES stages: a chunk step
+// stages the block's Q rows and the tile's K rows over 64 columns of d
+// (rows of 64 + 4 floats), the last step the tile's V rows over the slice's
+// columns (rows of 256 + 4 floats).
+constexpr int FW_STAGES = 4;
+struct F32Wide {
+  using F = F32<W_SLICE>;
+  static constexpr int CL = W_CHUNK + 4;                   // staged chunk row (floats)
+  static constexpr int CHUNK_FLOATS = (F::BQ + F_BK) * CL;  // Q's rows, then K's
+  static constexpr int V_FLOATS = F_BK * F::LD;
+  static constexpr int STAGE_FLOATS = CHUNK_FLOATS > V_FLOATS ? CHUNK_FLOATS : V_FLOATS;
+  static constexpr int SMEM = 4 * (FW_STAGES * STAGE_FLOATS + F_WARPS * F::P_FLOATS);
+  static_assert(F::BQ * F::LD + 2 * F::BQ <= FW_STAGES * STAGE_FLOATS, "the partials fit the ring");
+  static_assert(F::BQ + F_MAX_SPLIT <= F_WARPS * F::P_FLOATS, "weights fit P");
+};
+
+// Registers for two CTAs an SM (up to 255 a thread): at three (168) the
+// loop state beside the O accumulators spills.
+__global__ void __launch_bounds__(F_THREADS, 2)
+attn_fwd_f32_wide(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, float* __restrict__ o, Strides sq, Strides sk,
+                  Strides sv, Strides so, int heads, int nq, int nk, int chunks, int slices,
+                  int split, float scale_log2) {
+  using F = F32<W_SLICE>;
+  using W = F32Wide;
+  constexpr int WROWS = F::WROWS, OR = F::OR, OC = F::OC, BQ = F::BQ, CL = W::CL;
+  static_assert(F::SR == 1, "one S row a lane");
+  extern __shared__ __align__(16) float fsm[];
+  float* ring = fsm;
+  float* Ps = ring + FW_STAGES * W::STAGE_FLOATS;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int blocks = (nq + BQ - 1) / BQ;
+  const int cl = blockIdx.x / split;  // the cluster is (split, 1, 1): its CTAs are consecutive
+  const int rank = blockIdx.x - cl * split;
+  int x = cl;  // x = (((batch x head, slice), query block), rank)
+  const int q0 = x % blocks * BQ;
+  x /= blocks;
+  const int c0 = x % slices * W_SLICE;
+  const int bh = x / slices;
+  const int b = bh / heads, h = bh % heads;
+  const int cols = min(W_SLICE, chunks * W_CHUNK - c0);  // this slice's columns
+  const float* qb = q + b * sq.b + h * sq.h;
+  const float* kb = k + b * sk.b + h * sk.h;
+  const float* vb = v + b * sv.b + h * sv.h + c0;
+  const int ntiles = (nk + F_BK - 1) / F_BK;
+  const int t0 = rank * ntiles / split;
+  const int mine = (rank + 1) * ntiles / split - t0;
+  const int per = chunks + 1;  // steps a tile: its d-chunks of Q K^T, then its V slice
+  const int steps = mine * per;
+
+  // Step n into stage n % FW_STAGES, every thread its 16-byte copies; rows
+  // past nq or nk copy the last row (finite; masked or never stored).
+  auto stage = [&](int n) {
+    float* dst = ring + n % FW_STAGES * W::STAGE_FLOATS;
+    const int tile = t0 + n / per, c = n % per;
+    if (c < chunks) {
+      for (int e = tid; e < (BQ + F_BK) * (W_CHUNK / 4); e += F_THREADS) {
+        const int row = e / (W_CHUNK / 4), c4 = e % (W_CHUNK / 4);
+        const float* src = row < BQ ? qb + min(q0 + row, nq - 1) * sq.r
+                                    : kb + min(tile * F_BK + row - BQ, nk - 1) * sk.r;
+        copy16(dst + row * CL + 4 * c4, src + c * W_CHUNK + 4 * c4);
+      }
+    } else {
+      for (int e = tid; e < F_BK * (cols / 4); e += F_THREADS) {
+        const int row = e / (cols / 4), c4 = e % (cols / 4);
+        copy16(dst + row * F::LD + 4 * c4, vb + min(tile * F_BK + row, nk - 1) * sv.r + 4 * c4);
+      }
+    }
+  };
+  for (int s = 0; s < FW_STAGES - 1; ++s) {
+    if (s < steps) stage(s);
+    copy_commit();
+  }
+
+  const int rg = lane >> 2, kg = lane & 3;
+  float* Pw = Ps + warp * F::P_FLOATS;
+  // Between a tile's chunk steps this lane's 4 scores wait in its own 4
+  // slots of P (row rg, keys kg + 4t: where its probabilities go), not in
+  // registers, which the O accumulators fill.
+  float* Sw = Pw + kg * WROWS + rg;
+  float acc[OR][OC];
+#pragma unroll
+  for (int i = 0; i < OR; ++i)
+#pragma unroll
+    for (int c = 0; c < OC; ++c) acc[i][c] = 0.f;
+  float m[1] = {-INFINITY}, l[1] = {0.f};
+  for (int n = 0; n < steps; ++n) {
+    copy_wait<FW_STAGES - 2>();
+    __syncthreads();  // step n has landed; every warp is done with step n - 1's stage
+    if (n + FW_STAGES - 1 < steps) stage(n + FW_STAGES - 1);
+    copy_commit();
+    const float* st = ring + n % FW_STAGES * W::STAGE_FLOATS;
+    const int c = n % per;
+    if (c == chunks) {
+      float sc[1][4];
+#pragma unroll
+      for (int t = 0; t < 4; ++t) sc[0][t] = Sw[4 * t * WROWS];
+      f32_tile<W_SLICE>(sc, m, l, acc, Pw, st, t0 + n / per, nk, scale_log2, lane);
+      continue;
+    }
+    // S += Q K^T over this chunk: per 4 columns, 5 loads of 16 bytes feed 16
+    // FMAs. Each chunk is summed from zero and added to S, so no FMA chain
+    // is longer than 64 terms plus the chunks.
+    const float* Qw = st + (warp * WROWS + rg) * CL;
+    const float* Kt = st + BQ * CL;
+    float part[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 4
+    for (int cc = 0; cc < W_CHUNK / 4; ++cc) {
+      const float4 qv = *reinterpret_cast<const float4*>(Qw + 4 * cc);
+      float4 kv[4];
 #pragma unroll
       for (int t = 0; t < 4; ++t)
-        if (key0 + 4 * t >= nk)
-#pragma unroll
-          for (int i = 0; i < SR; ++i) sc[i][t] = -INFINITY;
-    }
-    float corr[SR];
-#pragma unroll
-    for (int i = 0; i < SR; ++i) {
-      float mx = fmaxf(fmaxf(sc[i][0], sc[i][1]), fmaxf(sc[i][2], sc[i][3]));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float mn = fmaxf(m[i], mx * scale_log2);
-      corr[i] = fast_exp2(m[i] - mn);
-      m[i] = mn;
-      float rs = 0.f;
+        kv[t] = *reinterpret_cast<const float4*>(Kt + (kg + 4 * t) * CL + 4 * cc);
 #pragma unroll
       for (int t = 0; t < 4; ++t) {
-        sc[i][t] = fast_exp2(fmaf(sc[i][t], scale_log2, -mn));
-        rs += sc[i][t];
+        part[t] = fmaf(qv.x, kv[t].x, part[t]);
+        part[t] = fmaf(qv.y, kv[t].y, part[t]);
+        part[t] = fmaf(qv.z, kv[t].z, part[t]);
+        part[t] = fmaf(qv.w, kv[t].w, part[t]);
       }
-      l[i] = fmaf(l[i], corr[i], rs);
     }
 #pragma unroll
-    for (int t = 0; t < 4; ++t) {
-      float* dst = Pw + (kg + 4 * t) * WROWS + SR * rg;
-      if constexpr (SR == 4)
-        *reinterpret_cast<float4*>(dst) = make_float4(sc[0][t], sc[1][t], sc[2][t], sc[3][t]);
-      else if constexpr (SR == 2)
-        *reinterpret_cast<float2*>(dst) = make_float2(sc[0][t], sc[1][t]);
-      else
-        *dst = sc[0][t];
-    }
-    float oc[OR];
-#pragma unroll
-    for (int i = 0; i < SR; ++i) {
-      oc[i] = __shfl_sync(0xffffffffu, corr[i], lane & ~4);
-      oc[SR + i] = __shfl_sync(0xffffffffu, corr[i], lane | 4);
-    }
-    __syncwarp();  // P is in shared memory
-
-    // O += P V: per key, OR / 4 loads of P and OC / 4 of V (16 bytes each)
-    // feed OR OC FMAs.
-#pragma unroll
-    for (int x = 0; x < OR; ++x)
-#pragma unroll
-      for (int c = 0; c < OC; ++c) acc[x][c] *= oc[x];
-#pragma unroll
-    for (int j = 0; j < F_BK; ++j) {
-      float p[OR], w[OC];
-      if constexpr (OR == 2) {
-        const float2 pv = *reinterpret_cast<const float2*>(Pw + j * WROWS + OR * RG);
-        p[0] = pv.x;
-        p[1] = pv.y;
-      } else {
-#pragma unroll
-        for (int x4 = 0; x4 < OR / 4; ++x4) {
-          const float4 pv = *reinterpret_cast<const float4*>(Pw + j * WROWS + OR * RG + 4 * x4);
-          p[4 * x4] = pv.x;
-          p[4 * x4 + 1] = pv.y;
-          p[4 * x4 + 2] = pv.z;
-          p[4 * x4 + 3] = pv.w;
-        }
-      }
-      if constexpr (D == 16) {
-        const float2 vv = *reinterpret_cast<const float2*>(Vt + j * LD + 2 * cg);
-        w[0] = vv.x;
-        w[1] = vv.y;
-      } else {
-#pragma unroll
-        for (int c4 = 0; c4 < OC / 4; ++c4) {
-          const float4 vv = *reinterpret_cast<const float4*>(Vt + j * LD + 32 * c4 + 4 * cg);
-          w[4 * c4] = vv.x;
-          w[4 * c4 + 1] = vv.y;
-          w[4 * c4 + 2] = vv.z;
-          w[4 * c4 + 3] = vv.w;
-        }
-      }
-#pragma unroll
-      for (int x = 0; x < OR; ++x)
-#pragma unroll
-        for (int c = 0; c < OC; ++c) acc[x][c] = fmaf(p[x], w[c], acc[x][c]);
-    }
+    for (int t = 0; t < 4; ++t) Sw[4 * t * WROWS] = c == 0 ? part[t] : Sw[4 * t * WROWS] + part[t];
   }
 
-  // Partial results into this CTA's staging (free once every warp is done
-  // with the last tile; no copy in flight): O unnormalized, each row's max
-  // and sum.
-#pragma unroll
-  for (int i = 0; i < SR; ++i) {
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
-  }
-  __syncthreads();
-  float* part_o = Qs;
-  float* part_m = ring;
-  float* part_l = ring + BQ;
-  float* wts = Ps;
-#pragma unroll
-  for (int x = 0; x < OR; ++x) {
-    float* row = part_o + (warp * WROWS + OR * RG + x) * LD;
-    if constexpr (D == 16) {
-      *reinterpret_cast<float2*>(row + o_col<D>(cg, 0)) = make_float2(acc[x][0], acc[x][1]);
-    } else {
-#pragma unroll
-      for (int c4 = 0; c4 < OC / 4; ++c4)
-        *reinterpret_cast<float4*>(row + o_col<D>(cg, 4 * c4)) =
-            make_float4(acc[x][4 * c4], acc[x][4 * c4 + 1], acc[x][4 * c4 + 2], acc[x][4 * c4 + 3]);
-    }
-  }
-  if (kg == 0) {
-#pragma unroll
-    for (int i = 0; i < SR; ++i) {
-      part_m[warp * WROWS + SR * rg + i] = m[i];
-      part_l[warp * WROWS + SR * rg + i] = l[i];
-    }
-  }
-  cluster_sync<true>();  // every CTA's partials are written
-
-  // This CTA finalizes rows [lo, hi) of the block from the split's partials:
-  // O = sum_g w_g O_g / sum_g w_g l_g with w_g = 2^(m_g - max_g m_g).
-  const int lo = rank * BQ / split;
-  const int hi = min((rank + 1) * BQ / split, nq - q0);
-  const uint32_t m_at = smem_u32(part_m), l_at = smem_u32(part_l), o_at = smem_u32(part_o);
-  for (int r = lo + tid; r < hi; r += F_THREADS) {
-    float mx = -INFINITY;
-    for (int g = 0; g < split; ++g) mx = fmaxf(mx, ld_cluster(cluster_addr(m_at + 4 * r, g)));
-    float sum = 0.f;
-    for (int g = 0; g < split; ++g) {
-      const float wg = fast_exp2(ld_cluster(cluster_addr(m_at + 4 * r, g)) - mx);
-      sum = fmaf(wg, ld_cluster(cluster_addr(l_at + 4 * r, g)), sum);
-      wts[(r - lo) * split + g] = wg;
-    }
-    const float inv = 1.f / sum;  // >= 1: the largest max's partial sum holds 2^0
-    for (int g = 0; g < split; ++g) wts[(r - lo) * split + g] *= inv;
-  }
-  __syncthreads();
-  float* ob = o + b * so.b + h * so.h;
-  for (int e = tid; e < (hi - lo) * (D / 4); e += F_THREADS) {
-    const int r = lo + e / (D / 4), c4 = e % (D / 4);
-    float4 out = make_float4(0.f, 0.f, 0.f, 0.f);
-    for (int g = 0; g < split; ++g) {
-      const float wg = wts[(r - lo) * split + g];
-      const float4 pv = ld_cluster4(cluster_addr(o_at + 4 * (r * LD + 4 * c4), g));
-      out.x = fmaf(wg, pv.x, out.x);
-      out.y = fmaf(wg, pv.y, out.y);
-      out.z = fmaf(wg, pv.z, out.z);
-      out.w = fmaf(wg, pv.w, out.w);
-    }
-    *reinterpret_cast<float4*>(ob + (q0 + r) * so.r + 4 * c4) = out;
-  }
-  cluster_sync<false>();  // no CTA leaves while a peer still reads its shared memory
+  // The partials and their maxima and sums go over the ring.
+  f32_merge<W_SLICE>(acc, m, l, ring, ring + BQ * F::LD, ring + BQ * F::LD + BQ, Ps, rank, split,
+                     nq - q0, o + b * so.b + h * so.h + q0 * so.r + c0, so.r, cols);
 }
 
 // Per card and width: the SM count and the most clusters of each size that
@@ -1051,17 +1446,16 @@ struct F32Card {
 };
 std::mutex f32_cards_lock;
 
-template <int D>
-cudaError_t f32_card(int dev, const F32Card** out) {
-  static F32Card cards[MAX_DEVICES];
+// `cards[dev]` for the f32 kernel `kernel` with `smem` bytes of shared memory.
+template <typename Kernel>
+cudaError_t f32_card_of(Kernel kernel, int smem, F32Card* cards, int dev, const F32Card** out) {
   std::lock_guard<std::mutex> guard(f32_cards_lock);
   F32Card& c = cards[dev];
   if (!c.ready) {
-    cudaError_t err = cudaFuncSetAttribute(attn_fwd_f32<D>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           F32<D>::SMEM);
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           smem);
     if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(attn_fwd_f32<D>, cudaFuncAttributePreferredSharedMemoryCarveout,
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
                                  (int)cudaSharedmemCarveoutMaxShared);
     if (err == cudaSuccess) err = cudaDeviceGetAttribute(&c.sms, cudaDevAttrMultiProcessorCount, dev);
     for (int g = 1; g <= F_MAX_SPLIT && err == cudaSuccess; ++g) {
@@ -1073,10 +1467,10 @@ cudaError_t f32_card(int dev, const F32Card** out) {
       attr.val.clusterDim.z = 1;
       cfg.gridDim = dim3(g, 1, 1);
       cfg.blockDim = dim3(F_THREADS, 1, 1);
-      cfg.dynamicSmemBytes = F32<D>::SMEM;
+      cfg.dynamicSmemBytes = smem;
       cfg.attrs = &attr;
       cfg.numAttrs = 1;
-      err = cudaOccupancyMaxActiveClusters(&c.clusters[g], attn_fwd_f32<D>, &cfg);
+      err = cudaOccupancyMaxActiveClusters(&c.clusters[g], kernel, &cfg);
     }
     if (err != cudaSuccess) return err;
     c.ready = true;
@@ -1085,15 +1479,27 @@ cudaError_t f32_card(int dev, const F32Card** out) {
   return cudaSuccess;
 }
 
-// The card's counts for the f32 route at width d (an instantiation).
-cudaError_t f32_card_at(int d, int dev, const F32Card** out) {
+template <int D>
+cudaError_t f32_card(int dev, const F32Card** out) {
+  static F32Card cards[MAX_DEVICES];
+  return f32_card_of(attn_fwd_f32<D>, F32<D>::SMEM, cards, dev, out);
+}
+
+cudaError_t f32_wide_card(int dev, const F32Card** out) {
+  static F32Card cards[MAX_DEVICES];
+  return f32_card_of(attn_fwd_f32_wide, F32Wide::SMEM, cards, dev, out);
+}
+
+// The card's counts for the f32 route at width d (an instantiation, or a
+// wide width).
+cudaError_t f32_card_at(long long d, int dev, const F32Card** out) {
   switch (d) {
     case 16: return f32_card<16>(dev, out);
     case 32: return f32_card<32>(dev, out);
     case 64: return f32_card<64>(dev, out);
     case 128: return f32_card<128>(dev, out);
     case 256: return f32_card<256>(dev, out);
-    default: return cudaErrorInvalidValue;
+    default: return d > MAX_D ? f32_wide_card(dev, out) : cudaErrorInvalidValue;
   }
 }
 
@@ -1123,8 +1529,44 @@ int f32_split(const F32Card& c, long long blocks, int ntiles) {
   return best;
 }
 
-int f32_rows(int d) {
+int f32_rows(long long d) {
   return d > 128 ? F32<256>::BQ : d > 64 ? F32<128>::BQ : F32<64>::BQ;
+}
+
+// O's column slices at head width d (one below the wide widths).
+long long slices_at(long long d) { return d > MAX_D ? (d + W_SLICE - 1) / W_SLICE : 1; }
+
+// Launches an f32 kernel on `blocks` clusters of `split` CTAs each.
+template <typename... KArgs, typename... Args>
+int launch_split(void (*kernel)(KArgs...), int smem, long long blocks, int split,
+                 cudaStream_t stream, Args... args) {
+  if (blocks * split > INT_MAX) return 1000;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = split;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.gridDim = dim3((unsigned)(blocks * split), 1, 1);
+  cfg.blockDim = dim3(F_THREADS, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// The split for `blocks` clusters over nk keys on `card`.
+int split_for(const F32Card& card, long long blocks, int nk) {
+#ifdef F32_SPLIT  // a profiling build fixes the split (scripts/profile_f32_attention.py)
+  (void)card;
+  (void)blocks;
+  return min(F32_SPLIT, (nk + F_BK - 1) / F_BK);
+#else
+  return f32_split(card, blocks, (nk + F_BK - 1) / F_BK);
+#endif
 }
 
 template <int D>
@@ -1136,30 +1578,31 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, const Strid
   const F32Card* card = nullptr;
   err = f32_card<D>(dev, &card);
   if (err != cudaSuccess) return (int)err;
-  const int blocks = (nq + F32<D>::BQ - 1) / F32<D>::BQ;
-#ifdef F32_SPLIT  // a profiling build fixes the split (scripts/profile_f32_attention.py)
-  const int split = min(F32_SPLIT, (nk + F_BK - 1) / F_BK);
-#else
-  const int split = f32_split(*card, (long long)blocks * batch * heads, (nk + F_BK - 1) / F_BK);
-#endif
-  cudaLaunchConfig_t cfg = {};
-  cudaLaunchAttribute attr;
-  attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = split;
-  attr.val.clusterDim.y = 1;
-  attr.val.clusterDim.z = 1;
-  cfg.gridDim = dim3(blocks * split, batch * heads, 1);
-  cfg.blockDim = dim3(F_THREADS, 1, 1);
-  cfg.dynamicSmemBytes = F32<D>::SMEM;
-  cfg.stream = stream;
-  cfg.attrs = &attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, attn_fwd_f32<D>, static_cast<const float*>(q),
-                           static_cast<const float*>(k), static_cast<const float*>(v),
-                           static_cast<float*>(o), st[0], st[1], st[2], st[3], heads, nq, nk,
-                           split, scale_log2);
+  const long long blocks = (long long)((nq + F32<D>::BQ - 1) / F32<D>::BQ) * batch * heads;
+  const int split = split_for(*card, blocks, nk);
+  return launch_split(attn_fwd_f32<D>, F32<D>::SMEM, blocks, split, stream,
+                      static_cast<const float*>(q), static_cast<const float*>(k),
+                      static_cast<const float*>(v), static_cast<float*>(o), st[0], st[1], st[2],
+                      st[3], heads, nq, nk, split, scale_log2);
+}
+
+int launch_f32_wide(const void* q, const void* k, const void* v, void* o, const Strides* st,
+                    int batch, int heads, int nq, int nk, int d, float scale_log2,
+                    cudaStream_t stream) {
+  int dev = 0;
+  cudaError_t err = current_device(&dev);
   if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  const F32Card* card = nullptr;
+  err = f32_wide_card(dev, &card);
+  if (err != cudaSuccess) return (int)err;
+  const int slices = (int)slices_at(d);
+  const long long blocks =
+      (long long)((nq + F32<W_SLICE>::BQ - 1) / F32<W_SLICE>::BQ) * slices * batch * heads;
+  const int split = split_for(*card, blocks, nk);
+  return launch_split(attn_fwd_f32_wide, F32Wide::SMEM, blocks, split, stream,
+                      static_cast<const float*>(q), static_cast<const float*>(k),
+                      static_cast<const float*>(v), static_cast<float*>(o), st[0], st[1], st[2],
+                      st[3], heads, nq, nk, d / W_CHUNK, slices, split, scale_log2);
 }
 
 template <int D>
@@ -1185,22 +1628,25 @@ struct AttnArgs {
 
 // q (B, H, nq, d), k and v (B, H, nk, d), o (B, H, nq, d), each addressed
 // through its own strides, d one of 16, 32, 64, 128 and 256 (a narrower head
-// zero-padded to it by the caller, which passes its true width as d_scale).
-// Every operand's last dimension must be contiguous; in bfloat16, q, k and v
-// must also start 16-byte aligned with every other stride a multiple of 8
-// elements, which a tensor map needs; in float32, all four must start 16-byte
-// aligned with every other stride a multiple of 4 elements, which the bulk
-// copies and 16-byte stores need (the stride of a dimension of size 1 is
-// never read, and is not checked).
+// zero-padded to it by the caller, which passes its true width as d_scale)
+// or any wider multiple of 64 (the wide variants; a wider head zero-padded
+// to the next multiple by the caller). Every operand's last dimension must
+// be contiguous; in bfloat16, q, k and v must also start 16-byte aligned with
+// every other stride a multiple of 8 elements, which a tensor map needs; in
+// float32, all four must start 16-byte aligned with every other stride a
+// multiple of 4 elements, which the bulk copies and 16-byte stores need (the
+// stride of a dimension of size 1 is never read, and is not checked).
 // Returns a cudaError_t (0 on success); 1000 for arguments or a layout this
 // kernel does not take, 1001 when a TMA descriptor cannot be encoded.
 extern "C" int attn_forward(const AttnArgs* a) {
-  const int batch = (int)a->batch, heads = (int)a->heads, nq = (int)a->nq, nk = (int)a->nk;
   const long long d = a->d;
-  if ((d != 16 && d != 32 && d != 64 && d != 128 && d != MAX_D) || a->d_scale < 1 ||
-      a->d_scale > d ||
-      batch <= 0 || heads <= 0 || nq <= 0 || nk <= 0 || batch * heads > 65535)
+  const bool wide = d > MAX_D && d % W_CHUNK == 0;
+  if ((!wide && d != 16 && d != 32 && d != 64 && d != 128 && d != MAX_D) || d > INT_MAX ||
+      a->d_scale < 1 || a->d_scale > d || a->batch <= 0 || a->heads <= 0 || a->nq <= 0 ||
+      a->nk <= 0 || a->batch > INT_MAX || a->heads > INT_MAX || a->nq > INT_MAX ||
+      a->nk > INT_MAX)
     return 1000;
+  const int batch = (int)a->batch, heads = (int)a->heads, nq = (int)a->nq, nk = (int)a->nk;
   const long long ptr[4] = {a->q, a->k, a->v, a->o};
   Strides st[4];
   for (int i = 0; i < 4; ++i) {
@@ -1219,6 +1665,13 @@ extern "C" int attn_forward(const AttnArgs* a) {
   void* o = (void*)a->o;
   cudaStream_t s = (cudaStream_t)a->stream;
   const float scale_log2 = 1.4426950408889634f / sqrtf((float)a->d_scale);
+  if (wide) {
+    if (a->dtype == 0)
+      return launch_f32_wide(q, k, v, o, st, batch, heads, nq, nk, (int)d, scale_log2, s);
+    if (a->dtype == 1)
+      return launch_bf16_wide(q, k, v, o, st, batch, heads, nq, nk, (int)d, scale_log2, s);
+    return 1000;
+  }
   switch (d) {
     case 16: return launch<16>(q, k, v, o, st, batch, heads, nq, nk, scale_log2, a->dtype, s);
     case 32: return launch<32>(q, k, v, o, st, batch, heads, nq, nk, scale_log2, a->dtype, s);
@@ -1229,8 +1682,8 @@ extern "C" int attn_forward(const AttnArgs* a) {
 }
 
 // The split (cluster size) the f32 route takes for batch x heads = bh, these
-// token counts and head width d (an instantiation) on the current card; a
-// negative cudaError_t if the card cannot be queried.
+// token counts and head width d (an instantiation or a wide width) on the
+// current card; a negative cudaError_t if the card cannot be queried.
 extern "C" int attn_f32_split(long long bh, long long nq, long long nk, int d) {
   int dev = 0;
   cudaError_t err = current_device(&dev);
@@ -1238,7 +1691,8 @@ extern "C" int attn_f32_split(long long bh, long long nq, long long nk, int d) {
   if (err == cudaSuccess) err = f32_card_at(d, dev, &card);
   if (err != cudaSuccess) return -(int)err;
   const int rows = f32_rows(d);
-  return f32_split(*card, (nq + rows - 1) / rows * bh, (int)((nk + F_BK - 1) / F_BK));
+  return f32_split(*card, (nq + rows - 1) / rows * bh * slices_at(d),
+                   (int)((nk + F_BK - 1) / F_BK));
 }
 
 // How many clusters of `split` CTAs (1-8) of the f32 route at head width d

@@ -28,8 +28,8 @@
 //     tiles t = blockIdx.x + k gridDim.x, so a tile's crop is copied while
 //     the one before it computes.
 //   - Staging by bulk copy: warp 0 issues one `cp.async.bulk` per crop row
-//     (rows are 16-byte aligned: corners are multiples of 16, the image width
-//     and the crop multiples of 4), completing on an mbarrier; no thread
+//     (rows are 16-byte aligned: corners are multiples of 16, the image's row
+//     pitch and the crop multiples of 4), completing on an mbarrier; no thread
 //     spends registers or instructions on the bytes. Shared memory holds a
 //     two-slot ring of f32 rays and one descriptor slot; at crop 48 and fd 24
 //     that is 168,992 B in all (2 x 27,648 + 110,592 B of crops, 3,104 B of
@@ -83,8 +83,8 @@
 //     form one stream across the CTA's items, so the next item's first two
 //     bands land while this item's descriptors are scored. A ray row is
 //     staged crop rounded up to 4 pixels wide (16-byte rows), from a column
-//     shifted left by the 0-3 pixels that keep it inside the image; the
-//     scan masks the columns outside the crop.
+//     shifted left by the 0-3 pixels that keep it inside the image's pitch;
+//     the scan masks the columns outside the crop.
 //   - Ray scan: the two threads of a query take the two halves of each
 //     band's positions and keep their four running maxima across bands;
 //     positions arrive in increasing flat index, so a strict > keeps the
@@ -103,6 +103,16 @@
 //     from one ldmatrix x4. At a 96-, 128-, 192- or 256-byte position
 //     stride the eight rows of one ldmatrix phase share banks (2-, 8-, 4-
 //     and 8-way conflicts); the step is small beside the ray scan.
+//
+// Image width and start: the kernels address the images' rows by a pitch in
+// pixels, separate from the width w that clips the corners (the wrapper
+// clips them to w - crop and rounds them down to 16, as the reference
+// does). The reference keeps the image in device memory and copies any
+// crop of any width; here the wrapper copies an image whose width is no
+// multiple of 4, or whose start is not 16-byte aligned, into a zero-padded
+// buffer of pitch w rounded up to 4 (`matching_pallas.pad_pitch`), and the
+// columns past w are never inside a crop (a ray row rounded up to 4 pixels
+// may stage some: masked as every column outside the crop is).
 //
 // Phase split: the template parameter PHASE cuts the body after each step,
 // as the TPU phase profiler `scripts/profile_pallas_phases.py` (`run_variant`,
@@ -223,14 +233,16 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 }
 
 // Copy the `rows` x `cols` window at (x, y) of an image of `px_bytes` bytes
-// per pixel into dst, one bulk copy per row, completing on bar. Warp-wide.
+// per pixel and `pitch` pixels a row into dst, one bulk copy per row,
+// completing on bar. Warp-wide.
 __device__ __forceinline__ void stage_rows(void* dst, const void* img, int px_bytes, int x, int y,
-                                           int cols, int rows, int w, uint64_t* bar, int lane) {
+                                           int cols, int rows, int pitch, uint64_t* bar,
+                                           int lane) {
   const uint32_t row = cols * px_bytes;
   if (lane == 0) mbar_expect_tx(bar, row * rows);
   __syncwarp();
   for (int r = lane; r < rows; r += 32) {
-    const char* src = static_cast<const char*>(img) + ((size_t)(y + r) * w + x) * px_bytes;
+    const char* src = static_cast<const char*>(img) + ((size_t)(y + r) * pitch + x) * px_bytes;
     asm volatile(
         "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
         ::"r"(smem_u32(static_cast<char*>(dst) + (size_t)r * row)), "l"(src), "r"(row),
@@ -543,8 +555,8 @@ __global__ void __launch_bounds__(NTHREAD, 1)
 tile_match_kernel(const float* __restrict__ rays_img, const __nv_bfloat16* __restrict__ desc_img,
                   const float* __restrict__ q_rays, const __nv_bfloat16* __restrict__ q_desc,
                   const int* __restrict__ corners, int* __restrict__ u_out,
-                  int* __restrict__ v_out, int* __restrict__ conv_out, int T, int tsz, int w,
-                  int crop, int window, float conv_thresh) {
+                  int* __restrict__ v_out, int* __restrict__ conv_out, int T, int tsz,
+                  int pitch, int crop, int window, float conv_thresh) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const int m = crop * crop;
   float* rs0 = reinterpret_cast<float*>(smem_raw);                   // [m][3]
@@ -568,11 +580,11 @@ tile_match_kernel(const float* __restrict__ rays_img, const __nv_bfloat16* __res
   if (warp == 0) {  // gridDim.x <= T: every CTA has a first tile
     const int t = blockIdx.x;
     const int cx = corners[2 * t], cy = corners[2 * t + 1];
-    stage_rows(rs0, rays_img, 12, cx, cy, crop, crop, w, &bar[0], lane);
-    stage_rows(ds, desc_img, 2 * FD, cx, cy, crop, crop, w, &bar[2], lane);
+    stage_rows(rs0, rays_img, 12, cx, cy, crop, crop, pitch, &bar[0], lane);
+    stage_rows(ds, desc_img, 2 * FD, cx, cy, crop, crop, pitch, &bar[2], lane);
     if (t + G < T)
       stage_rows(rs1, rays_img, 12, corners[2 * (t + G)], corners[2 * (t + G) + 1], crop, crop,
-                 w, &bar[1], lane);
+                 pitch, &bar[1], lane);
   }
 
   int k = 0;
@@ -653,10 +665,10 @@ tile_match_kernel(const float* __restrict__ rays_img, const __nv_bfloat16* __res
       asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
       const int t1 = t + G, t2 = t + 2 * G;
       if (t1 < T)
-        stage_rows(ds, desc_img, 2 * FD, corners[2 * t1], corners[2 * t1 + 1], crop, crop, w,
-                   &bar[2], lane);
+        stage_rows(ds, desc_img, 2 * FD, corners[2 * t1], corners[2 * t1 + 1], crop, crop,
+                   pitch, &bar[2], lane);
       if (t2 < T)
-        stage_rows(rs, rays_img, 12, corners[2 * t2], corners[2 * t2 + 1], crop, crop, w,
+        stage_rows(rs, rays_img, 12, corners[2 * t2], corners[2 * t2 + 1], crop, crop, pitch,
                    &bar[s], lane);
     }
   }
@@ -664,8 +676,8 @@ tile_match_kernel(const float* __restrict__ rays_img, const __nv_bfloat16* __res
 
 template <int FD, int PHASE>
 int launch(const void* rays_img, const void* desc_img, const void* q_rays, const void* q_desc,
-           const void* corners, void* u_out, void* v_out, void* conv_out, int T, int tsz, int w,
-           int crop, int window, float conv_thresh, cudaStream_t stream) {
+           const void* corners, void* u_out, void* v_out, void* conv_out, int T, int tsz,
+           int pitch, int crop, int window, float conv_thresh, cudaStream_t stream) {
   const int smem = smem_bytes(crop, FD);
   static int configured[MAX_DEVICES] = {}, per_sm[MAX_DEVICES] = {}, sms[MAX_DEVICES] = {};
   int dev = 0;
@@ -691,7 +703,7 @@ int launch(const void* rays_img, const void* desc_img, const void* q_rays, const
       static_cast<const float*>(rays_img), static_cast<const __nv_bfloat16*>(desc_img),
       static_cast<const float*>(q_rays), static_cast<const __nv_bfloat16*>(q_desc),
       static_cast<const int*>(corners), static_cast<int*>(u_out), static_cast<int*>(v_out),
-      static_cast<int*>(conv_out), T, tsz, w, crop, window, conv_thresh);
+      static_cast<int*>(conv_out), T, tsz, pitch, crop, window, conv_thresh);
   return (int)cudaGetLastError();
 }
 
@@ -703,8 +715,8 @@ __global__ void __launch_bounds__(NTHREAD, 1)
 tile_match_banded(const float* __restrict__ rays_img, const __nv_bfloat16* __restrict__ desc_img,
                   const float* __restrict__ q_rays, const __nv_bfloat16* __restrict__ q_desc,
                   const int* __restrict__ corners, int* __restrict__ u_out,
-                  int* __restrict__ v_out, int* __restrict__ conv_out, int T, int tsz, int w,
-                  int crop, int window, float conv_thresh, int rr, int rd) {
+                  int* __restrict__ v_out, int* __restrict__ conv_out, int T, int tsz,
+                  int pitch, int crop, int window, float conv_thresh, int rr, int rd) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const int m = crop * crop;
   const int crop4 = (crop + 3) & ~3;           // staged ray row, in pixels
@@ -732,8 +744,8 @@ tile_match_banded(const float* __restrict__ rays_img, const __nv_bfloat16* __res
     if (it >= items) return;
     const int t = it / groups, r0 = (n % nbr) * rr;
     const int cx = corners[2 * t], cy = corners[2 * t + 1];
-    stage_rows(rs + (n & 1) * ray_slot, rays_img, 12, min(cx, w - crop4), cy + r0, crop4,
-               min(rr, crop - r0), w, &bar[n & 1], lane);
+    stage_rows(rs + (n & 1) * ray_slot, rays_img, 12, min(cx, pitch - crop4), cy + r0, crop4,
+               min(rr, crop - r0), pitch, &bar[n & 1], lane);
   };
 
   if (tid == 0) {
@@ -752,7 +764,7 @@ tile_match_banded(const float* __restrict__ rays_img, const __nv_bfloat16* __res
     const int qn = min(MAX_TSZ, tsz - q0);  // this item's queries
     const bool active = qi < qn;
     const int cx = corners[2 * t], cy = corners[2 * t + 1];
-    const int off = cx - min(cx, w - crop4);  // the crop's column 0 in a staged ray row
+    const int off = cx - min(cx, pitch - crop4);  // the crop's column 0 in a staged ray row
     const size_t qo = (size_t)t * tsz + q0 + qi;
     float qx = 0.0f, qy = 0.0f, qz = 0.0f;
     if (active && PHASE >= PHASE_RAY) {
@@ -810,7 +822,7 @@ tile_match_banded(const float* __restrict__ rays_img, const __nv_bfloat16* __res
           // 2. five-point stencil on flat neighbours, from device memory
           auto at = [&](int j) {
             if (j < 0 || j >= m) return 0.0f;
-            const float* r = rays_img + ((size_t)(cy + j / crop) * w + cx + j % crop) * 3;
+            const float* r = rays_img + ((size_t)(cy + j / crop) * pitch + cx + j % crop) * 3;
             return ray_dot(qx, qy, qz, __ldg(r), __ldg(r + 1), __ldg(r + 2));
           };
           const float sxp = at(best + 1), sxm = at(best - 1);
@@ -843,7 +855,7 @@ tile_match_banded(const float* __restrict__ rays_img, const __nv_bfloat16* __res
     auto issue_desc = [&](int i) {  // warp-wide (warp 0)
       const int n = dn + i, r0 = dlo + i * rd;
       stage_rows(ds + (n & 1) * (size_t)desc_slot, desc_img, 2 * FD, cx, cy + r0, crop,
-                 min(rd, dhi + 1 - r0), w, &bar[2 + (n & 1)], lane);
+                 min(rd, dhi + 1 - r0), pitch, &bar[2 + (n & 1)], lane);
     };
     if (warp == 0) {
       asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
@@ -876,8 +888,8 @@ tile_match_banded(const float* __restrict__ rays_img, const __nv_bfloat16* __res
 template <int FD, int PHASE>
 int launch_banded(const void* rays_img, const void* desc_img, const void* q_rays,
                   const void* q_desc, const void* corners, void* u_out, void* v_out,
-                  void* conv_out, int T, int tsz, int w, int crop, int window, float conv_thresh,
-                  cudaStream_t stream) {
+                  void* conv_out, int T, int tsz, int pitch, int crop, int window,
+                  float conv_thresh, cudaStream_t stream) {
   int rr = 0, rd = 0;
   if (!banded_plan(crop, FD, &rr, &rd)) return 1000;
   const int smem = banded_smem(crop, FD, rr, rd);
@@ -903,7 +915,7 @@ int launch_banded(const void* rays_img, const void* desc_img, const void* q_rays
       static_cast<const float*>(rays_img), static_cast<const __nv_bfloat16*>(desc_img),
       static_cast<const float*>(q_rays), static_cast<const __nv_bfloat16*>(q_desc),
       static_cast<const int*>(corners), static_cast<int*>(u_out), static_cast<int*>(v_out),
-      static_cast<int*>(conv_out), T, tsz, w, crop, window, conv_thresh, rr, rd);
+      static_cast<int*>(conv_out), T, tsz, pitch, crop, window, conv_thresh, rr, rd);
   return (int)cudaGetLastError();
 }
 
@@ -916,12 +928,11 @@ bool instantiated(int fd) {
 }
 
 // 0: the whole-crop kernel takes the shape; 1: the banded variant; -1:
-// neither (arguments the kernel does not take). The bulk copies read rows
-// from 16-byte aligned addresses: w a multiple of 4 and the images 16-byte
-// aligned (checked by the caller).
+// neither (arguments the kernel does not take). The image's row pitch is
+// checked by the caller.
 int variant(int T, int tsz, int h, int w, int fd, int crop) {
   int rr, rd;
-  if (T <= 0 || tsz <= 0 || crop <= 0 || crop > h || crop > w || w % 4 || !instantiated(fd))
+  if (T <= 0 || tsz <= 0 || crop <= 0 || crop > h || crop > w || !instantiated(fd))
     return -1;
   if (tsz <= MAX_TSZ && crop % 4 == 0 && smem_bytes(crop, fd) <= SMEM_LIMIT) return 0;
   return banded_plan(crop, fd, &rr, &rd) ? 1 : -1;
@@ -930,28 +941,34 @@ int variant(int T, int tsz, int h, int w, int fd, int crop) {
 template <int FD, int PHASE>
 int launch_variant(const void* rays_img, const void* desc_img, const void* q_rays,
                    const void* q_desc, const void* corners, void* u_out, void* v_out,
-                   void* conv_out, int T, int tsz, int w, int crop, int window, float conv_thresh,
-                   bool whole, cudaStream_t s) {
+                   void* conv_out, int T, int tsz, int pitch, int crop, int window,
+                   float conv_thresh, bool whole, cudaStream_t s) {
   if (whole)
     return launch<FD, PHASE>(rays_img, desc_img, q_rays, q_desc, corners, u_out, v_out,
-                             conv_out, T, tsz, w, crop, window, conv_thresh, s);
+                             conv_out, T, tsz, pitch, crop, window, conv_thresh, s);
   return launch_banded<FD, PHASE>(rays_img, desc_img, q_rays, q_desc, corners, u_out, v_out,
-                                  conv_out, T, tsz, w, crop, window, conv_thresh, s);
+                                  conv_out, T, tsz, pitch, crop, window, conv_thresh, s);
 }
 
 template <int PHASE>
 int dispatch(const void* rays_img, const void* desc_img, const void* q_rays, const void* q_desc,
              const void* corners, void* u_out, void* v_out, void* conv_out, int T, int tsz,
-             int h, int w, int fd, int crop, int window, float conv_thresh, void* stream) {
+             int h, int w, int pitch, int fd, int crop, int window, float conv_thresh,
+             void* stream) {
+  // The bulk copies read rows from 16-byte aligned addresses: the images'
+  // starts aligned and the pitch a multiple of 4 pixels (a ray is 12 bytes,
+  // a descriptor a multiple of 16).
   const int which = variant(T, tsz, h, w, fd, crop);
-  if (which < 0 || !aligned16(rays_img) || !aligned16(desc_img) || !aligned16(q_desc))
+  if (which < 0 || pitch < w || pitch % 4 || !aligned16(rays_img) || !aligned16(desc_img) ||
+      !aligned16(q_desc))
     return 1000;
   const bool whole = which == 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define TILE_MATCH_FD(N)                                                                       \
   case N:                                                                                      \
     return launch_variant<N, PHASE>(rays_img, desc_img, q_rays, q_desc, corners, u_out, v_out, \
-                                    conv_out, T, tsz, w, crop, window, conv_thresh, whole, s);
+                                    conv_out, T, tsz, pitch, crop, window, conv_thresh,  \
+                                    whole, s);
   switch (fd) {
     TILE_MATCH_FD(16)
     TILE_MATCH_FD(24)
@@ -968,17 +985,21 @@ int dispatch(const void* rays_img, const void* desc_img, const void* q_rays, con
 
 }  // namespace
 
-// rays_img (h, w, 3) f32; desc_img (h, w, fd) bf16; q_rays (T, tsz, 3) f32;
-// q_desc (T, tsz, fd) bf16, fd one of 16, 24, 32, 48, 64, 96, 128; corners
-// (T, 2) int32 (x, y), already clipped and 16-aligned; outputs u, v, conv
+// rays_img (h, w, 3) f32 and desc_img (h, w, fd) bf16, rows `pitch`
+// pixels apart (pitch >= w, a multiple of 4; the columns from w on are never
+// inside a crop); q_rays (T, tsz, 3) f32; q_desc (T, tsz, fd) bf16, fd one
+// of 16, 24, 32, 48, 64, 96, 128; corners (T, 2) int32 (x, y), already
+// clipped to w - crop and h - crop and 16-aligned; outputs u, v, conv
 // (T, tsz) int32. Returns a cudaError_t (0 on success); 1000 for arguments
 // this kernel does not take.
 extern "C" int tile_match_forward(const void* rays_img, const void* desc_img, const void* q_rays,
                                   const void* q_desc, const void* corners, void* u_out,
                                   void* v_out, void* conv_out, int T, int tsz, int h, int w,
-                                  int fd, int crop, int window, float conv_thresh, void* stream) {
+                                  int pitch, int fd, int crop, int window, float conv_thresh,
+                                  void* stream) {
   return dispatch<PHASE_FULL>(rays_img, desc_img, q_rays, q_desc, corners, u_out, v_out,
-                              conv_out, T, tsz, h, w, fd, crop, window, conv_thresh, stream);
+                              conv_out, T, tsz, h, w, pitch, fd, crop, window, conv_thresh,
+                              stream);
 }
 
 // Which kernel takes these arguments (0 the whole-crop kernel, 1 the banded
@@ -995,23 +1016,26 @@ extern "C" int tile_match_variant(int T, int tsz, int h, int w, int fd, int crop
 extern "C" int tile_match_phase_forward(const void* rays_img, const void* desc_img,
                                         const void* q_rays, const void* q_desc,
                                         const void* corners, void* u_out, void* v_out,
-                                        void* conv_out, int T, int tsz, int h, int w, int fd,
-                                        int crop, int window, float conv_thresh, void* stream,
-                                        int phase) {
+                                        void* conv_out, int T, int tsz, int h, int w, int pitch,
+                                        int fd, int crop, int window, float conv_thresh,
+                                        void* stream, int phase) {
   switch (phase) {
     case PHASE_STAGE:
       return dispatch<PHASE_STAGE>(rays_img, desc_img, q_rays, q_desc, corners, u_out, v_out,
-                                   conv_out, T, tsz, h, w, fd, crop, window, conv_thresh, stream);
+                                   conv_out, T, tsz, h, w, pitch, fd, crop, window, conv_thresh,
+                                   stream);
     case PHASE_RAY:
       return dispatch<PHASE_RAY>(rays_img, desc_img, q_rays, q_desc, corners, u_out, v_out,
-                                 conv_out, T, tsz, h, w, fd, crop, window, conv_thresh, stream);
+                                 conv_out, T, tsz, h, w, pitch, fd, crop, window, conv_thresh,
+                                 stream);
     case PHASE_STENCIL:
       return dispatch<PHASE_STENCIL>(rays_img, desc_img, q_rays, q_desc, corners, u_out, v_out,
-                                     conv_out, T, tsz, h, w, fd, crop, window, conv_thresh,
-                                     stream);
+                                     conv_out, T, tsz, h, w, pitch, fd, crop, window,
+                                     conv_thresh, stream);
     case PHASE_FULL:
       return dispatch<PHASE_FULL>(rays_img, desc_img, q_rays, q_desc, corners, u_out, v_out,
-                                  conv_out, T, tsz, h, w, fd, crop, window, conv_thresh, stream);
+                                  conv_out, T, tsz, h, w, pitch, fd, crop, window, conv_thresh,
+                                  stream);
     default:
       return 1000;
   }

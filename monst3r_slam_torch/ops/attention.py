@@ -15,11 +15,13 @@ Both read q, k and v through their strides and write the output into a
 the heads split before nor the merge after is a copy.
 
 Kernel A is instantiated at head widths 16, 32, 64, 128 and 256
-(`HEAD_DIMS`). Any other width up to 256 is zero-padded to the next of them (`pad_heads`,
-a plain-PyTorch copy around the kernel): zero columns of q and k leave
-QK^T as it is, zero columns of v give zero output columns, which are sliced
-off, and the kernel scales the logits by the true width's d^-1/2. Wider
-heads raise.
+(`HEAD_DIMS`), and takes every wider multiple of 64 through its wide
+variant, which computes O in column slices of 256 (`column_slices`). Any
+other width is zero-padded to the next of those (`pad_heads`, a
+plain-PyTorch copy around the kernel): zero columns of q and k leave QK^T as
+it is, zero columns of v give zero output columns, which are sliced off, and
+the kernel scales the logits by the true width's d^-1/2. So kernel A takes
+every head width, as the reference's kernel does.
 
 Kernel A has no backward, and neither has the reference's Pallas kernel
 (training there differentiates its einsum attention). For training on the
@@ -38,7 +40,10 @@ import torch
 from monst3r_slam_torch.ops import build
 
 HEAD_DIMS = (16, 32, 64, 128, 256)  # kernel A's instantiations
-MAX_HEAD_DIM = HEAD_DIMS[-1]
+# Above HEAD_DIMS the wide variant takes multiples of WIDE_CHUNK (the
+# columns of d a step of QK^T stages) and writes O in slices of WIDE_SLICE.
+WIDE_CHUNK = 64
+WIDE_SLICE = 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ROUTES = {torch.float32: "f32", torch.bfloat16: "bf16_tc"}
 _SIGNATURES = {"attn_forward": ([ctypes.c_char_p], ctypes.c_int)}
@@ -50,13 +55,23 @@ _PACK = struct.Struct("=28q").pack
 
 
 def sdpa_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-               scale: float | None = None) -> torch.Tensor:
+               scale: float | None = None, dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """q (B, H, Nq, D), k/v (B, H, Nk, D) -> (B, H, Nq, D) in q's type; the
-    logits scaled by `scale`, D^-1/2 by default."""
+    logits scaled by `scale`, D^-1/2 by default, and their softmax in
+    `dtype` (the reference's float32; float64 gives the exact value that
+    `error_bound` holds kernel A's f32 route to above 256 columns)."""
     scale = q.shape[-1] ** -0.5 if scale is None else scale
-    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    logits = torch.matmul(q.to(dtype), k.to(dtype).transpose(-1, -2)) * scale
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
     return torch.matmul(probs, v).to(q.dtype)
+
+
+def reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """The plain version `error_bound` holds kernel A to on these inputs:
+    `sdpa_plain` in f32, or, for f32 inputs wider than 256, in f64."""
+    if q.dtype == torch.float32 and q.shape[-1] > HEAD_DIMS[-1]:
+        return sdpa_plain(q.double(), k.double(), v.double(), dtype=torch.float64)
+    return sdpa_plain(q.float(), k.float(), v.float())
 
 
 def sdpa_backward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -82,9 +97,17 @@ def sdpa_backward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def error_bound(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, ref: torch.Tensor) -> float:
     """Largest error kernel A may show against `ref`, the plain version
-    computed in f32 from the same inputs.
+    computed in f32 from the same inputs (for f32 inputs wider than 256, in
+    f64: `reference`).
 
     f32 route: 2e-5, the summation-order tolerance of the CPU parity test.
+    Up to 256 columns the kernel sums each logit in one f32 chain in column
+    order, as cuBLAS's f32 product does, so the two agree to that. Wider
+    heads sum 64-column chunks from zero and add the chunks, which keeps
+    them within it of the exact value, while the rounding of one f32 chain
+    grows with its length: on peaked logits cuBLAS's own sum over d columns
+    lies farther than 2e-5 from the exact one, so there the f64 plain
+    version is the reference.
 
     bf16 route: 2^-8 max|ref| + 2^-9 max S. The first term covers the
     rounding of the output to bf16 (at most 2^-9 of the value) and as much
@@ -130,12 +153,20 @@ def backward_error_bound(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def padded_width(d: int) -> int:
-    """The instantiation kernel A runs a head of width `d` at: the
-    narrowest of `HEAD_DIMS` that holds it. Raises above `MAX_HEAD_DIM`."""
+    """The width kernel A runs a head of width `d` at: the narrowest of
+    `HEAD_DIMS` that holds it, above them the next multiple of `WIDE_CHUNK`
+    (the wide variant)."""
     for width in HEAD_DIMS:
         if d <= width:
             return width
-    raise ValueError(f"fused_attention takes head widths up to {MAX_HEAD_DIM}, got {d}")
+    return -(-d // WIDE_CHUNK) * WIDE_CHUNK
+
+
+def column_slices(d: int) -> int:
+    """How many column slices of O kernel A computes a head of width `d` in:
+    one up to `HEAD_DIMS[-1]`, above it one per `WIDE_SLICE` columns of the
+    padded width, each recomputing QK^T over the whole width."""
+    return -(-padded_width(d) // WIDE_SLICE)
 
 
 def pad_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> tuple:
@@ -151,15 +182,19 @@ def pad_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> tuple:
 
 
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Kernel A on CUDA tensors q (B, H, Nq, d), k/v (B, H, Nk, d), d from
-    1 to 256, of one type, float32 or bfloat16, read through their strides
-    where d is one of `HEAD_DIMS`, else first zero-padded to the next of
-    them (`pad_heads`). The last dimension must be contiguous, every start
-    16-byte aligned and every other stride a multiple of 8 elements in
-    bfloat16, of 4 in float32 (the kernel checks, and this raises on a
-    layout it refuses). Returns (B, H, Nq, d), the transposed view of a
-    contiguous (B, Nq, H, d) buffer, or, for a padded width, that view's
-    first d columns."""
+    """Kernel A on CUDA tensors q (B, H, Nq, d), k/v (B, H, Nk, d), any
+    d >= 1 and any B H, of one type, float32 or bfloat16, read through their
+    strides where d is its own `padded_width` (one of `HEAD_DIMS`, or a
+    multiple of 64 above them), else first zero-padded to it (`pad_heads`).
+    No width is refused: above 256 the wide variant computes O in slices of
+    256 columns, each CTA recomputing QK^T over the whole width, so its
+    shared memory and registers do not grow with d (only the grid does,
+    within its 2^31 - 1 blocks). The last dimension must be contiguous,
+    every start 16-byte aligned and every other stride a multiple of 8
+    elements in bfloat16, of 4 in float32 (the kernel checks, and this
+    raises on a layout it refuses; `sdpa` copies such inputs first). Returns
+    (B, H, Nq, d), the transposed view of a contiguous (B, Nq, H, d) buffer,
+    or, for a padded width, that view's first d columns."""
     dev = q.get_device()  # -1 for a CPU tensor
     if dev < 0 or k.get_device() != dev or v.get_device() != dev:
         raise ValueError("fused_attention takes CUDA tensors on one device")
@@ -216,13 +251,27 @@ class KernelAttention(torch.autograd.Function):
         return sdpa_backward_plain(*ctx.saved_tensors, dout)
 
 
+def readable(t: torch.Tensor) -> bool:
+    """Whether kernel A reads `t` in place: its last dimension contiguous,
+    its start 16-byte aligned and every other stride of a dimension longer
+    than 1 a multiple of 16 bytes (the C entry's check)."""
+    align = 16 // t.element_size()
+    return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+            and all(s % align == 0 for n, s in zip(t.shape[:-1], t.stride()[:-1]) if n > 1))
+
+
 def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Kernel A for CUDA tensors, the plain version for CPU tensors. On the
-    card a call that autograd records (grad enabled, an input that requires
-    grad) goes through `KernelAttention`; every other call launches kernel
-    A directly."""
+    card an input that kernel A cannot read in place (`readable`) is first
+    copied into a contiguous tensor (one that is padded to its width is
+    copied by the padding already); a call that autograd records (grad
+    enabled, an input that requires grad) goes through `KernelAttention`;
+    every other call launches kernel A directly."""
     if q.device.type == "cpu":
         return sdpa_plain(q, k, v)
+    if padded_width(q.shape[-1]) == q.shape[-1]:
+        q, k, v = (t if readable(t) else t.clone(memory_format=torch.contiguous_format)
+                   for t in (q, k, v))
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return KernelAttention.apply(q, k, v)
     return fused_attention(q, k, v)

@@ -15,7 +15,10 @@ kernel where a crop's slots fit shared memory whole (the main path's crop
 tile size and descriptor width the reference takes (`variant` says which
 runs a shape; each launch is counted per variant). Descriptors of any width
 up to 119, the reference's limit, are zero-padded to the next instantiated
-width (`DESC_DIMS`).
+width (`DESC_DIMS`). The kernel addresses the images' rows by a pitch of
+its own, so an image of any width and start is taken: one whose width is no
+multiple of 4, or whose start is not 16-byte aligned, is first copied into
+a zero-padded pitched buffer (`pad_pitch`).
 
 `tile_match_phase_kernel` launches kernel B cut after one of its steps
 (`PHASES`), the counterpart of the TPU phase profiler
@@ -33,7 +36,7 @@ import torch
 
 from monst3r_slam_torch.ops import build
 
-_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
 _SIGNATURES = {
     "tile_match_forward": (_ARGTYPES, ctypes.c_int),
     "tile_match_phase_forward": (_ARGTYPES + [ctypes.c_int], ctypes.c_int),
@@ -250,6 +253,27 @@ def pad_descriptors(desc_img, q_desc):
             torch.nn.functional.pad(q_desc, (0, width - fd)))
 
 
+def pad_pitch(rays_img, desc_img) -> tuple:
+    """(rays_img, desc_img, pitch) as kernel B reads them: its bulk copies
+    read 16-byte rows, so each image must start 16-byte aligned and its rows
+    lie a multiple of 4 pixels apart. The inputs themselves (pitch w) where
+    they do; else an image that is not aligned is copied, and where w is no
+    multiple of 4 both are copied into zero-padded (h, pitch, c) buffers,
+    pitch w rounded up to 4. Exact: the columns past w lie outside every
+    crop, whose corners are clipped to w - crop."""
+    h, w, _ = rays_img.shape
+    pitch = -(-w // 4) * 4
+    if pitch == w:
+        return (*(t if t.data_ptr() % 16 == 0 else t.clone() for t in (rays_img, desc_img)), w)
+
+    def pitched(t):
+        out = t.new_zeros((h, pitch, t.shape[-1]))
+        out[:, :w] = t
+        return out
+
+    return pitched(rays_img), pitched(desc_img), pitch
+
+
 @functools.lru_cache(maxsize=256)
 def variant(T: int, tsz: int, h: int, w: int, fd: int, crop: int) -> tuple:
     """(which kernel takes these arguments, its rows per ray band and per
@@ -265,8 +289,9 @@ def variant(T: int, tsz: int, h: int, w: int, fd: int, crop: int) -> tuple:
 def _launch(entry: str, rays_img, desc_img, q_rays, q_desc, corners, crop: int, window: int,
             conv_thresh: float, *extra):
     """Check the arguments kernel B takes, zero-pad descriptors to an
-    instantiated width, and launch its C entry `entry`. Returns ((u, v,
-    conv), the variant that ran: "whole" or "banded")."""
+    instantiated width and the images to a pitch it reads (`pad_pitch`),
+    and launch its C entry `entry`. Returns ((u, v, conv), the variant that
+    ran: "whole" or "banded", whether `pad_pitch` copied an image)."""
     h, w, _ = rays_img.shape
     T, tsz, _ = q_rays.shape
     fd = desc_img.shape[-1]
@@ -284,6 +309,11 @@ def _launch(entry: str, rays_img, desc_img, q_rays, q_desc, corners, crop: int, 
                          f"q_desc {tuple(q_desc.shape)}, corners {tuple(corners.shape)}")
     desc_img, q_desc = pad_descriptors(desc_img, q_desc)
     width = desc_img.shape[-1]
+    images = rays_img.data_ptr(), desc_img.data_ptr()
+    rays_img, desc_img, pitch = pad_pitch(rays_img, desc_img)
+    copied = (rays_img.data_ptr(), desc_img.data_ptr()) != images
+    if q_desc.data_ptr() % 16:
+        q_desc = q_desc.clone()
     which = variant(T, tsz, h, w, width, crop)[0]
     lib = build.load("tile_match", _SIGNATURES)
     u = torch.empty((T, tsz), dtype=torch.int32, device=rays_img.device)
@@ -294,34 +324,34 @@ def _launch(entry: str, rays_img, desc_img, q_rays, q_desc, corners, crop: int, 
         err = getattr(lib, entry)(
             rays_img.data_ptr(), desc_img.data_ptr(), q_rays.data_ptr(), q_desc.data_ptr(),
             corners.data_ptr(), u.data_ptr(), v.data_ptr(), conv.data_ptr(),
-            T, tsz, h, w, width, crop, window, conv_thresh, stream, *extra,
+            T, tsz, h, w, pitch, width, crop, window, conv_thresh, stream, *extra,
         )
     if err == 1000:
         raise ValueError(
-            f"tile_match_kernel does not take crop {crop} on a {h}x{w} image at fd {fd}, or "
-            f"images {rays_img.data_ptr() % 16} / {desc_img.data_ptr() % 16} / "
-            f"{q_desc.data_ptr() % 16} bytes past 16-byte alignment: its bulk copies read "
-            "16-byte rows, so the image width must be a multiple of 4 and every image start "
-            "16-byte aligned; it takes any crop up to min(h, w) of which one row of rays and "
-            "of descriptors, twice, fits a block's shared memory, and any number of queries")
+            f"tile_match_kernel does not take crop {crop} on a {h}x{w} image at fd {fd}: it "
+            "takes any crop up to min(h, w) of which one row of rays and of descriptors, "
+            "twice, fits a block's shared memory, and any number of queries")
     if err != 0:
         raise RuntimeError(f"tile_match kernel launch failed: error {err}")
-    return (u, v, conv.bool()), which
+    return (u, v, conv.bool()), which, copied
 
 
 def tile_match_kernel(rays_img, desc_img, q_rays, q_desc, corners, crop: int, window: int,
                       conv_thresh: float):
     """Kernel B on CUDA tensors; corners already quantized. Counts its
-    launches, and per variant in `variant_launches`."""
-    out, which = _launch("tile_match_forward", rays_img, desc_img, q_rays, q_desc, corners,
-                         crop, window, conv_thresh)
+    launches, per variant in `variant_launches`, and in `pitched_launches`
+    those whose images `pad_pitch` copied."""
+    out, which, copied = _launch("tile_match_forward", rays_img, desc_img, q_rays, q_desc,
+                                 corners, crop, window, conv_thresh)
     tile_match_kernel.launches += 1
     tile_match_kernel.variant_launches[which] += 1
+    tile_match_kernel.pitched_launches += copied
     return out
 
 
 tile_match_kernel.launches = 0
 tile_match_kernel.variant_launches = {"whole": 0, "banded": 0}
+tile_match_kernel.pitched_launches = 0
 
 
 def tile_match_phase_kernel(rays_img, desc_img, q_rays, q_desc, corners, crop: int,
@@ -330,8 +360,8 @@ def tile_match_phase_kernel(rays_img, desc_img, q_rays, q_desc, corners, crop: i
     already quantized. Its outputs are `tile_match_plain(..., phase=phase)`'s."""
     if phase not in PHASES:
         raise ValueError(f"phase {phase!r} is not one of {PHASES}")
-    out, which = _launch("tile_match_phase_forward", rays_img, desc_img, q_rays, q_desc,
-                         corners, crop, window, conv_thresh, PHASES.index(phase))
+    out, which, _ = _launch("tile_match_phase_forward", rays_img, desc_img, q_rays, q_desc,
+                            corners, crop, window, conv_thresh, PHASES.index(phase))
     tile_match_phase_kernel.launches += 1
     tile_match_phase_kernel.variant_launches[which] += 1
     return out

@@ -13,8 +13,9 @@ chooses and its time (also at the 4 and 6 heads of 768 tokens that
 can be checked against the measured best,
 and how many clusters of each size the card holds at once (what the choice
 reads). With `--width D` it times the route at head width D (padded to
-the instantiation kernel A runs it at, as the wrapper pads it) in place of
-64, to check the choice at each instantiation.
+the instantiation kernel A runs it at, as the wrapper pads it; above 256
+the wide variant, whose split is chosen the same way) in place of 64, to
+check the choice at each instantiation.
 
 It also times two FMA-only kernels over the whole card, 16 warps an SM: 16
 independent FMA chains a thread (one fresh register operand an FMA), and the
@@ -156,7 +157,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--width", type=int, default=64,
-                    help="head width of the shapes timed (1-256; default 64)")
+                    help="head width of the shapes timed (any; default 64)")
     args = ap.parse_args()
 
     import numpy as np

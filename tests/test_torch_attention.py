@@ -61,20 +61,29 @@ def test_plain_sdpa_bf16_casts_probs_like_jax_at_tiny_widths(d):
     np.testing.assert_allclose(got.float().numpy(), np.asarray(ref, np.float32), atol=8e-3)
 
 
+# Above 256 the wide variant runs multiples of 64 in column slices of 256:
+# the slices kernel A plans at each wide width of the test below.
+WIDE_SLICES = {257: 2, 300: 2, 320: 2, 384: 2, 512: 2, 1024: 4}
+
+
 @pytest.mark.parametrize("d,width", [(1, 16), (8, 16), (12, 16), (16, 16), (24, 32), (33, 64),
                                      (48, 64), (64, 64), (80, 128), (96, 128), (127, 128),
-                                     (129, 256), (160, 256), (192, 256), (256, 256)])
+                                     (129, 256), (160, 256), (192, 256), (256, 256),
+                                     (257, 320), (300, 320), (320, 320), (384, 384), (512, 512),
+                                     (1024, 1024)])
 def test_padded_heads_give_the_unpadded_attention(d, width):
     """`pad_heads` pads q, k and v with zero columns to kernel A's next
-    instantiation; attention over the padded heads scaled by the true
-    width's d^-1/2 and sliced back to d columns is attention over the
-    originals, within 1e-6 (f32: the zero products add exact zeros; only
-    the matmuls' blocking may differ)."""
+    instantiation, above 256 to the next multiple of 64, which the wide
+    variant runs in `column_slices` slices of 256 columns; attention over
+    the padded heads scaled by the true width's d^-1/2 and sliced back to d
+    columns is attention over the originals, within 1e-6 (f32: the zero
+    products add exact zeros; only the matmuls' blocking may differ)."""
     rng = np.random.default_rng(d)
     q, k, v = (torch.from_numpy(rng.standard_normal((2, 3, n, d), dtype=np.float32))
                for n in (40, 56, 56))
     qp, kp, vp = tatt.pad_heads(q, k, v)
     assert tatt.padded_width(d) == width
+    assert tatt.column_slices(d) == WIDE_SLICES.get(d, 1)
     assert all(t.shape[-1] == width for t in (qp, kp, vp))
     assert all(torch.equal(t[..., :d], s) and not t[..., d:].any()
                for t, s in ((qp, q), (kp, k), (vp, v)))
@@ -82,10 +91,21 @@ def test_padded_heads_give_the_unpadded_attention(d, width):
     np.testing.assert_allclose(got.numpy(), tatt.sdpa_plain(q, k, v).numpy(), atol=1e-6, rtol=0)
 
 
-def test_heads_wider_than_256_are_refused():
-    x = torch.zeros((1, 1, 8, 264))
-    with pytest.raises(ValueError, match="up to 256"):
-        tatt.pad_heads(x, x, x)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(1, 2, 40, 320), (1, 1, 24, 512)])
+def test_sdpa_matches_pallas_interpret_at_wide_heads(shape, dtype):
+    """Heads wider than 256, which the reference's kernel takes (it reads d
+    from q's shape): the port's dispatch on the CPU against the Pallas
+    kernel in interpret mode, in f32 within 1e-5 and in bf16 (the same
+    rounding points: f32 logits, probabilities rounded to bf16) to one bf16
+    ulp of the output, as `test_plain_sdpa_bf16_casts_probs_like_jax`."""
+    rng = np.random.default_rng(shape[-1])
+    q, k, v = (rng.standard_normal(shape).astype(np.float32) for _ in range(3))
+    ref = jatt.fused_attention(*(jnp.asarray(a, dtype) for a in (q, k, v)), interpret=True)
+    got = tatt.sdpa(*(torch.from_numpy(a).to(getattr(torch, dtype)) for a in (q, k, v)))
+    assert got.dtype == getattr(torch, dtype) and tuple(got.shape) == shape
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(ref, np.float32),
+                               atol=1e-5 if dtype == "float32" else 8e-3, rtol=0)
 
 
 def test_plain_sdpa_bf16_casts_probs_like_jax():

@@ -48,6 +48,11 @@ F32_CASES = [(2, 8, 196, 196), (2, 6, 196, 196), (4, 16, 196, 196), (2, 12, 768,
 # warps, its 16-wide one 8-byte V loads, so those also at `F32_CASES`'
 # counts.
 WIDTHS = (8, 12, 16, 24, 32, 48, 80, 96, 128, 160, 256)
+# Head widths above 256, which the wide variant takes in slices of 256
+# columns of O: multiples of 64 in one slice and a quarter (320), one and a
+# half (384), two (512), four (1,024), eight (2,048), and widths that the
+# wrapper zero-pads to a multiple of 64 (257, 300, 700, 3,000).
+WIDE_WIDTHS = (257, 300, 320, 384, 512, 700, 1024, 2048, 3000)
 
 
 @pytest.mark.cuda
@@ -87,13 +92,58 @@ def test_attention_kernel_matches_plain(cuda, dtype, logit_scale, b, h, nq, nk, 
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [16, 32, 64, 128, 160, 256])
+@pytest.mark.parametrize("d", WIDE_WIDTHS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("logit_scale", [1, 8])
+@pytest.mark.parametrize("b,h,nq,nk", [(2, 3, 196, 196), (1, 2, 130, 7), (1, 1, 33, 769)])
+def test_attention_kernel_matches_plain_at_wide_heads(cuda, dtype, logit_scale, b, h, nq, nk, d):
+    """Heads wider than 256 through the wide variant, both routes, at a
+    224x224 image's 196 tokens and at ragged counts across the query tiles
+    and key tiles of both routes, with unit logits and 8x peaked ones:
+    within `attention.error_bound` of the plain version (in f64 for f32
+    inputs, where one f32 chain over d columns is itself farther from the
+    exact logits than the kernel's chunked sums), one launch counted at its
+    route and true width."""
+    rng = np.random.default_rng(nq + nk + d)
+    q, k, v = (torch.from_numpy(rng.standard_normal((b, h, n, d), dtype=np.float32))
+               .to(cuda, dtype) for n in (nq, nk, nk))
+    q = q * logit_scale
+    route = "bf16_tc" if dtype == torch.bfloat16 else "f32"
+    fa = attention.fused_attention
+    before = (fa.launches, fa.route_launches[route], fa.width_launches.get(d, 0))
+    got = attention.sdpa(q, k, v)
+    torch.cuda.synchronize()
+    assert (fa.launches, fa.route_launches[route], fa.width_launches[d]) == tuple(
+        n + 1 for n in before)
+    assert got.dtype == dtype and got.shape == q.shape
+    ref = attention.reference(q, k, v)
+    assert float((got.double() - ref).abs().max()) <= attention.error_bound(q, k, v, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 320])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_kernel_takes_more_than_65535_batch_heads(cuda, dtype, d):
+    """Batch x heads = 65,600, past the 65,535 a grid's y dimension holds:
+    every route folds it into the grid's x. Within `attention.error_bound`."""
+    rng = np.random.default_rng(d)
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, 32800, 8, d), dtype=np.float32))
+               .to(cuda, dtype) for _ in range(3))
+    got = attention.fused_attention(q, k, v)
+    torch.cuda.synchronize()
+    ref = attention.sdpa_plain(q.float(), k.float(), v.float())
+    assert float((got.float() - ref).abs().max()) <= attention.error_bound(q, k, v, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 160, 256, 320, 512, 1024])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_attention_kernel_reads_and_writes_through_strides(cuda, dtype, d):
     """q, k, v as the model's heads split makes them: transposed views of
     one fused projection output, read in place, at each instantiated head
-    width and at 160 (padded to 256). The output is the (B, H, N, d) view of
-    a contiguous (B, N, H, d) buffer, so the heads merge is a view."""
+    width, at 160 (padded to 256) and at 320, 512 and 1,024 (the wide
+    variant). The output is the (B, H, N, d) view of a contiguous (B, N, H,
+    d) buffer, so the heads merge is a view."""
     b, n, h = 2, 196, 3
     rng = np.random.default_rng(5)
     qkv = torch.from_numpy(rng.standard_normal((b, n, 3 * h * d), dtype=np.float32)).to(cuda, dtype)
@@ -102,7 +152,7 @@ def test_attention_kernel_reads_and_writes_through_strides(cuda, dtype, d):
     got = attention.sdpa(q, k, v)
     torch.cuda.synchronize()
     assert got.shape == (b, h, n, d)
-    if d in attention.HEAD_DIMS:
+    if attention.padded_width(d) == d:
         assert got.transpose(1, 2).is_contiguous()
         assert got.transpose(1, 2).reshape(b, n, h * d).data_ptr() == got.data_ptr()
     ref = attention.sdpa_plain(q.float(), k.float(), v.float())
@@ -111,16 +161,11 @@ def test_attention_kernel_reads_and_writes_through_strides(cuda, dtype, d):
 
 @pytest.mark.cuda
 def test_attention_kernel_refuses_what_it_does_not_take(cuda):
-    """A head wider than 256 or a wrong type; and layouts the kernel cannot
-    read in place, which it refuses rather than copy: a last dimension that
-    is not contiguous, a start that is not 16-byte aligned, or a row stride
-    that is not a multiple of 8 elements in bf16 and of 4 in f32. The
-    model's transposed views of one fused projection are taken on both
-    routes."""
-    for dtype in (torch.float32, torch.bfloat16):
-        x = torch.zeros((1, 2, 16, 257), device=cuda, dtype=dtype)
-        with pytest.raises(ValueError, match="up to 256"):
-            attention.fused_attention(x, x, x)  # head dim 257
+    """A wrong type; and layouts the kernel cannot read in place, which it
+    refuses rather than copy: a last dimension that is not contiguous, a
+    start that is not 16-byte aligned, or a row stride that is not a
+    multiple of 8 elements in bf16 and of 4 in f32. The model's transposed
+    views of one fused projection are taken on both routes."""
     y = torch.zeros((1, 2, 16, 64), device=cuda, dtype=torch.float16)
     with pytest.raises(ValueError):
         attention.fused_attention(y, y, y)
@@ -145,18 +190,48 @@ def test_attention_kernel_refuses_what_it_does_not_take(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 512])
+def test_sdpa_copies_the_layouts_kernel_a_cannot_read(cuda, dtype, d):
+    """The dispatch takes what `fused_attention` refuses: a last dimension
+    that is not contiguous, a start that is not 16-byte aligned and a row
+    stride that is no multiple of 16 bytes are copied into contiguous
+    tensors first; one kernel A launch each, within `attention.error_bound`."""
+    rng = np.random.default_rng(d)
+    base = [torch.from_numpy(rng.standard_normal((1, 2, 100, d), dtype=np.float32)).to(cuda, dtype)
+            for _ in range(3)]
+    n = base[0].numel()
+    odd = torch.zeros(n + 1, device=cuda, dtype=dtype)
+    odd[1:] = base[0].flatten()
+    wide = torch.zeros((1, 2, 100, d + 2), device=cuda, dtype=dtype)
+    wide[..., :d] = base[1]
+    layouts = {"not contiguous": base[2].transpose(-1, -2).contiguous().transpose(-1, -2),
+               "unaligned": odd[1:].reshape(base[0].shape), "row stride": wide[..., :d]}
+    for name, bad in layouts.items():
+        assert not attention.readable(bad), name
+        for args in ((bad, base[1], base[2]), (base[0], base[1], bad)):
+            before = attention.fused_attention.launches
+            got = attention.sdpa(*args)
+            torch.cuda.synchronize()
+            assert attention.fused_attention.launches == before + 1, name
+            ref = attention.sdpa_plain(*(t.float() for t in args))
+            assert float((got.float() - ref).abs().max()) <= attention.error_bound(*args, ref), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape,nk", [((4, 16, 196, 64), 196), ((1, 16, 768, 64), 768),
                                       ((2, 3, 130, 64), 7), ((2, 4, 196, 16), 196),
                                       ((2, 4, 196, 12), 196), ((1, 4, 196, 256), 196),
-                                      ((1, 4, 196, 160), 196)])
+                                      ((1, 4, 196, 160), 196), ((1, 2, 196, 512), 196)])
 def test_attention_function_gradient_matches_the_plain_autograd(cuda, dtype, shape, nk):
     """Kernel A's autograd Function, as the training forward reaches it
     through `sdpa` with grad enabled: one kernel A launch forward and none
     backward; the forward within `attention.error_bound` and dq, dk, dv
     within `attention.backward_error_bound` of the f32 plain autograd, at
     the 224x224 training shape, at 768 tokens, at a ragged count, at the
-    TINY config's head widths (16, 12; the latter zero-padded to 16) and at
-    heads 256 and 160 wide (the latter zero-padded to 256). With
+    TINY config's head widths (16, 12; the latter zero-padded to 16), at
+    heads 256 and 160 wide (the latter zero-padded to 256) and at 512 (the
+    wide variant). With
     grad disabled `sdpa` launches kernel A directly and records nothing."""
     rng = np.random.default_rng(shape[2] + nk)
     b, h, nq, d = shape
@@ -184,20 +259,20 @@ def test_attention_function_gradient_matches_the_plain_autograd(cuda, dtype, sha
     assert attention.fused_attention.launches == n1 + 1
 
 
-def _tile_args(cuda, seed, fd, T, desc=None, qd=None, tsz=256):
-    """Kernel B's dispatch arguments on a 64x80 image: random unit rays,
+def _tile_args(cuda, seed, fd, T, desc=None, qd=None, tsz=256, w=80):
+    """Kernel B's dispatch arguments on a 64 x w image: random unit rays,
     exact ray peaks on a crop border (the stencil's wrap and zero rules),
     corners that need clipping and 16-alignment; random descriptors unless
     given."""
     rng = np.random.default_rng(seed)
-    h, w = 64, 80
+    h = 64
     rays = rng.standard_normal((h, w, 3)).astype(np.float32)
     rays /= np.linalg.norm(rays, axis=-1, keepdims=True)
     q = rng.standard_normal((T, tsz, 3)).astype(np.float32)
     q /= np.linalg.norm(q, axis=-1, keepdims=True)
     q[:, :32] = rays[:1, :32]
     corners = np.concatenate([[[-5, 3], [40, 40], [17, 9], [79, 63], [0, 0], [31, 15]],
-                              rng.integers(-8, 90, (max(T - 6, 0), 2))])[:T].astype(np.int32)
+                              rng.integers(-8, w + 10, (max(T - 6, 0), 2))])[:T].astype(np.int32)
     if desc is None:
         desc = rng.standard_normal((h, w, fd))
     if qd is None:
@@ -279,10 +354,10 @@ def test_tile_match_kernel_keeps_the_lowest_index_among_equal_descriptors(cuda, 
 
 @pytest.mark.cuda
 def test_tile_match_kernel_refuses_what_it_does_not_take(cuda):
-    """What its bulk copies cannot read (an image width that is no multiple
-    of 4, an image that is not 16-byte aligned), a tensor that is not
-    contiguous, descriptors wider than the reference's 119 and a crop
-    wider than the image: refused, no other path."""
+    """A tensor that is not contiguous, descriptors wider than the
+    reference's 119 and a crop wider than the image: refused, no other
+    path. (An image of any width and start is taken:
+    `test_tile_match_kernel_takes_any_image_width_and_start`.)"""
     kargs = list(_kernel_args(_tile_args(cuda, 0, 24, 6)))
     wide = torch.zeros((64, 80, 120), device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="1 to 119"):
@@ -294,12 +369,46 @@ def test_tile_match_kernel_refuses_what_it_does_not_take(cuda):
                                           .contiguous().transpose(0, 1), *kargs[3:])
     with pytest.raises(ValueError):
         matching_pallas.tile_match_kernel(*kargs[:5], 65, *kargs[6:])
-    odd = torch.zeros(64 * 80 * 24 + 1, device=cuda, dtype=torch.bfloat16)[1:].reshape(64, 80, 24)
-    with pytest.raises(ValueError):
-        matching_pallas.tile_match_kernel(kargs[0], odd, *kargs[2:])
-    narrow = kargs[0][:, :78].contiguous()
-    with pytest.raises(ValueError):
-        matching_pallas.tile_match_kernel(narrow, kargs[1][:, :78].contiguous(), *kargs[2:])
+
+
+def _offset(t, offset: int):
+    """t's values in a tensor that starts `offset` elements past an
+    allocation's (16-byte aligned) start."""
+    buf = torch.zeros(t.numel() + offset, device=t.device, dtype=t.dtype)
+    buf[offset:] = t.flatten()
+    return buf[offset:].view(t.shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w,offset,crop,fd,T", [
+    (110, 0, 48, 24, 6), (110, 0, 48, 24, 301), (78, 0, 48, 24, 6), (81, 0, 64, 24, 6),
+    (110, 0, 50, 24, 6), (110, 0, 48, 64, 6), (510, 0, 48, 24, 37), (80, 1, 48, 24, 6),
+    (80, 3, 64, 24, 6), (110, 1, 48, 20, 6)])
+def test_tile_match_kernel_takes_any_image_width_and_start(cuda, w, offset, crop, fd, T):
+    """Images of a width that is no multiple of 4 (110, 78, 81, 510) and
+    images, rays and descriptors alike, and query descriptors that start
+    `offset` elements past 16-byte alignment, through the whole-crop kernel
+    and the banded variant (crops 64 and 50, fd 64): the wrapper copies them
+    into zero-padded pitched buffers (`pad_pitch`; the query descriptors
+    into an aligned copy) and the kernel reads the rows by that pitch. The ray match and the flags equal the plain version's on the
+    original tensors; the descriptor match passes `rounding_check`."""
+    args = _tile_args(cuda, w + offset + crop, fd, T, w=w)
+    kargs = list(_kernel_args(args, crop=crop))
+    if offset:
+        for i in (0, 1, 3):
+            kargs[i] = _offset(kargs[i], offset)
+            assert kargs[i].data_ptr() % 16
+    before = matching_pallas.tile_match_kernel.launches
+    got = matching_pallas.tile_match_kernel(*kargs)
+    ray = matching_pallas.tile_match_phase_kernel(*kargs, phase="stencil")
+    torch.cuda.synchronize()
+    assert matching_pallas.tile_match_kernel.launches == before + 1
+    ray0 = matching_pallas.tile_match_plain(*kargs, phase="stencil")
+    assert all(torch.equal(a, b) for a, b in zip(ray, ray0))
+    assert torch.equal(got[2], ray0[2])
+    passes, exact = matching_pallas.rounding_check(*kargs, got)
+    assert bool(passes.all())
+    assert float(exact.float().mean()) >= 0.99
 
 
 # Descriptor sums by kernel B's tensor-core instructions at width FD (a

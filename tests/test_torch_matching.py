@@ -114,22 +114,27 @@ def test_kernel_wrapper_refuses_cpu_tensors():
                               16, 15, 1e-6)
 
 
-# (crop, fd, queries a tile): the shapes the reference's kernel takes beyond
-# the main path's, which the card runs through kernel B's banded variant:
-# `PallasTileConfig()`'s own crop of 64, fd 64 and the reference's widest
-# 119, 1,024 queries a tile (tile 32, eight of its `sub_q` blocks) and a
-# crop that is no multiple of 4.
-WIDE_CASES = [(64, 24, 256), (48, 64, 256), (64, 119, 256), (48, 24, 1024), (50, 24, 256)]
+# (crop, fd, queries a tile, image width): the shapes the reference's kernel
+# takes beyond the main path's, which the card runs through kernel B's
+# banded variant: `PallasTileConfig()`'s own crop of 64, fd 64 and the
+# reference's widest 119, 1,024 queries a tile (tile 32, eight of its
+# `sub_q` blocks) and a crop that is no multiple of 4; and an image width
+# that is no multiple of 4 (110), which the card reads through a pitched
+# copy (`pad_pitch`).
+WIDE_CASES = [(64, 24, 256, 112), (48, 64, 256, 112), (64, 119, 256, 112), (48, 24, 1024, 112),
+              (50, 24, 256, 112), (48, 24, 256, 110)]
 
 
-@pytest.mark.parametrize("crop,fd,tsz", WIDE_CASES)
-def test_tile_match_plain_matches_pallas_interpret_at_wide_shapes(crop, fd, tsz):
+@pytest.mark.parametrize("crop,fd,tsz,w", WIDE_CASES,
+                         ids=[f"{c}-{f}-{t}" + ("" if w == 112 else f"-w{w}")
+                              for c, f, t, w in WIDE_CASES])
+def test_tile_match_plain_matches_pallas_interpret_at_wide_shapes(crop, fd, tsz, w):
     """Kernel B's plain version against the Pallas kernel at `WIDE_CASES` on
-    a 96x112 target with 2 tiles, corners that need clipping and
+    a 96 x w target with 2 tiles, corners that need clipping and
     16-alignment and exact ray peaks on a crop row; the tolerance of
     `test_tile_match_plain_matches_pallas_interpret`."""
-    rng = np.random.default_rng(crop + fd + tsz)
-    h, w, T = 96, 112, 2
+    rng = np.random.default_rng(crop + fd + tsz + w - 112)
+    h, T = 96, 2
     rays = rng.standard_normal((h, w, 3)).astype(np.float32)
     rays /= np.linalg.norm(rays, axis=-1, keepdims=True)
     desc = rng.standard_normal((h, w, fd)).astype(np.float32)
@@ -152,3 +157,28 @@ def test_tile_match_plain_matches_pallas_interpret_at_wide_shapes(crop, fd, tsz)
     assert (tu.numpy() == np.asarray(ju)).mean() >= AGREE
     assert (tv.numpy() == np.asarray(jv)).mean() >= AGREE
     assert (tc.numpy() == np.asarray(jc)).mean() >= AGREE
+
+
+@pytest.mark.parametrize("w,offset", [(110, 0), (112, 1), (112, 0)])
+def test_pad_pitch_copies_only_what_the_kernel_cannot_read(w, offset):
+    """`pad_pitch` returns images the kernel's 16-byte row copies read:
+    the inputs themselves at a width that is a multiple of 4 and an aligned
+    start; an aligned copy of an image that starts `offset` elements past
+    alignment; at width 110 both images zero-padded to a pitch of 112, their
+    first 110 columns the inputs'."""
+    rng = np.random.default_rng(w + offset)
+    rays = torch.from_numpy(rng.standard_normal((24, w, 3), dtype=np.float32))
+    desc = torch.from_numpy(rng.standard_normal((24, w, 24), dtype=np.float32)).to(torch.bfloat16)
+    if offset:
+        buf = torch.zeros(rays.numel() + offset)
+        buf[offset:] = rays.flatten()
+        rays = buf[offset:].view(rays.shape)
+        assert rays.data_ptr() % 16
+    pr, pd, pitch = tmp.pad_pitch(rays, desc)
+    assert pitch == -(-w // 4) * 4
+    for got, src in ((pr, rays), (pd, desc)):
+        assert got.data_ptr() % 16 == 0 and got.is_contiguous()
+        assert got.shape == (24, pitch, src.shape[-1]) and got.dtype == src.dtype
+        assert torch.equal(got[:, :w], src) and not got[:, w:].any()
+    assert (pd.data_ptr() == desc.data_ptr()) == (pitch == w)
+    assert (pr.data_ptr() == rays.data_ptr()) == (pitch == w and not offset)

@@ -77,6 +77,40 @@ def test_decode_matches_jax(weights, encoded, pair):
         _close(got.numpy(), ref)
 
 
+def test_decode_matches_jax_with_heads_wider_than_256():
+    """TINY re-headed to one encoder head 320 wide and one decoder head 288
+    wide (one encoder and two decoder blocks, the fewest whose DPT hooks
+    are distinct), as a checkpoint's constructor string may give it: the
+    encode and a cross decode against JAX's, the weights carried over by
+    `params_from_jax`, within `REL` of each output's scale. The weights are
+    drawn with numpy into the initializer's tree (its shapes from
+    `jax.eval_shape`; JAX's own initializer takes ~18 s at these widths):
+    normal with variance 1 / fan-in for matrices and kernels, 1 + 0.1 normal
+    for vectors."""
+    import dataclasses
+
+    wide = dict(enc_depth=1, enc_dim=320, enc_heads=1, dec_depth=2, dec_dim=288, dec_heads=1)
+    jcfg, tcfg = (dataclasses.replace(c, **wide) for c in (JTINY, tconfig.TINY))
+    rng = np.random.default_rng(1)
+    shapes = jax.eval_shape(lambda: jinit.init_params(jax.random.PRNGKey(1), jcfg))
+    jp = jax.tree.map(
+        lambda a: jnp.asarray((rng.standard_normal(a.shape) / np.sqrt(np.prod(a.shape[:-1]))
+                               if len(a.shape) > 1 else 1 + 0.1 * rng.standard_normal(a.shape)),
+                              a.dtype), shapes)
+    tp = params_from_jax(jax.tree.map(np.asarray, jp))
+    imgs = [rng.uniform(-1, 1, (1, H, W, 3)).astype(np.float32) for _ in range(2)]
+    j = [jmodel.encode(jp, jcfg, jnp.asarray(im), dtype=jnp.float32) for im in imgs]
+    t = [tmodel.encode(tp, tcfg, torch.from_numpy(im), dtype=torch.float32) for im in imgs]
+    for (fj, _), (ft, _) in zip(j, t):
+        _close(ft.numpy(), fj)
+    oj = jmodel.decode(jp, jcfg, *j[0], *j[1], (H, W), dtype=jnp.float32)
+    ot = tmodel.decode(tp, tcfg, *t[0], *t[1], (H, W), dtype=torch.float32)
+    for name in oj._fields:
+        got, ref = getattr(ot, name), getattr(oj, name)
+        assert tuple(got.shape) == tuple(ref.shape) and bool(np.isfinite(ref).all()), name
+        _close(got.numpy(), ref)
+
+
 def test_init_params_matches_jax_tree(weights):
     """The port's own initializer builds the converted tree's structure,
     shapes and scales (not its numbers: the generators differ)."""
