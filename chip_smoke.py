@@ -14,7 +14,8 @@ phase printing one line:
      SASS that every phase instantiation of kernel B keeps its bulk-copy
      staging and that its full instantiation runs on the tensor cores, and
      that kernel A's f32 route keeps its asynchronous copies (LDGSTS) and
-     spills nothing to local memory (no LDL or STL);
+     spills nothing to local memory (no LDL or STL), its FFMA kernel and
+     its tensor-core kernel, whose SASS must hold its mma (HMMA);
   2. kernel A (attention) against its plain version at the encoder
      (1, 16, 768, 64) and decoder (1, 12, 768, 64) shapes, on both routes:
      the bf16 tensor-core kernel (the main path's) and the f32
@@ -35,11 +36,15 @@ phase printing one line:
      zeroed just before and read just after;
   4. kernel A at every head width the reference's kernel takes (`phase_heads`;
      alone with `--only-heads`): widths 8, 12, 16, 24, 32, 48, 64, 80, 96 and
-     128 (the kernel is instantiated at 16, 32, 64 and 128, the wrapper
-     zero-pads the others) on both routes at (1, 16, 768, d), (2, 8, 196, d)
-     and a ragged (1, 4, 100, 300), through the dispatch with its plain
-     version made to fail, each within `error_bound` with a launch counted
-     at its width, timed with the padding's own cost, SDPA's and the bound;
+     128 (the bf16 route is instantiated at 16, 32, 64 and 128, the f32
+     route at 16, 32 and 64 and on the tensor cores at every multiple of 4
+     above; the wrapper zero-pads the others) in both dtypes at
+     (1, 16, 768, d), (2, 8, 196, d) and a ragged (1, 4, 100, 300), through
+     the dispatch with its plain version made to fail, each within
+     `error_bound` of `attention.reference` with a launch counted at its
+     route and width, timed with the padding's own cost, SDPA's, the bound
+     and, for f32 above 64, the FP32 pipe's bound (and, printed only, the
+     time of the FFMA kernel it replaced, from PERF.md);
      kernel B at fd 20 (padded to 24) under
      `rounding_check` and timed beside fd 24; then the TINY config's entry
      points with their default device, the card: `train_torch.py --tiny
@@ -57,10 +62,12 @@ phase printing one line:
      and at crop 50, and through `tile_match` on a 384x510 image and on one
      that starts one element past 16-byte alignment (each copied to a row
      pitch), each with flags and ray matches equal to the plain version's
-     and under `rounding_check`, timed; kernel A on both routes at
-     (1,4,768,256), (1,6,768,160), the wide variant's (1,1,768,1024),
+     and under `rounding_check`, timed; kernel A in both dtypes at
+     (1,4,768,256), (1,6,768,160), the 256-column slices' (1,1,768,1024),
      (1,2,768,512), (1,1,768,768), (1,2,768,384), (1,3,768,320) and
-     (2,1,196,2048), and batch x heads 65,600 at 8 tokens; MAST3R_512
+     (2,1,196,2048) (bf16: the wide variant; f32: the tensor-core kernel,
+     its slices sharing S or not as its plan takes), and batch x heads
+     65,600 at 8 tokens; MAST3R_512
      re-headed through `config_from_arch_string` to 4, 2 and 1 encoder and
      decoder heads (256 / 192, 512 / 384 and 1,024 / 768 wide) decoding a
      pair in f32 and bf16 against the decode with the plain attention; the
@@ -168,9 +175,10 @@ phase printing one line:
      backend workers of earlier phases stopped; `train_torch.py` unchanged
      in a subprocess at MAST3R_512 (8 steps, batch 4, 224x224, with
      `--save` and `--ckpt-dir`), and beside its file writes, which use
-     the card only to copy the weights out: kernel A's autograd Function (kernel A forward, plain backward)
-     on both routes at every (B, heads, N, 64) of the timed steps below,
-     encoder and decoder, and at (1,16,768,64), against the f32 plain
+     the card only to copy the weights out: kernel A's autograd
+     Function (kernel A forward, plain backward) on both routes at every
+     (B, heads, N, 64) of the timed steps below, encoder and decoder, and
+     at (1,16,768,64), against the f32 plain
      autograd; steps timed in-process at 224x224 batch 4 and 384x512 batch
      2 (back to back, synchronized, device time from torch.profiler,
      launches, peak memory, MFU against 989 TFLOP/s; the host's launch cost
@@ -201,11 +209,12 @@ sequence. The dynamic phase also moves MonST3R's random pointmap in front
 of the camera (`front_depth`), which the calibrated tracker and the
 ego-motion flow need, and raises the mask threshold (`DYN_THRESHOLD`).
 
-Then one JSON line with the kernel table (each kernel's launches on every
+Then a line with each phase's wall seconds, one JSON line with the kernel
+table (each kernel's launches on every
 path, `sam2`, `easi3r`, `viewer`, `mesh`, `oracle`, `train_mesh`, `heads`
-and `wide` included; kernel A's checked head widths, its 256-wide
-instantiation, its wide variant, kernel B's banded variant and its pitched
-calls as rows of their own) and,
+and `wide` included; kernel A's checked head widths, its 256-wide bf16
+instantiation, its bf16 wide variant, its f32 tensor-core kernel, kernel
+B's banded variant and its pitched calls as rows of their own) and,
 last, the
 `{"ok": true, ...}` line. Exits non-zero without that line when there is no CUDA device, when the port is
 not importable, or when any phase fails.
@@ -227,6 +236,7 @@ import numpy as np
 # float32 FMA on the FP32 pipe (outside the tensor cores), HBM3 bandwidth.
 PEAK_BF16 = 989e12
 PEAK_F32 = 67e12
+PEAK_TF32 = 495e12  # an f32 product in 3xTF32 is 3 TF32 operations on the tensor cores
 PEAK_BYTES = 3.35e12
 SM_CLOCK_HZ = 1.98e9  # H100 SXM boost clock: cycles per second of a spin kernel, at most
 
@@ -358,8 +368,10 @@ LOCAL_OPS = ("LDL", "STL")  # SASS of a spill to local memory
 
 
 def f32_route_instructions(lib: str) -> dict:
-    """{op: count} in the SASS of kernel A's f32 route (`attn_fwd_f32`) for
-    its asynchronous copies and for spills to local memory."""
+    """{kernel: {op: count}} in the SASS of kernel A's f32 kernels
+    (`attn_fwd_f32`, the FFMA one, and `attn_fwd_tf32`, the tensor-core
+    one), read in one pass: their asynchronous copies, their tensor-core
+    mma (HMMA) and spills to local memory."""
     import re
 
     from monst3r_slam_torch.ops import build
@@ -367,13 +379,16 @@ def f32_route_instructions(lib: str) -> dict:
     tool = pathlib.Path(build.nvcc()).with_name("cuobjdump")
     sass = subprocess.run([str(tool), "-sass", lib], capture_output=True, text=True, check=True,
                           timeout=120).stdout
-    counts, inside = dict.fromkeys((F32_COPY_OP, *LOCAL_OPS), 0), False
+    ops = re.compile(rf"\b({'|'.join((F32_COPY_OP, 'HMMA', *LOCAL_OPS))})\b")
+    counts = {k: dict.fromkeys((F32_COPY_OP, "HMMA", *LOCAL_OPS), 0)
+              for k in ("attn_fwd_f32", "attn_fwd_tf32")}
+    inside = None
     for ln in sass.splitlines():
         if "Function :" in ln:
-            inside = "attn_fwd_f32" in ln
+            inside = next((k for k in counts if k in ln), None)
         elif inside:
-            for op in counts:
-                counts[op] += bool(re.search(rf"\b{op}\b", ln))
+            for op in set(ops.findall(ln)):
+                counts[inside][op] += 1
     return counts
 
 
@@ -387,9 +402,9 @@ def ptxas_usage(log: str) -> dict:
     usage, entry, spill = {}, None, 0
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '\S*?(attn_fwd_[a-z0-9_]+?|tile_match_[a-z]+)"
-                      r"(?:I((?:Li\d+E)+)E|E)", ln)
+                      r"(?:I((?:L[ib]\d+E)+)E|E)", ln)
         if m:
-            entry = m.group(1) + (f"<{','.join(re.findall(r'Li(\d+)E', m.group(2)))}>"
+            entry = m.group(1) + (f"<{','.join(re.findall(r'L[ib](\d+)E', m.group(2)))}>"
                                   if m.group(2) else "")
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
         if m:
@@ -428,12 +443,16 @@ def phase_build() -> None:
               f"({'/'.join(COPY_OPS)}) and the full one runs on the tensor cores (HMMA), per "
               "phase copies/HMMA: "
               + ", ".join(f"{ph} {cp}/{mma}" for ph, (cp, mma) in ins.items()), flush=True)
-    f32 = f32_route_instructions(str(build.lib_path("attention")))
+    counts = f32_route_instructions(str(build.lib_path("attention")))
+    f32, tc = counts["attn_fwd_f32"], counts["attn_fwd_tf32"]
     if f32[F32_COPY_OP] == 0 or any(f32[op] for op in LOCAL_OPS):
         fail(f"kernel A's f32 route lost its asynchronous copies ({F32_COPY_OP}) or spills to "
              f"local memory ({'/'.join(LOCAL_OPS)}): {f32}")
+    if tc[F32_COPY_OP] == 0 or tc["HMMA"] == 0 or any(tc[op] for op in LOCAL_OPS):
+        fail(f"kernel A's f32 tensor-core kernel lost its asynchronous copies ({F32_COPY_OP}) or "
+             f"its tensor-core mma (HMMA), or spills to local memory ({'/'.join(LOCAL_OPS)}): {tc}")
     print(f"attention f32 route keeps its asynchronous copies and spills nothing, SASS counts: "
-          f"{f32}", flush=True)
+          f"FFMA kernel {f32}, tensor-core kernel {tc}", flush=True)
 
 
 # Kernel A's f32 route at the training path's shapes (MAST3R_512 at 224x224
@@ -468,13 +487,31 @@ def f32_split(shape) -> int:
     """The split (cluster size) kernel A's f32 route takes at (B, H, N, d)."""
     import ctypes
 
+    import torch
+
     from monst3r_slam_torch.ops import attention, build
 
     lib = build.load("attention", attention._SIGNATURES)
     lib.attn_f32_split.argtypes = [ctypes.c_longlong] * 3 + [ctypes.c_int]
     lib.attn_f32_split.restype = ctypes.c_int
     return lib.attn_f32_split(shape[0] * shape[1], shape[2], shape[2],
-                              attention.padded_width(shape[3]))
+                              attention.padded_width(shape[3], torch.float32))
+
+
+def f32_share(shape) -> int:
+    """1 where kernel A's f32 route shares S among the column slices of a
+    query block at (B, H, N, d) (wide heads), else 0."""
+    import ctypes
+
+    import torch
+
+    from monst3r_slam_torch.ops import attention, build
+
+    lib = build.load("attention", attention._SIGNATURES)
+    lib.attn_f32_share.argtypes = [ctypes.c_longlong] * 3 + [ctypes.c_int]
+    lib.attn_f32_share.restype = ctypes.c_int
+    return lib.attn_f32_share(shape[0] * shape[1], shape[2], shape[2],
+                              attention.padded_width(shape[3], torch.float32))
 
 
 def phase_attention(seed: int) -> dict:
@@ -3954,10 +3991,12 @@ def phase_train(seed: int, card: str) -> dict:
     profiler, the launch counters zeroed just before and read just after;
     the card half of the card-vs-CPU step; the sharded step on the dp x tp
     mesh (`phase_train_mesh`); and the resume check under deterministic
-    algorithms (in a subprocess). The CLI must print the mesh that
-    `make_mesh()` builds over the visible cards ((1, 1) on one card)."""
+    algorithms (in a subprocess); and, in a thread once the CLI exits, its
+    `--save` file inflated. The CLI must print the mesh that `make_mesh()`
+    builds over the visible cards ((1, 1) on one card)."""
     import os
     import shutil
+    import threading
 
     import torch
 
@@ -3977,59 +4016,70 @@ def phase_train(seed: int, card: str) -> dict:
            "--save", str(save), "--ckpt-dir", str(ckdir)]
     with open(TRAIN_DIR / "cli.out", "w") as so, open(TRAIN_DIR / "cli.err", "w") as se:
         proc = subprocess.Popen(cmd, cwd=ROOT, stdout=so, stderr=se, text=True)
-        try:
-            cpu = train_cpu_grads(seed, MAST3R_512, TRAIN_CHECK_SIZE)
-            while proc.poll() is None and not any(ckdir.glob("step_8*")):
-                if time.perf_counter() - t_phase > 300:
-                    fail("train_torch.py wrote no checkpoint within 300 s")
-                time.sleep(0.2)
-            cli_steps_s = time.perf_counter() - t_phase
+    t_cli = time.time()
+    saved = {}
 
-            host = train_host_state()
-            grad = train_gradient_check(seed)
-            held = torch.cuda.memory_allocated()  # what the earlier phases left on the card
-            t0 = time.perf_counter()
-            state = train_state(MAST3R_512, seed, "cuda")
-            init_s = time.perf_counter() - t0
-            zero_counts()
-            rows = []
-            for b, h, w in TRAIN_SHAPES:
-                state, row = train_timing(state, MAST3R_512, b, h, w, card, held)
-                rows.append(row)
-            for row in rows:
-                state = train_device_time(state, MAST3R_512, row, card)
-            launches = read_counts()
-            n_steps = sum(r["steps"] for r in rows)
-            if launches["fused_attention"] != n_steps * 96:
-                fail(f"the timed training steps launched {launches} over {n_steps} steps "
-                     "(want 96 kernel A a step)")
-            del state
-            torch.cuda.empty_cache()
-            timed_s = time.perf_counter() - t0
+    def read_save():  # the CLI's exit, then its --save file inflated, beside the card checks
+        saved["rc"] = proc.wait(timeout=900)
+        if saved["rc"] == 0:
+            with np.load(save) as f:
+                saved["n_arrays"] = len(f.files)
+                saved["finite"] = all(np.isfinite(f[name]).all() for name in f.files)
 
-            check = train_card_vs_cpu(cpu, MAST3R_512)
-            del cpu
-            mesh_run = phase_train_mesh(seed, card, rows[0])
-            env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
-            code = ("import json, chip_smoke; "
-                    f"print('RESUME ' + json.dumps(chip_smoke.train_resume_check({seed})))")
-            out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
-                                 capture_output=True, text=True, timeout=300)
-            checks_s = time.perf_counter() - t_phase
-            rc = proc.wait(timeout=900)
-        finally:
-            if proc.poll() is None:
-                proc.kill()
-    cli_s = time.perf_counter() - t_phase
+    reader = threading.Thread(target=read_save, daemon=True)
+    reader.start()
+    try:
+        cpu = train_cpu_grads(seed, MAST3R_512, TRAIN_CHECK_SIZE)
+        while proc.poll() is None and not any(ckdir.glob("step_8*")):
+            if time.perf_counter() - t_phase > 300:
+                fail("train_torch.py wrote no checkpoint within 300 s")
+            time.sleep(0.2)
+        cli_steps_s = time.perf_counter() - t_phase
+
+        host = train_host_state()
+        grad = train_gradient_check(seed)
+        held = torch.cuda.memory_allocated()  # what the earlier phases left on the card
+        t0 = time.perf_counter()
+        state = train_state(MAST3R_512, seed, "cuda")
+        init_s = time.perf_counter() - t0
+        zero_counts()
+        rows = []
+        for b, h, w in TRAIN_SHAPES:
+            state, row = train_timing(state, MAST3R_512, b, h, w, card, held)
+            rows.append(row)
+        for row in rows:
+            state = train_device_time(state, MAST3R_512, row, card)
+        launches = read_counts()
+        n_steps = sum(r["steps"] for r in rows)
+        if launches["fused_attention"] != n_steps * 96:
+            fail(f"the timed training steps launched {launches} over {n_steps} steps "
+                 "(want 96 kernel A a step)")
+        del state
+        torch.cuda.empty_cache()
+        timed_s = time.perf_counter() - t0
+
+        check = train_card_vs_cpu(cpu, MAST3R_512)
+        del cpu
+        mesh_run = phase_train_mesh(seed, card, rows[0])
+        env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+        code = ("import json, chip_smoke; "
+                f"print('RESUME ' + json.dumps(chip_smoke.train_resume_check({seed})))")
+        out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                             capture_output=True, text=True, timeout=300)
+        checks_s = time.perf_counter() - t_phase
+        reader.join(timeout=900)
+        rc = saved.get("rc")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+    cli_s = (save.stat().st_mtime if save.is_file() else time.time()) - t_cli
     cli_out = (TRAIN_DIR / "cli.out").read_text()
     if rc != 0:
         fail(f"train_torch.py exited {rc}:\n{cli_out[-2000:]}\n"
              f"{(TRAIN_DIR / 'cli.err').read_text()[-4000:]}")
     cli_losses = [float(ln.split("loss ")[1].split()[0]) for ln in cli_out.splitlines()
                   if ln.startswith("step ")]
-    with np.load(save) as f:
-        n_arrays = len(f.files)
-        saved_finite = all(np.isfinite(f[name]).all() for name in f.files)
+    n_arrays, saved_finite = saved.get("n_arrays", 0), saved.get("finite", False)
     ckpts = sorted(p.name for p in ckdir.iterdir())
     ck_gb = sum(p.stat().st_size for p in ckdir.iterdir()) / 1e9
     print(f"train CLI: {' '.join(cmd[1:])}: exit 0 in {cli_s:.1f} s ({cli_steps_s:.1f} s to "
@@ -4070,17 +4120,33 @@ HEAD_WIDTHS = (8, 12, 16, 24, 32, 48, 64, 80, 96, 128)
 HEAD_SHAPES = ((1, 16, 768, 768), (2, 8, 196, 196), (1, 4, 100, 300))
 
 
+# Kernel A's f32 route above head width 64 before it ran on the tensor
+# cores: the FFMA kernels' device ms (`attn_fwd_f32<128|256>`, widths
+# between padded, and `attn_fwd_f32_wide`) at the (B, H, N, d) this script
+# times, from PERF.md's kernel table (NVIDIA H100 80GB HBM3, 700.00 W),
+# printed beside the tensor-core kernel's and never measured here (that
+# kernel is gone), so in no row of the kernels line.
+FFMA_DEVICE_MS = {(1, 16, 768, 128): 0.1865, (1, 4, 768, 256): 0.2190,
+                       (1, 6, 768, 160): 0.3143, (1, 1, 768, 1024): 0.7202,
+                       (1, 2, 768, 512): 0.3981, (1, 1, 768, 768): 0.3704,
+                       (1, 2, 768, 384): 0.3276, (1, 3, 768, 320): 0.3797,
+                       (2, 1, 196, 2048): 0.4057}
+
+
 def heads_attention(seed: int, widths=HEAD_WIDTHS, shapes=HEAD_SHAPES,
                     phase: str = "heads") -> list:
-    """Kernel A at every width of `widths` on both routes and every
+    """Kernel A at every width of `widths` in both dtypes and every
     (B, H, Nq, Nk) of `shapes`, through the dispatch `attention.sdpa` (whose
     plain version is made to fail for the call): one launch counted at the
-    route and at the true width, the output against the plain version in
-    f32 from the same inputs within `attention.error_bound`; at the square
-    shapes the kernel's time (`time_ms`, padding included) and device time,
-    the padding's own time, the plain version's and SDPA's times (and what
-    SDPA runs, `sdpa_kernels`) beside the bound (4 B H Nq Nk d operations at
-    the route's peak, q, k, v read and o written once)."""
+    route (`attention.route`) and at the true width, the output against
+    `attention.reference` (the plain version in f32, in f64 for the f32
+    tensor-core route) within `attention.error_bound`; at the square shapes
+    the kernel's time (`time_ms`, padding included) and device time, the
+    padding's own time, the plain version's and SDPA's times (and what SDPA
+    runs, `sdpa_kernels`) beside the bound (4 B H Nq Nk d operations at the
+    route's peak, 3 x as many at the TF32 peak on the f32 tensor-core route,
+    whose row also gives the FP32 pipe's bound; q, k, v read and o written
+    once)."""
     import torch
     import torch.nn.functional as F
 
@@ -4094,9 +4160,9 @@ def heads_attention(seed: int, widths=HEAD_WIDTHS, shapes=HEAD_SHAPES,
     rng = np.random.default_rng(seed)
     rows = []
     for d in widths:
-        width = attention.padded_width(d)
-        for route, dtype, peak in (("bf16_tc", torch.bfloat16, PEAK_BF16),
-                                   ("f32", torch.float32, PEAK_F32)):
+        for dtype in (torch.bfloat16, torch.float32):
+            route, width = attention.route(dtype, d), attention.padded_width(d, dtype)
+            peak = {"bf16_tc": PEAK_BF16, "f32": PEAK_F32, "f32_tc": PEAK_TF32 / 3}[route]
             for b, h, nq, nk in shapes:
                 q, k, v = (torch.from_numpy(rng.standard_normal((b, h, n, d), dtype=np.float32))
                            .to("cuda", dtype) for n in (nq, nk, nk))
@@ -4117,33 +4183,42 @@ def heads_attention(seed: int, widths=HEAD_WIDTHS, shapes=HEAD_SHAPES,
                 tol = attention.error_bound(q, k, v, ref)
                 if not (np.isfinite(err) and err <= tol):
                     fail(f"{phase}: width {d} {route} at {(b, h, nq, nk)}: max abs err {err} > {tol}")
-                row = dict(width=d, instantiation=width, slices=attention.column_slices(d),
+                row = dict(width=d, instantiation=width, slices=attention.column_slices(d, dtype),
                            route=route, shape=[b, h, nq, nk], max_abs_err=err, tol=tol)
                 if nq == nk:
                     n_bytes = (2 * nq + 2 * nk) * b * h * d * q.element_size()
                     b_ms, b_by = bound_ms(n_bytes, 4.0 * b * h * nq * nk * d / peak)
                     row.update(
                         ms=time_ms(lambda: fa(q, k, v)), device_ms=device_ms(lambda: fa(q, k, v)),
-                        pad_ms=(time_ms(lambda: attention.pad_heads(q, k, v)) if width != d
+                        pad_ms=(time_ms(lambda: attention.pad_heads(q, k, v, width)) if width != d
                                 else 0.0),
                         plain_ms=time_ms(lambda: plain(q, k, v)),
                         library_ms=time_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
                         library_device_ms=device_ms(
                             lambda: F.scaled_dot_product_attention(q, k, v)),
                         library_kernel=sdpa_kernels(q, k, v), bound_ms=b_ms, bound_by=b_by)
-                    if route == "f32":
+                    if route != "bf16_tc":
                         row["split"] = f32_split((b, h, nq, d))
+                        row["share"] = f32_share((b, h, nq, d))
+                    if route == "f32_tc":
+                        row["ffma_bound_ms"] = bound_ms(n_bytes, 4.0 * b * h * nq * nk * d
+                                                        / PEAK_F32)[0]
                 rows.append(row)
                 print(f"{phase} attention d {d} (runs at {width}"
                       + (f" in {row['slices']} slices" if row["slices"] > 1 else "")
                       + f") {route} {(b, h, nq, nk)}"
                       + (f" split {row['split']}" if "split" in row else "")
+                      + (" (slices share S)" if row.get("share") else "")
                       + f": err {err:.3e} <= {tol:.3e}"
                       + (f"; ms: kernel {row['ms']:.4f} (device {row['device_ms']:.4f}, "
                          f"padding {row['pad_ms']:.4f}), plain {row['plain_ms']:.4f}, sdpa "
                          f"{row['library_ms']:.4f} (device {row['library_device_ms']:.4f}; "
                          f"{row['library_kernel']}), bound {row['bound_ms']:.5f} "
-                         f"({row['bound_by']})" if "ms" in row else ""),
+                         f"({row['bound_by']})" if "ms" in row else "")
+                      + (f"; FFMA bound {row['ffma_bound_ms']:.5f}; the FFMA kernel's device "
+                         f"ms before it (PERF.md, not measured here) "
+                         f"{FFMA_DEVICE_MS.get((b, h, nq, d))}"
+                         if "ffma_bound_ms" in row else ""),
                       flush=True)
     return rows
 
@@ -4402,12 +4477,14 @@ WIDE_TILE_SHAPES = (("crop 64 (PallasTileConfig())", 64, 24, 16), ("crop 48 fd 4
                     ("crop 48 fd 64", 48, 64, 16), ("crop 48 fd 96", 48, 96, 16),
                     ("crop 48 fd 119", 48, 119, 16), ("tile 32 crop 64", 64, 24, 32),
                     ("crop 50", 50, 24, 16))
-# Kernel A above head width 128: (B, H, Nq, Nk) per width, 160 padded to
-# 256; above 256 the wide variant at MAST3R_512's 768 tokens and the
-# re-headed models' widths (1,024 and 768 at one encoder and one decoder
-# head, 512 and 384 at two), at 320 (a slice and a quarter) and at 2,048 (8
-# slices) at a 224x224 image's 196 tokens; and the main path's width at
-# batch x heads 65,600, past the 65,535 of a grid's y dimension.
+# Kernel A above head width 128: (B, H, Nq, Nk) per width, 160 (padded to
+# 256 in bf16, read in place in f32); above 256 in slices of O's columns
+# (bf16: the wide variant; f32: the tensor-core kernel) at MAST3R_512's 768
+# tokens and the re-headed models' widths (1,024 and 768 at one encoder and
+# one decoder head, 512 and 384 at two), at 320 (a slice and a quarter in
+# bf16, two of 160 in f32) and at 2,048 (8 slices) at a 224x224 image's 196
+# tokens; and the main path's width at batch x heads 65,600, past the
+# 65,535 of a grid's y dimension.
 WIDE_HEAD_SHAPES = ((256, (1, 4, 768, 768)), (160, (1, 6, 768, 768)),
                     (1024, (1, 1, 768, 768)), (512, (1, 2, 768, 768)), (768, (1, 1, 768, 768)),
                     (384, (1, 2, 768, 768)), (320, (1, 3, 768, 768)), (2048, (2, 1, 196, 196)),
@@ -4626,8 +4703,9 @@ def wide_decode(seed: int, card: str, heads: int) -> dict:
         ref = plain_decode(ps, dtype)
         if not all(bool(torch.isfinite(t).all()) for t in got.values()):
             fail(f"wide decode {name}: non-finite outputs")
+        paths = {attention.route(dtype, w) for w in want}
         if not (set(widths) == want and sum(widths.values()) == launches["fused_attention"]
-                == routes["f32" if dtype == torch.float32 else "bf16_tc"]):
+                == sum(routes[r] for r in paths)):
             fail(f"wide decode {name}: kernel A launches {launches} by width {widths}, routes {routes}")
         row = dict(launches=launches, width_launches=widths, seconds=secs,
                    calls={str(list(k)): list(v) for k, v in shapes.items()})
@@ -4772,8 +4850,8 @@ def phase_wide(seed: int, card: str) -> dict:
     (`--only-wide`): kernel B through its banded variant at
     `WIDE_TILE_SHAPES` (`wide_tile_match`) and through pitched copies at
     `WIDE_PITCHED` (`wide_pitched_tile_match`); kernel A at
-    `WIDE_HEAD_SHAPES` on both routes (`heads_attention`): heads 256 and 160
-    wide, the wide variant's widths up to 2,048 and batch x heads 65,600;
+    `WIDE_HEAD_SHAPES` in both dtypes (`heads_attention`): heads 256 and
+    160 wide, the widths in slices up to 2,048 and batch x heads 65,600;
     the MAST3R_512 decode re-headed to `WIDE_HEADS` (`wide_decode`); the
     oracle SLAM path at the matcher's crop-64 and tile-32 tilings
     (`wide_slam`) and at one head (`wide_slam_heads`). The path's launches
@@ -4832,6 +4910,7 @@ def main() -> int:
     except ImportError as e:
         fail(f"the port is not importable from here ({e}): run from the repository root")
 
+    t_smoke = time.perf_counter()
     card = phase_card()
     print(f"card: {card}", flush=True)
     phase_build()
@@ -4870,23 +4949,31 @@ def main() -> int:
         print(json.dumps({"train_run": train_run}), flush=True)
         print(f"card: {card}; only the train phase ran", flush=True)
         return 0
-    attn = phase_attention(args.seed)
-    tm = phase_tile_match(args.seed)
-    tmp = phase_tile_match_phases(args.seed)
-    heads_run = phase_heads(args.seed)
-    wide_run = phase_wide(args.seed, card)
-    phase_reference(args.seed)
-    launches = phase_slice(args.seed, args.frames)
-    main_run = phase_main(args.seed)
-    raft_ref = phase_raft_reference(args.seed)
-    dyn, dual = phase_dynamic(args.seed, card)
-    sam2_run = phase_sam2(args.seed, card, dyn, dual)
-    easi3r_run = phase_easi3r(args.seed, card, dual)
-    viewer_run = phase_viewer(args.seed, card)
-    rest = phase_rest(args.seed, card)
-    mesh_run = phase_mesh(args.seed, card)
-    oracle_run = phase_oracle(args.seed, card)
-    train_run = phase_train(args.seed, card)
+    phase_s = {"build": round(time.perf_counter() - t_smoke, 1)}  # wall seconds per phase
+
+    def timed(name, phase, *phase_args):
+        t0 = time.perf_counter()
+        out = phase(*phase_args)
+        phase_s[name] = round(time.perf_counter() - t0, 1)
+        return out
+
+    attn = timed("attention", phase_attention, args.seed)
+    tm = timed("tile_match", phase_tile_match, args.seed)
+    tmp = timed("tile_match_phases", phase_tile_match_phases, args.seed)
+    heads_run = timed("heads", phase_heads, args.seed)
+    wide_run = timed("wide", phase_wide, args.seed, card)
+    timed("reference", phase_reference, args.seed)
+    launches = timed("slice", phase_slice, args.seed, args.frames)
+    main_run = timed("main", phase_main, args.seed)
+    raft_ref = timed("raft_reference", phase_raft_reference, args.seed)
+    dyn, dual = timed("dynamic", phase_dynamic, args.seed, card)
+    sam2_run = timed("sam2", phase_sam2, args.seed, card, dyn, dual)
+    easi3r_run = timed("easi3r", phase_easi3r, args.seed, card, dual)
+    viewer_run = timed("viewer", phase_viewer, args.seed, card)
+    rest = timed("rest", phase_rest, args.seed, card)
+    mesh_run = timed("mesh", phase_mesh, args.seed, card)
+    oracle_run = timed("oracle", phase_oracle, args.seed, card)
+    train_run = timed("train", phase_train, args.seed, card)
     by_path = {name: dict(slice=launches[name], main=main_run["launches"][name],
                           dynamic=dyn["launches"][name] + dyn["split"]["launches"][name],
                           sam2=sam2_run["launches"][name],
@@ -4907,18 +4994,20 @@ def main() -> int:
     wide256 = next(r for r in wide_run["attention"] if r["width"] == 256 and r["route"] == "bf16_tc")
     wide1024 = next(r for r in wide_run["attention"]
                     if r["width"] == 1024 and r["route"] == "bf16_tc")
+    tc256 = next(r for r in wide_run["attention"] if r["width"] == 256 and r["route"] == "f32_tc")
+    tc_rows = [r for r in heads_run["attention"] + wide_run["attention"] if r["route"] == "f32_tc"]
     banded64 = wide_run["tile_match"][0]
     pitched510 = wide_run["pitched"]["rows"][0]
     # Kernel A's launches on the wide path by width: the decodes' (per
-    # heads and dtype) and the one-head SLAM run's.
+    # heads and dtype) and the one-head SLAM run's (bf16).
     wide_widths = {f"decode {heads} heads {name}": r["width_launches"]
                    for heads, by_dtype in wide_run["decode"].items()
                    for name, r in by_dtype.items()}
-    wide_widths["slam 1 head"] = wide_run["slam_heads"]["width_launches"]
+    wide_widths["slam 1 head bfloat16"] = wide_run["slam_heads"]["width_launches"]
 
-    def wide_launches(lo, hi):
+    def wide_launches(lo, hi, dtype):
         return {path: sum(n for d, n in widths.items() if lo < d <= hi)
-                for path, widths in wide_widths.items()}
+                for path, widths in wide_widths.items() if path.endswith(dtype)}
     kernels = [
         dict(name="attention", route="cuda", source="monst3r_slam_torch/csrc/attention.cu",
              replaces="monst3r_slam_tpu/ops/attention.py:43",
@@ -4969,10 +5058,10 @@ def main() -> int:
              device_ms=full["device_ms"], phases=tmp["phases"]),
         dict(name="attention_d256", route="cuda", source="monst3r_slam_torch/csrc/attention.cu",
              replaces="monst3r_slam_tpu/ops/attention.py:43",
-             launches=sum(wide_launches(128, 256).values()),
-             launches_by_path=dict(wide=wide_launches(128, 256)),
-             kernel="attn_fwd_bf16_tc<256> (one stage a warpgroup), attn_fwd_f32<256> (8-row "
-                    "warps); widths 129-255 zero-padded to 256",
+             launches=sum(wide_launches(128, 256, "bfloat16").values()),
+             launches_by_path=dict(wide=wide_launches(128, 256, "bfloat16")),
+             kernel="attn_fwd_bf16_tc<256> (one stage a warpgroup); bf16 widths 129-255 "
+                    "zero-padded to 256",
              **{k: wide256[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                         "library_ms", "shape", "tol", "device_ms",
                                         "library_device_ms")},
@@ -4990,16 +5079,31 @@ def main() -> int:
              rows=wide_run["tile_match"]),
         dict(name="attention_wide", route="cuda", source="monst3r_slam_torch/csrc/attention.cu",
              replaces="monst3r_slam_tpu/ops/attention.py:43",
-             launches=sum(wide_launches(256, float("inf")).values()),
-             launches_by_path=dict(wide=wide_launches(256, float("inf"))),
+             launches=sum(wide_launches(256, float("inf"), "bfloat16").values()),
+             launches_by_path=dict(wide=wide_launches(256, float("inf"), "bfloat16")),
              kernel="attn_fwd_bf16_wide (wgmma, TMA: QK^T over 64-column chunks of d, O in "
-                    "256-column slices, one a CTA), attn_fwd_f32_wide (8-row warps, cp.async "
-                    "chunk ring, cluster split); widths above 256 zero-padded to a multiple of 64",
+                    "256-column slices, one a CTA); bf16 widths above 256 zero-padded to a "
+                    "multiple of 64",
              **{k: wide1024[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                          "library_ms", "shape", "tol", "device_ms",
                                          "library_device_ms", "library_kernel")},
-             rows=[r for r in wide_run["attention"]
-                   if r["width"] > 256 or r["shape"][0] * r["shape"][1] > 65535]),
+             rows=[r for r in wide_run["attention"] if r["route"] == "bf16_tc"
+                   and (r["width"] > 256 or r["shape"][0] * r["shape"][1] > 65535)]),
+        dict(name="attention_f32_tc", route="cuda", source="monst3r_slam_torch/csrc/attention.cu",
+             replaces="monst3r_slam_tpu/ops/attention.py:43",
+             launches=sum(wide_launches(64, float("inf"), "float32").values()),
+             launches_by_path=dict(wide=wide_launches(64, float("inf"), "float32")),
+             kernel="attn_fwd_tf32<D, QRES> (f32 heads above 64 columns: mma.sync m16n8k8 "
+                    "in 3xTF32, operands split in registers, P kept in registers, Q resident "
+                    "up to 256 columns, a cp.async ring of K chunks and V steps, O in slices "
+                    "of up to 256 columns that share S through distributed shared memory "
+                    "where the plan takes it, key tiles split over a cluster); read in place "
+                    "at every multiple of 4",
+             **{k: tc256[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                      "library_ms", "shape", "tol", "device_ms",
+                                      "library_device_ms", "library_kernel", "ffma_bound_ms",
+                                      "split", "share")},
+             max_abs_err_all=max(r["max_abs_err"] for r in tc_rows), rows=tc_rows),
         dict(name="tile_match_pitched", route="cuda",
              source="monst3r_slam_torch/csrc/tile_match.cu",
              replaces="monst3r_slam_tpu/ops/matching_pallas.py:213",
@@ -5025,6 +5129,8 @@ def main() -> int:
     print(json.dumps({"wide_run": {k: v for k, v in wide_run.items()
                                    if k not in ("attention", "tile_match", "pitched")}}),
           flush=True)
+    phase_s["total"] = round(time.perf_counter() - t_smoke, 1)
+    print(f"smoke wall seconds by phase: {phase_s}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,13 +1,15 @@
 // Kernel A: fused softmax attention forward, O = softmax(Q K^T d^-1/2) V.
 //
-// Both routes are templates on the head width D, instantiated at 16, 32, 64,
-// 128 and 256; the wrapper zero-pads any other width from 1 to 256 to the
-// next of them (zero columns of q and k leave Q K^T as it is, zero columns
-// of v give zero columns of O, sliced off) and passes the true width, whose
-// d^-1/2 scales the logits. Wider heads take the wide variant of each route
-// (see "Wide heads" below), at any multiple of 64, to which the wrapper pads
-// them. The notes below give the shapes and counts at D = 64, the main
-// path's width.
+// The bf16 route is a template on the head width D, instantiated at 16, 32,
+// 64, 128 and 256; the wrapper zero-pads any other width from 1 to 256 to
+// the next of them (zero columns of q and k leave Q K^T as it is, zero
+// columns of v give zero columns of O, sliced off) and passes the true
+// width, whose d^-1/2 scales the logits. Wider bf16 heads take its wide
+// variant (see "Wide heads" below), at any multiple of 64, to which the
+// wrapper pads them. The f32 route runs widths 16, 32 and 64 (others up to
+// 64 padded) on the FP32 pipe and every multiple of 4 above 64 on the
+// tensor cores in 3xTF32, read in place. The notes below give the shapes and
+// counts at D = 64, the main path's width.
 //
 // Replaces the JAX package's Pallas kernel in `ops/attention.py`
 // (`fused_attention`, body `_attn_kernel`): f32 logits and an f32 softmax,
@@ -70,20 +72,18 @@
 // CTAs, which set the time of the wave.
 //
 // f32 route (f32 models on the card: training in f32, the f32 checks against
-// the CPU path): f32 logits, f32 probabilities, f32 output, on the FP32 pipe.
-// It exists so that an f32 model on the card stays within 1e-3 of the CPU
-// path; TF32 tensor cores would not, and 3xTF32 on wgmma would need V
-// transposed every tile and twice the staged bytes. So it is bound by f32
-// operations: at (1, 16, 768, 64) 2.42 GFLOP at 67 TFLOP/s is 36.1 us (the
-// 12.6 MB it moves take 3.8 us at 3.35 TB/s); at (1, 12, 768, 64) 27.0 us.
-// The FP32 pipe issues one FFMA per lane per cycle, so every other
-// instruction a warp issues is time the pipe stands idle. The design:
+// the CPU path): f32 logits, f32 probabilities, f32 output. It exists so
+// that an f32 model on the card stays within 1e-3 of the CPU path; plain
+// TF32 tensor cores (10-bit mantissas) would not. Two kernels:
+//
+// Up to d = 64 (`attn_fwd_f32<D>`, D = 16, 32, 64), products on the FP32
+// pipe, so bound by f32 operations: at (1, 16, 768, 64) 2.42 GFLOP at 67
+// TFLOP/s is 36.1 us (the 12.6 MB it moves take 3.8 us at 3.35 TB/s); at
+// (1, 12, 768, 64) 27.0 us. The FP32 pipe issues one FFMA per lane per
+// cycle, so every other instruction a warp issues is time the pipe stands
+// idle. The design:
 //   - Register tiles. A warp owns 32 query rows; per 16-key tile each lane
-//     holds a 4x4 block of S and, all along, an 8x(D/8) block of O. At
-//     D = 128 that block would be 128 registers, so a warp owns 16 rows
-//     there (a 2x4 block of S, a 4x16 block of O, 64-row CTAs), and at
-//     D = 256 8 rows (a 1x4 block of S, a 2x32 block of O, 32-row CTAs of
-//     ~132 KB, one an SM). S = Q K^T
+//     holds a 4x4 block of S and, all along, an 8x(D/8) block of O. S = Q K^T
 //     reads Q and K as 16-byte loads along d (8 loads for 64 FFMA), O += P V
 //     reads P and V as 16-byte loads along the rows and columns (4 loads for
 //     64 FFMA): one shared load per 10.7 FFMA over the tile. The staged rows
@@ -116,31 +116,84 @@
 //     sum, reduced once at the end. The max is taken on the raw scores and
 //     each probability is one FFMA (scale d^-1/2 log2(e), minus the max) and
 //     one ex2.approx; O is rescaled once a tile and divided by the sum once.
-// The earlier design (a warp's 8 queries over all 32 lanes, scalar K and V
-// loads, synchronous staging, 64-query CTAs) issued one shared load per 4
-// FFMA, computed with nothing in flight, left 72 SMs with one CTA and
-// reduced every query's max and sum over the whole warp. What bounds this
-// one on the H100 is the FFMA issue rate itself: an 8x8 outer product from
-// registers alone reaches 47 of the 67 TFLOP/s (two fresh register operands
-// an FFMA), and the shared loads, the softmax and the merge take the rest.
+// What bounds it on the H100 is the FFMA issue rate itself: an 8x8 outer
+// product from registers alone reaches 47 of the 67 TFLOP/s (two fresh
+// register operands an FFMA), and the shared loads, the softmax and the
+// merge take the rest. At d = 64 that is ahead of SDPA's f32 kernel.
 //
-// Wide heads (d > 256, a multiple of 64; `attn_fwd_bf16_wide`,
-// `attn_fwd_f32_wide`). D = 256's layout does not stretch: at d = 512 a
-// 64-row bf16 tile is 64 KB, so Q, K and V stages pass the 227 KB of shared
-// memory, and O's accumulators alone would take 256 registers a thread. So
-// each CTA owns one column slice of O, 256 columns wide (the last one
-// narrower where d is no multiple of 256), in D = 256's accumulator layout
-// (the bf16 route's 128 accumulators a thread, the f32 route's 8-row warps),
-// and recomputes S = Q K^T for its slice over the whole of d, 64 columns at
-// a time: per key tile, Q's and K's next 64-column chunks are staged (TMA
-// boxes on the bf16 route, cp.async on the f32 route) through a ring while
-// the chunk before is multiplied, then the softmax, then the V tile's slice
-// columns into the O accumulators. The grid is (query tile, slice, batch x
-// head), folded into x. The recompute does the S work once per slice and
-// reads Q and K again per slice and per key tile (from L2); sharing one
-// CTA's P with its slice's peers through distributed shared memory would
-// spare both, at a cluster barrier a tile. The f32 route keeps its cluster
-// split over key tiles (split chosen as for D = 256).
+// Above d = 64 (`attn_fwd_tf32<D, QRES>`: D = 128 up to 128 columns, 256
+// above; Q resident up to 256 columns), products on the tensor cores in
+// 3xTF32. Stretched over wider heads the FFMA layout gave a warp fewer rows
+// (16 at 128, 8 at 256) and more shared loads per FMA, and lost to SDPA's
+// f32 kernel (PyTorch's CUTLASS kernel, itself 3xTF32 on mma.sync) by
+// 1.3-2.5x. 3xTF32 splits each f32 operand into TF32 parts, big = rna(x)
+// and small = rna(x - big), and sums small b_big + big b_small + big b_big
+// with f32 accumulators (small terms first, as CUTLASS's FastF32 does):
+// three mma a product, some 22 of x's 24 significant bits, and on these
+// inputs closer to the exact logits than one f32 chain over d columns (so
+// the f64 plain version is its reference). Bound: 3 x the f32 operations
+// at the 495 TFLOP/s TF32 peak, 14.6 us at (1, 4, 768, 256); the FFMA
+// bound there is 36.1 us. The design:
+//   - mma.sync m16n8k8, not wgmma: tf32 wgmma reads only K-major operands,
+//     and V is MN-major in P V (32-bit types have no transposed load). A
+//     warp owns 16 query rows, a CTA of four warps 64, and O's slice stays in
+//     registers (D / 2 accumulators a thread).
+//   - The split happens in registers as a fragment is loaded (two integer
+//     ops and an FADD a part), so the staged bytes stay f32, once. Q and K
+//     fragments come from ldmatrix x4 on rows padded by 4 floats; V's from
+//     32-bit loads.
+//   - P never leaves registers: the S accumulator of 8 keys is the A
+//     fragment of P V over those keys with its k index permuted (k = t is
+//     key 2t, k = t + 4 is key 2t + 1), and V's fragments read the same
+//     permuted rows, which on rows of 4 floats past a multiple of 32 fall on
+//     32 distinct banks.
+//   - Staging through one cp.async ring, per key tile of 32 keys: K's
+//     chunks of d (one step a chunk), then V's 16-key steps. Up to 256
+//     columns Q stays in shared memory (staged once, with the first step),
+//     K's chunks are 64 columns and V's steps 128 columns (a 256-wide
+//     slice in two); above, Q's and K's 32-column chunks are staged
+//     together every tile, so shared memory does not grow with d (67-101 KB
+//     a CTA: three CTAs an SM at D = 128, two at 256). Columns past d and
+//     rows past the end are zero-filled (cp.async with a source size of 0),
+//     so any width that is a multiple of 4 is read in place, with no
+//     padding copy; k8 blocks of Q K^T past d and n-tiles of P V past the
+//     slice's columns are skipped.
+//   - Short rounded chains: the tensor cores round an mma's sum toward
+//     zero, so every 32 columns' Q K^T products and each V step's P V
+//     products are summed from zero and added to S and O in f32 (see "Sums"
+//     below).
+//   - Filling the SMs: the cluster split over key tiles and the merge of the
+//     FFMA kernel, its split chosen by the same cost with constants fitted
+//     to this kernel's times (`plan_for`).
+//   - O is rescaled only in tiles where a row's max moved.
+//
+// Wide heads (d > 256). On the bf16 route (`attn_fwd_bf16_wide`, a multiple
+// of 64): D = 256's layout does not stretch: at d = 512 a 64-row bf16 tile
+// is 64 KB, so Q, K and V stages pass the 227 KB of shared memory, and O's
+// accumulators alone would take 256 registers a thread. So each CTA owns
+// one column slice of O, 256 columns wide (the last one narrower where d is
+// no multiple of 256), in D = 256's accumulator layout (128 accumulators a
+// thread), and recomputes S = Q K^T for its slice over the whole of d, 64
+// columns at a time: per key tile, Q's and K's next 64-column chunks are
+// staged as TMA boxes through a ring while the chunk before is multiplied,
+// then the softmax, then the V tile's slice columns into the O
+// accumulators. The grid is (query tile, slice, batch x head), folded into
+// x. The recompute does the S work once per slice and reads Q and K again
+// per slice and per key tile (from L2).
+// The f32 route's tensor-core kernel takes wide heads in as few slices as
+// 256 columns allow but of one width (320 columns as two of 160, not 256 +
+// 64), and its 2-16 slices of a query block, in one cluster with their key
+// shares (above 8 CTAs a non-portable cluster), share S instead of each
+// recomputing it: each computes S over its share of d's chunks, publishes
+// that partial sum in its shared memory, and after a cluster barrier each
+// tile sums all of them in slice order through distributed shared memory.
+// That cuts a tile's chunk steps by the slices (at d = 512, 16 -> 8); it
+// leaves fewer CTAs to split the key tiles, yet beat recomputing at every
+// wide shape measured on the H100 (PERF.md), and past 8 slices (d > 2,048)
+// a recomputed S, one chain over all of d, drifts past 2e-5. Past 16
+// slices (d > 4,096), which no cluster holds, each slice recomputes S, but
+// in the sharing order: each slice's share of the chunks summed from zero,
+// the shares added in slice order, so no chain is longer than a share.
 //
 // Every route folds batch x heads into the grid's x with the query tiles
 // (and the slices), so b h has no limit of its own (the y dimension would
@@ -201,16 +254,16 @@ struct Tc {
   static constexpr int ATOM_ELEMS = 64 * ATOM;
   static constexpr int TILE_ELEMS = 64 * D;
   static constexpr int TILE_BYTES = TILE_ELEMS * 2;
-  static constexpr int STAGES = D > 128 ? 1 : 2;   // K/V ring of each warpgroup
-  static constexpr int NBAR = 1 + NWG * STAGES;    // Q, then one per (warpgroup, stage)
-  static constexpr int SMEM = (1 + 2 * NWG * STAGES) * TILE_BYTES + 8 * NBAR + 1024;  // + align slack
+  static constexpr int T_STAGES = D > 128 ? 1 : 2;   // K/V ring of each warpgroup
+  static constexpr int NBAR = 1 + NWG * T_STAGES;    // Q, then one per (warpgroup, stage)
+  static constexpr int SMEM = (1 + 2 * NWG * T_STAGES) * TILE_BYTES + 8 * NBAR + 1024;  // + align slack
   static constexpr int ACC = D / 2;                // O accumulators per thread
   static constexpr int MERGE_FLOATS = ACC + 4;     // per thread: accumulators, 2 maxima, 2 partial sums
   // Warpgroup 1 hands its state over through its own ring, or, where that
   // is too small (one stage at D = 256), through the staging from Q on,
   // once both warpgroups are done with it.
-  static constexpr bool MERGE_IN_RING = MERGE_FLOATS * 128 * 4 <= 2 * STAGES * TILE_BYTES;
-  static_assert(MERGE_FLOATS * 128 * 4 <= (1 + 2 * NWG * STAGES) * TILE_BYTES, "merge fits");
+  static constexpr bool MERGE_IN_RING = MERGE_FLOATS * 128 * 4 <= 2 * T_STAGES * TILE_BYTES;
+  static_assert(MERGE_FLOATS * 128 * 4 <= (1 + 2 * NWG * T_STAGES) * TILE_BYTES, "merge fits");
   static_assert(SMEM <= 232448, "a CTA fits an SM's shared memory");
 };
 
@@ -501,13 +554,13 @@ attn_fwd_bf16_tc(const __grid_constant__ CUtensorMap tq, const __grid_constant__
                  Strides so, int heads, int nq, int nk, float scale_log2) {
   using T = Tc<D>;
   constexpr int TILE_ELEMS = T::TILE_ELEMS, TILE_BYTES = T::TILE_BYTES, ACC = T::ACC;
-  constexpr int STAGES = T::STAGES;
+  constexpr int T_STAGES = T::T_STAGES;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(base);
-  // Warpgroup g's ring: K tiles at ring(g), V tiles at ring(g) + STAGES tiles.
-  auto ring = [&](int g) { return sQ + (1 + 2 * STAGES * g) * TILE_ELEMS; };
-  uint64_t* bar = reinterpret_cast<uint64_t*>(sQ + (1 + 2 * NWG * STAGES) * TILE_ELEMS);
+  // Warpgroup g's ring: K tiles at ring(g), V tiles at ring(g) + T_STAGES tiles.
+  auto ring = [&](int g) { return sQ + (1 + 2 * T_STAGES * g) * TILE_ELEMS; };
+  uint64_t* bar = reinterpret_cast<uint64_t*>(sQ + (1 + 2 * NWG * T_STAGES) * TILE_ELEMS);
 
   const int tid = threadIdx.x;
   const int wg = tid >> 7;
@@ -521,8 +574,8 @@ attn_fwd_bf16_tc(const __grid_constant__ CUtensorMap tq, const __grid_constant__
   const int ntiles = (nk + BN - 1) / BN;
   const int mine = (ntiles - wg + NWG - 1) / NWG;  // tiles of this warpgroup
   __nv_bfloat16* sK = ring(wg);
-  __nv_bfloat16* sV = sK + STAGES * TILE_ELEMS;
-  uint64_t* kv_bar = bar + 1 + STAGES * wg;
+  __nv_bfloat16* sV = sK + T_STAGES * TILE_ELEMS;
+  uint64_t* kv_bar = bar + 1 + T_STAGES * wg;
 
   if (tid == 0) {
     for (int i = 0; i < T::NBAR; ++i) mbar_init(&bar[i], 1);
@@ -530,13 +583,13 @@ attn_fwd_bf16_tc(const __grid_constant__ CUtensorMap tq, const __grid_constant__
     mbar_expect_tx(&bar[0], TILE_BYTES);
     tma_load_tile<D>(sQ, &tq, &bar[0], q0, h, b);
     for (int g = 0; g < NWG; ++g) {
-      for (int s = 0; s < STAGES; ++s) {
+      for (int s = 0; s < T_STAGES; ++s) {
         const int j = NWG * s + g;
         if (j >= ntiles) break;
         __nv_bfloat16* kg = ring(g);
-        mbar_expect_tx(&bar[1 + STAGES * g + s], 2 * TILE_BYTES);
-        tma_load_tile<D>(kg + s * TILE_ELEMS, &tk, &bar[1 + STAGES * g + s], j * BN, h, b);
-        tma_load_tile<D>(kg + (STAGES + s) * TILE_ELEMS, &tv, &bar[1 + STAGES * g + s], j * BN,
+        mbar_expect_tx(&bar[1 + T_STAGES * g + s], 2 * TILE_BYTES);
+        tma_load_tile<D>(kg + s * TILE_ELEMS, &tk, &bar[1 + T_STAGES * g + s], j * BN, h, b);
+        tma_load_tile<D>(kg + (T_STAGES + s) * TILE_ELEMS, &tv, &bar[1 + T_STAGES * g + s], j * BN,
                          h, b);
       }
     }
@@ -554,8 +607,8 @@ attn_fwd_bf16_tc(const __grid_constant__ CUtensorMap tq, const __grid_constant__
 
   for (int i = 0; i < mine; ++i) {
     const int j = NWG * i + wg;  // global key tile
-    const int s = i % STAGES;
-    mbar_wait(&kv_bar[s], (i / STAGES) & 1);
+    const int s = i % T_STAGES;
+    mbar_wait(&kv_bar[s], (i / T_STAGES) & 1);
     const __nv_bfloat16* kt = sK + s * TILE_ELEMS;
     const __nv_bfloat16* vt = sV + s * TILE_ELEMS;
 
@@ -596,8 +649,8 @@ attn_fwd_bf16_tc(const __grid_constant__ CUtensorMap tq, const __grid_constant__
     fence_regs<ACC>(acc);
 
     warpgroup_sync(wg);  // all four warps are done with stage s
-    if (wtid == 0 && i + STAGES < mine) {
-      const int jn = j + NWG * STAGES;
+    if (wtid == 0 && i + T_STAGES < mine) {
+      const int jn = j + NWG * T_STAGES;
       mbar_expect_tx(&kv_bar[s], 2 * TILE_BYTES);
       tma_load_tile<D>(sK + s * TILE_ELEMS, &tk, &kv_bar[s], jn * BN, h, b);
       tma_load_tile<D>(sV + s * TILE_ELEMS, &tv, &kv_bar[s], jn * BN, h, b);
@@ -909,24 +962,24 @@ int launch_bf16_wide(const void* q, const void* k, const void* v, void* o, const
   return (int)cudaGetLastError();
 }
 
+
 // ------------------------------------------------------------------ f32 route
 //
-// Register-tiled f32 attention on the FP32 pipe (see the note at the top).
-// A CTA of four warps owns BQ query rows, WROWS per warp, and one share of
-// the key tiles; the `split` CTAs of a cluster take the shares of one block
-// and merge their partial (O, max, sum) through distributed shared memory at
-// the end.
+// Register-tiled f32 attention on the FP32 pipe at head widths up to 64 (see
+// the note at the top). A CTA of four warps owns BQ = 128 query rows, 32 per
+// warp, and one share of the key tiles; the `split` CTAs of a cluster take
+// the shares of one block and merge their partial (O, max, sum) through
+// distributed shared memory at the end.
 //
-// Lane layouts of a warp (lane = 4 rg + kg = 8 RG + cg), with SR = WROWS / 8
-// S rows and OR = WROWS / 4 O rows a lane (4 and 8; 2 and 4 at D = 128; 1
-// and 2 at D = 256):
-//   S = Q K^T, WROWS rows x 16 keys: rows SR rg + i (i < SR), keys kg + 4 t
+// Lane layouts of a warp (lane = 4 rg + kg = 8 RG + cg), 4 S rows and 8 O
+// rows a lane:
+//   S = Q K^T, 32 rows x 16 keys: rows 4 rg + i (i < 4), keys kg + 4 t
 //   (t < 4).
-//   O, WROWS rows x D columns: rows OR RG + x (x < OR), columns 32 j + 4 cg + c
+//   O, 32 rows x D columns: rows 8 RG + x (x < 8), columns 32 j + 4 cg + c
 //   (j < D / 32, c < 4); at D = 16, columns 2 cg + c (c < 2).
-// O row OR RG + SR h + i is S row SR (2 RG + h) + i, held by lane
+// O row 8 RG + 4 h + i is S row 4 (2 RG + h) + i, held by lane
 // 8 RG + 4 h + (cg & 3): one shuffle per row hands a rescale to the O lanes.
-// Q row SR rg + i of warp w is staged at row WROWS w + 8 i + rg, so the eight
+// Q row 4 rg + i of warp w is staged at row 32 w + 8 i + rg, so the eight
 // rows of one S load sit in eight different bank groups.
 
 constexpr int F_WARPS = 4;
@@ -934,12 +987,13 @@ constexpr int F_THREADS = 32 * F_WARPS;
 constexpr int F_BK = 16;                          // keys per staged tile
 constexpr int F_STAGES = 3;                       // K/V ring depth
 constexpr int F_MAX_SPLIT = 8;                    // portable cluster size
+constexpr int T_MAX_CLUSTER = 16;                 // non-portable (H100): slices sharing S
+constexpr int F_MAX_D = 64;                       // the widest FFMA instantiation
 
 template <int D>
 struct F32 {
-  static_assert(D == 16 || D == 32 || D == 64 || D == 128 || D == 256,
-                "an instantiated head width");
-  static constexpr int WROWS = D > 128 ? 8 : D > 64 ? 16 : 32;  // query rows per warp
+  static_assert(D == 16 || D == 32 || D == 64, "an FFMA head width");
+  static constexpr int WROWS = 32;                // query rows per warp
   static constexpr int SR = WROWS / 8;            // S rows per lane
   static constexpr int OR = WROWS / 4;            // O rows per lane
   static constexpr int OC = D / 8;                // O columns per lane
@@ -965,6 +1019,14 @@ __device__ __forceinline__ int o_col(int cg, int e) {
 // L2 only): completes at the thread's next cp.async.wait_group that covers it.
 __device__ __forceinline__ void copy16(float* dst, const float* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+
+// The same copy, or 16 zero bytes where `valid` is false (source size 0:
+// nothing is read from src, which need only be a valid address).
+__device__ __forceinline__ void copy16_or_zero(float* dst, const float* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(valid ? 16 : 0)
                : "memory");
 }
 
@@ -1023,7 +1085,7 @@ __device__ __forceinline__ void cluster_sync() {
   asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
 }
 
-// One key tile of the f32 route after S = Q K^T (sc: this lane's SR rows x
+// One key tile of the f32 route after S = Q K^T (sc: this lane's 4 rows x
 // 4 keys of the 16 from tile `tile` on): the online softmax in log2 units
 // over the 4 lanes that share a row, P through the warp's key-major slice
 // Pw, O rescaled and += P V from the staged V rows Vt (row stride
@@ -1064,15 +1126,9 @@ __device__ __forceinline__ void f32_tile(float (&sc)[F32<D>::SR][4], float (&m)[
     l[i] = fmaf(l[i], corr[i], rs);
   }
 #pragma unroll
-  for (int t = 0; t < 4; ++t) {
-    float* dst = Pw + (kg + 4 * t) * WROWS + SR * rg;
-    if constexpr (SR == 4)
-      *reinterpret_cast<float4*>(dst) = make_float4(sc[0][t], sc[1][t], sc[2][t], sc[3][t]);
-    else if constexpr (SR == 2)
-      *reinterpret_cast<float2*>(dst) = make_float2(sc[0][t], sc[1][t]);
-    else
-      *dst = sc[0][t];
-  }
+  for (int t = 0; t < 4; ++t)
+    *reinterpret_cast<float4*>(Pw + (kg + 4 * t) * WROWS + SR * rg) =
+        make_float4(sc[0][t], sc[1][t], sc[2][t], sc[3][t]);
   float oc[OR];
 #pragma unroll
   for (int i = 0; i < SR; ++i) {
@@ -1081,8 +1137,8 @@ __device__ __forceinline__ void f32_tile(float (&sc)[F32<D>::SR][4], float (&m)[
   }
   __syncwarp();  // P is in shared memory
 
-  // O += P V: per key, OR / 4 loads of P and OC / 4 of V (16 bytes each)
-  // feed OR OC FMAs.
+  // O += P V: per key, 2 loads of P and OC / 4 of V (16 bytes each) feed
+  // 8 OC FMAs.
 #pragma unroll
   for (int x = 0; x < OR; ++x)
 #pragma unroll
@@ -1090,19 +1146,13 @@ __device__ __forceinline__ void f32_tile(float (&sc)[F32<D>::SR][4], float (&m)[
 #pragma unroll
   for (int j = 0; j < F_BK; ++j) {
     float p[OR], w[OC];
-    if constexpr (OR == 2) {
-      const float2 pv = *reinterpret_cast<const float2*>(Pw + j * WROWS + OR * RG);
-      p[0] = pv.x;
-      p[1] = pv.y;
-    } else {
 #pragma unroll
-      for (int x4 = 0; x4 < OR / 4; ++x4) {
-        const float4 pv = *reinterpret_cast<const float4*>(Pw + j * WROWS + OR * RG + 4 * x4);
-        p[4 * x4] = pv.x;
-        p[4 * x4 + 1] = pv.y;
-        p[4 * x4 + 2] = pv.z;
-        p[4 * x4 + 3] = pv.w;
-      }
+    for (int x4 = 0; x4 < OR / 4; ++x4) {
+      const float4 pv = *reinterpret_cast<const float4*>(Pw + j * WROWS + OR * RG + 4 * x4);
+      p[4 * x4] = pv.x;
+      p[4 * x4 + 1] = pv.y;
+      p[4 * x4 + 2] = pv.z;
+      p[4 * x4 + 3] = pv.w;
     }
     if constexpr (D == 16) {
       const float2 vv = *reinterpret_cast<const float2*>(Vt + j * LD + 2 * cg);
@@ -1125,14 +1175,59 @@ __device__ __forceinline__ void f32_tile(float (&sc)[F32<D>::SR][4], float (&m)[
   }
 }
 
-// The split's merge, once every warp is done with the last tile and no
-// copy is in flight: this CTA's partials (O unnormalized into part_o, BQ
-// rows of F32<D>::LD floats; each row's max and sum into part_m and part_l)
-// in its own shared memory; then it finalizes rows [lo, hi) of the block
-// from the split's partials through distributed shared memory,
-// O = sum_g w_g O_g / sum_g w_g l_g with w_g = 2^(m_g - max_g m_g) (weights
-// in wts), and writes their first `cols` columns at ob (the block's first
-// row and column; row stride ro). `rows`: the block's rows before nq.
+// The split's merge, once every CTA of the cluster has written its partials
+// into its own shared memory (O unnormalized into part_o, BQ rows of LD
+// floats; each row's max in log2 units and sum into part_m and part_l): it
+// finalizes rows [lo, hi) of the block from the split's partials through
+// distributed shared memory, O = sum_g w_g O_g / sum_g w_g l_g with
+// w_g = 2^(m_g - max_g m_g) (weights in wts, BQ + split floats), and writes
+// their first `cols` columns (a multiple of 4) at ob (the block's first row
+// and column; row stride ro). `rows`: the block's rows before nq.
+// The split's CTAs are the cluster's ranks stride g + offset, g < split
+// (stride 1, offset 0 but where the slices of a query block share a
+// cluster); `rank` is this CTA's g.
+template <int BQ, int LD>
+__device__ __forceinline__ void merge_partials(const float* part_o, const float* part_m,
+                                               const float* part_l, float* wts, int rank,
+                                               int split, int rows, float* ob, long long ro,
+                                               int cols, int stride = 1, int offset = 0) {
+  const int tid = threadIdx.x;
+  cluster_sync<true>();  // every CTA's partials are written
+  const int lo = rank * BQ / split;
+  const int hi = min((rank + 1) * BQ / split, rows);
+  const uint32_t m_at = smem_u32(part_m), l_at = smem_u32(part_l), o_at = smem_u32(part_o);
+  for (int r = lo + tid; r < hi; r += F_THREADS) {
+    float mx = -INFINITY;
+    for (int g = 0; g < split; ++g)
+      mx = fmaxf(mx, ld_cluster(cluster_addr(m_at + 4 * r, stride * g + offset)));
+    float sum = 0.f;
+    for (int g = 0; g < split; ++g) {
+      const float wg = fast_exp2(ld_cluster(cluster_addr(m_at + 4 * r, stride * g + offset)) - mx);
+      sum = fmaf(wg, ld_cluster(cluster_addr(l_at + 4 * r, stride * g + offset)), sum);
+      wts[(r - lo) * split + g] = wg;
+    }
+    const float inv = 1.f / sum;  // >= 1: the largest max's partial sum holds 2^0
+    for (int g = 0; g < split; ++g) wts[(r - lo) * split + g] *= inv;
+  }
+  __syncthreads();
+  for (int e = tid; e < (hi - lo) * (cols / 4); e += F_THREADS) {
+    const int r = lo + e / (cols / 4), c4 = e % (cols / 4);
+    float4 out = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int g = 0; g < split; ++g) {
+      const float wg = wts[(r - lo) * split + g];
+      const float4 pv = ld_cluster4(cluster_addr(o_at + 4 * (r * LD + 4 * c4), stride * g + offset));
+      out.x = fmaf(wg, pv.x, out.x);
+      out.y = fmaf(wg, pv.y, out.y);
+      out.z = fmaf(wg, pv.z, out.z);
+      out.w = fmaf(wg, pv.w, out.w);
+    }
+    *reinterpret_cast<float4*>(ob + r * ro + 4 * c4) = out;
+  }
+  cluster_sync<false>();  // no CTA leaves while a peer still reads its shared memory
+}
+
+// The FFMA kernel's partials into shared memory (O over Q's staging, max and
+// sum over the ring, weights over P), then `merge_partials`.
 template <int D>
 __device__ __forceinline__ void f32_merge(float (&acc)[F32<D>::OR][F32<D>::OC],
                                           float (&m)[F32<D>::SR], float (&l)[F32<D>::SR],
@@ -1140,7 +1235,7 @@ __device__ __forceinline__ void f32_merge(float (&acc)[F32<D>::OR][F32<D>::OC],
                                           int rank, int split, int rows, float* ob, long long ro,
                                           int cols) {
   using F = F32<D>;
-  constexpr int WROWS = F::WROWS, SR = F::SR, OR = F::OR, OC = F::OC, BQ = F::BQ, LD = F::LD;
+  constexpr int WROWS = F::WROWS, SR = F::SR, OR = F::OR, OC = F::OC, LD = F::LD;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int rg = lane >> 2, kg = lane & 3, RG = lane >> 3, cg = lane & 7;
 #pragma unroll
@@ -1168,38 +1263,7 @@ __device__ __forceinline__ void f32_merge(float (&acc)[F32<D>::OR][F32<D>::OC],
       part_l[warp * WROWS + SR * rg + i] = l[i];
     }
   }
-  cluster_sync<true>();  // every CTA's partials are written
-
-  const int lo = rank * BQ / split;
-  const int hi = min((rank + 1) * BQ / split, rows);
-  const uint32_t m_at = smem_u32(part_m), l_at = smem_u32(part_l), o_at = smem_u32(part_o);
-  for (int r = lo + tid; r < hi; r += F_THREADS) {
-    float mx = -INFINITY;
-    for (int g = 0; g < split; ++g) mx = fmaxf(mx, ld_cluster(cluster_addr(m_at + 4 * r, g)));
-    float sum = 0.f;
-    for (int g = 0; g < split; ++g) {
-      const float wg = fast_exp2(ld_cluster(cluster_addr(m_at + 4 * r, g)) - mx);
-      sum = fmaf(wg, ld_cluster(cluster_addr(l_at + 4 * r, g)), sum);
-      wts[(r - lo) * split + g] = wg;
-    }
-    const float inv = 1.f / sum;  // >= 1: the largest max's partial sum holds 2^0
-    for (int g = 0; g < split; ++g) wts[(r - lo) * split + g] *= inv;
-  }
-  __syncthreads();
-  for (int e = tid; e < (hi - lo) * (cols / 4); e += F_THREADS) {
-    const int r = lo + e / (cols / 4), c4 = e % (cols / 4);
-    float4 out = make_float4(0.f, 0.f, 0.f, 0.f);
-    for (int g = 0; g < split; ++g) {
-      const float wg = wts[(r - lo) * split + g];
-      const float4 pv = ld_cluster4(cluster_addr(o_at + 4 * (r * LD + 4 * c4), g));
-      out.x = fmaf(wg, pv.x, out.x);
-      out.y = fmaf(wg, pv.y, out.y);
-      out.z = fmaf(wg, pv.z, out.z);
-      out.w = fmaf(wg, pv.w, out.w);
-    }
-    *reinterpret_cast<float4*>(ob + r * ro + 4 * c4) = out;
-  }
-  cluster_sync<false>();  // no CTA leaves while a peer still reads its shared memory
+  merge_partials<F::BQ, LD>(part_o, part_m, part_l, wts, rank, split, rows, ob, ro, cols);
 }
 
 template <int D>
@@ -1234,7 +1298,7 @@ attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll 4
   for (int e = tid; e < BQ * (D / 4); e += F_THREADS) {
     const int r = e / (D / 4), c4 = e % (D / 4), rho = r % WROWS;
-    const int at = r - rho + 8 * (rho & (SR - 1)) + (rho >> (SR == 4 ? 2 : SR == 2 ? 1 : 0));
+    const int at = r - rho + 8 * (rho & (SR - 1)) + (rho >> 2);
     copy16(Qs + at * LD + 4 * c4, qb + min(q0 + r, nq - 1) * sq.r + 4 * c4);
   }
   for (int s = 0; s < F_STAGES - 1; ++s) {
@@ -1301,154 +1365,480 @@ attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
                o + b * so.b + h * so.h + q0 * so.r, so.r, D);
 }
 
-// Wide heads on the f32 route (see the note at the top): a CTA of four
-// 8-row warps owns 32 query rows, one share of the key tiles (the cluster
-// split of `attn_fwd_f32`) and one slice of O, up to W_SLICE columns from
-// column c0, in the layout of `attn_fwd_f32<256>`. Per key tile it takes
-// chunks + 1 steps through one ring of FW_STAGES stages: a chunk step
-// stages the block's Q rows and the tile's K rows over 64 columns of d
-// (rows of 64 + 4 floats), the last step the tile's V rows over the slice's
-// columns (rows of 256 + 4 floats).
-constexpr int FW_STAGES = 4;
-struct F32Wide {
-  using F = F32<W_SLICE>;
-  static constexpr int CL = W_CHUNK + 4;                   // staged chunk row (floats)
-  static constexpr int CHUNK_FLOATS = (F::BQ + F_BK) * CL;  // Q's rows, then K's
-  static constexpr int V_FLOATS = F_BK * F::LD;
-  static constexpr int STAGE_FLOATS = CHUNK_FLOATS > V_FLOATS ? CHUNK_FLOATS : V_FLOATS;
-  static constexpr int SMEM = 4 * (FW_STAGES * STAGE_FLOATS + F_WARPS * F::P_FLOATS);
-  static_assert(F::BQ * F::LD + 2 * F::BQ <= FW_STAGES * STAGE_FLOATS, "the partials fit the ring");
-  static_assert(F::BQ + F_MAX_SPLIT <= F_WARPS * F::P_FLOATS, "weights fit P");
+// ------------------------------------- f32 route above width 64: 3xTF32
+//
+// Flash attention on the tensor cores, mma.sync m16n8k8 in TF32, each
+// product in 3xTF32 (see the note at the top). A CTA of four warps owns
+// T_BM = 64 query rows, 16 a warp (the m16 of one mma), one column slice of
+// O `width` (at most D) columns wide from column c0, and one share of the
+// key tiles of T_BN keys (the cluster split of `attn_fwd_f32`). Per key tile
+// it takes nch + VSTEPS steps through one ring of T_STAGES stages: a chunk
+// step stages the tile's K rows (and, without a resident Q, the block's Q
+// rows) over KC columns of d; a V step stages VK of the tile's V rows over
+// VW of the slice's columns. With `share` the slices of a query block sum
+// S from their shares of d's chunks (see "Wide heads" at the top).
+//
+// Fragments (lane = 4 g + t): an m16n8 accumulator holds rows g and g + 8,
+// columns 2t and 2t + 1. The S accumulator of keys 8j..8j+7 is the A
+// fragment of the PV product over those keys with its k index permuted
+// (k = t is key 2t, k = t + 4 is key 2t + 1), so P never leaves registers;
+// the V fragments read keys 2t and 2t + 1 to match. Q and K fragments come
+// from ldmatrix x4 (an 8 x 4-float block a matrix: lane 4 g + t gets
+// element (g, t)), V's as 32-bit loads from rows of D + 4 floats, where the
+// permuted rows 2t and 2t + 1 fall on 32 distinct banks.
+//
+// Sums. The tensor cores round each mma's sum toward zero, so a chain of
+// mma into one accumulator drifts with its length (on 8x-peaked logits
+// 2-10e-5 of O at d = 128-2,000 on the H100, one chain over d). So every
+// T_PART columns' products (12 mma an n-tile) are summed from zero and
+// added to S in f32, and every V step's (6 mma an n-tile) likewise to O:
+// the rounded chains stay 32 columns or 16 keys long.
+//
+// Tiles of 32 keys, not 64: with D = 256's 128 O accumulators a thread, the
+// 16 of S and 16 of its chunk sums fit, 32 of each would not; at D = 128,
+// 32-key tiles keep a thread within the 168 registers of three CTAs an SM.
+
+constexpr int T_WARPS = 4;
+constexpr int T_THREADS = 32 * T_WARPS;
+constexpr int T_BM = 16 * T_WARPS;   // query rows per CTA
+constexpr int T_BN = 32;             // keys per tile
+constexpr int T_PART = 32;           // columns of d a chunk sum of S takes
+constexpr int T_STAGES = 4;          // ring depth
+constexpr int T_MIN_D = F_MAX_D + 1;
+
+constexpr int cmax(int a, int b) { return a > b ? a : b; }
+
+// D: the slice width (O's accumulators); QRES: Q resident in shared memory
+// (heads up to 256 columns), else Q staged with K in every chunk step
+// (wider heads, in slices).
+template <int D, bool QRES>
+struct Tf32 {
+  static_assert(D == 128 || D == 256, "a tensor-core slice width");
+  static constexpr int KC = QRES ? 64 : 32;           // columns of d a chunk step stages
+  static constexpr int LDC = KC + 4;                  // staged chunk row: conflict-free ldmatrix
+  static constexpr int LDQ = D + 4;                   // resident Q row (floats)
+  static constexpr int K_ROW0 = QRES ? 0 : T_BM;      // K's first row in a chunk stage
+  static constexpr int VK = 16;                       // keys a V step stages
+  // V's columns a step stages: 128 beside a resident Q (a 256-wide slice
+  // in two steps), so that two CTAs fit an SM at D = 256.
+  static constexpr int VW = QRES ? 128 : D;
+  static constexpr int HALVES = D / VW;
+  static constexpr int VSTEPS = T_BN / VK * HALVES;
+  static constexpr int LSV = VW + 4;                  // staged V row (floats)
+  static constexpr int LDV = D + 4;                   // partial O row in the merge (floats)
+  static constexpr int NT = D / 8;                    // n-tiles of O
+  static constexpr int Q_FLOATS = QRES ? T_BM * LDQ : 0;
+  static constexpr int CHUNK_FLOATS = (K_ROW0 + T_BN) * LDC;  // (Q's rows, then) K's
+  static constexpr int V_FLOATS = VK * LSV;
+  // The merge puts the partial O (rows of LDV floats), the maxima, the sums
+  // and the weights over Q and the ring.
+  static constexpr int MERGE_FLOATS = T_BM * LDV + 3 * T_BM + F_MAX_SPLIT;
+  static constexpr int STAGE_FLOATS =
+      cmax(cmax(CHUNK_FLOATS, V_FLOATS),
+           cmax(0, MERGE_FLOATS - Q_FLOATS + 4 * T_STAGES - 1) / (4 * T_STAGES) * 4);
+  // Slices sharing S (wide heads): each thread's partial S, twice (tiles
+  // alternate), after the ring.
+  static constexpr int X_FLOATS = QRES ? 0 : 2 * T_THREADS * 4 * (T_BN / 8);
+  static constexpr int SMEM = 4 * (Q_FLOATS + T_STAGES * STAGE_FLOATS + X_FLOATS);
 };
 
-// Registers for two CTAs an SM (up to 255 a thread): at three (168) the
-// loop state beside the O accumulators spills.
-__global__ void __launch_bounds__(F_THREADS, 2)
-attn_fwd_f32_wide(const float* __restrict__ q, const float* __restrict__ k,
-                  const float* __restrict__ v, float* __restrict__ o, Strides sq, Strides sk,
-                  Strides sv, Strides so, int heads, int nq, int nk, int chunks, int slices,
-                  int split, float scale_log2) {
-  using F = F32<W_SLICE>;
-  using W = F32Wide;
-  constexpr int WROWS = F::WROWS, OR = F::OR, OC = F::OC, BQ = F::BQ, CL = W::CL;
-  static_assert(F::SR == 1, "one S row a lane");
+// x split into TF32 parts, hi = rna(x) and lo = rna(x - hi), as
+// cvt.rna.tf32.f32 rounds (to nearest, ties away from zero: half a TF32 ulp
+// added to the magnitude's bits, the 13 low bits cleared); x - hi is exact.
+__device__ __forceinline__ uint32_t tf32_rna(uint32_t bits) { return (bits + 0x1000u) & 0xffffe000u; }
+__device__ __forceinline__ void tf32_split(uint32_t x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(__float_as_uint(__uint_as_float(x) - __uint_as_float(hi)));
+}
+
+// c += a b on the tensor cores: a the 16x8 A fragment, (b0, b1) the 8x8 B
+// fragment, TF32 operands, f32 accumulators.
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a b in 3xTF32, small terms first: a_lo b_hi + a_hi b_lo + a_hi b_hi.
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4], uint32_t bh0, uint32_t bh1,
+                                           uint32_t bl0, uint32_t bl1) {
+  mma_tf32(c, al, bh0, bh1);
+  mma_tf32(c, ah, bl0, bl1);
+  mma_tf32(c, ah, bh0, bh1);
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const float* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+// Two CTAs an SM at D = 256 (128 O accumulators a thread), three at 128.
+template <int D, bool QRES>
+__global__ void __launch_bounds__(T_THREADS, D == 256 ? 2 : 3)
+attn_fwd_tf32(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, float* __restrict__ o, Strides sq, Strides sk,
+              Strides sv, Strides so, int heads, int nq, int nk, int d, int slices, int width,
+              int split, int share, float scale_log2) {
+  using T = Tf32<D, QRES>;
+  constexpr int BN = T_BN, VK = T::VK, LDV = T::LDV, NT = T::NT, STAGE = T::STAGE_FLOATS;
+  constexpr int KC = T::KC, LDC = T::LDC, LDQ = T::LDQ, VW = T::VW, LSV = T::LSV;
+  constexpr int SN = BN / 8;  // S n-tiles a tile
   extern __shared__ __align__(16) float fsm[];
-  float* ring = fsm;
-  float* Ps = ring + FW_STAGES * W::STAGE_FLOATS;
+  float* Qs = fsm;
+  float* ring = fsm + T::Q_FLOATS;
+  float* xbuf = ring + T_STAGES * STAGE;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int blocks = (nq + BQ - 1) / BQ;
-  const int cl = blockIdx.x / split;  // the cluster is (split, 1, 1): its CTAs are consecutive
-  const int rank = blockIdx.x - cl * split;
-  int x = cl;  // x = (((batch x head, slice), query block), rank)
-  const int q0 = x % blocks * BQ;
+  const int g = lane >> 2, t = lane & 3;
+  const int blocks = (nq + T_BM - 1) / T_BM;
+  // The cluster's CTAs are consecutive: the split's (split, 1, 1), or with
+  // `share` the split's times the query block's slices, rank = (key share,
+  // slice). x = ((batch x head, slice), query block), without the slice
+  // with `share`.
+  if constexpr (QRES) share = 0;  // a resident Q is one slice's: S is never shared
+  const int csize = share ? split * slices : split;
+  int x = blockIdx.x / csize;
+  const int crank = blockIdx.x - x * csize;
+  const int q0 = x % blocks * T_BM;
   x /= blocks;
-  const int c0 = x % slices * W_SLICE;
-  const int bh = x / slices;
+  int slice = crank % slices, rank = crank / slices;
+  if (!share) {
+    slice = x % slices;
+    x /= slices;
+    rank = crank;
+  }
+  const int c0 = slice * width;
+  const int bh = x;
   const int b = bh / heads, h = bh % heads;
-  const int cols = min(W_SLICE, chunks * W_CHUNK - c0);  // this slice's columns
+  const int cols = min(width, d - c0);   // this slice's columns, a multiple of 4
+  const int vcols = (cols + 7) & ~7;     // staged V columns: whole n-tiles, zero past cols
+  const int ntc = vcols / 8;             // O n-tiles in use
+  // Chunk steps a tile: over all of d, or with `share` over this slice's
+  // share of d's chunks, [ch0, ch0 + nch).
+  const int chunks = (d + KC - 1) / KC;
+  const int ch0 = share ? slice * chunks / slices : 0;
+  const int nch = share ? (slice + 1) * chunks / slices - ch0 : chunks;
   const float* qb = q + b * sq.b + h * sq.h;
   const float* kb = k + b * sk.b + h * sk.h;
   const float* vb = v + b * sv.b + h * sv.h + c0;
-  const int ntiles = (nk + F_BK - 1) / F_BK;
-  const int t0 = rank * ntiles / split;
+  const int ntiles = (nk + BN - 1) / BN;
+  const int t0 = rank * ntiles / split;  // this CTA's tiles: [t0, t0 + mine), never empty
   const int mine = (rank + 1) * ntiles / split - t0;
-  const int per = chunks + 1;  // steps a tile: its d-chunks of Q K^T, then its V slice
+  const int per = nch + T::VSTEPS;
   const int steps = mine * per;
 
-  // Step n into stage n % FW_STAGES, every thread its 16-byte copies; rows
-  // past nq or nk copy the last row (finite; masked or never stored).
+  // Step n into stage n % T_STAGES, every thread its 16-byte copies; rows
+  // past nq or nk and columns past d are zero-filled.
   auto stage = [&](int n) {
-    float* dst = ring + n % FW_STAGES * W::STAGE_FLOATS;
+    float* dst = ring + n % T_STAGES * STAGE;
     const int tile = t0 + n / per, c = n % per;
-    if (c < chunks) {
-      for (int e = tid; e < (BQ + F_BK) * (W_CHUNK / 4); e += F_THREADS) {
-        const int row = e / (W_CHUNK / 4), c4 = e % (W_CHUNK / 4);
-        const float* src = row < BQ ? qb + min(q0 + row, nq - 1) * sq.r
-                                    : kb + min(tile * F_BK + row - BQ, nk - 1) * sk.r;
-        copy16(dst + row * CL + 4 * c4, src + c * W_CHUNK + 4 * c4);
+    if (c < nch) {
+      // This thread's column of every RSTEP-th row: (Q's rows, then) K's.
+      constexpr int C4 = KC / 4, RSTEP = T_THREADS / C4;
+      static_assert(T::K_ROW0 % RSTEP == 0 && BN % RSTEP == 0, "whole passes of rows");
+      const int row0 = tid / C4, cc = 4 * (tid % C4), col = (ch0 + c) * KC + cc;
+#pragma unroll
+      for (int i = 0; i < (T::K_ROW0 + BN) / RSTEP; ++i) {
+        const int row = row0 + i * RSTEP;
+        const bool is_q = i < T::K_ROW0 / RSTEP;
+        const int r = is_q ? q0 + row : tile * BN + row - T::K_ROW0;
+        const bool valid = r < (is_q ? nq : nk) && col < d;
+        const float* src = (is_q ? qb + min(r, nq - 1) * sq.r : kb + min(r, nk - 1) * sk.r)
+                           + (valid ? col : 0);
+        copy16_or_zero(dst + row * LDC + cc, src, valid);
       }
     } else {
-      for (int e = tid; e < F_BK * (cols / 4); e += F_THREADS) {
-        const int row = e / (cols / 4), c4 = e % (cols / 4);
-        copy16(dst + row * F::LD + 4 * c4, vb + min(tile * F_BK + row, nk - 1) * sv.r + 4 * c4);
+      const int key0 = tile * BN + (c - nch) / T::HALVES * VK;
+      const int vc0 = (c - nch) % T::HALVES * VW;  // this step's first column
+      const int vw = min(VW, vcols - vc0);         // its staged columns (none: a skipped half)
+      for (int e = tid; e < VK * (vw / 4); e += T_THREADS) {
+        const int row = e / (vw / 4), col = 4 * (e % (vw / 4));
+        const bool valid = key0 + row < nk && vc0 + col < cols;
+        copy16_or_zero(dst + row * LSV + col,
+                       vb + min(key0 + row, nk - 1) * sv.r + (valid ? vc0 + col : 0), valid);
       }
     }
   };
-  for (int s = 0; s < FW_STAGES - 1; ++s) {
+  if constexpr (QRES) {  // Q's rows once, zero past d, in the first copy group
+    for (int e = tid; e < T_BM * (D / 4); e += T_THREADS) {
+      const int row = e / (D / 4), col = 4 * (e % (D / 4));
+      const bool valid = q0 + row < nq && col < d;
+      copy16_or_zero(Qs + row * LDQ + col, qb + min(q0 + row, nq - 1) * sq.r + (valid ? col : 0),
+                     valid);
+    }
+  }
+  for (int s = 0; s < T_STAGES - 1; ++s) {
     if (s < steps) stage(s);
     copy_commit();
   }
-
-  const int rg = lane >> 2, kg = lane & 3;
-  float* Pw = Ps + warp * F::P_FLOATS;
-  // Between a tile's chunk steps this lane's 4 scores wait in its own 4
-  // slots of P (row rg, keys kg + 4t: where its probabilities go), not in
-  // registers, which the O accumulators fill.
-  float* Sw = Pw + kg * WROWS + rg;
-  float acc[OR][OC];
-#pragma unroll
-  for (int i = 0; i < OR; ++i)
-#pragma unroll
-    for (int c = 0; c < OC; ++c) acc[i][c] = 0.f;
-  float m[1] = {-INFINITY}, l[1] = {0.f};
-  for (int n = 0; n < steps; ++n) {
-    copy_wait<FW_STAGES - 2>();
-    __syncthreads();  // step n has landed; every warp is done with step n - 1's stage
-    if (n + FW_STAGES - 1 < steps) stage(n + FW_STAGES - 1);
+  // Step n has landed; every warp is done with step n - 1, whose stage takes
+  // step n + T_STAGES - 1 while this one computes.
+  auto advance = [&](int n) {
+    copy_wait<T_STAGES - 2>();
+    __syncthreads();
+    if (n + T_STAGES - 1 < steps) stage(n + T_STAGES - 1);
     copy_commit();
-    const float* st = ring + n % FW_STAGES * W::STAGE_FLOATS;
-    const int c = n % per;
-    if (c == chunks) {
-      float sc[1][4];
+    return ring + n % T_STAGES * STAGE;
+  };
+
+  float acc[NT][4];
 #pragma unroll
-      for (int t = 0; t < 4; ++t) sc[0][t] = Sw[4 * t * WROWS];
-      f32_tile<W_SLICE>(sc, m, l, acc, Pw, st, t0 + n / per, nk, scale_log2, lane);
-      continue;
-    }
-    // S += Q K^T over this chunk: per 4 columns, 5 loads of 16 bytes feed 16
-    // FMAs. Each chunk is summed from zero and added to S, so no FMA chain
-    // is longer than 64 terms plus the chunks.
-    const float* Qw = st + (warp * WROWS + rg) * CL;
-    const float* Kt = st + BQ * CL;
-    float part[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll 4
-    for (int cc = 0; cc < W_CHUNK / 4; ++cc) {
-      const float4 qv = *reinterpret_cast<const float4*>(Qw + 4 * cc);
-      float4 kv[4];
+  for (int j = 0; j < NT; ++j)
 #pragma unroll
-      for (int t = 0; t < 4; ++t)
-        kv[t] = *reinterpret_cast<const float4*>(Kt + (kg + 4 * t) * CL + 4 * cc);
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // rows g, g + 8; l: this lane's share
+  // ldmatrix row addresses within a stage: lane 8 i + r gives row r of
+  // matrix i. Q: matrix i is rows 8 (i & 1) and columns 4 (i >> 1) of the
+  // warp's k8 block (a0..a3); K: keys 8 (i >> 1) and columns 4 (i & 1) of a
+  // pair of n-tiles (b0, b1 of the first, b0, b1 of the second).
+  const int mi = lane >> 3, mr = lane & 7;
+  const int q_at = (16 * warp + 8 * (mi & 1) + mr) * (QRES ? LDQ : LDC) + 4 * (mi >> 1);
+  const int k_at = (T::K_ROW0 + 8 * (mi >> 1) + mr) * LDC + 4 * (mi & 1);
+  int n = 0;
+  // With `share` every CTA of the cluster takes as many rounds as the key
+  // share with the most tiles (each round ends at a cluster barrier); a
+  // share with fewer idles through its last.
+  const int rounds = share ? (ntiles + split - 1) / split : mine;
+  for (int it = 0; it < rounds; ++it) {
+    const bool live = it < mine;
+    float sc[SN][4];
 #pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        part[t] = fmaf(qv.x, kv[t].x, part[t]);
-        part[t] = fmaf(qv.y, kv[t].y, part[t]);
-        part[t] = fmaf(qv.z, kv[t].z, part[t]);
-        part[t] = fmaf(qv.w, kv[t].w, part[t]);
+    for (int j = 0; j < SN; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
+
+    // S = Q K^T over the chunks of d: per k8 block one Q fragment, split
+    // once, against the tile's n-tiles; k8 blocks past d are skipped. Each
+    // T_PART columns' products are summed from zero (sp) and then added to
+    // S. Recomputed over several slices' chunks (no sharing), S is summed as
+    // shared slices sum it: each slice's share of the chunks from zero
+    // (group `grp`, ending at chunk `gend`), the shares added in slice order
+    // through this thread's slot of xbuf.
+    int grp = 0, gend = chunks / slices;
+    for (int c = 0; c < (live ? nch : 0); ++c, ++n) {
+      const float* st = advance(n);
+      const float* qc = QRES ? Qs + q_at + c * KC : st + q_at;
+      const int kmax = min(KC / 8, (d - (ch0 + c) * KC + 7) / 8);
+      float sp[SN][4];
+#pragma unroll
+      for (int kk = 0; kk < KC / 8; ++kk) {
+        if (kk >= kmax) break;
+        if (kk % (T_PART / 8) == 0) {
+#pragma unroll
+          for (int j = 0; j < SN; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) sp[j][e] = 0.f;
+        }
+        uint32_t a[4], ah[4], al[4];
+        ldsm_x4(a, qc + 8 * kk);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) tf32_split(a[e], ah[e], al[e]);
+#pragma unroll
+        for (int np = 0; np < SN / 2; ++np) {
+          uint32_t kf[4], bh[4], bl[4];
+          ldsm_x4(kf, st + k_at + 16 * np * LDC + 8 * kk);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) tf32_split(kf[e], bh[e], bl[e]);
+          mma_3xtf32(sp[2 * np], ah, al, bh[0], bh[1], bl[0], bl[1]);
+          mma_3xtf32(sp[2 * np + 1], ah, al, bh[2], bh[3], bl[2], bl[3]);
+        }
+        if (kk % (T_PART / 8) == T_PART / 8 - 1 || kk == kmax - 1) {
+#pragma unroll
+          for (int j = 0; j < SN; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) sc[j][e] += sp[j][e];
+        }
+      }
+      if constexpr (!QRES) {
+        if (!share && slices > 1 && c + 1 == gend) {
+          float* gs = xbuf + tid * 4 * SN;
+#pragma unroll
+          for (int j = 0; j < SN; ++j) {
+            float4& slot = *reinterpret_cast<float4*>(gs + 4 * j);
+            if (grp == slices - 1) {  // the last share: S is the sum of all of them
+              sc[j][0] += slot.x;
+              sc[j][1] += slot.y;
+              sc[j][2] += slot.z;
+              sc[j][3] += slot.w;
+            } else {
+              slot = grp ? make_float4(slot.x + sc[j][0], slot.y + sc[j][1], slot.z + sc[j][2],
+                                       slot.w + sc[j][3])
+                         : make_float4(sc[j][0], sc[j][1], sc[j][2], sc[j][3]);
+#pragma unroll
+              for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
+            }
+          }
+          ++grp;
+          gend = (grp + 1) * chunks / slices;
+        }
       }
     }
+
+    // With `share`, S is the sum of the query block's slices' partial sums
+    // over their shares of d: each CTA publishes its partial (its threads'
+    // fragments, in one of two buffers by the tile's parity), and after the
+    // cluster barrier every slice sums all of them in slice order, its own
+    // too, through distributed shared memory, so that all hold the same S.
+    // The barrier of the next round orders the reads before the buffer's
+    // reuse two rounds on.
+    if (share) {
+      float* xb = xbuf + (it & 1) * (T_THREADS * 4 * SN) + tid * 4 * SN;
 #pragma unroll
-    for (int t = 0; t < 4; ++t) Sw[4 * t * WROWS] = c == 0 ? part[t] : Sw[4 * t * WROWS] + part[t];
+      for (int j = 0; j < SN; ++j)
+        *reinterpret_cast<float4*>(xb + 4 * j) = make_float4(sc[j][0], sc[j][1], sc[j][2], sc[j][3]);
+      cluster_sync<true>();
+      if (live) {
+        const uint32_t at = smem_u32(xb);
+#pragma unroll
+        for (int j = 0; j < SN; ++j) {
+          const float4 v0 = ld_cluster4(cluster_addr(at + 16 * j, rank * slices));
+          sc[j][0] = v0.x;
+          sc[j][1] = v0.y;
+          sc[j][2] = v0.z;
+          sc[j][3] = v0.w;
+        }
+        for (int sl = 1; sl < slices; ++sl) {
+#pragma unroll
+          for (int j = 0; j < SN; ++j) {
+            const float4 vs = ld_cluster4(cluster_addr(at + 16 * j, rank * slices + sl));
+            sc[j][0] += vs.x;
+            sc[j][1] += vs.y;
+            sc[j][2] += vs.z;
+            sc[j][3] += vs.w;
+          }
+        }
+      }
+    }
+    if (!live) continue;
+
+    // The online softmax in log2 units on rows g (hh = 0) and g + 8 (hh =
+    // 1): a row's keys lie on the 4 lanes of its quad. Keys at or past nk
+    // count as -inf; only a ragged last tile has any, and it holds a valid
+    // key (its first), so the max is finite.
+    const int tile = t0 + it;
+    if ((tile + 1) * BN > nk) {
+#pragma unroll
+      for (int j = 0; j < SN; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (tile * BN + 8 * j + 2 * t + (e & 1) >= nk) sc[j][e] = -INFINITY;
+    }
+    float corr[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < SN; ++j) mx = fmaxf(mx, fmaxf(sc[j][2 * hh], sc[j][2 * hh + 1]));
+      const float mn = fmaxf(m[hh], quad_max(mx) * scale_log2);
+      corr[hh] = fast_exp2(m[hh] - mn);
+      m[hh] = mn;
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < SN; ++j)
+#pragma unroll
+        for (int e = 2 * hh; e < 2 * hh + 2; ++e) {
+          sc[j][e] = fast_exp2(fmaf(sc[j][e], scale_log2, -mn));
+          rs += sc[j][e];
+        }
+      l[hh] = fmaf(l[hh], corr[hh], rs);
+    }
+    // O is rescaled only where a row's max moved: once the maxima settle,
+    // most tiles skip these D / 2 multiplies a thread.
+    if (__any_sync(0xffffffffu, corr[0] != 1.f || corr[1] != 1.f)) {
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        acc[j][0] *= corr[0];
+        acc[j][1] *= corr[0];
+        acc[j][2] *= corr[1];
+        acc[j][3] *= corr[1];
+      }
+    }
+
+    // O += P V, VK keys a step: P's fragments split in registers once a
+    // step, V's fragments from the permuted rows 2t and 2t + 1 of each k8
+    // block; each n-tile's products summed from zero and added to O;
+    // n-tiles past the slice's columns are skipped.
+    uint32_t ph[VK / 8][4], pl[VK / 8][4];
+#pragma unroll
+    for (int s = 0; s < T::VSTEPS; ++s, ++n) {
+      const float* st = advance(n);
+      const int kb = s / T::HALVES, hv = s % T::HALVES;  // key block, column half
+      if (hv == 0) {
+#pragma unroll
+        for (int jj = 0; jj < VK / 8; ++jj) {
+          const float(&p)[4] = sc[kb * (VK / 8) + jj];
+          tf32_split(__float_as_uint(p[0]), ph[jj][0], pl[jj][0]);
+          tf32_split(__float_as_uint(p[2]), ph[jj][1], pl[jj][1]);
+          tf32_split(__float_as_uint(p[1]), ph[jj][2], pl[jj][2]);
+          tf32_split(__float_as_uint(p[3]), ph[jj][3], pl[jj][3]);
+        }
+      }
+      const float* vr = st + 2 * t * LSV + g;
+#pragma unroll
+      for (int j = hv * (VW / 8); j < (hv + 1) * (VW / 8); ++j) {
+        if (j >= ntc) break;
+        const int jc = j - hv * (VW / 8);  // the n-tile within the staged columns
+        float po[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int jj = 0; jj < VK / 8; ++jj) {
+          uint32_t vh0, vl0, vh1, vl1;
+          tf32_split(__float_as_uint(vr[8 * jj * LSV + 8 * jc]), vh0, vl0);
+          tf32_split(__float_as_uint(vr[(8 * jj + 1) * LSV + 8 * jc]), vh1, vl1);
+          mma_3xtf32(po, ph[jj], pl[jj], vh0, vh1, vl0, vl1);
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][e] += po[e];
+      }
+    }
   }
 
-  // The partials and their maxima and sums go over the ring.
-  f32_merge<W_SLICE>(acc, m, l, ring, ring + BQ * F::LD, ring + BQ * F::LD + BQ, Ps, rank, split,
-                     nq - q0, o + b * so.b + h * so.h + q0 * so.r + c0, so.r, cols);
+  // The partials over Q and the ring: O's rows (LDV floats), then the
+  // maxima, the sums and the merge's weights.
+  copy_wait<0>();
+  __syncthreads();  // every warp is done with Q and the ring
+  float* part_o = fsm;
+  float* part_m = part_o + T_BM * LDV;
+  float* part_l = part_m + T_BM;
+  const int row0 = 16 * warp + g;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    if (j >= ntc) break;
+    *reinterpret_cast<float2*>(part_o + row0 * LDV + 8 * j + 2 * t) =
+        make_float2(acc[j][0], acc[j][1]);
+    *reinterpret_cast<float2*>(part_o + (row0 + 8) * LDV + 8 * j + 2 * t) =
+        make_float2(acc[j][2], acc[j][3]);
+  }
+  const float l0 = quad_sum(l[0]), l1 = quad_sum(l[1]);
+  if (t == 0) {
+    part_m[row0] = m[0];
+    part_m[row0 + 8] = m[1];
+    part_l[row0] = l0;
+    part_l[row0 + 8] = l1;
+  }
+  merge_partials<T_BM, LDV>(part_o, part_m, part_l, part_l + T_BM, rank, split, nq - q0,
+                            o + b * so.b + h * so.h + q0 * so.r + c0, so.r, cols,
+                            share ? slices : 1, share ? slice : 0);
 }
 
-// Per card and width: the SM count and the most clusters of each size that
+// Per card and kernel: the SM count and the most clusters of each size that
 // can be resident at once (cudaOccupancyMaxActiveClusters), read at the
 // first launch.
 struct F32Card {
   bool ready;
   int sms;
-  int clusters[F_MAX_SPLIT + 1];
+  int clusters[T_MAX_CLUSTER + 1];  // 0 past the kernel's largest cluster
 };
 std::mutex f32_cards_lock;
 
-// `cards[dev]` for the f32 kernel `kernel` with `smem` bytes of shared memory.
+// `cards[dev]` for the f32 kernel `kernel` with `smem` bytes of shared
+// memory and clusters of up to `max_cluster` CTAs (above 8 non-portable).
 template <typename Kernel>
-cudaError_t f32_card_of(Kernel kernel, int smem, F32Card* cards, int dev, const F32Card** out) {
+cudaError_t f32_card_of(Kernel kernel, int smem, F32Card* cards, int dev, const F32Card** out,
+                        int max_cluster = F_MAX_SPLIT) {
   std::lock_guard<std::mutex> guard(f32_cards_lock);
   F32Card& c = cards[dev];
   if (!c.ready) {
@@ -1457,8 +1847,10 @@ cudaError_t f32_card_of(Kernel kernel, int smem, F32Card* cards, int dev, const 
     if (err == cudaSuccess)
       err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
                                  (int)cudaSharedmemCarveoutMaxShared);
+    if (err == cudaSuccess && max_cluster > F_MAX_SPLIT)
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (err == cudaSuccess) err = cudaDeviceGetAttribute(&c.sms, cudaDevAttrMultiProcessorCount, dev);
-    for (int g = 1; g <= F_MAX_SPLIT && err == cudaSuccess; ++g) {
+    for (int g = 1; g <= max_cluster && err == cudaSuccess; ++g) {
       cudaLaunchConfig_t cfg = {};
       cudaLaunchAttribute attr;
       attr.id = cudaLaunchAttributeClusterDimension;
@@ -1485,41 +1877,53 @@ cudaError_t f32_card(int dev, const F32Card** out) {
   return f32_card_of(attn_fwd_f32<D>, F32<D>::SMEM, cards, dev, out);
 }
 
-cudaError_t f32_wide_card(int dev, const F32Card** out) {
+template <int D, bool QRES>
+cudaError_t tf32_card(int dev, const F32Card** out) {
   static F32Card cards[MAX_DEVICES];
-  return f32_card_of(attn_fwd_f32_wide, F32Wide::SMEM, cards, dev, out);
+  return f32_card_of(attn_fwd_tf32<D, QRES>, Tf32<D, QRES>::SMEM, cards, dev, out,
+                     QRES ? F_MAX_SPLIT : T_MAX_CLUSTER);
 }
 
-// The card's counts for the f32 route at width d (an instantiation, or a
-// wide width).
+// The slice width of the tensor-core kernel at head width d (> 64): 128 up
+// to 128 columns, else 256-column slices.
+int tf32_width(long long d) { return d <= 128 ? 128 : 256; }
+
+// The card's counts for the f32 route at width d (16, 32 or 64 on the FFMA
+// kernel; any multiple of 4 above 64 on the tensor-core kernel).
 cudaError_t f32_card_at(long long d, int dev, const F32Card** out) {
   switch (d) {
     case 16: return f32_card<16>(dev, out);
     case 32: return f32_card<32>(dev, out);
     case 64: return f32_card<64>(dev, out);
-    case 128: return f32_card<128>(dev, out);
-    case 256: return f32_card<256>(dev, out);
-    default: return d > MAX_D ? f32_wide_card(dev, out) : cudaErrorInvalidValue;
+    default:
+      if (d < T_MIN_D) return cudaErrorInvalidValue;
+      if (d > MAX_D) return tf32_card<256, false>(dev, out);
+      return tf32_width(d) == 128 ? tf32_card<128, true>(dev, out) : tf32_card<256, true>(dev, out);
   }
 }
 
-// The split (cluster size) for `blocks` query blocks over `ntiles` key
-// tiles: the one with the least estimated time. Clusters run in waves of as
-// many as the card holds; a wave takes a CTA's tiles times (the CTAs its
-// busiest SM holds + 0.3), plus 3.6 tiles for the prologue and the merge, in
-// tenths of a tile (fitted to the H100's times over splits 1-8 at the
-// encoder, decoder and training shapes, d = 64).
-int f32_split(const F32Card& c, long long blocks, int ntiles) {
+// The split (the key shares of a query block) for `blocks` clusters over
+// `ntiles` key tiles, each cluster `per` x split CTAs (per = 1, or the
+// slices that share S): the one with the least estimated time. Clusters run
+// in waves of as many as the card holds; a wave takes a CTA's tiles times
+// (the CTAs its busiest SM holds + a), plus c tiles for the prologue and the
+// merge, in tenths of a tile. The FFMA kernel (16-key tiles): a = 0.3, c =
+// 3.6, fitted to the H100's times over splits 1-8 at the encoder, decoder
+// and training shapes, d = 64. The tensor-core kernel (32-key tiles): a =
+// TC_A, c = TC_C, fitted the same way at the f32 shapes above d = 64 of
+// PERF.md's table (scripts/profile_f32_attention.py --table).
+constexpr int TC_A = 7, TC_C = 2;
+int f32_split(const F32Card& c, long long blocks, int ntiles, int a, int cost0, int per = 1) {
   int best = 1;
   long long best_cost = -1;
-  for (int g = 1; g <= F_MAX_SPLIT && g <= ntiles; ++g) {
-    const long long cap = c.clusters[g];
+  for (int g = 1; g <= F_MAX_SPLIT && g * per <= T_MAX_CLUSTER && g <= ntiles; ++g) {
+    const long long cap = c.clusters[g * per];
     if (cap <= 0) continue;
     const long long tiles = (ntiles + g - 1) / g;
     long long cost = 0;
     for (long long left = blocks; left > 0; left -= cap) {
-      const long long per_sm = ((left < cap ? left : cap) * g + c.sms - 1) / c.sms;
-      cost += tiles * (10 * per_sm + 3) + 36;
+      const long long per_sm = ((left < cap ? left : cap) * g * per + c.sms - 1) / c.sms;
+      cost += tiles * (10 * per_sm + a) + cost0;
     }
     if (best_cost < 0 || cost < best_cost) {
       best = g;
@@ -1529,14 +1933,22 @@ int f32_split(const F32Card& c, long long blocks, int ntiles) {
   return best;
 }
 
-int f32_rows(long long d) {
-  return d > 128 ? F32<256>::BQ : d > 64 ? F32<128>::BQ : F32<64>::BQ;
+// O's column slices at head width d on the f32 route: one up to 256 columns,
+// else as few as 256-column slices allow, of one width (a multiple of 8), so
+// that no CTA of a query block takes a short remainder while its peers
+// compute S in full.
+struct Slicing {
+  int count, width;
+};
+Slicing slicing_at(long long d) {
+  if (d <= MAX_D) return {1, (int)d};
+  const long long n = (d + W_SLICE - 1) / W_SLICE;
+  const int w = (int)(((d + n - 1) / n + 7) / 8 * 8);
+  return {(int)((d + w - 1) / w), w};
 }
 
-// O's column slices at head width d (one below the wide widths).
-long long slices_at(long long d) { return d > MAX_D ? (d + W_SLICE - 1) / W_SLICE : 1; }
-
-// Launches an f32 kernel on `blocks` clusters of `split` CTAs each.
+// Launches an f32 kernel on `blocks` clusters of `split` CTAs each (the
+// tensor-core kernel's slices sharing S make a cluster of split x slices).
 template <typename... KArgs, typename... Args>
 int launch_split(void (*kernel)(KArgs...), int smem, long long blocks, int split,
                  cudaStream_t stream, Args... args) {
@@ -1558,15 +1970,45 @@ int launch_split(void (*kernel)(KArgs...), int smem, long long blocks, int split
   return (int)cudaGetLastError();
 }
 
-// The split for `blocks` clusters over nk keys on `card`.
-int split_for(const F32Card& card, long long blocks, int nk) {
-#ifdef F32_SPLIT  // a profiling build fixes the split (scripts/profile_f32_attention.py)
+// The f32 route's query rows a cluster, key tile and split model at width d.
+struct F32Plan {
+  int rows, tile, a, cost0;
+};
+F32Plan f32_plan(long long d) {
+  return d <= F_MAX_D ? F32Plan{F32<64>::BQ, F_BK, 3, 36} : F32Plan{T_BM, T_BN, TC_A, TC_C};
+}
+
+// The split, and whether the slices of a query block share S, for batch x
+// heads = bh over nq and nk tokens at width d on `card`. The 2-16 slices of
+// wide heads on the tensor-core kernel share it (one cluster holds them with
+// the split, above 8 CTAs a non-portable one): on the H100 that beat each
+// slice recomputing S at every split of every wide shape of PERF.md's table,
+// and past 8 slices (d > 2,048) a recomputed S, one chain of chunk sums
+// over all of d, drifts past error_bound's 2e-5 on 8x-peaked logits (2.3e-5
+// at d = 3,000). Past 16 slices (d > 4,096), which no cluster holds, each
+// slice recomputes it, summed in the sharing order. Profiling builds fix
+// the split (-DF32_SPLIT=g): scripts/profile_f32_attention.py.
+struct SplitPlan {
+  int split, share;
+};
+SplitPlan plan_for(const F32Card& card, long long bh, long long nq, long long nk, long long d) {
+  const F32Plan p = f32_plan(d);
+  const int ntiles = (int)((nk + p.tile - 1) / p.tile);
+  const int slices = slicing_at(d).count;
+  const long long qblocks = (nq + p.rows - 1) / p.rows;
+  const bool share = d > F_MAX_D && slices > 1 && slices <= T_MAX_CLUSTER;
+  const int per = share ? slices : 1;
+#ifdef F32_SPLIT
   (void)card;
-  (void)blocks;
-  return min(F32_SPLIT, (nk + F_BK - 1) / F_BK);
+  (void)qblocks;
+  return {max(1, min(min(F32_SPLIT, T_MAX_CLUSTER / per), ntiles)), share ? 1 : 0};
 #else
-  return f32_split(card, blocks, (nk + F_BK - 1) / F_BK);
+  return {f32_split(card, qblocks * bh * (slices / per), ntiles, p.a, p.cost0, per), share ? 1 : 0};
 #endif
+}
+
+int split_for(const F32Card& card, long long bh, long long nq, long long nk, long long d) {
+  return plan_for(card, bh, nq, nk, d).split;
 }
 
 template <int D>
@@ -1579,38 +2021,31 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, const Strid
   err = f32_card<D>(dev, &card);
   if (err != cudaSuccess) return (int)err;
   const long long blocks = (long long)((nq + F32<D>::BQ - 1) / F32<D>::BQ) * batch * heads;
-  const int split = split_for(*card, blocks, nk);
+  const int split = split_for(*card, (long long)batch * heads, nq, nk, D);
   return launch_split(attn_fwd_f32<D>, F32<D>::SMEM, blocks, split, stream,
                       static_cast<const float*>(q), static_cast<const float*>(k),
                       static_cast<const float*>(v), static_cast<float*>(o), st[0], st[1], st[2],
                       st[3], heads, nq, nk, split, scale_log2);
 }
 
-int launch_f32_wide(const void* q, const void* k, const void* v, void* o, const Strides* st,
-                    int batch, int heads, int nq, int nk, int d, float scale_log2,
-                    cudaStream_t stream) {
+template <int D, bool QRES>
+int launch_tf32(const void* q, const void* k, const void* v, void* o, const Strides* st,
+                int batch, int heads, int nq, int nk, int d, float scale_log2,
+                cudaStream_t stream) {
   int dev = 0;
   cudaError_t err = current_device(&dev);
   if (err != cudaSuccess) return (int)err;
   const F32Card* card = nullptr;
-  err = f32_wide_card(dev, &card);
+  err = tf32_card<D, QRES>(dev, &card);
   if (err != cudaSuccess) return (int)err;
-  const int slices = (int)slices_at(d);
-  const long long blocks =
-      (long long)((nq + F32<W_SLICE>::BQ - 1) / F32<W_SLICE>::BQ) * slices * batch * heads;
-  const int split = split_for(*card, blocks, nk);
-  return launch_split(attn_fwd_f32_wide, F32Wide::SMEM, blocks, split, stream,
+  const Slicing sl = slicing_at(d);
+  const SplitPlan plan = plan_for(*card, (long long)batch * heads, nq, nk, d);
+  const int split = plan.split, share = plan.share, per = share ? sl.count : 1;
+  const long long blocks = (long long)((nq + T_BM - 1) / T_BM) * (sl.count / per) * batch * heads;
+  return launch_split(attn_fwd_tf32<D, QRES>, Tf32<D, QRES>::SMEM, blocks, split * per, stream,
                       static_cast<const float*>(q), static_cast<const float*>(k),
                       static_cast<const float*>(v), static_cast<float*>(o), st[0], st[1], st[2],
-                      st[3], heads, nq, nk, d / W_CHUNK, slices, split, scale_log2);
-}
-
-template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, const Strides* st, int batch,
-           int heads, int nq, int nk, float scale_log2, long long dtype, cudaStream_t stream) {
-  if (dtype == 0) return launch_f32<D>(q, k, v, o, st, batch, heads, nq, nk, scale_log2, stream);
-  if (dtype == 1) return launch_bf16<D>(q, k, v, o, st, batch, heads, nq, nk, scale_log2, stream);
-  return 1000;
+                      st[3], heads, nq, nk, d, sl.count, sl.width, split, share, scale_log2);
 }
 
 }  // namespace
@@ -1622,28 +2057,32 @@ struct AttnArgs {
   long long stride[4][4];      // (batch, head, row, dim) element strides of q, k, v, o
   long long batch, heads, nq, nk, d;
   long long d_scale;           // the true head width, whose d^-1/2 scales the logits (<= d)
-  long long dtype;             // 0 = float32 (FP32 pipe), 1 = bfloat16 (tensor cores)
+  long long dtype;             // 0 = float32, 1 = bfloat16 (tensor cores)
   long long stream;            // cudaStream_t
 };
 
 // q (B, H, nq, d), k and v (B, H, nk, d), o (B, H, nq, d), each addressed
-// through its own strides, d one of 16, 32, 64, 128 and 256 (a narrower head
-// zero-padded to it by the caller, which passes its true width as d_scale)
-// or any wider multiple of 64 (the wide variants; a wider head zero-padded
-// to the next multiple by the caller). Every operand's last dimension must
-// be contiguous; in bfloat16, q, k and v must also start 16-byte aligned with
-// every other stride a multiple of 8 elements, which a tensor map needs; in
-// float32, all four must start 16-byte aligned with every other stride a
-// multiple of 4 elements, which the bulk copies and 16-byte stores need (the
-// stride of a dimension of size 1 is never read, and is not checked).
+// through its own strides. In bfloat16, d is one of 16, 32, 64, 128 and 256
+// or any wider multiple of 64 (the wide variant); in float32, one of 16, 32
+// and 64 (the FFMA kernel) or any multiple of 4 above 64 (the tensor-core
+// kernel, which zero-fills the columns past d of its last chunk). A
+// narrower head is zero-padded by the caller, which passes its true width as
+// d_scale. Every operand's last dimension must be contiguous; in bfloat16,
+// q, k and v must also start 16-byte aligned with every other stride a
+// multiple of 8 elements, which a tensor map needs; in float32, all four
+// must start 16-byte aligned with every other stride a multiple of 4
+// elements, which the 16-byte copies and stores need (the stride of a
+// dimension of size 1 is never read, and is not checked).
 // Returns a cudaError_t (0 on success); 1000 for arguments or a layout this
 // kernel does not take, 1001 when a TMA descriptor cannot be encoded.
 extern "C" int attn_forward(const AttnArgs* a) {
   const long long d = a->d;
-  const bool wide = d > MAX_D && d % W_CHUNK == 0;
-  if ((!wide && d != 16 && d != 32 && d != 64 && d != 128 && d != MAX_D) || d > INT_MAX ||
-      a->d_scale < 1 || a->d_scale > d || a->batch <= 0 || a->heads <= 0 || a->nq <= 0 ||
-      a->nk <= 0 || a->batch > INT_MAX || a->heads > INT_MAX || a->nq > INT_MAX ||
+  const bool bf16_wide = a->dtype == 1 && d > MAX_D && d % W_CHUNK == 0;
+  const bool f32_tc = a->dtype == 0 && d >= T_MIN_D && d % 4 == 0;
+  const bool instantiated = d == 16 || d == 32 || d == 64 || (a->dtype == 1 && (d == 128 || d == MAX_D));
+  if ((!bf16_wide && !f32_tc && !instantiated) || (a->dtype != 0 && a->dtype != 1) ||
+      d > INT_MAX || a->d_scale < 1 || a->d_scale > d || a->batch <= 0 || a->heads <= 0 ||
+      a->nq <= 0 || a->nk <= 0 || a->batch > INT_MAX || a->heads > INT_MAX || a->nq > INT_MAX ||
       a->nk > INT_MAX)
     return 1000;
   const int batch = (int)a->batch, heads = (int)a->heads, nq = (int)a->nq, nk = (int)a->nk;
@@ -1665,44 +2104,72 @@ extern "C" int attn_forward(const AttnArgs* a) {
   void* o = (void*)a->o;
   cudaStream_t s = (cudaStream_t)a->stream;
   const float scale_log2 = 1.4426950408889634f / sqrtf((float)a->d_scale);
-  if (wide) {
-    if (a->dtype == 0)
-      return launch_f32_wide(q, k, v, o, st, batch, heads, nq, nk, (int)d, scale_log2, s);
-    if (a->dtype == 1)
-      return launch_bf16_wide(q, k, v, o, st, batch, heads, nq, nk, (int)d, scale_log2, s);
-    return 1000;
+  if (f32_tc) {
+    if (d > MAX_D)
+      return launch_tf32<256, false>(q, k, v, o, st, batch, heads, nq, nk, (int)d, scale_log2, s);
+    if (tf32_width(d) == 128)
+      return launch_tf32<128, true>(q, k, v, o, st, batch, heads, nq, nk, (int)d, scale_log2, s);
+    return launch_tf32<256, true>(q, k, v, o, st, batch, heads, nq, nk, (int)d, scale_log2, s);
+  }
+  if (bf16_wide) return launch_bf16_wide(q, k, v, o, st, batch, heads, nq, nk, (int)d, scale_log2, s);
+  if (a->dtype == 0) {
+    switch (d) {
+      case 16: return launch_f32<16>(q, k, v, o, st, batch, heads, nq, nk, scale_log2, s);
+      case 32: return launch_f32<32>(q, k, v, o, st, batch, heads, nq, nk, scale_log2, s);
+      default: return launch_f32<64>(q, k, v, o, st, batch, heads, nq, nk, scale_log2, s);
+    }
   }
   switch (d) {
-    case 16: return launch<16>(q, k, v, o, st, batch, heads, nq, nk, scale_log2, a->dtype, s);
-    case 32: return launch<32>(q, k, v, o, st, batch, heads, nq, nk, scale_log2, a->dtype, s);
-    case 64: return launch<64>(q, k, v, o, st, batch, heads, nq, nk, scale_log2, a->dtype, s);
-    case 128: return launch<128>(q, k, v, o, st, batch, heads, nq, nk, scale_log2, a->dtype, s);
-    default: return launch<256>(q, k, v, o, st, batch, heads, nq, nk, scale_log2, a->dtype, s);
+    case 16: return launch_bf16<16>(q, k, v, o, st, batch, heads, nq, nk, scale_log2, s);
+    case 32: return launch_bf16<32>(q, k, v, o, st, batch, heads, nq, nk, scale_log2, s);
+    case 64: return launch_bf16<64>(q, k, v, o, st, batch, heads, nq, nk, scale_log2, s);
+    case 128: return launch_bf16<128>(q, k, v, o, st, batch, heads, nq, nk, scale_log2, s);
+    default: return launch_bf16<256>(q, k, v, o, st, batch, heads, nq, nk, scale_log2, s);
   }
 }
 
 // The split (cluster size) the f32 route takes for batch x heads = bh, these
-// token counts and head width d (an instantiation or a wide width) on the
-// current card; a negative cudaError_t if the card cannot be queried.
+// token counts and head width d (16, 32, 64, or a multiple of 4 above 64) on
+// the current card; a negative cudaError_t if the card cannot be queried.
 extern "C" int attn_f32_split(long long bh, long long nq, long long nk, int d) {
   int dev = 0;
   cudaError_t err = current_device(&dev);
   const F32Card* card = nullptr;
   if (err == cudaSuccess) err = f32_card_at(d, dev, &card);
   if (err != cudaSuccess) return -(int)err;
-  const int rows = f32_rows(d);
-  return f32_split(*card, (nq + rows - 1) / rows * bh * slices_at(d),
-                   (int)((nk + F_BK - 1) / F_BK));
+  return split_for(*card, bh, nq, nk, d);
 }
 
-// How many clusters of `split` CTAs (1-8) of the f32 route at head width d
-// the current card holds at once, which the choice of split reads; a
-// negative cudaError_t if the card cannot be queried.
+// 1 where the f32 route's slices share S for batch x heads = bh, these
+// token counts and head width d on the current card, else 0; a negative
+// cudaError_t if the card cannot be queried.
+extern "C" int attn_f32_share(long long bh, long long nq, long long nk, int d) {
+  int dev = 0;
+  cudaError_t err = current_device(&dev);
+  const F32Card* card = nullptr;
+  if (err == cudaSuccess) err = f32_card_at(d, dev, &card);
+  if (err != cudaSuccess) return -(int)err;
+  return plan_for(*card, bh, nq, nk, d).share;
+}
+
+// How many column slices of O the f32 route computes a head of width d (a
+// multiple of 4 above 64) in; their width in *width.
+extern "C" int attn_f32_slices(long long d, int* width) {
+  const Slicing sl = slicing_at(d);
+  *width = sl.width;
+  return sl.count;
+}
+
+// How many clusters of `split` CTAs (1-8; up to 16 for the tensor-core
+// kernel's slices sharing S above 256 columns) of the f32 route at head
+// width d the current card holds at once, which the choice of split reads
+// (0 for sizes the kernel does not take); a negative cudaError_t if the
+// card cannot be queried.
 extern "C" int attn_f32_clusters(int split, int d) {
   int dev = 0;
   cudaError_t err = current_device(&dev);
   const F32Card* card = nullptr;
   if (err == cudaSuccess) err = f32_card_at(d, dev, &card);
   if (err != cudaSuccess) return -(int)err;
-  return split >= 1 && split <= F_MAX_SPLIT ? card->clusters[split] : 0;
+  return split >= 1 && split <= T_MAX_CLUSTER ? card->clusters[split] : 0;
 }

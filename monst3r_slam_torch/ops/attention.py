@@ -6,22 +6,26 @@ tensor it launches kernel A (or raises), on a CPU tensor it runs the plain
 version, which has the reference's semantics — f32 logits and softmax,
 probabilities cast to v's type before the PV product, output in q's type.
 
-Kernel A has two routes: bfloat16 inputs (every call of the model on the
-card) go to the tensor-core kernel, float32 inputs (f32 models: training
-in f32, the f32 checks against the CPU path) to the register-tiled kernel
-on the FP32 pipe, which keeps logits, probabilities and output in f32.
-Both read q, k and v through their strides and write the output into a
-(B, N, H, d) buffer, returned as its (B, H, N, d) view, so that neither
-the heads split before nor the merge after is a copy.
+Kernel A has three routes (`route`): bfloat16 inputs (every call of the
+model on the card) go to the bf16 tensor-core kernel; float32 inputs (f32
+models: training in f32, the f32 checks against the CPU path) up to head
+width 64 to the register-tiled kernel on the FP32 pipe, and above 64 to the
+tensor-core kernel in 3xTF32; both f32 routes keep logits, probabilities
+and output in f32. Every route reads q, k and v through their strides and
+writes the output into a (B, N, H, d) buffer, returned as its (B, H, N, d)
+view, so that neither the heads split before nor the merge after is a copy.
 
-Kernel A is instantiated at head widths 16, 32, 64, 128 and 256
+The bf16 route is instantiated at head widths 16, 32, 64, 128 and 256
 (`HEAD_DIMS`), and takes every wider multiple of 64 through its wide
-variant, which computes O in column slices of 256 (`column_slices`). Any
-other width is zero-padded to the next of those (`pad_heads`, a
-plain-PyTorch copy around the kernel): zero columns of q and k leave QK^T as
-it is, zero columns of v give zero output columns, which are sliced off, and
-the kernel scales the logits by the true width's d^-1/2. So kernel A takes
-every head width, as the reference's kernel does.
+variant, which computes O in column slices of 256 (`column_slices`); the
+FFMA route at 16, 32 and 64 (`F32_FFMA_DIMS`); the f32 tensor-core route
+at every multiple of 4 above 64, also in slices of 256 columns above 256.
+Any other width is zero-padded to the next width its route runs
+(`padded_width`, `pad_heads`, a plain-PyTorch copy around the kernel):
+zero columns of q and k leave QK^T as it is, zero columns of v give zero
+output columns, which are sliced off, and the kernel scales the logits by
+the true width's d^-1/2. So kernel A takes every head width, as the
+reference's kernel does.
 
 Kernel A has no backward, and neither has the reference's Pallas kernel
 (training there differentiates its einsum attention). For training on the
@@ -39,13 +43,17 @@ import torch
 
 from monst3r_slam_torch.ops import build
 
-HEAD_DIMS = (16, 32, 64, 128, 256)  # kernel A's instantiations
-# Above HEAD_DIMS the wide variant takes multiples of WIDE_CHUNK (the
-# columns of d a step of QK^T stages) and writes O in slices of WIDE_SLICE.
+HEAD_DIMS = (16, 32, 64, 128, 256)  # the bf16 route's instantiations
+# Above HEAD_DIMS the bf16 wide variant takes multiples of WIDE_CHUNK (the
+# columns of d a step of QK^T stages); it and the f32 tensor-core route
+# write O in slices of WIDE_SLICE columns.
 WIDE_CHUNK = 64
 WIDE_SLICE = 256
+F32_FFMA_DIMS = (16, 32, 64)  # the FFMA route's instantiations
+# The f32 tensor-core route takes every multiple of F32_TC_ALIGN (its
+# 16-byte copies) above F32_FFMA_DIMS[-1], read in place.
+F32_TC_ALIGN = 4
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_ROUTES = {torch.float32: "f32", torch.bfloat16: "bf16_tc"}
 _SIGNATURES = {"attn_forward": ([ctypes.c_char_p], ctypes.c_int)}
 # One call's arguments as the C entry's `AttnArgs`: 4 pointers, the (batch,
 # head, row, dim) strides of q, k, v and the output, the 5 sizes, the true
@@ -68,8 +76,9 @@ def sdpa_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """The plain version `error_bound` holds kernel A to on these inputs:
-    `sdpa_plain` in f32, or, for f32 inputs wider than 256, in f64."""
-    if q.dtype == torch.float32 and q.shape[-1] > HEAD_DIMS[-1]:
+    `sdpa_plain` in f32, or, for the f32 tensor-core route (f32 inputs
+    wider than 64), in f64."""
+    if route(q.dtype, q.shape[-1]) == "f32_tc":
         return sdpa_plain(q.double(), k.double(), v.double(), dtype=torch.float64)
     return sdpa_plain(q.float(), k.float(), v.float())
 
@@ -97,17 +106,19 @@ def sdpa_backward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def error_bound(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, ref: torch.Tensor) -> float:
     """Largest error kernel A may show against `ref`, the plain version
-    computed in f32 from the same inputs (for f32 inputs wider than 256, in
+    computed in f32 from the same inputs (for the f32 tensor-core route, in
     f64: `reference`).
 
-    f32 route: 2e-5, the summation-order tolerance of the CPU parity test.
-    Up to 256 columns the kernel sums each logit in one f32 chain in column
-    order, as cuBLAS's f32 product does, so the two agree to that. Wider
-    heads sum 64-column chunks from zero and add the chunks, which keeps
-    them within it of the exact value, while the rounding of one f32 chain
-    grows with its length: on peaked logits cuBLAS's own sum over d columns
-    lies farther than 2e-5 from the exact one, so there the f64 plain
-    version is the reference.
+    f32 routes: 2e-5, the summation-order tolerance of the CPU parity test.
+    Up to 64 columns the FFMA kernel sums each logit in one f32 chain in
+    column order, as cuBLAS's f32 product does, so the two agree to that.
+    Above 64 the tensor-core kernel sums in 3xTF32: each operand split into
+    two TF32 parts, the three larger partial products summed in k8 blocks
+    and the blocks chained in f32. That keeps it within 2e-5 of the exact
+    value, closer than one f32 chain over d columns, whose rounding grows
+    with its length: on peaked logits cuBLAS's own sum lies farther than
+    2e-5 from the exact one, so there the f64 plain version is the
+    reference.
 
     bf16 route: 2^-8 max|ref| + 2^-9 max S. The first term covers the
     rounding of the output to bf16 (at most 2^-9 of the value) and as much
@@ -152,42 +163,75 @@ def backward_error_bound(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             2 * u * (p.transpose(-1, -2) @ df.abs()))
 
 
-def padded_width(d: int) -> int:
-    """The width kernel A runs a head of width `d` at: the narrowest of
-    `HEAD_DIMS` that holds it, above them the next multiple of `WIDE_CHUNK`
-    (the wide variant)."""
-    for width in HEAD_DIMS:
+def route(dtype: torch.dtype, d: int) -> str:
+    """The route kernel A takes for inputs of type `dtype` and head width
+    `d`: "bf16_tc" (the bf16 tensor-core kernel), "f32" (the FFMA kernel, f32
+    up to 64 columns) or "f32_tc" (the f32 tensor-core kernel in 3xTF32)."""
+    if dtype == torch.bfloat16:
+        return "bf16_tc"
+    return "f32" if d <= F32_FFMA_DIMS[-1] else "f32_tc"
+
+
+def padded_width(d: int, dtype: torch.dtype = torch.bfloat16) -> int:
+    """The width kernel A runs a head of width `d` at on the route of
+    `dtype` (the bf16 route's by default): the narrowest instantiation that
+    holds it (`HEAD_DIMS`, in f32 `F32_FFMA_DIMS`); above them, in bf16 the
+    next multiple of `WIDE_CHUNK` (the wide variant), in f32 the next
+    multiple of `F32_TC_ALIGN` (the tensor-core route)."""
+    if route(dtype, d) == "f32_tc":
+        return -(-d // F32_TC_ALIGN) * F32_TC_ALIGN
+    for width in (HEAD_DIMS if dtype == torch.bfloat16 else F32_FFMA_DIMS):
         if d <= width:
             return width
     return -(-d // WIDE_CHUNK) * WIDE_CHUNK
 
 
-def column_slices(d: int) -> int:
-    """How many column slices of O kernel A computes a head of width `d` in:
-    one up to `HEAD_DIMS[-1]`, above it one per `WIDE_SLICE` columns of the
-    padded width, each recomputing QK^T over the whole width."""
-    return -(-padded_width(d) // WIDE_SLICE)
+def column_slices(d: int, dtype: torch.dtype = torch.bfloat16) -> int:
+    """How many column slices of O kernel A computes a head of width `d` in
+    on the route of `dtype` (the bf16 route's by default): in bf16 one up
+    to `HEAD_DIMS[-1]`, above it one per `WIDE_SLICE` columns of the padded
+    width, each recomputing QK^T over the whole width; on the f32
+    tensor-core route one up to 256 columns, above it as few as
+    `WIDE_SLICE` columns a slice allow, of one width (a multiple of 8),
+    which share QK^T up to 16 slices and recompute it past them. The
+    kernel's own count is `attn_f32_slices` in csrc/attention.cu; the card
+    tests hold the two equal."""
+    if route(dtype, d) != "f32_tc":
+        return -(-padded_width(d, dtype) // WIDE_SLICE)
+    d = padded_width(d, dtype)
+    if d <= HEAD_DIMS[-1]:
+        return 1
+    n = -(-d // WIDE_SLICE)
+    width = (-(-d // n) + 7) // 8 * 8
+    return -(-d // width)
 
 
-def pad_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> tuple:
-    """(q, k, v) zero-padded along d to `padded_width(d)`, as new
-    contiguous tensors (the inputs themselves where d is an instantiation).
-    Attention over the padded heads with the true width's d^-1/2, sliced
-    back to d columns, is attention over the originals."""
-    d = q.shape[-1]
-    pad = padded_width(d) - d
+def pad_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, width: int) -> tuple:
+    """(q, k, v) zero-padded along d to `width` (`padded_width` on their
+    route), as new contiguous tensors (the inputs themselves where d is
+    that width). Attention over the padded heads with the true width's
+    d^-1/2, sliced back to d columns, is attention over the originals.
+    `pad_heads.copies` counts the calls that copy."""
+    pad = width - q.shape[-1]
     if pad == 0:
         return q, k, v
+    pad_heads.copies += 1
     return tuple(torch.nn.functional.pad(t, (0, pad)) for t in (q, k, v))
+
+
+pad_heads.copies = 0  # calls that copied
 
 
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Kernel A on CUDA tensors q (B, H, Nq, d), k/v (B, H, Nk, d), any
     d >= 1 and any B H, of one type, float32 or bfloat16, read through their
-    strides where d is its own `padded_width` (one of `HEAD_DIMS`, or a
-    multiple of 64 above them), else first zero-padded to it (`pad_heads`).
-    No width is refused: above 256 the wide variant computes O in slices of
-    256 columns, each CTA recomputing QK^T over the whole width, so its
+    strides where d is its own `padded_width` on its route (in bf16 one of
+    `HEAD_DIMS` or a multiple of 64 above them; in f32 one of
+    `F32_FFMA_DIMS` or a multiple of 4 above them), else first zero-padded
+    to it (`pad_heads`). No width is refused: above 256 the tensor-core
+    routes compute O in slices of at most 256 columns (`column_slices`),
+    which in bf16 each recompute QK^T over the whole width and in f32
+    share it through the cluster (past 16 slices, recompute it), so their
     shared memory and registers do not grow with d (only the grid does,
     within its 2^31 - 1 blocks). The last dimension must be contiguous,
     every start 16-byte aligned and every other stride a multiple of 8
@@ -207,7 +251,8 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     nk = k.shape[2]
     if k.shape != (b, h, nk, d_true) or v.shape != k.shape:
         raise ValueError(f"k/v shape {tuple(k.shape)}/{tuple(v.shape)} do not fit q {tuple(q.shape)}")
-    q, k, v = pad_heads(q, k, v)
+    path = route(dtype, d_true)
+    q, k, v = pad_heads(q, k, v, padded_width(d_true, dtype))
     d = q.shape[-1]
     out = torch.empty_strided((b, h, nq, d), (nq * h * d, d, h * d, 1), dtype=dtype,
                               device=q.device)
@@ -226,14 +271,14 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     if err != 0:
         raise RuntimeError(f"attention kernel launch failed: error {err}")
     fused_attention.launches += 1
-    fused_attention.route_launches[_ROUTES[dtype]] += 1
+    fused_attention.route_launches[path] += 1
     widths = fused_attention.width_launches
     widths[d_true] = widths.get(d_true, 0) + 1
     return out if d == d_true else out[..., :d_true]
 
 
 fused_attention.launches = 0  # every launch
-fused_attention.route_launches = {"bf16_tc": 0, "f32": 0}  # launches per route
+fused_attention.route_launches = {"bf16_tc": 0, "f32": 0, "f32_tc": 0}  # launches per route
 fused_attention.width_launches = {}  # launches per true head width
 
 
@@ -269,7 +314,7 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     every other call launches kernel A directly."""
     if q.device.type == "cpu":
         return sdpa_plain(q, k, v)
-    if padded_width(q.shape[-1]) == q.shape[-1]:
+    if padded_width(q.shape[-1], q.dtype) == q.shape[-1]:
         q, k, v = (t if readable(t) else t.clone(memory_format=torch.contiguous_format)
                    for t in (q, k, v))
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):

@@ -13,6 +13,7 @@ import torch
 
 from monst3r_slam_tpu.ops import attention as jatt
 from monst3r_slam_torch.ops import attention as tatt
+from tests.test_torch_slam import one_torch_thread  # noqa: F401
 
 SHAPES = [  # (q shape, k/v shape)
     ((2, 4, 128, 64), (2, 4, 128, 64)),
@@ -81,7 +82,7 @@ def test_padded_heads_give_the_unpadded_attention(d, width):
     rng = np.random.default_rng(d)
     q, k, v = (torch.from_numpy(rng.standard_normal((2, 3, n, d), dtype=np.float32))
                for n in (40, 56, 56))
-    qp, kp, vp = tatt.pad_heads(q, k, v)
+    qp, kp, vp = tatt.pad_heads(q, k, v, tatt.padded_width(d))
     assert tatt.padded_width(d) == width
     assert tatt.column_slices(d) == WIDE_SLICES.get(d, 1)
     assert all(t.shape[-1] == width for t in (qp, kp, vp))
@@ -224,3 +225,162 @@ def test_error_bound_admits_the_f32_routes_arithmetic(shape, nk, split, logit_sc
     ref = tatt.sdpa_plain(q, k, v)
     err = float((_kernel_a_f32_arithmetic(q, k, v, split) - ref).abs().max())
     assert err <= tatt.error_bound(q, k, v, ref)
+
+
+def _tf32_split(x):
+    """An f32 tensor split into TF32 parts as kernel A's f32 tensor-core
+    route splits it (cvt.rna.tf32.f32: half a TF32 ulp added to the
+    magnitude's bits, the 13 low bits cleared): (big, small) with big =
+    rna(x) and small = rna(x - big), both f32 tensors."""
+    def rna(t):
+        bits = t.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+    big = rna(x)
+    return big, rna(x - big)
+
+
+def _toward_zero(x):
+    """f64 values rounded to f32 toward zero."""
+    f = x.float()
+    return torch.where(f.double().abs() > x.abs(), torch.nextafter(f, torch.zeros_like(f)), f)
+
+
+def _mma_3xtf32(a, b, span):
+    """a @ b as the kernel sums it: a and b split into TF32 parts; for each
+    k8 block of the product the three terms small_a big_b, big_a small_b and
+    big_a big_b, each summed exactly over the block (products of TF32 values
+    are exact in f64) and added in turn to an f32 accumulator, rounded
+    toward zero, as three mma.sync m16n8k8 chain (the H100's tensor cores
+    round an mma's sum toward zero); each `span` of the k dimension summed
+    so from zero and the spans added in f32, as the kernel adds its chunk
+    sums (of 32 columns of d) to S and its V steps' sums to O."""
+    (ab, as_), (bb, bs) = _tf32_split(a), _tf32_split(b)
+    out = torch.zeros(a.shape[:-1] + b.shape[-1:])
+    for c0 in range(0, a.shape[-1], span):
+        part = torch.zeros_like(out)
+        for k0 in range(c0, min(c0 + span, a.shape[-1]), 8):
+            blk = slice(k0, k0 + 8)
+            for x, y in ((as_, bb), (ab, bs), (ab, bb)):
+                part = _toward_zero(part.double() + x[..., blk].double() @ y[..., blk, :].double())
+        out = out + part
+    return out
+
+
+def _kernel_a_tf32_arithmetic(q, k, v, split):
+    """Kernel A's f32 tensor-core route emulated on the CPU: S = Q K^T in
+    3xTF32 (`_mma_3xtf32`) over 32-column chunks of d, in log2 units (scale
+    d^-1/2 log2(e) on the raw scores); key tiles of 32 keys with a running
+    max per row; P kept in f32, split again for O += P V in 3xTF32 over V
+    steps of 16 keys; the tiles split into `split` contiguous shares as the
+    CTAs of a cluster take them, each share's unnormalized (O, max, sum),
+    merged with weights 2^(max_g - max) and divided once. Above 256
+    columns O is computed in `column_slices` slices, whose S (shared among
+    them, or past 16 slices recomputed by each) is summed in one order:
+    each slice's share of d's 32-column chunks from zero, the shares added
+    in slice order; O's slices change nothing else."""
+    d = q.shape[-1]
+    bn, vk, kc = 32, 16, 32
+    scale_log2 = np.float32(d ** -0.5 * np.log2(np.e))
+    nk = k.shape[-2]
+    ntiles = -(-nk // bn)
+    chunks, slices = -(-d // kc), tatt.column_slices(d, torch.float32)
+    s = 0
+    for i in range(slices):
+        cols = slice(kc * (i * chunks // slices), kc * ((i + 1) * chunks // slices))
+        s = s + _mma_3xtf32(q[..., cols], k.transpose(-1, -2)[..., cols, :], 32)
+    parts = []
+    for g in range(split):
+        m = torch.full(s.shape[:-1] + (1,), -np.inf)
+        acc = torch.zeros(q.shape[:-1] + (v.shape[-1],))
+        l = torch.zeros(s.shape[:-1] + (1,))
+        for t in range(g * ntiles // split, (g + 1) * ntiles // split):
+            sl = slice(bn * t, min(bn * t + bn, nk))
+            m_new = torch.maximum(m, s[..., sl].amax(-1, keepdim=True) * scale_log2)
+            c = torch.exp2(m - m_new)
+            p = torch.exp2(s[..., sl] * scale_log2 - m_new)
+            l = l * c + p.sum(-1, keepdim=True)
+            acc = acc * c
+            for j0 in range(0, p.shape[-1], vk):
+                acc = acc + _mma_3xtf32(p[..., j0:j0 + vk], v[..., sl, :][..., j0:j0 + vk, :], vk)
+            m = m_new
+        parts.append((acc, m, l))
+    mx = torch.stack([m for _, m, _ in parts]).amax(0)
+    w = [torch.exp2(m - mx) for _, m, _ in parts]
+    total = sum(wg * l for wg, (_, _, l) in zip(w, parts))
+    return sum(wg * acc for wg, (acc, _, _) in zip(w, parts)) / total
+
+
+def test_tf32_split_rounds_as_cvt_rna():
+    """The split's rounding is round-to-nearest with ties away from zero at
+    TF32's 10 fraction bits, and big + small recovers x to within 2^-22 of
+    its magnitude."""
+    one_ulp = 2.0**-10
+    x = torch.tensor([1 + one_ulp / 2, -(1 + one_ulp / 2), 1 + one_ulp / 2 - 2**-23,
+                      1 + 1.5 * one_ulp, 3.0, 0.0], dtype=torch.float32)
+    big, small = _tf32_split(x)
+    assert big.tolist() == [1 + one_ulp, -(1 + one_ulp), 1.0, 1 + 2 * one_ulp, 3.0, 0.0]
+    assert small.tolist() == [-one_ulp / 2, one_ulp / 2, one_ulp / 2, -one_ulp / 2,
+                              0.0, 0.0]
+    y = torch.from_numpy(np.random.default_rng(0).standard_normal(4096, dtype=np.float32))
+    big, small = _tf32_split(y)
+    assert float(((big.double() + small.double() - y.double()).abs() / y.abs().double()).max()) \
+        <= 2.0**-22
+
+
+# (q shape, key count, the split the H100's plan (`plan_for` in
+# csrc/attention.cu, with the card's cluster counts) takes at these shapes).
+TF32_CASES = [((1, 1, 384, 80), 384, 6), ((1, 1, 384, 128), 384, 6), ((1, 1, 384, 160), 384, 6),
+              ((1, 1, 384, 256), 384, 6), ((1, 1, 65, 256), 769, 7), ((1, 1, 196, 1024), 196, 4),
+              ((1, 4, 196, 1024), 196, 2), ((1, 2, 384, 512), 384, 4),
+              ((1, 1, 128, 4100), 128, 4), ((1, 1, 128, 5000), 128, 4)]
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+@pytest.mark.parametrize("logit_scale", [1, 8])
+@pytest.mark.parametrize("shape,nk,split", TF32_CASES)
+def test_error_bound_admits_the_f32_tensor_core_routes_arithmetic(shape, nk, split, logit_scale):
+    """`error_bound`'s 2e-5 (the card's tolerance for kernel A's f32 route)
+    admits the tensor-core route's 3xTF32 arithmetic, emulated, against the
+    f64 plain version (`reference`) at widths 80, 128, 160, 256, 512,
+    1,024 (196 tokens), 4,100 and 5,000 (17 and 20 slices, each
+    recomputing S), with its key tiles split among a cluster's CTAs as the
+    card plans these shapes and its slices sharing S above 256 columns up
+    to 16 slices, with unit logits and with logits 8x larger (a peaked
+    softmax)."""
+    rng = np.random.default_rng(shape[2] + nk + shape[3])
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape[:2] + (n, shape[3]), dtype=np.float32))
+               for n in (shape[2], nk, nk))
+    q = q * logit_scale
+    assert tatt.route(q.dtype, shape[3]) == "f32_tc"
+    ref = tatt.reference(q, k, v)
+    assert ref.dtype == torch.float64
+    err = float((_kernel_a_tf32_arithmetic(q, k, v, split).double() - ref).abs().max())
+    assert err <= tatt.error_bound(q, k, v, ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dispatch_routes_and_pads_every_width(dtype):
+    """For each head width 1-2,048: the route kernel A takes and the width it
+    runs at, and whether `pad_heads` copies contiguous inputs there. bf16:
+    the tensor-core kernel at its instantiations and at multiples of 64
+    above 256, other widths padded. f32: the FFMA kernel at 16, 32 and 64
+    (others up to 64 padded), the tensor-core kernel above 64, in place at
+    every multiple of 4 and padded to the next one elsewhere."""
+    for d in range(1, 2049):
+        if dtype == torch.bfloat16:
+            want_route = "bf16_tc"
+            want = (next(w for w in tatt.HEAD_DIMS if d <= w) if d <= 256
+                    else -(-d // 64) * 64)
+        elif d <= 64:
+            want_route, want = "f32", next(w for w in (16, 32, 64) if d <= w)
+        else:
+            want_route, want = "f32_tc", -(-d // 4) * 4
+        assert tatt.route(dtype, d) == want_route, d
+        width = tatt.padded_width(d, dtype)
+        assert width == want, d
+        x = torch.zeros((1, 1, 2, d), dtype=dtype)
+        copies = tatt.pad_heads.copies
+        qp, kp, vp = tatt.pad_heads(x, x, x, width)
+        assert tatt.pad_heads.copies - copies == (width != d), d
+        assert all(t.shape[-1] == width and (t is x) == (width == d) for t in (qp, kp, vp)), d
+    assert tatt.column_slices(2000) == 8 and tatt.column_slices(257) == 2

@@ -42,10 +42,11 @@ ATTENTION_CASES = [(2, 3, 768, 768), (2, 3, 196, 196), (2, 3, 48, 80), (2, 3, 13
 # 32-query warps and its 16-key tiles.
 F32_CASES = [(2, 8, 196, 196), (2, 6, 196, 196), (4, 16, 196, 196), (2, 12, 768, 768)] + [
     (2, 3, nq, nk) for nq in (1, 31, 33, 65, 129) for nk in (7, 63, 65, 769)]
-# Head widths other than 64: below, at and between kernel A's instantiations
-# (16, 32, 64, 128, 256); the f32 route's 128-wide instantiation takes
-# 64-row blocks of 16-row warps, its 256-wide one 32-row blocks of 8-row
-# warps, its 16-wide one 8-byte V loads, so those also at `F32_CASES`'
+# Head widths other than 64: below, at and between the bf16 route's
+# instantiations (16, 32, 64, 128, 256); in f32 the FFMA kernel's 16-wide
+# instantiation takes 8-byte V loads, and above 64 the tensor-core kernel
+# runs every width in place (64-row blocks of 16-row warps, key tiles of 64
+# keys up to 128 columns and of 32 above), so those also at `F32_CASES`'
 # counts.
 WIDTHS = (8, 12, 16, 24, 32, 48, 80, 96, 128, 160, 256)
 # Head widths above 256, which the wide variant takes in slices of 256
@@ -65,19 +66,20 @@ WIDE_WIDTHS = (257, 300, 320, 384, 512, 700, 1024, 2048, 3000)
     for scale in (1, 8) for case in ATTENTION_CASES] + [
     (torch.float32, 8, *case, d) for d in (16, 128, 256) for case in F32_CASES])
 def test_attention_kernel_matches_plain(cuda, dtype, logit_scale, b, h, nq, nk, d):
-    """Both routes at `ATTENTION_CASES` and the f32 route at `F32_CASES`,
-    at head width 64 and at `WIDTHS`, within `attention.error_bound` (f32:
-    2e-5; bf16: from its two bf16 roundings, of P and of O), with unit
-    logits and with logits 8x the unit scale (a peaked softmax), where in
-    bf16 logits rounded to bf16 would exceed the bound
-    (tests/test_torch_attention.py shows that on the kernel's arithmetic
-    emulated on the CPU). Each call is one launch, counted at its route and
-    at its true width."""
+    """Both dtypes at `ATTENTION_CASES` and f32 at `F32_CASES`, at head
+    width 64 and at `WIDTHS`, within `attention.error_bound` of
+    `attention.reference` (f32: 2e-5, against the plain version in f64 on
+    the tensor-core route above width 64; bf16: from its two bf16 roundings,
+    of P and of O), with unit logits and with logits 8x the unit scale (a
+    peaked softmax), where in bf16 logits rounded to bf16 would exceed the
+    bound (tests/test_torch_attention.py shows that on the kernel's
+    arithmetic emulated on the CPU). Each call is one launch, counted at its
+    route (`attention.route`) and at its true width."""
     rng = np.random.default_rng(nq + nk + d)
     q, k, v = (torch.from_numpy(rng.standard_normal((b, h, n, d), dtype=np.float32))
                .to(cuda, dtype) for n in (nq, nk, nk))
     q = q * logit_scale
-    route = "bf16_tc" if dtype == torch.bfloat16 else "f32"
+    route = attention.route(dtype, d)
     before = attention.fused_attention.launches
     before_route = attention.fused_attention.route_launches[route]
     before_width = attention.fused_attention.width_launches.get(d, 0)
@@ -87,8 +89,8 @@ def test_attention_kernel_matches_plain(cuda, dtype, logit_scale, b, h, nq, nk, 
     assert attention.fused_attention.route_launches[route] == before_route + 1
     assert attention.fused_attention.width_launches[d] == before_width + 1
     assert got.dtype == dtype and got.shape == q.shape
-    ref = attention.sdpa_plain(q.float(), k.float(), v.float())
-    assert float((got.float() - ref).abs().max()) <= attention.error_bound(q, k, v, ref)
+    ref = attention.reference(q, k, v)
+    assert float((got.double() - ref).abs().max()) <= attention.error_bound(q, k, v, ref)
 
 
 @pytest.mark.cuda
@@ -97,18 +99,19 @@ def test_attention_kernel_matches_plain(cuda, dtype, logit_scale, b, h, nq, nk, 
 @pytest.mark.parametrize("logit_scale", [1, 8])
 @pytest.mark.parametrize("b,h,nq,nk", [(2, 3, 196, 196), (1, 2, 130, 7), (1, 1, 33, 769)])
 def test_attention_kernel_matches_plain_at_wide_heads(cuda, dtype, logit_scale, b, h, nq, nk, d):
-    """Heads wider than 256 through the wide variant, both routes, at a
-    224x224 image's 196 tokens and at ragged counts across the query tiles
-    and key tiles of both routes, with unit logits and 8x peaked ones:
-    within `attention.error_bound` of the plain version (in f64 for f32
-    inputs, where one f32 chain over d columns is itself farther from the
-    exact logits than the kernel's chunked sums), one launch counted at its
-    route and true width."""
+    """Heads wider than 256, in 256-column slices of O (the bf16 wide
+    variant, the f32 tensor-core kernel), at a 224x224 image's 196 tokens
+    and at ragged counts across the query tiles and key tiles of both
+    routes, with unit logits and 8x peaked ones: within
+    `attention.error_bound` of the plain version (in f64 for f32 inputs,
+    where one f32 chain over d columns is itself farther from the exact
+    logits than the kernel's chunked sums), one launch counted at its route
+    and true width."""
     rng = np.random.default_rng(nq + nk + d)
     q, k, v = (torch.from_numpy(rng.standard_normal((b, h, n, d), dtype=np.float32))
                .to(cuda, dtype) for n in (nq, nk, nk))
     q = q * logit_scale
-    route = "bf16_tc" if dtype == torch.bfloat16 else "f32"
+    route = attention.route(dtype, d)
     fa = attention.fused_attention
     before = (fa.launches, fa.route_launches[route], fa.width_launches.get(d, 0))
     got = attention.sdpa(q, k, v)
@@ -121,18 +124,19 @@ def test_attention_kernel_matches_plain_at_wide_heads(cuda, dtype, logit_scale, 
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 320])
+@pytest.mark.parametrize("d", [64, 128, 320])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_attention_kernel_takes_more_than_65535_batch_heads(cuda, dtype, d):
     """Batch x heads = 65,600, past the 65,535 a grid's y dimension holds:
-    every route folds it into the grid's x. Within `attention.error_bound`."""
+    every route folds it into the grid's x. Within `attention.error_bound`
+    of `attention.reference`."""
     rng = np.random.default_rng(d)
     q, k, v = (torch.from_numpy(rng.standard_normal((2, 32800, 8, d), dtype=np.float32))
                .to(cuda, dtype) for _ in range(3))
     got = attention.fused_attention(q, k, v)
     torch.cuda.synchronize()
-    ref = attention.sdpa_plain(q.float(), k.float(), v.float())
-    assert float((got.float() - ref).abs().max()) <= attention.error_bound(q, k, v, ref)
+    ref = attention.reference(q, k, v)
+    assert float((got.double() - ref).abs().max()) <= attention.error_bound(q, k, v, ref)
 
 
 @pytest.mark.cuda
@@ -141,22 +145,76 @@ def test_attention_kernel_takes_more_than_65535_batch_heads(cuda, dtype, d):
 def test_attention_kernel_reads_and_writes_through_strides(cuda, dtype, d):
     """q, k, v as the model's heads split makes them: transposed views of
     one fused projection output, read in place, at each instantiated head
-    width, at 160 (padded to 256) and at 320, 512 and 1,024 (the wide
-    variant). The output is the (B, H, N, d) view of a contiguous (B, N, H,
-    d) buffer, so the heads merge is a view."""
+    width, at 160 (in bf16 padded to 256, in f32 read in place) and at 320,
+    512 and 1,024 (in slices of 256 columns). The output is the (B, H, N, d)
+    view of a contiguous (B, N, H, d) buffer, so the heads merge is a view;
+    within `attention.error_bound` of `attention.reference`."""
     b, n, h = 2, 196, 3
     rng = np.random.default_rng(5)
     qkv = torch.from_numpy(rng.standard_normal((b, n, 3 * h * d), dtype=np.float32)).to(cuda, dtype)
     q, k, v = (t.reshape(b, n, h, d).transpose(1, 2) for t in qkv.chunk(3, dim=-1))
     assert not v.is_contiguous()
+    copies = attention.pad_heads.copies
     got = attention.sdpa(q, k, v)
     torch.cuda.synchronize()
     assert got.shape == (b, h, n, d)
-    if attention.padded_width(d) == d:
+    if attention.padded_width(d, dtype) == d:
+        assert attention.pad_heads.copies == copies
         assert got.transpose(1, 2).is_contiguous()
         assert got.transpose(1, 2).reshape(b, n, h * d).data_ptr() == got.data_ptr()
-    ref = attention.sdpa_plain(q.float(), k.float(), v.float())
-    assert float((got.float() - ref).abs().max()) <= attention.error_bound(q, k, v, ref)
+    ref = attention.reference(q, k, v)
+    assert float((got.double() - ref).abs().max()) <= attention.error_bound(q, k, v, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("logit_scale", [1, 8])
+@pytest.mark.parametrize("b,h,nq,nk", [(1, 2, 33, 769), (2, 3, 130, 7), (1, 2, 196, 196)])
+@pytest.mark.parametrize("d", [80, 96, 160, 192, 320, 2000, 4100, 5000])
+def test_f32_tensor_core_route_reads_every_width_in_place(cuda, d, b, h, nq, nk, logit_scale):
+    """f32 heads above 64 columns that are no instantiation of the other
+    routes, contiguous: the tensor-core kernel reads them in place
+    (`attention.pad_heads` makes no copy), one launch on the "f32_tc" route,
+    within `attention.error_bound` of the f64 plain version, at ragged key
+    counts (769, 7) and query counts (33, 130); at 4,100 and 5,000 columns
+    (17 and 20 slices, more than a cluster holds) each slice recomputes S."""
+    rng = np.random.default_rng(nq + nk + d)
+    q, k, v = (torch.from_numpy(rng.standard_normal((b, h, n, d), dtype=np.float32)).to(cuda)
+               for n in (nq, nk, nk))
+    q = q * logit_scale
+    fa = attention.fused_attention
+    before = (attention.pad_heads.copies, fa.route_launches["f32_tc"])
+    got = attention.sdpa(q, k, v)
+    torch.cuda.synchronize()
+    assert (attention.pad_heads.copies, fa.route_launches["f32_tc"]) == (before[0], before[1] + 1)
+    assert got.shape == q.shape and got.dtype == torch.float32
+    ref = attention.reference(q, k, v)
+    assert ref.dtype == torch.float64
+    assert float((got.double() - ref).abs().max()) <= attention.error_bound(q, k, v, ref)
+
+
+@pytest.mark.cuda
+def test_f32_column_slices_are_the_kernels(cuda):
+    """`attention.column_slices`, which the CPU emulation of the f32
+    tensor-core route sums S by, counts the slices the kernel computes
+    (`attn_f32_slices`) at every f32 width above 64 up to 8,192, and the
+    slices share S exactly where they fit one cluster (`attn_f32_share`,
+    up to 16)."""
+    import ctypes
+
+    from monst3r_slam_torch.ops import build
+
+    lib = build.load("attention", attention._SIGNATURES)
+    lib.attn_f32_slices.argtypes = [ctypes.c_longlong, ctypes.POINTER(ctypes.c_int)]
+    lib.attn_f32_slices.restype = ctypes.c_int
+    lib.attn_f32_share.argtypes = [ctypes.c_longlong] * 3 + [ctypes.c_int]
+    lib.attn_f32_share.restype = ctypes.c_int
+    width = ctypes.c_int()
+    for d in range(68, 8193, 4):
+        count = lib.attn_f32_slices(d, ctypes.byref(width))
+        assert attention.column_slices(d, torch.float32) == count, d
+        assert (count - 1) * width.value < d <= count * width.value, d
+        assert count == 1 or width.value % 8 == 0, d
+        assert lib.attn_f32_share(1, 196, 196, d) == int(1 < count <= 16), d
 
 
 @pytest.mark.cuda
@@ -213,8 +271,8 @@ def test_sdpa_copies_the_layouts_kernel_a_cannot_read(cuda, dtype, d):
             got = attention.sdpa(*args)
             torch.cuda.synchronize()
             assert attention.fused_attention.launches == before + 1, name
-            ref = attention.sdpa_plain(*(t.float() for t in args))
-            assert float((got.float() - ref).abs().max()) <= attention.error_bound(*args, ref), name
+            ref = attention.reference(*args)
+            assert float((got.double() - ref).abs().max()) <= attention.error_bound(*args, ref), name
 
 
 @pytest.mark.cuda
@@ -226,13 +284,14 @@ def test_sdpa_copies_the_layouts_kernel_a_cannot_read(cuda, dtype, d):
 def test_attention_function_gradient_matches_the_plain_autograd(cuda, dtype, shape, nk):
     """Kernel A's autograd Function, as the training forward reaches it
     through `sdpa` with grad enabled: one kernel A launch forward and none
-    backward; the forward within `attention.error_bound` and dq, dk, dv
-    within `attention.backward_error_bound` of the f32 plain autograd, at
-    the 224x224 training shape, at 768 tokens, at a ragged count, at the
-    TINY config's head widths (16, 12; the latter zero-padded to 16), at
-    heads 256 and 160 wide (the latter zero-padded to 256) and at 512 (the
-    wide variant). With
-    grad disabled `sdpa` launches kernel A directly and records nothing."""
+    backward; the forward within `attention.error_bound` of
+    `attention.reference` and dq, dk, dv within
+    `attention.backward_error_bound` of the f32 plain autograd, at the
+    224x224 training shape, at 768 tokens, at a ragged count, at the TINY
+    config's head widths (16, 12; the latter zero-padded to 16), at heads
+    256 and 160 wide (in bf16 the latter zero-padded to 256) and at 512 (in
+    slices of 256 columns). With grad disabled `sdpa` launches kernel A
+    directly and records nothing."""
     rng = np.random.default_rng(shape[2] + nk)
     b, h, nq, d = shape
     q, dout = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(cuda, dtype)
@@ -250,8 +309,9 @@ def test_attention_function_gradient_matches_the_plain_autograd(cuda, dtype, sha
     ref = [t.float().clone().requires_grad_() for t in (q, k, v)]
     ref_out = attention.sdpa_plain(*ref)
     ref_out.backward(dout.float())
-    assert (float((out.detach().float() - ref_out.detach()).abs().max())
-            <= attention.error_bound(q, k, v, ref_out.detach()))
+    fwd_ref = attention.reference(q, k, v)
+    assert (float((out.detach().double() - fwd_ref).abs().max())
+            <= attention.error_bound(q, k, v, fwd_ref))
     for t, r, bound in zip(leaves, ref, attention.backward_error_bound(q, k, v, dout)):
         assert t.grad.dtype == dtype and bool(((t.grad.float() - r.grad).abs() <= bound).all())
     with torch.no_grad():
