@@ -37,14 +37,17 @@ phase printing one line:
   4. kernel A at every head width the reference's kernel takes (`phase_heads`;
      alone with `--only-heads`): widths 8, 12, 16, 24, 32, 48, 64, 80, 96 and
      128 (the bf16 route is instantiated at 16, 32, 64 and 128, the f32
-     route at 16, 32 and 64 and on the tensor cores at every multiple of 4
-     above; the wrapper zero-pads the others) in both dtypes at
-     (1, 16, 768, d), (2, 8, 196, d) and a ragged (1, 4, 100, 300), through
-     the dispatch with its plain version made to fail, each within
-     `error_bound` of `attention.reference` with a launch counted at its
-     route and width, timed with the padding's own cost, SDPA's, the bound
-     and, for f32 above 64, the FP32 pipe's bound (and, printed only, the
-     time of the FFMA kernel it replaced, from PERF.md);
+     route at 16, 32 and 64 and on the tensor cores above; every multiple
+     of 8 in bf16 and of 4 in f32 is read in place, and the wrapper
+     zero-pads the others) in both dtypes at (1, 16, 768, d), (2, 8, 196,
+     d) and a ragged (1, 4, 100, 300), through the dispatch with its plain
+     version made to fail, each within `error_bound` of
+     `attention.reference` with a launch counted at its route and width and
+     no padding copy where it reads the head in place, timed with the
+     padding's own cost, SDPA's, the bound and, for f32 above 64, the FP32
+     pipe's bound (and, printed only, the time of the FFMA kernel it
+     replaced, from PERF.md); one call per route on heads whose buffers
+     hold NaN past d (the output must be finite and right);
      kernel B at fd 20 (padded to 24) under
      `rounding_check` and timed beside fd 24; then the TINY config's entry
      points with their default device, the card: `train_torch.py --tiny
@@ -63,7 +66,8 @@ phase printing one line:
      that starts one element past 16-byte alignment (each copied to a row
      pitch), each with flags and ray matches equal to the plain version's
      and under `rounding_check`, timed; kernel A in both dtypes at
-     (1,4,768,256), (1,6,768,160), the 256-column slices' (1,1,768,1024),
+     (1,4,768,256), (1,4,768,192), (1,6,768,160), the 256-column slices'
+     (1,1,768,1024),
      (1,2,768,512), (1,1,768,768), (1,2,768,384), (1,3,768,320) and
      (2,1,196,2048) (bf16: the wide variant; f32: the tensor-core kernel,
      its slices sharing S or not as its plan takes), and batch x heads
@@ -308,14 +312,31 @@ def profiled_ms(fn, iters: int = 3, warmup: int = 2) -> tuple:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    us, n = 0.0, 0
-    for ev in prof.key_averages():
-        t = getattr(ev, "self_device_time_total", None)
-        t = ev.self_cuda_time_total if t is None else t
-        if ev.device_type == torch.autograd.DeviceType.CUDA and t > 0:
-            us += t
-            n += ev.count
-    return us / 1e3 / iters, n / iters
+    rows = trace_totals(prof)[0]
+    return sum(r[0] for r in rows) / iters, sum(r[1] for r in rows) / iters
+
+
+def trace_totals(prof) -> tuple:
+    """From a finished torch.profiler session's raw events, read once: the
+    device events' (ms, count, name) rows with time, most time first, and
+    the count of each host event by name. Not `key_averages()`, which first
+    builds a tree of Python objects over every event: over the 10^4-10^5
+    events of a frame or a training step that took seconds to tens of
+    seconds of host time a call."""
+    import torch
+
+    device, host = {}, {}
+    for ev in prof.profiler.kineto_results.events():
+        name = ev.name()
+        if ev.device_type() == torch.autograd.DeviceType.CUDA:
+            row = device.setdefault(name, [0, 0])
+            row[0] += ev.duration_ns()
+            row[1] += 1
+        else:
+            host[name] = host.get(name, 0) + 1
+    rows = sorted(((ns / 1e6, n, name) for name, (ns, n) in device.items() if ns > 0),
+                  reverse=True)
+    return rows, host
 
 
 def bound_ms(n_bytes: float, op_times_s: float) -> tuple:
@@ -2447,8 +2468,7 @@ def phase_chunked(seed: int, card: str, params) -> dict:
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        return sum(ev.count for ev in prof.key_averages()
-                   if ev.device_type == torch.autograd.DeviceType.CUDA)
+        return sum(r[1] for r in trace_totals(prof)[0])
 
     chunked.chunk_track = strict
     try:
@@ -3180,6 +3200,10 @@ def phase_oracle(seed: int, card: str) -> dict:
 
 
 TRAIN_DIR = ROOT / "build" / "smoke_train"  # the train phase's checkpoints and weights
+# The training CLI's encoder and decoder blocks (MAST3R_512's width, the
+# resume check's depth): at full depth its 8.3 GB training state and 2.6 GB
+# `--save` deflate took minutes of one core and the disk beside the checks.
+TRAIN_CLI_DEPTH = 2
 TRAIN_SHAPES = ((4, 224, 224), (2, 384, 512))  # (batch, H, W): the CLI's default, SLAM frames
 TRAIN_CHECK_SIZE = 112  # the card-vs-CPU step: 49 tokens, a ragged tile, CPU-affordable
 
@@ -3723,8 +3747,9 @@ def train_mesh_compare(seed: int, mesh, dtype, fault: str | None = None) -> dict
     weights, `batch_sharding` batches) against as many one-device steps from
     the same MAST3R_512 weights (drawn on the card from `seed`) and batches,
     in `dtype`, with `fault` (`planted_fault`) planted in the sharded steps
-    where given: each step's losses, and in f32 each step held by
-    `train_mesh_step_check`; the kernels' launches in the sharded steps
+    where given (then up to the first step the check rejects): each step's
+    losses, and in f32 each step held by `train_mesh_step_check`; the
+    kernels' launches in the sharded steps
     alone (the counters zeroed just before each and read just after), and
     kernel A's on its dtype's route; the shapes kernel A ran at, each held
     against the plain version (`recorded_attention_shapes`). Returns the
@@ -3763,6 +3788,8 @@ def train_mesh_compare(seed: int, mesh, dtype, fault: str | None = None) -> dict
         if dtype == torch.float32:
             row["checks"].append(train_mesh_step_check(
                 one.params, mesh_state.params, mesh, i + 1, (row["one_losses"][-1], float(loss))))
+            if fault and not row["checks"][-1]["ok"]:
+                break  # the fault is caught: later steps would only repeat the verdict
     row["shapes"] = sorted(row["attention"])
     return row, one, mesh_state
 
@@ -3860,8 +3887,9 @@ def phase_train_mesh(seed: int, card: str, one_device: dict | None = None) -> di
     twice the one-device bf16 step's distance from the f32 step's), kernel
     A launched 96 dp tp times a sharded step on the route of its dtype, at
     (B/dp, H/tp, N, 64), each shape held against the plain version; on the
-    grid of one card, each of `TRAIN_MESH_CARD_FAULTS` planted in 3 f32
-    steps, which the check must reject; the bf16 sharded step timed
+    grid of one card, each of `TRAIN_MESH_CARD_FAULTS` planted in up to 3
+    f32 steps, which the check must reject (the run stops at the first
+    step it rejects); the bf16 sharded step timed
     (`train_mesh_timing`) beside `one_device`, the `train` phase's row of
     the one-device step at TRAIN_MESH_SHAPE (none with `--only-train-mesh`);
     and the edge decode on the stepped split weights
@@ -3888,7 +3916,8 @@ def phase_train_mesh(seed: int, card: str, one_device: dict | None = None) -> di
             print(f"train_mesh {dict(mesh.shape)} ({card}), {fault} planted: bounds failed "
                   f"{[c['failed'] for c in row['checks']]}; checks {row['checks']}", flush=True)
             if all(c["ok"] for c in row["checks"]):
-                fail(f"the sharded-step check passed 3 steps with {fault} planted")
+                fail(f"the sharded-step check passed {TRAIN_MESH_STEPS} steps with {fault} "
+                     "planted")
         torch.cuda.empty_cache()
         held = torch.cuda.memory_allocated()
         bf16, one, sharded = train_mesh_compare(seed, mesh, torch.bfloat16)
@@ -3979,21 +4008,24 @@ def stop_backend_workers() -> int:
 
 def phase_train(seed: int, card: str) -> dict:
     """The training path (`train_torch.py`, `monst3r_slam_torch/train/`) at
-    MAST3R_512 full width. The CLI runs unchanged in a subprocess; its card
-    work ends where it starts writing its files, which then take minutes of
-    one core (the `--save` file's deflate) and of the disk, and of the card
-    only a copy of the weights to the host. First the backend workers the
-    earlier phases left running are stopped. The CPU half of the card-vs-CPU
-    step runs beside the CLI's steps; beside its writes run, in turn: the
-    host's launch cost here and in a fresh process (a torch.profiler
-    session can slow later launches in its process); kernel A's gradient;
-    steps timed in-process at both shapes, then one step each under the
-    profiler, the launch counters zeroed just before and read just after;
-    the card half of the card-vs-CPU step; the sharded step on the dp x tp
-    mesh (`phase_train_mesh`); and the resume check under deterministic
-    algorithms (in a subprocess); and, in a thread once the CLI exits, its
-    `--save` file inflated. The CLI must print the mesh that `make_mesh()`
-    builds over the visible cards ((1, 1) on one card)."""
+    MAST3R_512 full width. The CLI runs unchanged in a subprocess, from a
+    checkpoint at MAST3R_512's width cut to `TRAIN_CLI_DEPTH` encoder and
+    decoder blocks (its `--checkpoint`, whose stored constructor string
+    gives it the config), so that its files (the training state and the
+    `--save` file's deflate on one core) take a minute, not several, beside
+    the checks; the in-process steps run at full depth. First the backend
+    workers the earlier phases left running are stopped. The resume check
+    under deterministic algorithms (in a subprocess) and the CPU half of
+    the card-vs-CPU step run beside the CLI's steps; beside its writes run,
+    in turn: the host's launch cost here and in a fresh process (a
+    torch.profiler session can slow later launches in its process); kernel
+    A's gradient; steps timed in-process at both shapes, then one step each
+    under the profiler, the launch counters zeroed just before and read
+    just after; the card half of the card-vs-CPU step; and the sharded step
+    on the dp x tp mesh (`phase_train_mesh`); and, in a thread once the CLI
+    exits, its `--save` file inflated. The CLI must print the mesh that
+    `make_mesh()` builds over the visible cards ((1, 1) on one card)."""
+    import dataclasses
     import os
     import shutil
     import threading
@@ -4001,6 +4033,8 @@ def phase_train(seed: int, card: str) -> dict:
     import torch
 
     from monst3r_slam_torch.models.config import MAST3R_512
+    from monst3r_slam_torch.models.convert import save_checkpoint
+    from monst3r_slam_torch.models.init import init_params
     from monst3r_slam_torch.parallel.mesh import make_mesh
 
     t_phase = time.perf_counter()
@@ -4011,13 +4045,18 @@ def phase_train(seed: int, card: str) -> dict:
           f"{torch.cuda.memory_allocated() / 1e9:.2f} GB", flush=True)
     shutil.rmtree(TRAIN_DIR, ignore_errors=True)
     TRAIN_DIR.mkdir(parents=True)
-    save, ckdir = TRAIN_DIR / "params.npz", TRAIN_DIR / "ckpt"
-    cmd = [sys.executable, "train_torch.py", "--synthetic", "--steps", "8", "--batch", "4",
-           "--save", str(save), "--ckpt-dir", str(ckdir)]
-    with open(TRAIN_DIR / "cli.out", "w") as so, open(TRAIN_DIR / "cli.err", "w") as se:
-        proc = subprocess.Popen(cmd, cwd=ROOT, stdout=so, stderr=se, text=True)
-    t_cli = time.time()
-    saved = {}
+    # The resume check in a process of its own, from the start: it measures
+    # nothing, so it shares the card with the CLI and the CPU half of the
+    # card-vs-CPU step rather than adding its ~45 s after the checks.
+    code = ("import json, chip_smoke; "
+            f"print('RESUME ' + json.dumps(chip_smoke.train_resume_check({seed})))")
+    with open(TRAIN_DIR / "resume.out", "w") as so, open(TRAIN_DIR / "resume.err", "w") as se:
+        resumer = subprocess.Popen([sys.executable, "-c", code], cwd=ROOT, stdout=so, stderr=se,
+                                   env=dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8"))
+    save, ckdir, start = TRAIN_DIR / "params.npz", TRAIN_DIR / "ckpt", TRAIN_DIR / "start.pth"
+    cmd = [sys.executable, "train_torch.py", "--synthetic", "--checkpoint", str(start),
+           "--steps", "8", "--batch", "4", "--save", str(save), "--ckpt-dir", str(ckdir)]
+    proc, saved = None, {}
 
     def read_save():  # the CLI's exit, then its --save file inflated, beside the card checks
         saved["rc"] = proc.wait(timeout=900)
@@ -4026,9 +4065,16 @@ def phase_train(seed: int, card: str) -> dict:
                 saved["n_arrays"] = len(f.files)
                 saved["finite"] = all(np.isfinite(f[name]).all() for name in f.files)
 
-    reader = threading.Thread(target=read_save, daemon=True)
-    reader.start()
     try:
+        cli_cfg = dataclasses.replace(MAST3R_512, enc_depth=TRAIN_CLI_DEPTH,
+                                      dec_depth=TRAIN_CLI_DEPTH)
+        save_checkpoint(str(start), init_params(torch.Generator(device="cuda").manual_seed(seed),
+                                                cli_cfg), cli_cfg)
+        with open(TRAIN_DIR / "cli.out", "w") as so, open(TRAIN_DIR / "cli.err", "w") as se:
+            proc = subprocess.Popen(cmd, cwd=ROOT, stdout=so, stderr=se, text=True)
+        t_cli = time.time()
+        reader = threading.Thread(target=read_save, daemon=True)
+        reader.start()
         cpu = train_cpu_grads(seed, MAST3R_512, TRAIN_CHECK_SIZE)
         while proc.poll() is None and not any(ckdir.glob("step_8*")):
             if time.perf_counter() - t_phase > 300:
@@ -4061,17 +4107,16 @@ def phase_train(seed: int, card: str) -> dict:
         check = train_card_vs_cpu(cpu, MAST3R_512)
         del cpu
         mesh_run = phase_train_mesh(seed, card, rows[0])
-        env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
-        code = ("import json, chip_smoke; "
-                f"print('RESUME ' + json.dumps(chip_smoke.train_resume_check({seed})))")
-        out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
-                             capture_output=True, text=True, timeout=300)
+        resumer.wait(timeout=300)
+        resume_out = (TRAIN_DIR / "resume.out").read_text()
+        resume_err = (TRAIN_DIR / "resume.err").read_text()
         checks_s = time.perf_counter() - t_phase
         reader.join(timeout=900)
         rc = saved.get("rc")
     finally:
-        if proc.poll() is None:
-            proc.kill()
+        for child in (proc, resumer):
+            if child is not None and child.poll() is None:
+                child.kill()
     cli_s = (save.stat().st_mtime if save.is_file() else time.time()) - t_cli
     cli_out = (TRAIN_DIR / "cli.out").read_text()
     if rc != 0:
@@ -4091,9 +4136,9 @@ def phase_train(seed: int, card: str) -> dict:
         fail(f"train_torch.py's run is not well-formed:\n{cli_out[-2000:]}")
     shutil.rmtree(TRAIN_DIR, ignore_errors=True)
 
-    if out.returncode != 0:
-        fail(f"the resume check exited {out.returncode}:\n{out.stderr[-4000:]}")
-    resume = json.loads(out.stdout.split("RESUME ", 1)[1])
+    if resumer.returncode != 0:
+        fail(f"the resume check exited {resumer.returncode}:\n{resume_err[-4000:]}")
+    resume = json.loads(resume_out.split("RESUME ", 1)[1])
     print(f"train resume on the card (MAST3R_512 width, 2+2 blocks, batch 2, 224x224, "
           f"deterministic algorithms): bit-exact {resume['bit_exact']}; losses "
           f"{resume['losses']} against {resume['ref_losses']}; {resume['leaves_differ']} of "
@@ -4138,15 +4183,17 @@ def heads_attention(seed: int, widths=HEAD_WIDTHS, shapes=HEAD_SHAPES,
     """Kernel A at every width of `widths` in both dtypes and every
     (B, H, Nq, Nk) of `shapes`, through the dispatch `attention.sdpa` (whose
     plain version is made to fail for the call): one launch counted at the
-    route (`attention.route`) and at the true width, the output against
-    `attention.reference` (the plain version in f32, in f64 for the f32
-    tensor-core route) within `attention.error_bound`; at the square shapes
-    the kernel's time (`time_ms`, padding included) and device time, the
-    padding's own time, the plain version's and SDPA's times (and what SDPA
-    runs, `sdpa_kernels`) beside the bound (4 B H Nq Nk d operations at the
-    route's peak, 3 x as many at the TF32 peak on the f32 tensor-core route,
-    whose row also gives the FP32 pipe's bound; q, k, v read and o written
-    once)."""
+    route (`attention.route`) and at the true width; no padding copy at a
+    width read in place (`attention.reads_in_place`), whose output is the
+    view of a (B, Nq, H, d) buffer of the true width, one elsewhere; the
+    output against `attention.reference` (the plain version in f32, in f64
+    for the f32 tensor-core route) within `attention.error_bound`; at the
+    square shapes the kernel's time (`time_ms`, padding included) and
+    device time, the padding's own time (0 where none is made), the plain
+    version's and SDPA's times (and what SDPA runs, `sdpa_kernels`) beside
+    the bound (4 B H Nq Nk d operations at the route's peak, 3 x as many at
+    the TF32 peak on the f32 tensor-core route, whose row also gives the
+    FP32 pipe's bound; q, k, v read and o written once)."""
     import torch
     import torch.nn.functional as F
 
@@ -4162,36 +4209,47 @@ def heads_attention(seed: int, widths=HEAD_WIDTHS, shapes=HEAD_SHAPES,
     for d in widths:
         for dtype in (torch.bfloat16, torch.float32):
             route, width = attention.route(dtype, d), attention.padded_width(d, dtype)
+            in_place, read = attention.reads_in_place(d, dtype), attention.read_width(d, dtype)
             peak = {"bf16_tc": PEAK_BF16, "f32": PEAK_F32, "f32_tc": PEAK_TF32 / 3}[route]
             for b, h, nq, nk in shapes:
                 q, k, v = (torch.from_numpy(rng.standard_normal((b, h, n, d), dtype=np.float32))
                            .to("cuda", dtype) for n in (nq, nk, nk))
-                before = (fa.launches, fa.route_launches[route], fa.width_launches.get(d, 0))
+                before = (fa.launches, fa.route_launches[route], fa.width_launches.get(d, 0),
+                          attention.pad_heads.copies)
                 attention.sdpa_plain = refuse
                 try:
                     out = attention.sdpa(q, k, v)
                 finally:
                     attention.sdpa_plain = plain
                 torch.cuda.synchronize()
-                after = (fa.launches, fa.route_launches[route], fa.width_launches.get(d, 0))
-                if [a - c for a, c in zip(after, before)] != [1, 1, 1]:
-                    fail(f"{phase}: width {d} {route} at {(b, h, nq, nk)} counted {before} -> {after}")
+                after = (fa.launches, fa.route_launches[route], fa.width_launches.get(d, 0),
+                         attention.pad_heads.copies)
+                if [a - c for a, c in zip(after, before)] != [1, 1, 1, int(not in_place)]:
+                    fail(f"{phase}: width {d} {route} at {(b, h, nq, nk)} counted {before} -> "
+                         f"{after} (launches, on the route, at the width, padding copies; read "
+                         f"in place: {in_place})")
                 if out.shape != q.shape or out.dtype != dtype:
                     fail(f"{phase}: width {d} {route} gave {tuple(out.shape)} {out.dtype}")
+                buf = out.transpose(1, 2)
+                if in_place and not (buf.is_contiguous()
+                                     and buf.untyped_storage().nbytes() == buf.nbytes):
+                    fail(f"{phase}: width {d} {route}: the output is no (B, N, H, d) buffer "
+                         f"of the true width: strides {out.stride()}")
                 ref = attention.reference(q, k, v)
                 err = float((out.double() - ref).abs().max())
                 tol = attention.error_bound(q, k, v, ref)
                 if not (np.isfinite(err) and err <= tol):
                     fail(f"{phase}: width {d} {route} at {(b, h, nq, nk)}: max abs err {err} > {tol}")
-                row = dict(width=d, instantiation=width, slices=attention.column_slices(d, dtype),
+                row = dict(width=d, instantiation=width, in_place=in_place, read_width=read,
+                           slices=attention.column_slices(d, dtype),
                            route=route, shape=[b, h, nq, nk], max_abs_err=err, tol=tol)
                 if nq == nk:
                     n_bytes = (2 * nq + 2 * nk) * b * h * d * q.element_size()
                     b_ms, b_by = bound_ms(n_bytes, 4.0 * b * h * nq * nk * d / peak)
                     row.update(
                         ms=time_ms(lambda: fa(q, k, v)), device_ms=device_ms(lambda: fa(q, k, v)),
-                        pad_ms=(time_ms(lambda: attention.pad_heads(q, k, v, width)) if width != d
-                                else 0.0),
+                        pad_ms=(0.0 if in_place
+                                else time_ms(lambda: attention.pad_heads(q, k, v, read))),
                         plain_ms=time_ms(lambda: plain(q, k, v)),
                         library_ms=time_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
                         library_device_ms=device_ms(
@@ -4204,7 +4262,8 @@ def heads_attention(seed: int, widths=HEAD_WIDTHS, shapes=HEAD_SHAPES,
                         row["ffma_bound_ms"] = bound_ms(n_bytes, 4.0 * b * h * nq * nk * d
                                                         / PEAK_F32)[0]
                 rows.append(row)
-                print(f"{phase} attention d {d} (runs at {width}"
+                print(f"{phase} attention d {d} (on {width}, "
+                      + ("in place" if in_place else f"padded to {read}")
                       + (f" in {row['slices']} slices" if row["slices"] > 1 else "")
                       + f") {route} {(b, h, nq, nk)}"
                       + (f" split {row['split']}" if "split" in row else "")
@@ -4220,6 +4279,52 @@ def heads_attention(seed: int, widths=HEAD_WIDTHS, shapes=HEAD_SHAPES,
                          f"{FFMA_DEVICE_MS.get((b, h, nq, d))}"
                          if "ffma_bound_ms" in row else ""),
                       flush=True)
+    return rows
+
+
+# One NaN-guard call per route of kernel A: (dtype, head width d, the width
+# of the buffers q, k and v are the first d columns of): bf16 on D = 256
+# (an atom partly past d, one wholly past it), the bf16 wide variant (its
+# last chunk and slice past d), the FFMA kernel on D = 16 and the f32
+# tensor-core kernel's 3xTF32 chunks past d.
+NAN_GUARD = (("bfloat16", 160, 256), ("bfloat16", 264, 320), ("float32", 12, 16),
+             ("float32", 260, 320))
+
+
+def heads_nan_guard(seed: int) -> list:
+    """Kernel A on q, k and v that are the first d columns of buffers whose
+    other columns, inside the instantiation's width, hold NaN (`NAN_GUARD`,
+    (1, 4, 768, 768)), through `attention.sdpa`: no padding copy, one
+    launch, the output finite and within `attention.error_bound` of
+    `attention.reference`, so no column past d is read."""
+    import torch
+
+    from monst3r_slam_torch.ops import attention
+
+    rng = np.random.default_rng(seed)
+    rows = []
+    for name, d, wide in NAN_GUARD:
+        dtype = getattr(torch, name)
+        bufs = [torch.full((1, 4, 768, wide), float("nan"), device="cuda", dtype=dtype)
+                for _ in range(3)]
+        for t in bufs:
+            t[..., :d] = torch.from_numpy(rng.standard_normal((1, 4, 768, d), dtype=np.float32))
+        q, k, v = (t[..., :d] for t in bufs)
+        before = (attention.pad_heads.copies, attention.fused_attention.launches)
+        out = attention.sdpa(q, k, v)
+        torch.cuda.synchronize()
+        after = (attention.pad_heads.copies, attention.fused_attention.launches)
+        ref = attention.reference(q, k, v)
+        err = float((out.double() - ref).abs().max())
+        tol = attention.error_bound(q, k, v, ref)
+        row = dict(dtype=name, width=d, buffer_width=wide, route=attention.route(dtype, d),
+                   finite=bool(torch.isfinite(out).all()), max_abs_err=err, tol=tol)
+        rows.append(row)
+        print(f"heads NaN guard {name} d {d} ({row['route']}, NaN in columns {d}-{wide - 1} of "
+              f"the buffers): finite {row['finite']}, err {err:.3e} <= {tol:.3e}", flush=True)
+        if after != (before[0], before[1] + 1) or not row["finite"] or not err <= tol:
+            fail(f"heads: kernel A read past the head at {name} d {d}: copies and launches "
+                 f"{before} -> {after}, finite {row['finite']}, err {err} (tol {tol})")
     return rows
 
 
@@ -4360,7 +4465,8 @@ def heads_demo(paths, ckpt) -> dict:
 
 
 def phase_heads(seed: int) -> dict:
-    """Kernel A at every head width the reference's kernel takes (1-128)
+    """Kernel A at every head width the reference's kernel takes (1-128),
+    one call per route on heads flanked by NaN columns (`heads_nan_guard`)
     and kernel B at a padded descriptor width, then the entry points that
     run the TINY config (heads 16 and 12 wide) with their default device,
     the card: `train_torch.py --tiny --synthetic --steps 3` and
@@ -4382,6 +4488,7 @@ def phase_heads(seed: int) -> dict:
 
     t0 = time.perf_counter()
     attn_rows = heads_attention(seed)
+    nan_guard = heads_nan_guard(seed)
     tm_row = heads_tile_match(seed)
 
     HEADS_DIR.mkdir(parents=True, exist_ok=True)
@@ -4462,7 +4569,8 @@ def phase_heads(seed: int) -> dict:
     secs = time.perf_counter() - t0
     print(f"heads phase: {secs:.1f} s (the subprocesses {cli_s:.1f} s, beside the in-process "
           f"train and demo)", flush=True)
-    return dict(attention=attn_rows, tile_match=tm_row, train=train, demo=demo,
+    return dict(attention=attn_rows, nan_guard=nan_guard, tile_match=tm_row, train=train,
+                demo=demo,
                 launches={name: train["launches"][name] + demo["launches"][name]
                           for name in train["launches"]},
                 ate_line=ate[0], keyframes=n_kf, cli_s=cli_s, seconds=secs)
@@ -4477,15 +4585,16 @@ WIDE_TILE_SHAPES = (("crop 64 (PallasTileConfig())", 64, 24, 16), ("crop 48 fd 4
                     ("crop 48 fd 64", 48, 64, 16), ("crop 48 fd 96", 48, 96, 16),
                     ("crop 48 fd 119", 48, 119, 16), ("tile 32 crop 64", 64, 24, 32),
                     ("crop 50", 50, 24, 16))
-# Kernel A above head width 128: (B, H, Nq, Nk) per width, 160 (padded to
-# 256 in bf16, read in place in f32); above 256 in slices of O's columns
+# Kernel A above head width 128: (B, H, Nq, Nk) per width, 160 and the
+# 4-head decoder's 192 (on the 256-wide instantiations, read in place);
+# above 256 in slices of O's columns
 # (bf16: the wide variant; f32: the tensor-core kernel) at MAST3R_512's 768
 # tokens and the re-headed models' widths (1,024 and 768 at one encoder and
 # one decoder head, 512 and 384 at two), at 320 (a slice and a quarter in
 # bf16, two of 160 in f32) and at 2,048 (8 slices) at a 224x224 image's 196
 # tokens; and the main path's width at batch x heads 65,600, past the
 # 65,535 of a grid's y dimension.
-WIDE_HEAD_SHAPES = ((256, (1, 4, 768, 768)), (160, (1, 6, 768, 768)),
+WIDE_HEAD_SHAPES = ((256, (1, 4, 768, 768)), (192, (1, 4, 768, 768)), (160, (1, 6, 768, 768)),
                     (1024, (1, 1, 768, 768)), (512, (1, 2, 768, 768)), (768, (1, 1, 768, 768)),
                     (384, (1, 2, 768, 768)), (320, (1, 3, 768, 768)), (2048, (2, 1, 196, 196)),
                     (64, (2, 32800, 8, 8)))
@@ -4649,7 +4758,8 @@ def wide_decode(seed: int, card: str, heads: int) -> dict:
     call's output within `attention.error_bound` of the plain version on its
     own inputs (`recorded_attention_shapes`), and each output no farther
     from the f32 plain decode than twice the bf16 plain decode is. Kernel
-    A's launches counted by width."""
+    A's launches counted by width; no head padded (every width here is read
+    in place)."""
     import dataclasses
 
     import torch
@@ -4694,12 +4804,17 @@ def wide_decode(seed: int, card: str, heads: int) -> dict:
         name = str(dtype).split(".")[-1]
         shapes = {}
         zero_counts()
+        copies = attention.pad_heads.copies
         t0 = time.perf_counter()
         with recorded_attention_shapes(shapes):
             got = decode(ps, dtype)
         secs = time.perf_counter() - t0
         launches, widths = read_counts(), dict(fa.width_launches)
         routes = dict(fa.route_launches)
+        copies = attention.pad_heads.copies - copies
+        if copies and all(attention.reads_in_place(w, dtype) for w in want):
+            fail(f"wide decode {name}: heads {sorted(want)} wide, which kernel A reads in "
+                 f"place, were padded {copies} times")
         ref = plain_decode(ps, dtype)
         if not all(bool(torch.isfinite(t).all()) for t in got.values()):
             fail(f"wide decode {name}: non-finite outputs")
@@ -4707,7 +4822,7 @@ def wide_decode(seed: int, card: str, heads: int) -> dict:
         if not (set(widths) == want and sum(widths.values()) == launches["fused_attention"]
                 == sum(routes[r] for r in paths)):
             fail(f"wide decode {name}: kernel A launches {launches} by width {widths}, routes {routes}")
-        row = dict(launches=launches, width_launches=widths, seconds=secs,
+        row = dict(launches=launches, width_launches=widths, seconds=secs, pad_copies=copies,
                    calls={str(list(k)): list(v) for k, v in shapes.items()})
         if dtype == torch.float32:
             ref32 = ref
@@ -4850,8 +4965,8 @@ def phase_wide(seed: int, card: str) -> dict:
     (`--only-wide`): kernel B through its banded variant at
     `WIDE_TILE_SHAPES` (`wide_tile_match`) and through pitched copies at
     `WIDE_PITCHED` (`wide_pitched_tile_match`); kernel A at
-    `WIDE_HEAD_SHAPES` in both dtypes (`heads_attention`): heads 256 and
-    160 wide, the widths in slices up to 2,048 and batch x heads 65,600;
+    `WIDE_HEAD_SHAPES` in both dtypes (`heads_attention`): heads 256, 192
+    and 160 wide, the widths in slices up to 2,048 and batch x heads 65,600;
     the MAST3R_512 decode re-headed to `WIDE_HEADS` (`wide_decode`); the
     oracle SLAM path at the matcher's crop-64 and tile-32 tilings
     (`wide_slam`) and at one head (`wide_slam_heads`). The path's launches
@@ -5030,7 +5145,10 @@ def main() -> int:
                       "backward kernel)", gradient=train_run["gradient"],
              widths=dict(
                  checked=list(HEAD_WIDTHS) + [d for d, _ in WIDE_HEAD_SHAPES],
-                 instantiations=[16, 32, 64, 128, 256], wide_variant="multiples of 64 above 256",
+                 instantiations=[16, 32, 64, 128, 256], wide_variant="every width above 256",
+                 read_in_place="bf16 multiples of 8, f32 multiples of 4 (attention."
+                               "reads_in_place); other widths zero-padded to the next one",
+                 nan_guard=heads_run["nan_guard"],
                  rows=heads_run["attention"] + wide_run["attention"],
                  launches_by_width=dict(train=heads_run["train"]["width_launches"],
                                         wide=wide_widths))),
@@ -5060,8 +5178,9 @@ def main() -> int:
              replaces="monst3r_slam_tpu/ops/attention.py:43",
              launches=sum(wide_launches(128, 256, "bfloat16").values()),
              launches_by_path=dict(wide=wide_launches(128, 256, "bfloat16")),
-             kernel="attn_fwd_bf16_tc<256> (one stage a warpgroup); bf16 widths 129-255 "
-                    "zero-padded to 256",
+             kernel="attn_fwd_bf16_tc<256> (one stage a warpgroup); bf16 widths 136-248 "
+                    "that are multiples of 8 read in place (TMA boxes zero past d, atoms wholly "
+                    "past d skipped), others zero-padded to the next multiple of 8",
              **{k: wide256[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                         "library_ms", "shape", "tol", "device_ms",
                                         "library_device_ms")},
@@ -5082,8 +5201,9 @@ def main() -> int:
              launches=sum(wide_launches(256, float("inf"), "bfloat16").values()),
              launches_by_path=dict(wide=wide_launches(256, float("inf"), "bfloat16")),
              kernel="attn_fwd_bf16_wide (wgmma, TMA: QK^T over 64-column chunks of d, O in "
-                    "256-column slices, one a CTA); bf16 widths above 256 zero-padded to a "
-                    "multiple of 64",
+                    "256-column slices, one a CTA); bf16 widths above 256 that are multiples "
+                    "of 8 read in place (the last chunk's TMA boxes zero past d), others "
+                    "zero-padded to the next multiple of 8",
              **{k: wide1024[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                          "library_ms", "shape", "tol", "device_ms",
                                          "library_device_ms", "library_kernel")},

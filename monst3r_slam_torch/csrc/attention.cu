@@ -1,15 +1,19 @@
 // Kernel A: fused softmax attention forward, O = softmax(Q K^T d^-1/2) V.
 //
 // The bf16 route is a template on the head width D, instantiated at 16, 32,
-// 64, 128 and 256; the wrapper zero-pads any other width from 1 to 256 to
-// the next of them (zero columns of q and k leave Q K^T as it is, zero
-// columns of v give zero columns of O, sliced off) and passes the true
-// width, whose d^-1/2 scales the logits. Wider bf16 heads take its wide
-// variant (see "Wide heads" below), at any multiple of 64, to which the
-// wrapper pads them. The f32 route runs widths 16, 32 and 64 (others up to
-// 64 padded) on the FP32 pipe and every multiple of 4 above 64 on the
-// tensor cores in 3xTF32, read in place. The notes below give the shapes and
-// counts at D = 64, the main path's width.
+// 64, 128 and 256; a head of width d runs on the narrowest of them that
+// holds it, wider bf16 heads on its wide variant (see "Wide heads" below).
+// The f32 route runs on the FP32 pipe up to 64 columns (D = 16, 32, 64) and
+// on the tensor cores in 3xTF32 above. Every head whose rows a 16-byte copy
+// addresses, a width that is a multiple of 8 in bf16 and of 4 in f32, is
+// read in place at its own width: the loads zero-fill the columns from d to
+// the instantiation's (TMA boxes past the tensor map's extent of d columns,
+// cp.async with a source size of 0), so Q K^T is as over d columns and the
+// columns of O past d are zeros, never stored; the output is a buffer of d
+// columns. Work wholly past d is skipped. The wrapper zero-pads only the
+// other widths (`attention.pad_heads`, a copy) to the next such width and
+// passes the true width, whose d^-1/2 scales the logits. The notes below
+// give the shapes and counts at D = 64, the main path's width.
 //
 // Replaces the JAX package's Pallas kernel in `ops/attention.py`
 // (`fused_attention`, body `_attn_kernel`): f32 logits and an f32 softmax,
@@ -61,6 +65,12 @@
 //     and divided by the sum once at the end.
 //   - Keys at or past nk are masked to -inf (TMA fills rows past the end with
 //     zeros); query rows past nq are not stored.
+//   - A head narrower than its instantiation (d < D, a multiple of 8) is read
+//     in place: the tensor maps' extent is d, so the columns of a box past d
+//     land as zeros and multiply as zeros; at D = 256 the 64-column atom
+//     wholly past a head of at most 192 columns is neither loaded nor
+//     multiplied (an instantiation of three atoms); only O's first d
+//     columns are stored.
 //   - Each operand comes with its own (batch, head, row) strides, the last
 //     dimension contiguous, so a transposed view of the projection's output
 //     is read in place; O is written through strides as well.
@@ -97,7 +107,9 @@
 //     while tile i computes, and one barrier a tile both publishes the tile
 //     that landed and frees the stage of the one before. Rows past the end
 //     copy the last row and are masked, so any row stride that is a multiple
-//     of 4 floats is read in place.
+//     of 4 floats is read in place; the columns from a narrower head's width
+//     d (a multiple of 4) to D are zero-filled (a source size of 0), and
+//     only O's first d columns are stored.
 //   - Filling the SMs. A CTA of four warps owns 128 query rows (96 blocks at
 //     the encoder shape, 72 at the decoder's) and holds 69 KB of shared
 //     memory and at most 168 registers a thread, so an SM holds three (12
@@ -168,7 +180,7 @@
 //   - O is rescaled only in tiles where a row's max moved.
 //
 // Wide heads (d > 256). On the bf16 route (`attn_fwd_bf16_wide`, a multiple
-// of 64): D = 256's layout does not stretch: at d = 512 a 64-row bf16 tile
+// of 8): D = 256's layout does not stretch: at d = 512 a 64-row bf16 tile
 // is 64 KB, so Q, K and V stages pass the 227 KB of shared memory, and O's
 // accumulators alone would take 256 registers a thread. So each CTA owns
 // one column slice of O, 256 columns wide (the last one narrower where d is
@@ -308,12 +320,13 @@ __device__ __forceinline__ void tma_load_box(void* dst, const CUtensorMap* map, 
       : "memory");
 }
 
-// A whole 64-row tile: one box per atom.
-template <int D>
+// A 64-row tile: one box per atom, the first NA atoms (those with a
+// column below the head's width; the others are neither loaded nor read).
+template <int D, int NA>
 __device__ __forceinline__ void tma_load_tile(__nv_bfloat16* dst, const CUtensorMap* map,
                                               uint64_t* bar, int row, int head, int batch) {
 #pragma unroll
-  for (int a = 0; a < Tc<D>::NATOM; ++a)
+  for (int a = 0; a < NA; ++a)
     tma_load_box(dst + a * Tc<D>::ATOM_ELEMS, map, bar, a * Tc<D>::ATOM, row, head, batch);
 }
 
@@ -547,13 +560,24 @@ __device__ __forceinline__ void tc_merge(float* acc, float& m0, float& m1, float
 // with its own K/V ring, running max, sum and accumulator; at the end
 // warpgroup 1 hands its state to warpgroup 0 through shared memory, which
 // merges the two and stores O.
-template <int D>
+//
+// NA: the atoms of a row in use, those with a column below the head's width
+// d (D / ATOM but at D = 256, where a head of 136-192 columns takes 3 and
+// one of 200-256 takes 4). The atoms past them are neither loaded nor
+// multiplied and hold no accumulators: a compile-time count, since a wgmma
+// behind a run-time condition made ptxas insert waits into the accumulator
+// pipeline (its C7519) and slowed the kernel on the H100. Columns inside the
+// atoms in use but past d are zeros from the loads (the tensor maps'
+// extent is d), multiplied like the others.
+template <int D, int NA>
 __global__ void __launch_bounds__(NTHREAD, D <= 64 ? 2 : 1)
 attn_fwd_bf16_tc(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                  const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
-                 Strides so, int heads, int nq, int nk, float scale_log2) {
+                 Strides so, int heads, int nq, int nk, int d, float scale_log2) {
   using T = Tc<D>;
-  constexpr int TILE_ELEMS = T::TILE_ELEMS, TILE_BYTES = T::TILE_BYTES, ACC = T::ACC;
+  static_assert(NA >= 1 && NA <= T::NATOM, "atoms in use");
+  // O's accumulators a thread: those of the atoms in use.
+  constexpr int TILE_ELEMS = T::TILE_ELEMS, ACC = NA * T::ATOM / 2;
   constexpr int T_STAGES = T::T_STAGES;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -576,21 +600,25 @@ attn_fwd_bf16_tc(const __grid_constant__ CUtensorMap tq, const __grid_constant__
   __nv_bfloat16* sK = ring(wg);
   __nv_bfloat16* sV = sK + T_STAGES * TILE_ELEMS;
   uint64_t* kv_bar = bar + 1 + T_STAGES * wg;
+  // A tile's bytes: its NA boxes, each whole (a box reaching past d lands
+  // with zeros there and completes all its bytes).
+  constexpr uint32_t tile_bytes = NA * T::ATOM_ELEMS * 2;
 
   if (tid == 0) {
     for (int i = 0; i < T::NBAR; ++i) mbar_init(&bar[i], 1);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-    mbar_expect_tx(&bar[0], TILE_BYTES);
-    tma_load_tile<D>(sQ, &tq, &bar[0], q0, h, b);
+    mbar_expect_tx(&bar[0], tile_bytes);
+    tma_load_tile<D, NA>(sQ, &tq, &bar[0], q0, h, b);
     for (int g = 0; g < NWG; ++g) {
       for (int s = 0; s < T_STAGES; ++s) {
         const int j = NWG * s + g;
         if (j >= ntiles) break;
         __nv_bfloat16* kg = ring(g);
-        mbar_expect_tx(&bar[1 + T_STAGES * g + s], 2 * TILE_BYTES);
-        tma_load_tile<D>(kg + s * TILE_ELEMS, &tk, &bar[1 + T_STAGES * g + s], j * BN, h, b);
-        tma_load_tile<D>(kg + (T_STAGES + s) * TILE_ELEMS, &tv, &bar[1 + T_STAGES * g + s], j * BN,
-                         h, b);
+        mbar_expect_tx(&bar[1 + T_STAGES * g + s], 2 * tile_bytes);
+        tma_load_tile<D, NA>(kg + s * TILE_ELEMS, &tk, &bar[1 + T_STAGES * g + s], j * BN, h,
+                             b);
+        tma_load_tile<D, NA>(kg + (T_STAGES + s) * TILE_ELEMS, &tv, &bar[1 + T_STAGES * g + s],
+                             j * BN, h, b);
       }
     }
   }
@@ -612,15 +640,15 @@ attn_fwd_bf16_tc(const __grid_constant__ CUtensorMap tq, const __grid_constant__
     const __nv_bfloat16* kt = sK + s * TILE_ELEMS;
     const __nv_bfloat16* vt = sV + s * TILE_ELEMS;
 
-    // S = Q K^T over d: D/16 k16 steps of 32 bytes along the rows, atom by
-    // atom.
+    // S = Q K^T over the atoms in use: k16 steps of 32 bytes along the rows,
+    // atom by atom.
     float sc[32];
 #pragma unroll
     for (int e = 0; e < 32; ++e) sc[e] = 0.f;
     const uint64_t dk = sw_desc<T::SW>(kt);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+    for (int kk = 0; kk < NA * T::ATOM / 16; ++kk) {
       // Step kk's columns: atom 16 kk / ATOM, 32 bytes a step inside it (in
       // the descriptor's 16-byte units).
       const int at = (16 * kk / T::ATOM * T::ATOM_ELEMS + 16 * kk % T::ATOM) * 2 / 16;
@@ -634,14 +662,14 @@ attn_fwd_bf16_tc(const __grid_constant__ CUtensorMap tq, const __grid_constant__
     tc_softmax<ACC>(sc, acc, m0, m1, l0, l1, j * BN, nk, col0, scale_log2, pa);
 
     // O += P V: V's rows are keys, its columns contiguous (MN-major B), one
-    // product per atom of columns.
+    // product per atom of columns in use.
     const uint64_t dv = sw_desc<T::SW>(vt);
     fence_regs<ACC>(acc);
     wgmma_fence();
 #pragma unroll
     for (int c = 0; c < 4; ++c)
 #pragma unroll
-      for (int a = 0; a < T::NATOM; ++a)
+      for (int a = 0; a < NA; ++a)
         wgmma_rs_bt<T::ATOM>(acc + a * T::ATOM / 2, pa[c],
                              dv + (a * T::ATOM_ELEMS + 16 * c * T::ATOM) * 2 / 16);
     wgmma_commit();
@@ -651,9 +679,9 @@ attn_fwd_bf16_tc(const __grid_constant__ CUtensorMap tq, const __grid_constant__
     warpgroup_sync(wg);  // all four warps are done with stage s
     if (wtid == 0 && i + T_STAGES < mine) {
       const int jn = j + NWG * T_STAGES;
-      mbar_expect_tx(&kv_bar[s], 2 * TILE_BYTES);
-      tma_load_tile<D>(sK + s * TILE_ELEMS, &tk, &kv_bar[s], jn * BN, h, b);
-      tma_load_tile<D>(sV + s * TILE_ELEMS, &tv, &kv_bar[s], jn * BN, h, b);
+      mbar_expect_tx(&kv_bar[s], 2 * tile_bytes);
+      tma_load_tile<D, NA>(sK + s * TILE_ELEMS, &tk, &kv_bar[s], jn * BN, h, b);
+      tma_load_tile<D, NA>(sV + s * TILE_ELEMS, &tv, &kv_bar[s], jn * BN, h, b);
     }
   }
 
@@ -668,8 +696,9 @@ attn_fwd_bf16_tc(const __grid_constant__ CUtensorMap tq, const __grid_constant__
   const int r0 = q0 + 16 * warp + (lane >> 2), r1 = r0 + 8;
   __nv_bfloat16* ob = o + b * so.b + h * so.h;
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
+  for (int n = 0; n < ACC / 4; ++n) {
     const int col = 8 * n + col0;
+    if (8 * n >= d) break;  // O's columns past d (d is a multiple of 8)
     if (r0 < nq)
       *reinterpret_cast<__nv_bfloat162*>(ob + r0 * so.r + col) =
           __floats2bfloat162_rn(acc[4 * n] * inv0, acc[4 * n + 1] * inv0);
@@ -703,21 +732,23 @@ EncodeTiled encode_tiled() {
 }
 
 // A (batch, head, row, d) bf16 tensor with the given element strides, read
-// in boxes of 64 rows by one atom (min(d, 64) columns) in the swizzle of
-// `Tc<d>`; rows past `rows` read as zeros.
-bool make_map(CUtensorMap* map, const void* ptr, const Strides& st, int d, int rows, int heads,
-              int batch) {
+// in boxes of 64 rows by `box` columns (16, 32 or 64: one atom of the
+// instantiation) in the swizzle of a `box`-column row; the extents are the
+// tensor's own, so the columns of a box past d and the rows past `rows`
+// land in shared memory as zeros, and a box still completes its whole
+// bytes on its barrier.
+bool make_map(CUtensorMap* map, const void* ptr, const Strides& st, int d, int box_cols, int rows,
+              int heads, int batch) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
-  const int atom = d < 64 ? d : 64;
-  const CUtensorMapSwizzle swizzle = atom == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
-                                     : atom == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                                  : CU_TENSOR_MAP_SWIZZLE_32B;
+  const CUtensorMapSwizzle swizzle = box_cols == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : box_cols == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                      : CU_TENSOR_MAP_SWIZZLE_32B;
   const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)rows, (cuuint64_t)heads,
                               (cuuint64_t)batch};
   const cuuint64_t strides[3] = {(cuuint64_t)st.r * 2, (cuuint64_t)st.h * 2,
                                  (cuuint64_t)st.b * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)atom, (cuuint32_t)BN, 1, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)box_cols, (cuuint32_t)BN, 1, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
                 box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
@@ -726,27 +757,30 @@ bool make_map(CUtensorMap* map, const void* ptr, const Strides& st, int d, int r
 }
 
 // Tensor maps already encoded, direct-mapped on everything the encoding
-// reads (address, width, extents, strides), so an entry is valid for any
-// tensor with that key: the caching allocator hands the same buffers to the
-// same calls frame after frame, and a hit skips the encode on the host.
+// reads (address, width, box, extents, strides), so an entry is valid for
+// any tensor with that key (a map of a 48-column head never serves a
+// 64-column call at the same address): the caching allocator hands the
+// same buffers to the same calls frame after frame, and a hit skips the
+// encode on the host.
 struct MapEntry {
   CUtensorMap map;
-  long long key[8];
+  long long key[9];
   bool valid;
 };
 constexpr int MAP_CACHE = 1024;
 MapEntry map_cache[MAP_CACHE];
 std::mutex map_cache_lock;  // ctypes drops the GIL: callers may be concurrent
 
-bool cached_map(CUtensorMap* map, const void* ptr, const Strides& st, int d, int rows, int heads,
-                int batch) {
-  const long long key[8] = {(long long)(uintptr_t)ptr, d, rows, heads, batch, st.b, st.h, st.r};
+bool cached_map(CUtensorMap* map, const void* ptr, const Strides& st, int d, int box_cols,
+                int rows, int heads, int batch) {
+  const long long key[9] = {(long long)(uintptr_t)ptr, d, box_cols, rows, heads, batch,
+                            st.b, st.h, st.r};
   uint64_t hash = 1469598103934665603ull;  // FNV-1a over the key's words
   for (long long w : key) hash = (hash ^ (uint64_t)w) * 1099511628211ull;
   std::lock_guard<std::mutex> guard(map_cache_lock);
   MapEntry& e = map_cache[(hash >> 32) % MAP_CACHE];
   if (!e.valid || memcmp(e.key, key, sizeof key) != 0) {
-    e.valid = make_map(&e.map, ptr, st, d, rows, heads, batch);
+    e.valid = make_map(&e.map, ptr, st, d, box_cols, rows, heads, batch);
     if (!e.valid) return false;
     memcpy(e.key, key, sizeof key);
   }
@@ -754,28 +788,32 @@ bool cached_map(CUtensorMap* map, const void* ptr, const Strides& st, int d, int
   return true;
 }
 
-template <int D>
+// A head of width d (a multiple of 8, at most D, above NA - 1 atoms) on the
+// instantiation D with NA atoms in use.
+template <int D, int NA = Tc<D>::NATOM>
 int launch_bf16(const void* q, const void* k, const void* v, void* o, const Strides* st,
-                int batch, int heads, int nq, int nk, float scale_log2, cudaStream_t stream) {
+                int batch, int heads, int nq, int nk, int d, float scale_log2,
+                cudaStream_t stream) {
+  constexpr int box = Tc<D>::ATOM;
   CUtensorMap tq, tk, tv;
-  if (!cached_map(&tq, q, st[0], D, nq, heads, batch) ||
-      !cached_map(&tk, k, st[1], D, nk, heads, batch) ||
-      !cached_map(&tv, v, st[2], D, nk, heads, batch))
+  if (!cached_map(&tq, q, st[0], d, box, nq, heads, batch) ||
+      !cached_map(&tk, k, st[1], d, box, nk, heads, batch) ||
+      !cached_map(&tv, v, st[2], d, box, nk, heads, batch))
     return 1001;
   static bool configured[MAX_DEVICES] = {};
   int dev = 0;
   cudaError_t err = current_device(&dev);
   if (err != cudaSuccess) return (int)err;
   if (!configured[dev]) {
-    err = cudaFuncSetAttribute(attn_fwd_bf16_tc<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               Tc<D>::SMEM);
+    err = cudaFuncSetAttribute(attn_fwd_bf16_tc<D, NA>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, Tc<D>::SMEM);
     if (err != cudaSuccess) return (int)err;
     configured[dev] = true;
   }
   const long long grid = (long long)((nq + BM - 1) / BM) * batch * heads;
   if (grid > INT_MAX) return 1000;
-  attn_fwd_bf16_tc<D><<<(unsigned)grid, NTHREAD, Tc<D>::SMEM, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), st[3], heads, nq, nk, scale_log2);
+  attn_fwd_bf16_tc<D, NA><<<(unsigned)grid, NTHREAD, Tc<D>::SMEM, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), st[3], heads, nq, nk, d, scale_log2);
   return (int)cudaGetLastError();
 }
 
@@ -803,7 +841,7 @@ struct TcWide {
 __global__ void __launch_bounds__(NTHREAD, 1)
 attn_fwd_bf16_wide(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
-                   Strides so, int heads, int nq, int nk, int chunks, int slices,
+                   Strides so, int heads, int nq, int nk, int d, int chunks, int slices,
                    float scale_log2) {
   using W = TcWide;
   constexpr int CHUNK_ELEMS = W::CHUNK_ELEMS, STAGE_ELEMS = W::STAGE_ELEMS, ACC = W::ACC;
@@ -824,7 +862,10 @@ attn_fwd_bf16_wide(const __grid_constant__ CUtensorMap tq, const __grid_constant
   const int c0 = x % slices * W_SLICE;
   const int bh = x / slices;
   const int b = bh / heads, h = bh % heads;
-  const int natoms = min(W::NATOM, chunks - c0 / W_CHUNK);  // this slice's 64-column boxes
+  // This slice's 64-column boxes of V, the last one reaching past d where d
+  // is no multiple of 64 (its columns past d land as zeros: the maps'
+  // extent is d, and so are those of Q's and K's last chunk).
+  const int natoms = min(W::NATOM, chunks - c0 / W_CHUNK);
   const int ntiles = (nk + BN - 1) / BN;
   const int mine = (ntiles - wg + NWG - 1) / NWG;
 
@@ -924,7 +965,7 @@ attn_fwd_bf16_wide(const __grid_constant__ CUtensorMap tq, const __grid_constant
   __nv_bfloat16* ob = o + b * so.b + h * so.h + c0;
 #pragma unroll
   for (int n = 0; n < ACC / 4; ++n) {
-    if (n / 8 >= natoms) continue;
+    if (c0 + 8 * n >= d) continue;  // O's columns past d (d is a multiple of 8)
     const int col = 8 * n + col0;
     if (r0 < nq)
       *reinterpret_cast<__nv_bfloat162*>(ob + r0 * so.r + col) =
@@ -939,9 +980,9 @@ int launch_bf16_wide(const void* q, const void* k, const void* v, void* o, const
                      int batch, int heads, int nq, int nk, int d, float scale_log2,
                      cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
-  if (!cached_map(&tq, q, st[0], d, nq, heads, batch) ||
-      !cached_map(&tk, k, st[1], d, nk, heads, batch) ||
-      !cached_map(&tv, v, st[2], d, nk, heads, batch))
+  if (!cached_map(&tq, q, st[0], d, W_CHUNK, nq, heads, batch) ||
+      !cached_map(&tk, k, st[1], d, W_CHUNK, nk, heads, batch) ||
+      !cached_map(&tv, v, st[2], d, W_CHUNK, nk, heads, batch))
     return 1001;
   static bool configured[MAX_DEVICES] = {};
   int dev = 0;
@@ -953,11 +994,11 @@ int launch_bf16_wide(const void* q, const void* k, const void* v, void* o, const
     if (err != cudaSuccess) return (int)err;
     configured[dev] = true;
   }
-  const int chunks = d / W_CHUNK, slices = (d + W_SLICE - 1) / W_SLICE;
+  const int chunks = (d + W_CHUNK - 1) / W_CHUNK, slices = (d + W_SLICE - 1) / W_SLICE;
   const long long grid = (long long)((nq + BM - 1) / BM) * slices * batch * heads;
   if (grid > INT_MAX) return 1000;
   attn_fwd_bf16_wide<<<(unsigned)grid, NTHREAD, TcWide::SMEM, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), st[3], heads, nq, nk, chunks, slices,
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), st[3], heads, nq, nk, d, chunks, slices,
       scale_log2);
   return (int)cudaGetLastError();
 }
@@ -1016,14 +1057,9 @@ __device__ __forceinline__ int o_col(int cg, int e) {
 }
 
 // 16 bytes from global to shared memory, asynchronously (cp.async, through
-// L2 only): completes at the thread's next cp.async.wait_group that covers it.
-__device__ __forceinline__ void copy16(float* dst, const float* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(smem_u32(dst)), "l"(src)
-               : "memory");
-}
-
-// The same copy, or 16 zero bytes where `valid` is false (source size 0:
-// nothing is read from src, which need only be a valid address).
+// L2 only), or 16 zero bytes where `valid` is false (source size 0: nothing
+// is read from src, which need only be a valid address): completes at the
+// thread's next cp.async.wait_group that covers it.
 __device__ __forceinline__ void copy16_or_zero(float* dst, const float* src, bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(smem_u32(dst)), "l"(src),
                "r"(valid ? 16 : 0)
@@ -1039,17 +1075,20 @@ __device__ __forceinline__ void copy_wait() {
 }
 
 // This thread's share of tile `tile`'s K and V rows into `dst` (16 K rows,
-// then 16 V rows, each D/4 chunks of 16 bytes). Rows past nk copy row
-// nk - 1, so the tile holds finite values; their keys are masked.
+// then 16 V rows, each D/4 chunks of 16 bytes; the chunks past the head's
+// width d, a multiple of 4, zero-filled). Rows past nk copy row nk - 1, so
+// the tile holds finite values; their keys are masked.
 template <int D>
 __device__ __forceinline__ void stage_kv(float* dst, const float* kb, const float* vb,
-                                         long long kr, long long vr, int tile, int nk, int tid) {
+                                         long long kr, long long vr, int tile, int nk, int d,
+                                         int tid) {
 #pragma unroll
   for (int e = tid; e < 2 * F_BK * (D / 4); e += F_THREADS) {
     const int row = e / (D / 4), c4 = e % (D / 4);
     const int key = min(tile * F_BK + row % F_BK, nk - 1);
-    copy16(dst + row * F32<D>::LD + 4 * c4,
-           (row < F_BK ? kb + key * kr : vb + key * vr) + 4 * c4);
+    const bool in = 4 * c4 < d;
+    copy16_or_zero(dst + row * F32<D>::LD + 4 * c4,
+                   (row < F_BK ? kb + key * kr : vb + key * vr) + (in ? 4 * c4 : 0), in);
   }
 }
 
@@ -1270,7 +1309,8 @@ template <int D>
 __global__ void __launch_bounds__(F_THREADS, 3)
 attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
              const float* __restrict__ v, float* __restrict__ o, Strides sq, Strides sk,
-             Strides sv, Strides so, int heads, int nq, int nk, int split, float scale_log2) {
+             Strides sv, Strides so, int heads, int nq, int nk, int d, int split,
+             float scale_log2) {
   using F = F32<D>;
   constexpr int WROWS = F::WROWS, SR = F::SR, OR = F::OR, OC = F::OC, BQ = F::BQ, LD = F::LD;
   extern __shared__ __align__(16) float fsm[];
@@ -1294,15 +1334,19 @@ attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 
   // Q once and the first F_STAGES - 1 tiles, one copy group each (Q with
   // the first): row r of the block to its staged row (rows past nq copy row
-  // nq - 1 and are never stored).
+  // nq - 1 and are never stored). The columns from the head's width d (a
+  // multiple of 4) to D are zero-filled, so Q K^T is as over d columns and
+  // O's columns past d are zeros, never stored.
 #pragma unroll 4
   for (int e = tid; e < BQ * (D / 4); e += F_THREADS) {
     const int r = e / (D / 4), c4 = e % (D / 4), rho = r % WROWS;
     const int at = r - rho + 8 * (rho & (SR - 1)) + (rho >> 2);
-    copy16(Qs + at * LD + 4 * c4, qb + min(q0 + r, nq - 1) * sq.r + 4 * c4);
+    const bool in = 4 * c4 < d;
+    copy16_or_zero(Qs + at * LD + 4 * c4, qb + min(q0 + r, nq - 1) * sq.r + (in ? 4 * c4 : 0),
+                   in);
   }
   for (int s = 0; s < F_STAGES - 1; ++s) {
-    if (s < mine) stage_kv<D>(ring + s * F::TILE_FLOATS, kb, vb, sk.r, sv.r, t0 + s, nk, tid);
+    if (s < mine) stage_kv<D>(ring + s * F::TILE_FLOATS, kb, vb, sk.r, sv.r, t0 + s, nk, d, tid);
     copy_commit();
   }
 
@@ -1327,7 +1371,7 @@ attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();
     if (it + F_STAGES - 1 < mine)
       stage_kv<D>(ring + (it + F_STAGES - 1) % F_STAGES * F::TILE_FLOATS, kb, vb, sk.r, sv.r,
-                  t0 + it + F_STAGES - 1, nk, tid);
+                  t0 + it + F_STAGES - 1, nk, d, tid);
     copy_commit();
     const float* Kt = ring + it % F_STAGES * F::TILE_FLOATS;
     const float* Vt = Kt + F_BK * LD;
@@ -1362,7 +1406,7 @@ attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 
   // The partials go over Q's staging, their maxima and sums over the ring.
   f32_merge<D>(acc, m, l, Qs, ring, ring + BQ, Ps, rank, split, nq - q0,
-               o + b * so.b + h * so.h + q0 * so.r, so.r, D);
+               o + b * so.b + h * so.h + q0 * so.r, so.r, d);
 }
 
 // ------------------------------------- f32 route above width 64: 3xTF32
@@ -1404,7 +1448,6 @@ constexpr int T_BM = 16 * T_WARPS;   // query rows per CTA
 constexpr int T_BN = 32;             // keys per tile
 constexpr int T_PART = 32;           // columns of d a chunk sum of S takes
 constexpr int T_STAGES = 4;          // ring depth
-constexpr int T_MIN_D = F_MAX_D + 1;
 
 constexpr int cmax(int a, int b) { return a > b ? a : b; }
 
@@ -1888,18 +1931,15 @@ cudaError_t tf32_card(int dev, const F32Card** out) {
 // to 128 columns, else 256-column slices.
 int tf32_width(long long d) { return d <= 128 ? 128 : 256; }
 
-// The card's counts for the f32 route at width d (16, 32 or 64 on the FFMA
-// kernel; any multiple of 4 above 64 on the tensor-core kernel).
+// The card's counts for the f32 route at width d (up to 64 those of the
+// FFMA instantiation that runs it; above, the tensor-core kernel's).
 cudaError_t f32_card_at(long long d, int dev, const F32Card** out) {
-  switch (d) {
-    case 16: return f32_card<16>(dev, out);
-    case 32: return f32_card<32>(dev, out);
-    case 64: return f32_card<64>(dev, out);
-    default:
-      if (d < T_MIN_D) return cudaErrorInvalidValue;
-      if (d > MAX_D) return tf32_card<256, false>(dev, out);
-      return tf32_width(d) == 128 ? tf32_card<128, true>(dev, out) : tf32_card<256, true>(dev, out);
-  }
+  if (d < 1) return cudaErrorInvalidValue;
+  if (d <= 16) return f32_card<16>(dev, out);
+  if (d <= 32) return f32_card<32>(dev, out);
+  if (d <= F_MAX_D) return f32_card<64>(dev, out);
+  if (d > MAX_D) return tf32_card<256, false>(dev, out);
+  return tf32_width(d) == 128 ? tf32_card<128, true>(dev, out) : tf32_card<256, true>(dev, out);
 }
 
 // The split (the key shares of a query block) for `blocks` clusters over
@@ -2011,9 +2051,11 @@ int split_for(const F32Card& card, long long bh, long long nq, long long nk, lon
   return plan_for(card, bh, nq, nk, d).split;
 }
 
+// A head of width d (a multiple of 4, at most D) on the FFMA instantiation D.
 template <int D>
 int launch_f32(const void* q, const void* k, const void* v, void* o, const Strides* st,
-               int batch, int heads, int nq, int nk, float scale_log2, cudaStream_t stream) {
+               int batch, int heads, int nq, int nk, int d, float scale_log2,
+               cudaStream_t stream) {
   int dev = 0;
   cudaError_t err = current_device(&dev);
   if (err != cudaSuccess) return (int)err;
@@ -2021,11 +2063,11 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, const Strid
   err = f32_card<D>(dev, &card);
   if (err != cudaSuccess) return (int)err;
   const long long blocks = (long long)((nq + F32<D>::BQ - 1) / F32<D>::BQ) * batch * heads;
-  const int split = split_for(*card, (long long)batch * heads, nq, nk, D);
+  const int split = split_for(*card, (long long)batch * heads, nq, nk, d);
   return launch_split(attn_fwd_f32<D>, F32<D>::SMEM, blocks, split, stream,
                       static_cast<const float*>(q), static_cast<const float*>(k),
                       static_cast<const float*>(v), static_cast<float*>(o), st[0], st[1], st[2],
-                      st[3], heads, nq, nk, split, scale_log2);
+                      st[3], heads, nq, nk, d, split, scale_log2);
 }
 
 template <int D, bool QRES>
@@ -2061,29 +2103,36 @@ struct AttnArgs {
   long long stream;            // cudaStream_t
 };
 
+// Whether kernel A reads a head of width d in place in `dtype` (0 =
+// float32, 1 = bfloat16): every width whose rows a 16-byte copy addresses,
+// a multiple of 8 in bfloat16 (a TMA box's row) and of 4 in float32 (a
+// cp.async). The wrapper zero-pads any other width to the next such one.
+bool reads_in_place(long long d, long long dtype) {
+  return (dtype == 0 || dtype == 1) && d >= 1 && d % (dtype == 1 ? 8 : 4) == 0;
+}
+
 // q (B, H, nq, d), k and v (B, H, nk, d), o (B, H, nq, d), each addressed
-// through its own strides. In bfloat16, d is one of 16, 32, 64, 128 and 256
-// or any wider multiple of 64 (the wide variant); in float32, one of 16, 32
-// and 64 (the FFMA kernel) or any multiple of 4 above 64 (the tensor-core
-// kernel, which zero-fills the columns past d of its last chunk). A
-// narrower head is zero-padded by the caller, which passes its true width as
-// d_scale. Every operand's last dimension must be contiguous; in bfloat16,
-// q, k and v must also start 16-byte aligned with every other stride a
-// multiple of 8 elements, which a tensor map needs; in float32, all four
-// must start 16-byte aligned with every other stride a multiple of 4
-// elements, which the 16-byte copies and stores need (the stride of a
-// dimension of size 1 is never read, and is not checked).
+// through its own strides, d a width `reads_in_place` takes, at which q, k,
+// v and o are read and written: no column past d is read or stored. In
+// bfloat16 up to 256 columns the narrowest of the instantiations 16, 32,
+// 64, 128 and 256 that holds d runs it (TMA boxes of the instantiation's
+// width, zero past d), above 256 the wide variant; in float32 up to 64
+// columns the narrowest FFMA instantiation (16, 32, 64; cp.async copies past
+// d zero-filled), above 64 the tensor-core kernel. d_scale is the true
+// width whose d^-1/2 scales the logits: d itself, or, for a head the caller
+// zero-padded to d, its own width. Every operand's last dimension must be
+// contiguous; in bfloat16, q, k and v must also start 16-byte aligned with
+// every other stride a multiple of 8 elements, which a tensor map needs; in
+// float32, all four must start 16-byte aligned with every other stride a
+// multiple of 4 elements, which the 16-byte copies and stores need (the
+// stride of a dimension of size 1 is never read, and is not checked).
 // Returns a cudaError_t (0 on success); 1000 for arguments or a layout this
 // kernel does not take, 1001 when a TMA descriptor cannot be encoded.
 extern "C" int attn_forward(const AttnArgs* a) {
   const long long d = a->d;
-  const bool bf16_wide = a->dtype == 1 && d > MAX_D && d % W_CHUNK == 0;
-  const bool f32_tc = a->dtype == 0 && d >= T_MIN_D && d % 4 == 0;
-  const bool instantiated = d == 16 || d == 32 || d == 64 || (a->dtype == 1 && (d == 128 || d == MAX_D));
-  if ((!bf16_wide && !f32_tc && !instantiated) || (a->dtype != 0 && a->dtype != 1) ||
-      d > INT_MAX || a->d_scale < 1 || a->d_scale > d || a->batch <= 0 || a->heads <= 0 ||
-      a->nq <= 0 || a->nk <= 0 || a->batch > INT_MAX || a->heads > INT_MAX || a->nq > INT_MAX ||
-      a->nk > INT_MAX)
+  if (!reads_in_place(d, a->dtype) || d > INT_MAX || a->d_scale < 1 || a->d_scale > d ||
+      a->batch <= 0 || a->heads <= 0 || a->nq <= 0 || a->nk <= 0 || a->batch > INT_MAX ||
+      a->heads > INT_MAX || a->nq > INT_MAX || a->nk > INT_MAX)
     return 1000;
   const int batch = (int)a->batch, heads = (int)a->heads, nq = (int)a->nq, nk = (int)a->nk;
   const long long ptr[4] = {a->q, a->k, a->v, a->o};
@@ -2102,35 +2151,37 @@ extern "C" int attn_forward(const AttnArgs* a) {
   const void* k = (const void*)a->k;
   const void* v = (const void*)a->v;
   void* o = (void*)a->o;
+  const int w = (int)d;
   cudaStream_t s = (cudaStream_t)a->stream;
   const float scale_log2 = 1.4426950408889634f / sqrtf((float)a->d_scale);
-  if (f32_tc) {
-    if (d > MAX_D)
-      return launch_tf32<256, false>(q, k, v, o, st, batch, heads, nq, nk, (int)d, scale_log2, s);
-    if (tf32_width(d) == 128)
-      return launch_tf32<128, true>(q, k, v, o, st, batch, heads, nq, nk, (int)d, scale_log2, s);
-    return launch_tf32<256, true>(q, k, v, o, st, batch, heads, nq, nk, (int)d, scale_log2, s);
-  }
-  if (bf16_wide) return launch_bf16_wide(q, k, v, o, st, batch, heads, nq, nk, (int)d, scale_log2, s);
   if (a->dtype == 0) {
-    switch (d) {
-      case 16: return launch_f32<16>(q, k, v, o, st, batch, heads, nq, nk, scale_log2, s);
-      case 32: return launch_f32<32>(q, k, v, o, st, batch, heads, nq, nk, scale_log2, s);
-      default: return launch_f32<64>(q, k, v, o, st, batch, heads, nq, nk, scale_log2, s);
-    }
+    if (w > MAX_D)
+      return launch_tf32<256, false>(q, k, v, o, st, batch, heads, nq, nk, w, scale_log2, s);
+    if (w > F_MAX_D && tf32_width(w) == 128)
+      return launch_tf32<128, true>(q, k, v, o, st, batch, heads, nq, nk, w, scale_log2, s);
+    if (w > F_MAX_D)
+      return launch_tf32<256, true>(q, k, v, o, st, batch, heads, nq, nk, w, scale_log2, s);
+    if (w <= 16) return launch_f32<16>(q, k, v, o, st, batch, heads, nq, nk, w, scale_log2, s);
+    if (w <= 32) return launch_f32<32>(q, k, v, o, st, batch, heads, nq, nk, w, scale_log2, s);
+    return launch_f32<64>(q, k, v, o, st, batch, heads, nq, nk, w, scale_log2, s);
   }
-  switch (d) {
-    case 16: return launch_bf16<16>(q, k, v, o, st, batch, heads, nq, nk, scale_log2, s);
-    case 32: return launch_bf16<32>(q, k, v, o, st, batch, heads, nq, nk, scale_log2, s);
-    case 64: return launch_bf16<64>(q, k, v, o, st, batch, heads, nq, nk, scale_log2, s);
-    case 128: return launch_bf16<128>(q, k, v, o, st, batch, heads, nq, nk, scale_log2, s);
-    default: return launch_bf16<256>(q, k, v, o, st, batch, heads, nq, nk, scale_log2, s);
-  }
+  if (w > MAX_D) return launch_bf16_wide(q, k, v, o, st, batch, heads, nq, nk, w, scale_log2, s);
+  if (w <= 16) return launch_bf16<16>(q, k, v, o, st, batch, heads, nq, nk, w, scale_log2, s);
+  if (w <= 32) return launch_bf16<32>(q, k, v, o, st, batch, heads, nq, nk, w, scale_log2, s);
+  if (w <= 64) return launch_bf16<64>(q, k, v, o, st, batch, heads, nq, nk, w, scale_log2, s);
+  if (w <= 128) return launch_bf16<128>(q, k, v, o, st, batch, heads, nq, nk, w, scale_log2, s);
+  if (w <= 192) return launch_bf16<256, 3>(q, k, v, o, st, batch, heads, nq, nk, w, scale_log2, s);
+  return launch_bf16<256>(q, k, v, o, st, batch, heads, nq, nk, w, scale_log2, s);
 }
 
+// 1 where kernel A reads a head of width d in place in `dtype` (0 =
+// float32, 1 = bfloat16), else 0: the rule `attn_forward` holds its
+// arguments to, which `attention.reads_in_place` mirrors.
+extern "C" int attn_in_place(long long d, int dtype) { return reads_in_place(d, dtype) ? 1 : 0; }
+
 // The split (cluster size) the f32 route takes for batch x heads = bh, these
-// token counts and head width d (16, 32, 64, or a multiple of 4 above 64) on
-// the current card; a negative cudaError_t if the card cannot be queried.
+// token counts and head width d (a multiple of 4) on the current card; a
+// negative cudaError_t if the card cannot be queried.
 extern "C" int attn_f32_split(long long bh, long long nq, long long nk, int d) {
   int dev = 0;
   cudaError_t err = current_device(&dev);

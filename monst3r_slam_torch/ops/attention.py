@@ -16,16 +16,21 @@ writes the output into a (B, N, H, d) buffer, returned as its (B, H, N, d)
 view, so that neither the heads split before nor the merge after is a copy.
 
 The bf16 route is instantiated at head widths 16, 32, 64, 128 and 256
-(`HEAD_DIMS`), and takes every wider multiple of 64 through its wide
-variant, which computes O in column slices of 256 (`column_slices`); the
-FFMA route at 16, 32 and 64 (`F32_FFMA_DIMS`); the f32 tensor-core route
-at every multiple of 4 above 64, also in slices of 256 columns above 256.
-Any other width is zero-padded to the next width its route runs
-(`padded_width`, `pad_heads`, a plain-PyTorch copy around the kernel):
-zero columns of q and k leave QK^T as it is, zero columns of v give zero
-output columns, which are sliced off, and the kernel scales the logits by
-the true width's d^-1/2. So kernel A takes every head width, as the
-reference's kernel does.
+(`HEAD_DIMS`), and above 256 runs its wide variant, which computes O in
+column slices of 256 (`column_slices`); the FFMA route at 16, 32 and 64
+(`F32_FFMA_DIMS`); the f32 tensor-core route above 64, also in slices of
+256 columns above 256. A head runs on the narrowest instantiation that
+holds it (`padded_width`), and every head whose rows a 16-byte copy
+addresses, a width that is a multiple of 8 in bf16 and of 4 in f32, is
+read in place at its own width (`reads_in_place`): the kernel's loads
+zero-fill the columns past it (TMA boxes past the tensor map's extent,
+cp.async with a source size of 0), so zero columns of q and k leave QK^T
+as it is, zero columns of v give output columns that are never stored,
+and the output is a buffer of the true width. Only the other widths are
+zero-padded to the next width read in place (`read_width`, `pad_heads`,
+a plain-PyTorch copy around the kernel), the output sliced back, the
+logits scaled by the true width's d^-1/2. So kernel A takes every head
+width, as the reference's kernel does.
 
 Kernel A has no backward, and neither has the reference's Pallas kernel
 (training there differentiates its einsum attention). For training on the
@@ -44,14 +49,14 @@ import torch
 from monst3r_slam_torch.ops import build
 
 HEAD_DIMS = (16, 32, 64, 128, 256)  # the bf16 route's instantiations
-# Above HEAD_DIMS the bf16 wide variant takes multiples of WIDE_CHUNK (the
-# columns of d a step of QK^T stages); it and the f32 tensor-core route
-# write O in slices of WIDE_SLICE columns.
+# Above HEAD_DIMS the bf16 wide variant stages d in chunks of WIDE_CHUNK
+# columns (a step of QK^T); it and the f32 tensor-core route write O in
+# slices of WIDE_SLICE columns.
 WIDE_CHUNK = 64
 WIDE_SLICE = 256
 F32_FFMA_DIMS = (16, 32, 64)  # the FFMA route's instantiations
-# The f32 tensor-core route takes every multiple of F32_TC_ALIGN (its
-# 16-byte copies) above F32_FFMA_DIMS[-1], read in place.
+# The f32 tensor-core route's 16-byte copies: it takes every multiple of
+# F32_TC_ALIGN above F32_FFMA_DIMS[-1].
 F32_TC_ALIGN = 4
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SIGNATURES = {"attn_forward": ([ctypes.c_char_p], ctypes.c_int)}
@@ -173,11 +178,13 @@ def route(dtype: torch.dtype, d: int) -> str:
 
 
 def padded_width(d: int, dtype: torch.dtype = torch.bfloat16) -> int:
-    """The width kernel A runs a head of width `d` at on the route of
-    `dtype` (the bf16 route's by default): the narrowest instantiation that
-    holds it (`HEAD_DIMS`, in f32 `F32_FFMA_DIMS`); above them, in bf16 the
-    next multiple of `WIDE_CHUNK` (the wide variant), in f32 the next
-    multiple of `F32_TC_ALIGN` (the tensor-core route)."""
+    """The width of the instantiation kernel A runs a head of width `d` on,
+    on the route of `dtype` (the bf16 route's by default): the narrowest
+    that holds it (`HEAD_DIMS`, in f32 `F32_FFMA_DIMS`); above them, in bf16
+    the next multiple of `WIDE_CHUNK` (the wide variant's chunks), in f32
+    the next multiple of `F32_TC_ALIGN` (the tensor-core route). The
+    columns from d to it are zeros the kernel's loads fill in; whether the
+    call copies is `reads_in_place`."""
     if route(dtype, d) == "f32_tc":
         return -(-d // F32_TC_ALIGN) * F32_TC_ALIGN
     for width in (HEAD_DIMS if dtype == torch.bfloat16 else F32_FFMA_DIMS):
@@ -186,19 +193,38 @@ def padded_width(d: int, dtype: torch.dtype = torch.bfloat16) -> int:
     return -(-d // WIDE_CHUNK) * WIDE_CHUNK
 
 
+def reads_in_place(d: int, dtype: torch.dtype = torch.bfloat16) -> bool:
+    """Whether kernel A reads a head of width `d` in place on the route of
+    `dtype` (the bf16 route's by default), so that `fused_attention` makes
+    no copy of it: every width whose rows a 16-byte copy addresses, a
+    multiple of 8 in bf16 (a TMA box's row) and of 4 in f32 (a cp.async).
+    The C entry's own rule is `attn_in_place` in csrc/attention.cu; the card
+    tests hold the two equal."""
+    return d >= 1 and read_width(d, dtype) == d
+
+
+def read_width(d: int, dtype: torch.dtype = torch.bfloat16) -> int:
+    """The width kernel A reads a head of width `d` at on the route of
+    `dtype`: the next multiple of the elements one 16-byte copy holds, `d`
+    itself where it `reads_in_place`; `fused_attention` zero-pads a head of
+    any other width to it (`pad_heads`)."""
+    align = 16 // dtype.itemsize
+    return -(-d // align) * align
+
+
 def column_slices(d: int, dtype: torch.dtype = torch.bfloat16) -> int:
     """How many column slices of O kernel A computes a head of width `d` in
     on the route of `dtype` (the bf16 route's by default): in bf16 one up
-    to `HEAD_DIMS[-1]`, above it one per `WIDE_SLICE` columns of the padded
-    width, each recomputing QK^T over the whole width; on the f32
-    tensor-core route one up to 256 columns, above it as few as
+    to `HEAD_DIMS[-1]`, above it one per `WIDE_SLICE` columns of the width
+    it reads (`read_width`), each recomputing QK^T over the whole width; on
+    the f32 tensor-core route one up to 256 columns, above it as few as
     `WIDE_SLICE` columns a slice allow, of one width (a multiple of 8),
     which share QK^T up to 16 slices and recompute it past them. The
     kernel's own count is `attn_f32_slices` in csrc/attention.cu; the card
     tests hold the two equal."""
     if route(dtype, d) != "f32_tc":
-        return -(-padded_width(d, dtype) // WIDE_SLICE)
-    d = padded_width(d, dtype)
+        return -(-read_width(d, dtype) // WIDE_SLICE)
+    d = read_width(d, dtype)
     if d <= HEAD_DIMS[-1]:
         return 1
     n = -(-d // WIDE_SLICE)
@@ -207,7 +233,7 @@ def column_slices(d: int, dtype: torch.dtype = torch.bfloat16) -> int:
 
 
 def pad_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, width: int) -> tuple:
-    """(q, k, v) zero-padded along d to `width` (`padded_width` on their
+    """(q, k, v) zero-padded along d to `width` (`read_width` on their
     route), as new contiguous tensors (the inputs themselves where d is
     that width). Attention over the padded heads with the true width's
     d^-1/2, sliced back to d columns, is attention over the originals.
@@ -224,21 +250,24 @@ pad_heads.copies = 0  # calls that copied
 
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Kernel A on CUDA tensors q (B, H, Nq, d), k/v (B, H, Nk, d), any
-    d >= 1 and any B H, of one type, float32 or bfloat16, read through their
-    strides where d is its own `padded_width` on its route (in bf16 one of
-    `HEAD_DIMS` or a multiple of 64 above them; in f32 one of
-    `F32_FFMA_DIMS` or a multiple of 4 above them), else first zero-padded
-    to it (`pad_heads`). No width is refused: above 256 the tensor-core
-    routes compute O in slices of at most 256 columns (`column_slices`),
-    which in bf16 each recompute QK^T over the whole width and in f32
-    share it through the cluster (past 16 slices, recompute it), so their
-    shared memory and registers do not grow with d (only the grid does,
-    within its 2^31 - 1 blocks). The last dimension must be contiguous,
-    every start 16-byte aligned and every other stride a multiple of 8
-    elements in bfloat16, of 4 in float32 (the kernel checks, and this
-    raises on a layout it refuses; `sdpa` copies such inputs first). Returns
-    (B, H, Nq, d), the transposed view of a contiguous (B, Nq, H, d) buffer,
-    or, for a padded width, that view's first d columns."""
+    d >= 1 and any B H, of one type, float32 or bfloat16, read in place
+    through their strides where d is a width kernel A reads in place on
+    its route (`reads_in_place`: a multiple of 8 in bfloat16, of 4 in
+    float32), on the narrowest instantiation that holds d (`padded_width`),
+    whose loads zero-fill the columns past d; any other width is first
+    zero-padded to the next one (`read_width`, `pad_heads`, a copy). No
+    width is refused: above 256 the tensor-core routes compute O in slices
+    of at most 256 columns (`column_slices`), which in bf16 each recompute
+    QK^T over the whole width and in f32 share it through the cluster (past
+    16 slices, recompute it), so their shared memory and registers do not
+    grow with d (only the grid does, within its 2^31 - 1 blocks). The last
+    dimension must be contiguous, every start 16-byte aligned and every
+    other stride a multiple of 8 elements in bfloat16, of 4 in float32 (the
+    kernel checks, and this raises on a layout it refuses; `sdpa` copies
+    such inputs first). A launch that fails raises: nothing falls back to
+    the padding or to the plain version. Returns (B, H, Nq, d), the
+    transposed view of a contiguous (B, Nq, H, d) buffer, or, for a padded
+    width, that view's first d columns."""
     dev = q.get_device()  # -1 for a CPU tensor
     if dev < 0 or k.get_device() != dev or v.get_device() != dev:
         raise ValueError("fused_attention takes CUDA tensors on one device")
@@ -252,7 +281,7 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     if k.shape != (b, h, nk, d_true) or v.shape != k.shape:
         raise ValueError(f"k/v shape {tuple(k.shape)}/{tuple(v.shape)} do not fit q {tuple(q.shape)}")
     path = route(dtype, d_true)
-    q, k, v = pad_heads(q, k, v, padded_width(d_true, dtype))
+    q, k, v = pad_heads(q, k, v, read_width(d_true, dtype))
     d = q.shape[-1]
     out = torch.empty_strided((b, h, nq, d), (nq * h * d, d, h * d, 1), dtype=dtype,
                               device=q.device)
@@ -307,14 +336,15 @@ def readable(t: torch.Tensor) -> bool:
 
 def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Kernel A for CUDA tensors, the plain version for CPU tensors. On the
-    card an input that kernel A cannot read in place (`readable`) is first
-    copied into a contiguous tensor (one that is padded to its width is
-    copied by the padding already); a call that autograd records (grad
-    enabled, an input that requires grad) goes through `KernelAttention`;
-    every other call launches kernel A directly."""
+    card an input whose layout kernel A cannot read in place (`readable`)
+    is first copied into a contiguous tensor, at every width it reads in
+    place (`reads_in_place`; a head of any other width is copied by its
+    padding already); a call that autograd records (grad enabled, an input
+    that requires grad) goes through `KernelAttention`; every other call
+    launches kernel A directly."""
     if q.device.type == "cpu":
         return sdpa_plain(q, k, v)
-    if padded_width(q.shape[-1], q.dtype) == q.shape[-1]:
+    if reads_in_place(q.shape[-1], q.dtype):
         q, k, v = (t if readable(t) else t.clone(memory_format=torch.contiguous_format)
                    for t in (q, k, v))
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):

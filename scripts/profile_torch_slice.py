@@ -8,8 +8,10 @@ a keyframe event, with torch.profiler (CUDA activity). Prints the per-frame
 wall time, the device-busy share (kernel time over wall time), device time
 per kernel group (the two ported kernels, GEMMs, convolutions, the rest)
 per frame, the Gauss-Newton iterations per frame, the top kernels, and the
-host stage times SLAMSystem.prof keeps.
-The full kernel table goes to logs/profile_torch_slice.txt (`_async.txt`).
+host stage times SLAMSystem.prof keeps, then the script's own seconds by
+stage. The full kernel table goes to logs/profile_torch_slice.txt
+(`_async.txt`). The trace is read once, as the profiler's raw events
+(`chip_smoke.trace_totals`).
 
 With `--dynamic`, the frames run through the dynamic pipeline of
 `main_monster_torch.py`: MAST3R_512 + MONST3R_512 (both tied, bf16), RAFT
@@ -80,6 +82,14 @@ def main() -> int:
     from monst3r_slam_torch.models.config import MAST3R_512
     from monst3r_slam_torch.slam import retrieval
 
+    stage_s, t_stage = {}, time.perf_counter()
+
+    def stage(name):
+        nonlocal t_stage
+        now = time.perf_counter()
+        stage_s[name] = round(now - t_stage, 1)
+        t_stage = now
+
     card = chip_smoke.phase_card()
     params = chip_smoke.tied_params(MAST3R_512, args.seed)
     hw = (chip_smoke.H, chip_smoke.W)
@@ -113,11 +123,13 @@ def main() -> int:
             retrieval_db=retrieval.ASMKDatabase.from_config(cfg))
     slam = SLAMSystem(params=params, model_cfg=MAST3R_512, cfg=cfg, img_size=hw,
                       kf_capacity=16, device="cuda", dtype=torch.bfloat16, **extra)
+    stage("set-up")
     warm = 3
     for i in range(warm):
         slam.process_frame(i, i / 30.0, img, uimg=uimg, force_kf=False)
     torch.cuda.synchronize()
     slam.prof.clear()
+    stage("warm-up frames")
 
     unprofiled = []  # the same frames without the profiler's overhead
     for i in range(warm, warm + args.frames):
@@ -136,6 +148,7 @@ def main() -> int:
     warm += args.frames
     slam.prof.clear()
     stall0 = slam.backend_stall_s
+    stage("unprofiled and pipelined frames")
 
     kf_at = warm + args.frames // 2
     wall = []
@@ -151,20 +164,10 @@ def main() -> int:
         drain = (time.perf_counter() - t0) * 1e3
     modes = slam.mode.name
     total_wall = sum(wall) + drain
+    stage("profiled frames")
 
-    rows = []
-    for ev in prof.key_averages():
-        dev = getattr(ev, "self_device_time_total", None)
-        if dev is None:
-            dev = ev.self_cuda_time_total
-        if dev > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
-            rows.append((dev / 1e3, ev.count, ev.key))
-    if not rows:  # some builds attribute kernel time to the CPU-side ops only
-        for ev in prof.key_averages():
-            dev = getattr(ev, "self_device_time_total", None) or ev.self_cuda_time_total
-            if dev > 0:
-                rows.append((dev / 1e3, ev.count, ev.key))
-    rows.sort(reverse=True)
+    rows, host_ops = chip_smoke.trace_totals(prof)
+    stage("trace read")
     busy = sum(r[0] for r in rows)
     groups: dict = {}
     for ms, count, name in rows:
@@ -190,7 +193,7 @@ def main() -> int:
     for g, (ms, count) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
         print(f"  {g:24s} {ms / n:9.3f} ms/frame  {count / n:8.1f} launches/frame  "
               f"{ms / busy:.3f} of device time")
-    solves = sum(ev.count for ev in prof.key_averages() if ev.key == "aten::linalg_cholesky_ex")
+    solves = host_ops.get("aten::linalg_cholesky_ex", 0)
     print(f"Gauss-Newton iterations (one Cholesky solve each, tracker and backend): "
           f"{solves / n:.2f} per frame")
     print("top kernels (ms over the window, launches):")
@@ -215,12 +218,12 @@ def main() -> int:
 
     out = ROOT / "logs"
     out.mkdir(exist_ok=True)
-    try:
-        table = prof.key_averages().table(sort_by="self_device_time_total", row_limit=60)
-    except (AttributeError, KeyError, ValueError):
-        table = prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=60)
+    table = "\n".join(f"{ms:12.3f} {count:8d}  {name}" for ms, count, name in rows[:60])
     name = "profile_torch_slice" + ("_async" if args.async_ else "") + ("_dynamic" if args.dynamic else "")
-    (out / f"{name}.txt").write_text(f"card: {card}\n{table}")
+    (out / f"{name}.txt").write_text(f"card: {card}\ndevice ms over the window, launches, kernel\n"
+                                    f"{table}\n")
+    stage("report")
+    print(f"script seconds by stage: {stage_s}")
     return 0
 
 

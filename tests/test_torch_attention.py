@@ -358,15 +358,19 @@ def test_error_bound_admits_the_f32_tensor_core_routes_arithmetic(shape, nk, spl
     assert err <= tatt.error_bound(q, k, v, ref)
 
 
+@pytest.mark.parametrize("widths", [(1, 257), (257, 2049)], ids=["to256", "above256"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_dispatch_routes_and_pads_every_width(dtype):
-    """For each head width 1-2,048: the route kernel A takes and the width it
-    runs at, and whether `pad_heads` copies contiguous inputs there. bf16:
-    the tensor-core kernel at its instantiations and at multiples of 64
-    above 256, other widths padded. f32: the FFMA kernel at 16, 32 and 64
-    (others up to 64 padded), the tensor-core kernel above 64, in place at
-    every multiple of 4 and padded to the next one elsewhere."""
-    for d in range(1, 2049):
+def test_dispatch_routes_and_pads_every_width(dtype, widths):
+    """For each head width 1-2,048: the route kernel A takes, the
+    instantiation it runs on, whether it reads the head in place and the
+    width it reads, and whether `pad_heads` copies contiguous inputs there.
+    bf16: the tensor-core kernel at its instantiations, above 256 the wide
+    variant (its chunks cover the next multiple of 64), every multiple of
+    8 read in place, any other width padded to the next one. f32: the FFMA
+    kernel at 16, 32 and 64, the tensor-core kernel above 64, every
+    multiple of 4 read in place, any other width padded to the next one."""
+    align = 8 if dtype == torch.bfloat16 else 4
+    for d in range(*widths):
         if dtype == torch.bfloat16:
             want_route = "bf16_tc"
             want = (next(w for w in tatt.HEAD_DIMS if d <= w) if d <= 256
@@ -376,11 +380,44 @@ def test_dispatch_routes_and_pads_every_width(dtype):
         else:
             want_route, want = "f32_tc", -(-d // 4) * 4
         assert tatt.route(dtype, d) == want_route, d
-        width = tatt.padded_width(d, dtype)
-        assert width == want, d
+        assert tatt.padded_width(d, dtype) == want, d
+        assert tatt.reads_in_place(d, dtype) == (d % align == 0), d
+        width = tatt.read_width(d, dtype)
+        assert width == -(-d // align) * align and width <= tatt.padded_width(d, dtype), d
         x = torch.zeros((1, 1, 2, d), dtype=dtype)
         copies = tatt.pad_heads.copies
         qp, kp, vp = tatt.pad_heads(x, x, x, width)
-        assert tatt.pad_heads.copies - copies == (width != d), d
+        assert tatt.pad_heads.copies - copies == (not tatt.reads_in_place(d, dtype)), d
         assert all(t.shape[-1] == width and (t is x) == (width == d) for t in (qp, kp, vp)), d
     assert tatt.column_slices(2000) == 8 and tatt.column_slices(257) == 2
+    assert tatt.column_slices(264) == 2 and tatt.column_slices(256) == 1
+
+
+# The models' attention layouts: (config, which attention, heads) -> head
+# width, at the TINY config and at MAST3R_512 re-headed (a checkpoint's
+# constructor string) to 4, 2 and 1 heads.
+QKV_LAYOUTS = [("TINY", "encoder", 4, 16), ("TINY", "decoder", 4, 12),
+               ("MAST3R_512/4", "encoder", 4, 256), ("MAST3R_512/4", "decoder", 4, 192),
+               ("MAST3R_512/2", "encoder", 2, 512), ("MAST3R_512/2", "decoder", 2, 384),
+               ("MAST3R_512/1", "encoder", 1, 1024), ("MAST3R_512/1", "decoder", 1, 768)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("config,which,heads,hd", QKV_LAYOUTS)
+def test_copy_predicate_on_the_models_qkv_layouts(config, which, heads, hd, dtype):
+    """q, k and v as `models/blocks.py`'s self-attention splits its fused
+    projection (transposed views of one (B, N, 3 H hd) output, v never
+    copied before the kernel): kernel A reads them in place, with no
+    copy by `sdpa` (`readable`) or by the padding (`reads_in_place`),
+    everywhere but at TINY's decoder in bf16, whose 12-wide heads start 24
+    bytes apart (in f32 48 bytes: read in place)."""
+    from monst3r_slam_torch.models import blocks, config as mcfg
+
+    cfg = mcfg.TINY if config == "TINY" else mcfg.MAST3R_512
+    width = cfg.enc_dim if which == "encoder" else cfg.dec_dim
+    assert width // heads == hd
+    qkv = torch.zeros((2, 9, 3 * width), dtype=dtype)
+    q, k, v = (blocks._heads_split(t, heads) for t in qkv.chunk(3, dim=-1))
+    assert q.shape == (2, heads, 9, hd) and not v.is_contiguous()
+    copies = not (tatt.reads_in_place(hd, dtype) and all(tatt.readable(t) for t in (q, k, v)))
+    assert copies == (config == "TINY" and which == "decoder" and dtype == torch.bfloat16)

@@ -51,8 +51,9 @@ F32_CASES = [(2, 8, 196, 196), (2, 6, 196, 196), (4, 16, 196, 196), (2, 12, 768,
 WIDTHS = (8, 12, 16, 24, 32, 48, 80, 96, 128, 160, 256)
 # Head widths above 256, which the wide variant takes in slices of 256
 # columns of O: multiples of 64 in one slice and a quarter (320), one and a
-# half (384), two (512), four (1,024), eight (2,048), and widths that the
-# wrapper zero-pads to a multiple of 64 (257, 300, 700, 3,000).
+# half (384), two (512), four (1,024), eight (2,048), 3,000 (read in place,
+# its last chunk ragged), and widths that the bf16 wrapper zero-pads to the
+# next multiple of 8 (257, 300, 700).
 WIDE_WIDTHS = (257, 300, 320, 384, 512, 700, 1024, 2048, 3000)
 
 
@@ -145,9 +146,9 @@ def test_attention_kernel_takes_more_than_65535_batch_heads(cuda, dtype, d):
 def test_attention_kernel_reads_and_writes_through_strides(cuda, dtype, d):
     """q, k, v as the model's heads split makes them: transposed views of
     one fused projection output, read in place, at each instantiated head
-    width, at 160 (in bf16 padded to 256, in f32 read in place) and at 320,
-    512 and 1,024 (in slices of 256 columns). The output is the (B, H, N, d)
-    view of a contiguous (B, N, H, d) buffer, so the heads merge is a view;
+    width, at 160 (on the 256-wide instantiations) and at 320, 512 and
+    1,024 (in slices of 256 columns). The output is the (B, H, N, d) view
+    of a contiguous (B, N, H, d) buffer, so the heads merge is a view;
     within `attention.error_bound` of `attention.reference`."""
     b, n, h = 2, 196, 3
     rng = np.random.default_rng(5)
@@ -158,7 +159,7 @@ def test_attention_kernel_reads_and_writes_through_strides(cuda, dtype, d):
     got = attention.sdpa(q, k, v)
     torch.cuda.synchronize()
     assert got.shape == (b, h, n, d)
-    if attention.padded_width(d, dtype) == d:
+    if attention.reads_in_place(d, dtype):
         assert attention.pad_heads.copies == copies
         assert got.transpose(1, 2).is_contiguous()
         assert got.transpose(1, 2).reshape(b, n, h * d).data_ptr() == got.data_ptr()
@@ -190,6 +191,129 @@ def test_f32_tensor_core_route_reads_every_width_in_place(cuda, d, b, h, nq, nk,
     ref = attention.reference(q, k, v)
     assert ref.dtype == torch.float64
     assert float((got.double() - ref).abs().max()) <= attention.error_bound(q, k, v, ref)
+
+
+# Every head width kernel A reads in place that is no instantiation of its
+# route: every multiple of 8 up to 256 in bf16 (each on the narrowest of 16,
+# 32, 64, 128 and 256 that holds it), three above 256 (the wide variant,
+# its last chunk and slice ragged), every multiple of 4 up to 64 in f32 (the
+# FFMA kernel at 16, 32 and 64).
+IN_PLACE_WIDTHS = ([(torch.bfloat16, d) for d in range(8, 257, 8)]
+                   + [(torch.bfloat16, d) for d in (264, 392, 1000)]
+                   + [(torch.float32, d) for d in range(4, 65, 4)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d", IN_PLACE_WIDTHS)
+def test_attention_kernel_reads_every_aligned_width_in_place(cuda, dtype, d):
+    """At each of `IN_PLACE_WIDTHS`, contiguous and as the model's heads
+    split makes them (transposed views of one fused projection), at a
+    ragged count (130 queries, 7 keys) and at 196 tokens, with unit and 8x
+    peaked logits: within `attention.error_bound` of `attention.reference`,
+    one launch counted at the true width, no copy by the padding
+    (`attention.pad_heads.copies` does not move), and the output the
+    (B, H, N, d) view of a contiguous (B, N, H, d) buffer of the true
+    width."""
+    assert attention.reads_in_place(d, dtype)
+    rng = np.random.default_rng(d)
+    fa = attention.fused_attention
+    for b, h, nq, nk in ((2, 3, 130, 7), (1, 2, 196, 196)):
+        qkv = torch.from_numpy(rng.standard_normal((b, nq, 3 * h * d), dtype=np.float32))
+        split = tuple(t.reshape(b, nq, h, d).transpose(1, 2) for t in qkv.chunk(3, dim=-1))
+        kv = [torch.from_numpy(rng.standard_normal((b, h, nk, d), dtype=np.float32))
+              for _ in range(2)]
+        layouts = {"contiguous": (split[0].contiguous(), *kv)}
+        if nq == nk:
+            layouts["qkv split"] = split
+        for name, (q, k, v) in layouts.items():
+            q, k, v = (t.to(cuda, dtype) for t in (q, k, v))
+            for scale in (1, 8):
+                qs = q * scale if scale != 1 else q
+                before = (attention.pad_heads.copies, fa.launches, fa.width_launches.get(d, 0))
+                got = attention.sdpa(qs, k, v)
+                torch.cuda.synchronize()
+                assert (attention.pad_heads.copies, fa.launches, fa.width_launches[d]) == (
+                    before[0], before[1] + 1, before[2] + 1), name
+                assert got.shape == qs.shape and got.dtype == dtype
+                buf = got.transpose(1, 2)
+                assert buf.is_contiguous() and buf.untyped_storage().nbytes() == buf.nbytes, name
+                ref = attention.reference(qs, k, v)
+                err = float((got.double() - ref).abs().max())
+                assert err <= attention.error_bound(qs, k, v, ref), (name, scale, err)
+
+
+@pytest.mark.cuda
+def test_in_place_rule_is_the_kernels(cuda):
+    """`attention.reads_in_place`, which decides whether `fused_attention`
+    pads a head, is the C entry's own rule (`attn_in_place`) at every width
+    up to 4,100 in both dtypes."""
+    import ctypes
+
+    from monst3r_slam_torch.ops import build
+
+    lib = build.load("attention", attention._SIGNATURES)
+    lib.attn_in_place.argtypes = [ctypes.c_longlong, ctypes.c_int]
+    lib.attn_in_place.restype = ctypes.c_int
+    for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
+        for d in range(1, 4101):
+            assert attention.reads_in_place(d, dtype) == bool(lib.attn_in_place(d, code)), (dtype, d)
+
+
+# (dtype, d, the width of the buffer q, k and v are views of): bf16 widths
+# whose last TMA box reaches past d (48 on D = 64, 8 on D = 16, 72 on 128),
+# whose last 64-column atom lies wholly past d (160 on D = 256) and on the
+# wide variant (264: its last chunk and slice; 392); f32 widths whose
+# zero-filled copies lie past d on the FFMA kernel (4, 12, 36, 60) and the
+# tensor-core kernel (68, 260).
+NAN_GUARD = [(torch.bfloat16, 8, 16), (torch.bfloat16, 48, 64), (torch.bfloat16, 72, 128),
+             (torch.bfloat16, 160, 256), (torch.bfloat16, 264, 320), (torch.bfloat16, 392, 448),
+             (torch.float32, 4, 16), (torch.float32, 12, 16), (torch.float32, 36, 64),
+             (torch.float32, 60, 64), (torch.float32, 68, 128), (torch.float32, 260, 320)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d,wide", NAN_GUARD)
+def test_attention_kernel_reads_and_writes_nothing_past_the_head(cuda, dtype, d, wide):
+    """q, k and v are the first d columns of buffers `wide` columns wide
+    whose other columns hold NaN, columns the kernel's instantiation spans:
+    the output is finite and within `attention.error_bound` of the plain
+    version, with no copy, so no column past d is read. Then the same call
+    through the C entry into an output whose rows are wider than d, filled
+    with a sentinel: every column past d keeps it, so no store lands past
+    a head's d columns (nor past the output's end)."""
+    import ctypes
+
+    from monst3r_slam_torch.ops import build
+
+    rng = np.random.default_rng(d + wide)
+    b, h, nq, nk = 1, 3, 130, 200
+    bufs = []
+    for n in (nq, nk, nk):
+        t = torch.full((b, h, n, wide), float("nan"), device=cuda, dtype=dtype)
+        t[..., :d] = torch.from_numpy(rng.standard_normal((b, h, n, d), dtype=np.float32)).to(
+            cuda, dtype)
+        bufs.append(t)
+    q, k, v = (t[..., :d] for t in bufs)
+    copies = attention.pad_heads.copies
+    got = attention.sdpa(q, k, v)
+    torch.cuda.synchronize()
+    assert attention.pad_heads.copies == copies
+    assert bool(torch.isfinite(got).all())
+    ref = attention.reference(q, k, v)
+    assert float((got.double() - ref).abs().max()) <= attention.error_bound(q, k, v, ref)
+
+    ow = d + 16 // q.element_size()
+    sentinel = 7.0
+    out = torch.full((b, nq, h, ow), sentinel, device=cuda, dtype=dtype)
+    o = out.transpose(1, 2)[..., :d]
+    args = attention._PACK(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), *q.stride(),
+                           *k.stride(), *v.stride(), *o.stride(), b, h, nq, nk, d, d,
+                           attention._DTYPES[dtype], torch.cuda.current_stream().cuda_stream)
+    lib = build.load("attention", attention._SIGNATURES)
+    assert lib.attn_forward(args) == 0
+    torch.cuda.synchronize()
+    assert bool((out[..., d:] == sentinel).all())
+    assert torch.equal(o, got)
 
 
 @pytest.mark.cuda
@@ -288,10 +412,10 @@ def test_attention_function_gradient_matches_the_plain_autograd(cuda, dtype, sha
     `attention.reference` and dq, dk, dv within
     `attention.backward_error_bound` of the f32 plain autograd, at the
     224x224 training shape, at 768 tokens, at a ragged count, at the TINY
-    config's head widths (16, 12; the latter zero-padded to 16), at heads
-    256 and 160 wide (in bf16 the latter zero-padded to 256) and at 512 (in
-    slices of 256 columns). With grad disabled `sdpa` launches kernel A
-    directly and records nothing."""
+    config's head widths (16, 12; the latter zero-padded to 16 in bf16), at
+    heads 256 and 160 wide (read in place) and at 512 (in slices of 256
+    columns). With grad disabled `sdpa` launches kernel A directly and
+    records nothing."""
     rng = np.random.default_rng(shape[2] + nk)
     b, h, nq, d = shape
     q, dout = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(cuda, dtype)
