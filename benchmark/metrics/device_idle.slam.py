@@ -1,0 +1,15 @@
+"""device_idle.slam: the share of the measured window in which no
+operation ran on the device, in percent: the device's busy time per frame
+in the frames traced right after the window (torch.profiler's device
+events, the union of their intervals) times the window's frames, against
+the window's seconds. The traced frames themselves run slower under the
+profiler, so their own idle share (`device.busy_s` over `device.window_s`)
+reads higher than the window's."""
+
+
+def read(run):
+    tr = run["trace"]
+    if tr is None or not run.get("traced_frames") or not run["frames"]:
+        return None
+    busy = tr["busy_s"] / run["traced_frames"] * run["frames"]
+    return 100.0 * (1.0 - busy / run["window_s"])
