@@ -1243,16 +1243,19 @@ def phase_raft_reference(seed: int) -> dict:
 
 def dynamic_stage_split(slam, n: int) -> dict:
     """`n` more frames through `slam`, each the last keyframe's image again,
-    with `sync_stages` (the device synchronized at every stage boundary) and
-    no keyframe event, the launch counters zeroed just before and read just
-    after: per-frame wall ms by stage, and the launches per tracked frame."""
+    with no keyframe event, the launch counters zeroed just before and read
+    just after: per-frame wall ms, the median device ms of each frame's
+    `encode`, `decode` and `match_track` spans (the port's recorder,
+    utils/timing: CUDA events at each span's ends, nothing synchronized
+    between stages) and the host ms of the decode's parts (`prof`), and
+    the launches per tracked frame."""
     import torch
 
     from monst3r_slam_torch.ops.attention import fused_attention
     from monst3r_slam_torch.ops.matching_pallas import tile_match_kernel
+    from monst3r_slam_torch.utils import timing
 
     slam.finalize()
-    slam.sync_stages = True
     slam.prof.clear()
     uimg = slam.kf_uimgs[slam.n_kf - 1]
     img = torch.from_numpy((uimg.astype(np.float32) / 255.0 - 0.5) / 0.5).to("cuda")
@@ -1270,10 +1273,16 @@ def dynamic_stage_split(slam, n: int) -> dict:
     slam.finalize()
     launches = {fn.__name__: fn.launches for fn in counters}
     routes = dict(fused_attention.route_launches)
-    stages = {k: float(np.median(v)) for k, v in slam.prof.items()
-              if k in ("encode_dispatch", "decode_monst3r", "flow_program", "decode_mast3r",
-                       "mask_refine", "track_dispatch", "resolve_prev", "mask_share")}
-    slam.sync_stages = False
+    fids = range(1000, 1000 + n)
+    rows = [s for s in timing.spans() if s.rid in fids and s.device_ms is not None]
+    stages = {}
+    for k in ("encode", "decode", "match_track"):
+        dev = [s.device_ms for s in rows if s.name == k]
+        if dev:
+            stages[f"{k} (device)"] = float(np.median(dev))
+    stages.update({k: float(np.median(v)) for k, v in slam.prof.items()
+                   if k in ("decode_monst3r", "flow_program", "decode_mast3r", "mask_refine",
+                            "resolve_prev", "mask_share") and v})
     return dict(wall_ms=wall, stages=stages, launches=launches, routes=routes,
                 n_masked=len(slam.prof.get("mask_share", [])))
 
@@ -1383,8 +1392,9 @@ def phase_dynamic(seed: int, card: str) -> dict:
         dyn_mask.set_flow_estimator(None)
         dyn_mask.set_flow_error_program(None)
     row["split"] = split
-    print(f"dynamic stage split ({card}), 4 tracked frames with the device synchronized at "
-          f"each stage: wall ms {[round(t, 1) for t in split['wall_ms']]}; stage medians (ms) "
+    print(f"dynamic stage split ({card}), 4 tracked frames, device ms of the recorder's stage "
+          f"spans and host ms of the decode's parts: wall ms "
+          f"{[round(t, 1) for t in split['wall_ms']]}; stage medians (ms) "
           + ", ".join(f"{k} {v:.2f}" for k, v in split["stages"].items())
           + f"; launches {split['launches']}, attention by route {split['routes']}", flush=True)
     n_masked = sum(s > 0 for s in shares)
@@ -1653,7 +1663,7 @@ def phase_sam2(seed: int, card: str, dyn: dict, dual) -> dict:
           f"against {native:.2f} ms {[round(t, 1) for t in dyn['mask_refine_ms']]} with the "
           f"native refiner in the dynamic phase's tracked run (same frames and weights; "
           f"{dyn['split']['stages'].get('mask_refine', float('nan')):.2f} ms in its "
-          f"synchronized split)", flush=True)
+          f"stage split)", flush=True)
     row.update(frames=n, seconds=secs, frame_ms=frame_ms, mask_share=shares,
                refiner_calls=refiner.calls, replaced=refiner.replaced, rejected=refiner.rejected,
                kf_events=kf_events, launches=launches, routes=routes,

@@ -43,7 +43,6 @@ from __future__ import annotations
 
 import queue
 import threading
-import time
 from typing import List, Optional
 
 import numpy as np
@@ -52,14 +51,18 @@ import torch
 from monst3r_slam_torch.models import mast3r as model_api
 from monst3r_slam_torch.ops import matching_tiled
 from monst3r_slam_torch.slam.frame import Frame, Mode
+from monst3r_slam_torch.utils import timing
 
 # Decision-matrix columns: pipeline._track_update_body's summary, plus the
-# chunk's `active` column (0 for a frame before k0 or frozen by an event).
+# chunk's `active` column (0 for a frame before k0 or frozen by an event)
+# and the frame's Gauss-Newton iterations.
 COL_T = slice(0, 8)
 COL_LOW_MATCH = 8
 COL_SOLVER_FAILED = 9
 COL_NEW_KF = 10
 COL_ACTIVE = 11
+COL_ITERS = 12
+N_COLS = 13
 
 
 def _normalized(img: torch.Tensor) -> torch.Tensor:
@@ -106,7 +109,7 @@ def chunk_track(
     `decode_hook(out: PairOutput, hook_x) -> PairOutput` lets a test
     replace each frame's decode outputs.
 
-    Returns dict(T_last (8,), idx_last (1, hw) or None, summaries (C, 12),
+    Returns dict(T_last (8,), idx_last (1, hw) or None, summaries (C, N_COLS),
     ys_T (C, 8), ys_feat (C, n, enc_dim), ys_fX (C, hw, 3), ys_fC (C, hw, 1),
     ys_fN (C,), ys_fS (C,), pairs: each frame's (decode, idx, valid) or None)."""
     from monst3r_slam_torch.app.pipeline import _track_update_body
@@ -123,7 +126,7 @@ def chunk_track(
     rows = {k: [] for k in ("summary", "T", "feat", "fX", "fC", "fN", "fS")}
     pairs: list = [None] * n_frames
     for i in range(k0):  # done before this dispatch: zero rows
-        rows["summary"].append(torch.zeros((12,), device=dev))
+        rows["summary"].append(torch.zeros((N_COLS,), device=dev))
         rows["T"].append(torch.zeros((8,), device=dev))
         rows["feat"].append(torch.zeros((n_patches, model_cfg.enc_dim), device=dev))
         for k in ("fX", "fC", "fN", "fS"):
@@ -157,7 +160,8 @@ def chunk_track(
         T = torch.where(done, T, res.T_WCf)
         idx = idx_new if idx is None else torch.where(done, idx, idx_new)
         done = done | res.new_kf | res.low_match | res.solver_failed
-        rows["summary"].append(torch.cat([summary, active.float()[None]]))
+        rows["summary"].append(torch.cat([summary, active.float()[None],
+                                          res.iters.float()[None]]))
         rows["T"].append(res.T_WCf)
         rows["feat"].append(feat[0])
         for k, v in (("fX", fX), ("fC", fC), ("fN", fN), ("fS", fS)):
@@ -195,7 +199,6 @@ def process_chunk(
     viewer asked to terminate. Plain MASt3R pipeline with the tiled matcher
     only (`SLAMSystem.supports_chunking`)."""
     C = int(imgs_dev.shape[0])
-    prof = slam.prof
     slam._consume_viewer_control()
     if slam.terminate_requested:
         return False
@@ -210,30 +213,29 @@ def process_chunk(
             k0 += 1
             continue
 
-        t0 = time.perf_counter()
-        slam._apply_backend_results()
-        kf_idx = slam.n_kf - 1
-        kf_feat, kf_pos, kf_T_WC = slam._kf_view(kf_idx)
-        outs = chunk_track(
-            slam.params, slam.mem.X_canon, slam.mem.C, slam.mem.N, slam.mem.score,
-            kf_idx, kf_feat, kf_pos, kf_T_WC, imgs_dev, slam._last_T_WC_dev, slam.idx_f2k, k0,
-            slam.K, hook_xs,
-            model_cfg=slam.model_cfg, track_cfg=slam.track_cfg, img_size=slam.img_size,
-            use_calib=slam.use_calib, fmode=slam.filtering_mode,
-            fscore=slam.track_cfg.filtering_score, mcfg=slam.match_cfg, tcfg=slam.match_tcfg,
-            use_kernel=slam.match_mode == "kernel", dtype=slam.dtype, feats=feats,
-            decode_hook=decode_hook,
-        )
-        t1 = time.perf_counter()
-        prof.setdefault("chunk_dispatch", []).append((t1 - t0) * 1e3)
-        sv = outs["summaries"].cpu().numpy()  # the one host read of this dispatch
-        prof.setdefault("chunk_sync", []).append((time.perf_counter() - t1) * 1e3)
+        with slam._stage("chunk_dispatch", rid=frame_ids[k0]):
+            slam._apply_backend_results()
+            kf_idx = slam.n_kf - 1
+            kf_feat, kf_pos, kf_T_WC = slam._kf_view(kf_idx)
+            outs = chunk_track(
+                slam.params, slam.mem.X_canon, slam.mem.C, slam.mem.N, slam.mem.score,
+                kf_idx, kf_feat, kf_pos, kf_T_WC, imgs_dev, slam._last_T_WC_dev, slam.idx_f2k,
+                k0, slam.K, hook_xs,
+                model_cfg=slam.model_cfg, track_cfg=slam.track_cfg, img_size=slam.img_size,
+                use_calib=slam.use_calib, fmode=slam.filtering_mode,
+                fscore=slam.track_cfg.filtering_score, mcfg=slam.match_cfg,
+                tcfg=slam.match_tcfg, use_kernel=slam.match_mode == "kernel", dtype=slam.dtype,
+                feats=feats, decode_hook=decode_hook,
+            )
+        with slam._stage("wait", key="chunk_sync", rid=frame_ids[k0]):
+            sv = outs["summaries"].cpu().numpy()  # the one host read of this dispatch
 
         event = None
         for i in range(k0, C):
             if sv[i, COL_ACTIVE] < 0.5:
                 break  # frozen by an earlier event
             fid = frame_ids[i]
+            timing.count("track.gn_iters", int(sv[i, COL_ITERS]))
             slam.timestamps.append(timestamps[i])
             slam.last_summary = sv[i, :COL_ACTIVE]
             if sv[i, COL_LOW_MATCH] > 0.5 or sv[i, COL_SOLVER_FAILED] > 0.5:
@@ -249,23 +251,23 @@ def process_chunk(
                 break
             slam.last_T_WC = sv[i, COL_T]
             if sv[i, COL_NEW_KF] > 0.5:
-                tk = time.perf_counter()
-                T_i, feat_i, fX_i, fC_i, fN_i, fS_i = _gather_chunk_frame(
-                    outs["ys_T"], outs["ys_feat"], outs["ys_fX"], outs["ys_fC"], outs["ys_fN"],
-                    outs["ys_fS"], i)
-                frame = Frame(frame_id=fid, T_WC=T_i, X_canon=fX_i, C=fC_i, N=fN_i,
-                              feat=feat_i, pos=kf_pos, score=fS_i)
-                slam.idx_f2k = None
-                slam._last_T_WC_dev = T_i
-                new_idx = slam._append_keyframe(frame)
-                slam._set_kf_uimg(new_idx, uimgs[i] if uimgs is not None else None)
-                out, idx_i, valid_i = outs["pairs"][i]
-                slam.backend_step(new_idx, frame, track_cache=dict(
-                    kf_idx=kf_idx, out=out, idx=idx_i, valid=valid_i))
-                if slam.single_thread:  # the synchronous solve moved this pose: read it back
-                    slam._last_T_WC_dev = slam.mem.T_WC[new_idx].clone()
-                    slam.last_T_WC = slam._last_T_WC_dev.cpu().numpy()
-                prof.setdefault("kf_event", []).append((time.perf_counter() - tk) * 1e3)
+                with slam._stage("kf_event", rid=fid):
+                    T_i, feat_i, fX_i, fC_i, fN_i, fS_i = _gather_chunk_frame(
+                        outs["ys_T"], outs["ys_feat"], outs["ys_fX"], outs["ys_fC"],
+                        outs["ys_fN"], outs["ys_fS"], i)
+                    frame = Frame(frame_id=fid, T_WC=T_i, X_canon=fX_i, C=fC_i, N=fN_i,
+                                  feat=feat_i, pos=kf_pos, score=fS_i)
+                    slam.idx_f2k = None
+                    slam._last_T_WC_dev = T_i
+                    new_idx = slam._append_keyframe(frame)
+                    slam._set_kf_uimg(new_idx, uimgs[i] if uimgs is not None else None)
+                    out, idx_i, valid_i = outs["pairs"][i]
+                    slam.backend_step(new_idx, frame, track_cache=dict(
+                        kf_idx=kf_idx, out=out, idx=idx_i, valid=valid_i))
+                    if slam.single_thread:  # the synchronous solve moved this pose: read it back
+                        slam._last_T_WC_dev = slam.mem.T_WC[new_idx].clone()
+                        with timing.span("wait"):
+                            slam.last_T_WC = slam._last_T_WC_dev.cpu().numpy()
                 slam._record_pose(fid, slam.last_T_WC)
                 k0, event = i + 1, "kf"
                 break

@@ -92,6 +92,7 @@ from monst3r_slam_torch.slam.factor_graph import FactorGraph, _next_pow2
 from monst3r_slam_torch.slam.frame import (
     Frame, Mode, fuse_pointmap, kf_append, kf_update_poses, make_keyframe_memory,
 )
+from monst3r_slam_torch.utils import timing
 
 
 def tracking_config_from_dict(cfg: dict) -> tracker_mod.TrackingConfig:
@@ -352,10 +353,6 @@ class SLAMSystem:
     easi3r: Optional[EasiParams] = None
     # The live viewer (viz/live.py LiveViewer); None: headless.
     viewer: Optional[object] = None
-    # Synchronize the device at each stage boundary of `prof`, so that the
-    # stage times are the device's and not the host's enqueue times (it
-    # serializes what the pipeline overlaps: for measurement only).
-    sync_stages: bool = False
     # A device mesh (parallel/mesh.py Mesh) whose home device is `device`;
     # None: built from the config's `parallel.mesh`.
     mesh: Optional[object] = None
@@ -431,10 +428,13 @@ class SLAMSystem:
         self.n_relocs = 0  # successful relocalizations
         self.n_async_solves = 0  # global solves the backend worker ran
         self.n_shed_solves = 0  # worker solves skipped because a newer job was queued
-        # Per-stage host wall times (ms), keyed by stage name; the worker
-        # appends its own ("retrieval", "backend_solve", ...).
+        # Per-stage host ms, keyed by stage name: the host ms of the
+        # recorder's spans (utils/timing, `_stage`); the worker appends its
+        # own ("retrieval", "backend_solve", ...). Empty while the recorder
+        # is off.
         self.prof: dict = {}
-        self.backend_stall_s = 0.0  # main-thread time spent on backend work
+        self.backend_stall_s = 0.0  # main-thread time spent on backend work: its spans' sum
+        self._on_cuda = torch.device(self.device).type == "cuda"
         self._retr_lock = threading.Lock()  # the retrieval DB is shared with the worker
         self._graph_lock = threading.Lock()
         self._backend_jobs: queue.Queue = queue.Queue()
@@ -508,14 +508,12 @@ class SLAMSystem:
         return model_api.decode(self.params, self.model_cfg, feat_i, pos_i, feat_j, pos_j,
                                 self.img_size, self.dtype)
 
-    def _stamp(self, key: str, t0: float) -> float:
-        """Log the time since `t0` under `key` in `prof` (after a device
-        synchronize with `sync_stages`); returns the time now."""
-        if self.sync_stages and torch.device(self.device).type == "cuda":
-            torch.cuda.synchronize(self.device)
-        t = time.perf_counter()
-        self.prof.setdefault(key, []).append((t - t0) * 1e3)
-        return t
+    def _stage(self, name: str, key: Optional[str] = None, rid=None, device: bool = False):
+        """A span `name` of the port's recorder (utils/timing) whose host ms
+        `prof[key]` also keeps (`key` defaults to `name`); `device` records
+        its device time too, on a card."""
+        return timing.span(name, rid=rid, device=device and self._on_cuda,
+                           log=self.prof.setdefault(key or name, []))
 
     # ------------------------------------------------------------------
     # Frame lifecycle
@@ -571,17 +569,16 @@ class SLAMSystem:
         `add_after_query` the frame is then added to the database."""
         if self.retrieval_db is None:
             return []
-        t0 = time.perf_counter()
-        feats = retrieval_mod.prep_features(
-            self.retrieval_params, frame.feat.reshape(1, *frame.feat.shape[-2:]))
-        feats = feats[0].cpu().numpy()
-        with self._retr_lock:  # the database is host state shared with the worker
-            out = self.retrieval_db.update(
-                feats, add_after_query=add_after_query, k=int(self.retr_cfg.get("k", 3)),
-                min_thresh=float(self.retr_cfg.get("min_thresh", 5e-3)),
-            )
-        self.prof.setdefault("retrieval", []).append((time.perf_counter() - t0) * 1e3)
-        return out
+        with self._stage("retrieval", rid=frame.frame_id):
+            feats = retrieval_mod.prep_features(
+                self.retrieval_params, frame.feat.reshape(1, *frame.feat.shape[-2:]))
+            with timing.span("wait"):
+                feats = feats[0].cpu().numpy()
+            with self._retr_lock:  # the database is host state shared with the worker
+                return self.retrieval_db.update(
+                    feats, add_after_query=add_after_query, k=int(self.retr_cfg.get("k", 3)),
+                    min_thresh=float(self.retr_cfg.get("min_thresh", 5e-3)),
+                )
 
     # ------------------------------------------------------------------
     # Factor graph edges
@@ -634,7 +631,8 @@ class SLAMSystem:
         Q_conf = self.backend_cfg.Q_conf
         frac_j = (valid_j & (Qj > Q_conf)).float().mean(dim=(1, 2))
         frac_i = (valid_i & (Qi > Q_conf)).float().mean(dim=(1, 2))
-        fracs = torch.minimum(frac_j, frac_i).cpu().numpy()  # one host read
+        with timing.span("wait"):
+            fracs = torch.minimum(frac_j, frac_i).cpu().numpy()  # one host read
 
         added = False
         for e, (i, j) in enumerate(zip(kf_i_list, kf_j_list)):
@@ -667,15 +665,11 @@ class SLAMSystem:
 
     def solve_backend(self):
         """Global solve on the live keyframe memory (main thread)."""
-        t0 = time.perf_counter()
-        self.graph.solve(self.mem, self.backend_cfg, use_calib=self.use_calib, K=self.K,
-                         img_size=self.img_size, host_solve=self.host_solve, mesh=self.mesh)
-        self._log_solve(t0)
-        self._kf_cache = None  # the solve rewrote keyframe poses
-
-    def _log_solve(self, t0: float):
-        self.prof.setdefault("backend_solve", []).append((time.perf_counter() - t0) * 1e3)
+        with self._stage("backend_solve"):
+            self.graph.solve(self.mem, self.backend_cfg, use_calib=self.use_calib, K=self.K,
+                             img_size=self.img_size, host_solve=self.host_solve, mesh=self.mesh)
         self.prof.setdefault("backend_solve_iters", []).append(self.graph.last_iters)
+        self._kf_cache = None  # the solve rewrote keyframe poses
 
     # ------------------------------------------------------------------
     # SLAM-state files
@@ -792,21 +786,26 @@ class SLAMSystem:
         `single_thread` mode, else queued for the backend worker with a copy
         of the solve inputs taken here on the main thread (the tracking step
         rewrites keyframe rows in place; the worker must never read them)."""
-        t0 = time.perf_counter()
-        if self.single_thread:
-            self._backend_job_body(kf_idx, frame, None, track_cache)
-            self.backend_stall_s += time.perf_counter() - t0
-            return
-        n_kf = self.n_kf
-        P = min(_next_pow2(n_kf, self.backend_cfg.pose_pad_lo), self.mem.capacity)
-        snap = (
-            self.mem.T_WC[:P].clone(),
-            self.mem.X_canon[:P].clone(),
-            self.mem.C[:P] / torch.clamp(self.mem.N[:P, None, None].float(), min=1.0),
-            n_kf,
-        )
-        self._backend_jobs.put((kf_idx, frame, snap, track_cache))
-        self.backend_stall_s += time.perf_counter() - t0
+        with timing.span("backend_stall") as stall:
+            if self.single_thread:
+                self._backend_job_body(kf_idx, frame, None, track_cache)
+            else:
+                n_kf = self.n_kf
+                P = min(_next_pow2(n_kf, self.backend_cfg.pose_pad_lo), self.mem.capacity)
+                snap = (
+                    self.mem.T_WC[:P].clone(),
+                    self.mem.X_canon[:P].clone(),
+                    self.mem.C[:P] / torch.clamp(self.mem.N[:P, None, None].float(), min=1.0),
+                    n_kf,
+                )
+                self._backend_jobs.put((kf_idx, frame, snap, track_cache))
+        self.backend_stall_s += stall.ms / 1e3
+
+    def _wait_for_worker(self):
+        """Wait out the worker's queued jobs: main-thread backend time."""
+        with timing.span("backend_stall") as stall:
+            self._backend_jobs.join()
+        self.backend_stall_s += stall.ms / 1e3
 
     def _backend_job_body(self, kf_idx: int, frame: Frame, snap, track_cache=None):
         retrieved = self._retrieve(frame, add_after_query=True)
@@ -829,13 +828,14 @@ class SLAMSystem:
                 self.n_shed_solves += 1
                 return
             Twc, Xs, Cs, n_kf = snap
-            t0 = time.perf_counter()
-            Twc_new = self.graph.solve_poses(
-                Twc, Xs, Cs, n_kf, self.backend_cfg, use_calib=self.use_calib, K=self.K,
-                img_size=self.img_size, host_solve=self.host_solve, mesh=self.mesh,
-            )
-            if Twc_new is not None:
-                self._log_solve(t0)
+            with timing.span("backend_solve") as solve:
+                Twc_new = self.graph.solve_poses(
+                    Twc, Xs, Cs, n_kf, self.backend_cfg, use_calib=self.use_calib, K=self.K,
+                    img_size=self.img_size, host_solve=self.host_solve, mesh=self.mesh,
+                )
+            if Twc_new is not None:  # a solve ran
+                self.prof.setdefault("backend_solve", []).append(solve.ms)
+                self.prof.setdefault("backend_solve_iters", []).append(self.graph.last_iters)
                 self.n_async_solves += 1
         if Twc_new is not None:
             # only the n_kf poses of the snapshot: the padding rows must not
@@ -848,10 +848,9 @@ class SLAMSystem:
             if job is None:
                 self._backend_jobs.task_done()
                 return
-            t0 = time.perf_counter()
             try:
-                self._backend_job_body(*job)
-                self.prof.setdefault("backend_job", []).append((time.perf_counter() - t0) * 1e3)
+                with self._stage("backend_job", rid=job[1].frame_id):
+                    self._backend_job_body(*job)
             except Exception as e:  # keep the worker alive; raised on the main thread
                 traceback.print_exc()
                 with self._err_lock:
@@ -880,12 +879,11 @@ class SLAMSystem:
     def finalize(self):
         """Resolve the last deferred tracking decisions, wait for the backend
         worker and apply its results: a deterministic final state for export."""
-        self._resolve_pending()
-        if self._worker is not None:
-            t0 = time.perf_counter()
-            self._backend_jobs.join()
-            self.backend_stall_s += time.perf_counter() - t0
-        self._apply_backend_results()
+        with timing.span("finalize"):
+            self._resolve_pending()
+            if self._worker is not None:
+                self._wait_for_worker()
+            self._apply_backend_results()
 
     def _append_keyframe(self, frame: Frame) -> int:
         if self.n_kf >= self.kf_capacity:
@@ -911,9 +909,7 @@ class SLAMSystem:
         self.n_reloc_attempts += 1
         if self._worker is not None:
             # a quiescent graph: wait out in-flight backend jobs
-            t0 = time.perf_counter()
-            self._backend_jobs.join()
-            self.backend_stall_s += time.perf_counter() - t0
+            self._wait_for_worker()
             self._apply_backend_results()
         retrieved = self._retrieve(frame, add_after_query=False)
         if not retrieved:
@@ -929,7 +925,8 @@ class SLAMSystem:
             with self._graph_lock:
                 self.solve_backend()
             self._last_T_WC_dev = self.mem.T_WC[kf_idx].clone()
-            self.last_T_WC = self._last_T_WC_dev.cpu().numpy()
+            with timing.span("wait"):
+                self.last_T_WC = self._last_T_WC_dev.cpu().numpy()
             self.n_relocs += 1
             return True
         self.mem.count -= 1  # roll back the tentative keyframe
@@ -952,22 +949,22 @@ class SLAMSystem:
         self._consume_viewer_control()
         if self.terminate_requested:
             return
-        t0 = time.perf_counter()
-        self._apply_backend_results()  # async pose write-back between frames
+        with timing.span("frame", rid=frame_id):
+            self._process_frame(frame_id, timestamp, img_np, uimg, force_kf)
+
+    def _process_frame(self, frame_id: int, timestamp, img_np, uimg, force_kf):
+        with self._stage("apply_backend"):
+            self._apply_backend_results()  # async pose write-back between frames
         self.timestamps.append(timestamp)
         self.cur_uimg = uimg
-        t1 = time.perf_counter()
-        frame = self.make_frame(frame_id, img_np)
-        t2 = self._stamp("encode_dispatch", t1)
-        self._resolve_to_depth(self.defer_depth)
-        if self.mode == Mode.RELOC:
-            # later in-flight frames were dispatched as TRACKING: resolve them
-            # now, so a relocalization below is not overridden by them
-            self._resolve_pending()
-        t3 = time.perf_counter()
-        p = self.prof
-        p.setdefault("apply_backend", []).append((t1 - t0) * 1e3)
-        p.setdefault("resolve_prev", []).append((t3 - t2) * 1e3)
+        with self._stage("encode", key="encode_dispatch", device=True):
+            frame = self.make_frame(frame_id, img_np)
+        with self._stage("resolve_prev"):
+            self._resolve_to_depth(self.defer_depth)
+            if self.mode == Mode.RELOC:
+                # later in-flight frames were dispatched as TRACKING: resolve them
+                # now, so a relocalization below is not overridden by them
+                self._resolve_pending()
         frame = dataclasses.replace(frame, T_WC=self._last_T_WC_dev)
 
         if self.mode == Mode.INIT:
@@ -986,7 +983,6 @@ class SLAMSystem:
             self._record_pose(frame_id, self.last_T_WC)
             return
 
-        t4 = time.perf_counter()
         kf_idx = self.n_kf - 1
         kf_feat, kf_pos, kf_T_WC = self._kf_view(kf_idx)
         kf_uimg = self.kf_uimgs[kf_idx] if kf_idx < len(self.kf_uimgs) else None
@@ -995,13 +991,24 @@ class SLAMSystem:
         cur_dyn_mask = None
         if (self.use_dynamic_mask and self.dual is not None and self.K is not None
                 and uimg is not None and kf_uimg is not None):
-            out, cur_dyn_mask = self._masked_decode(frame, uimg, kf_idx, kf_feat, kf_pos,
-                                                    kf_T_WC, kf_uimg)
-            t5 = time.perf_counter()
+            with timing.span("decode", device=self._on_cuda):
+                out, cur_dyn_mask = self._masked_decode(frame, uimg, kf_idx, kf_feat, kf_pos,
+                                                        kf_T_WC, kf_uimg)
         else:
-            out = self._decode_pair(frame.feat, frame.pos, kf_feat, kf_pos)
-            t5 = self._stamp("decode_dispatch", t4)
+            with self._stage("decode", key="decode_dispatch", device=True):
+                out = self._decode_pair(frame.feat, frame.pos, kf_feat, kf_pos)
 
+        with self._stage("match_track", key="track_dispatch", device=True):
+            self._match_track(frame_id, frame, out, kf_idx, kf_T_WC, uimg, force_kf,
+                              cur_dyn_mask)
+        if not self.defer_sync:
+            with self._stage("resolve_sync"):
+                self._resolve_pending()
+
+    def _match_track(self, frame_id: int, frame: Frame, out, kf_idx: int, kf_T_WC, uimg,
+                     force_kf, cur_dyn_mask):
+        """Match the decoded pair, fuse, track and update the keyframe, then
+        queue the frame's host decisions (`_pending`)."""
         if self.match_mode != "lm":
             use_init = self.idx_f2k is not None
             (fX, fC, fN, fS, res, summary, idx_f2k, valid_match_k) = _match_track_and_update(
@@ -1051,11 +1058,6 @@ class SLAMSystem:
             frame_id=frame_id, frame=frame, res=res, summary=summary, uimg=uimg,
             force_kf=force_kf, track_pair=track_pair, dyn_mask=cur_dyn_mask, dbg=dbg,
         ))
-        self._stamp("track_dispatch", t5)
-        if not self.defer_sync:
-            t6 = time.perf_counter()
-            self._resolve_pending()
-            p.setdefault("resolve_sync", []).append((time.perf_counter() - t6) * 1e3)
 
     # ------------------------------------------------------------------
     # Chunked tracking (app/chunked.py)
@@ -1091,33 +1093,41 @@ class SLAMSystem:
         while the host thresholds and refines the mask. C, D and Q are then
         zeroed on the frame's masked pixels and on the keyframe's stored
         mask. Returns (PairOutput, mask (h, w) bool)."""
-        t0 = time.perf_counter()
         dual = self.dual
-        out_m = model_api.decode(dual.monst3r, dual.monst3r_cfg, frame.feat, frame.pos, kf_feat,
-                                 kf_pos, self.img_size, self.dtype)
-        t1 = self._stamp("decode_monst3r", t0)
-        box = {}
+        with self._stage("decode_monst3r"):
+            out_m = model_api.decode(dual.monst3r, dual.monst3r_cfg, frame.feat, frame.pos,
+                                     kf_feat, kf_pos, self.img_size, self.dtype)
+        # the flow program's host work until it calls back, and the mask's
+        # refinement after the MASt3R half is enqueued: spans whose ends
+        # fall inside get_dynamic_mask
+        box = {"flow": self._stage("flow_program").start()}
 
         def dispatch_mast3r():
-            ta = self._stamp("flow_program", t1)
-            box["out_a"] = model_api.decode(dual.mast3r, dual.mast3r_cfg, frame.feat, frame.pos,
-                                            kf_feat, kf_pos, self.img_size, self.dtype)
-            box["t"] = self._stamp("decode_mast3r", ta)
+            box["flow"].stop()
+            with self._stage("decode_mast3r"):
+                box["out_a"] = model_api.decode(dual.mast3r, dual.mast3r_cfg, frame.feat,
+                                                frame.pos, kf_feat, kf_pos, self.img_size,
+                                                self.dtype)
+            box["refine"] = self._stage("mask_refine").start()
 
-        m = dyn.get_dynamic_mask(
-            uimg, kf_uimg, frame.T_WC, kf_T_WC, out_m.X1[0, ..., 2], self.K,
-            threshold=self.dyn_threshold, refine=self.dyn_refine,
-            refiner=(self._mask_propagator.as_refiner()
-                     if self._mask_propagator is not None else None),
-            # the normalized frame is on the device already, for the encoder
-            img_i_flow=frame.img,
-            overlap_cb=dispatch_mast3r,
-        )
+        try:
+            m = dyn.get_dynamic_mask(
+                uimg, kf_uimg, frame.T_WC, kf_T_WC, out_m.X1[0, ..., 2], self.K,
+                threshold=self.dyn_threshold, refine=self.dyn_refine,
+                refiner=(self._mask_propagator.as_refiner()
+                         if self._mask_propagator is not None else None),
+                # the normalized frame is on the device already, for the encoder
+                img_i_flow=frame.img,
+                overlap_cb=dispatch_mast3r,
+            )
+        finally:
+            box["flow"].stop()
+            if "refine" in box:
+                box["refine"].stop()
         if "out_a" not in box:  # get_dynamic_mask runs the callback exactly once
             raise RuntimeError("the flow-error program broke the overlap_cb contract: "
                                "get_dynamic_mask returned without invoking the callback "
                                "(see dynamic/mask.py set_flow_error_program)")
-        self._stamp("mask_refine", box["t"])
         self.prof.setdefault("mask_share", []).append(float(m.mean()))
         self._last_dyn_mask = m
         out = combine(out_m, box["out_a"])
@@ -1157,41 +1167,43 @@ class SLAMSystem:
         """Host-side decisions for one tracked frame: RELOC, pose write-back,
         keyframe event."""
         frame_id, frame, res = p["frame_id"], p["frame"], p["res"]
-        if p["dbg"] is not None:
-            self._save_valid_opt_overlay(frame_id, p["uimg"], *p["dbg"])
-        sv = p["summary"].cpu().numpy()  # one device->host read per frame
-        self.last_summary = sv
-        if sv[8] > 0.5 or sv[9] > 0.5:  # low_match | solver_failed
-            self.mode = Mode.RELOC
-            self.idx_f2k = None
-            if self._mask_propagator is not None:
-                self._mask_propagator.reset()  # stale masks must not seed later frames
+        with timing.span("resolve", rid=frame_id):
+            if p["dbg"] is not None:
+                self._save_valid_opt_overlay(frame_id, p["uimg"], *p["dbg"])
+            with timing.span("wait"):
+                sv = p["summary"].cpu().numpy()  # one device->host read per frame
+            self.last_summary = sv
+            if sv[8] > 0.5 or sv[9] > 0.5:  # low_match | solver_failed
+                self.mode = Mode.RELOC
+                self.idx_f2k = None
+                if self._mask_propagator is not None:
+                    self._mask_propagator.reset()  # stale masks must not seed later frames
+                self._record_pose(frame_id, self.last_T_WC)
+                return
+
+            frame = dataclasses.replace(frame, T_WC=res.T_WCf)
+            self.last_T_WC = sv[:8]
+            self._last_T_WC_dev = res.T_WCf
+
+            new_kf = sv[10] > 0.5 if p["force_kf"] is None else p["force_kf"]
+            if new_kf:
+                with self._stage("kf_event"):
+                    self.idx_f2k = None
+                    new_idx = self._append_keyframe(frame)
+                    self._set_kf_uimg(new_idx, p["uimg"], dyn_mask=p["dyn_mask"])
+                    tc = p["track_pair"]
+                    if tc is not None and tc["kf_idx"] != new_idx - 1:
+                        tc = None  # an interleaved keyframe broke consecutiveness
+                    self.backend_step(new_idx, frame, track_cache=tc)
+                    if self.single_thread:
+                        # the synchronous solve just updated this pose; read it back
+                        self._last_T_WC_dev = self.mem.T_WC[new_idx].clone()
+                        with timing.span("wait"):
+                            self.last_T_WC = self._last_T_WC_dev.cpu().numpy()
+                    # async: the solve has not run yet, and the tracked pose is
+                    # already on the host (sv[:8])
+
             self._record_pose(frame_id, self.last_T_WC)
-            return
-
-        frame = dataclasses.replace(frame, T_WC=res.T_WCf)
-        self.last_T_WC = sv[:8]
-        self._last_T_WC_dev = res.T_WCf
-
-        new_kf = sv[10] > 0.5 if p["force_kf"] is None else p["force_kf"]
-        if new_kf:
-            tk = time.perf_counter()
-            self.idx_f2k = None
-            new_idx = self._append_keyframe(frame)
-            self._set_kf_uimg(new_idx, p["uimg"], dyn_mask=p["dyn_mask"])
-            tc = p["track_pair"]
-            if tc is not None and tc["kf_idx"] != new_idx - 1:
-                tc = None  # an interleaved keyframe broke consecutiveness
-            self.backend_step(new_idx, frame, track_cache=tc)
-            if self.single_thread:
-                # the synchronous solve just updated this pose; read it back
-                self._last_T_WC_dev = self.mem.T_WC[new_idx].clone()
-                self.last_T_WC = self._last_T_WC_dev.cpu().numpy()
-            # async: the solve has not run yet, and the tracked pose is
-            # already on the host (sv[:8])
-            self.prof.setdefault("kf_event", []).append((time.perf_counter() - tk) * 1e3)
-
-        self._record_pose(frame_id, self.last_T_WC)
 
     def _save_valid_opt_overlay(self, frame_id: int, uimg, idx_f2k, valid_match_k, Q1, Q2, fC,
                                 fN, kC, kN):
@@ -1257,7 +1269,8 @@ class SLAMSystem:
     def _record_pose(self, frame_id: int, T_WC):
         self.frame_ids.append(frame_id)
         if isinstance(T_WC, torch.Tensor):
-            T_WC = T_WC.cpu().numpy()
+            with timing.span("wait"):
+                T_WC = T_WC.cpu().numpy()
         self.frame_poses.append(np.array(T_WC, np.float32))
         self._maybe_push_viewer()
 
@@ -1304,7 +1317,11 @@ class SLAMSystem:
         if n == 0:
             return
         self._last_viz_push = now
-        t0 = time.perf_counter()
+        with self._stage("viewer_push"):
+            self._push_viewer(n)
+
+    def _push_viewer(self, n: int):
+        """The snapshot of the first `n` keyframes, to the viewer."""
         h, w = self.img_size
         stride = max(1, int(np.ceil(np.sqrt(n * self.hw / 200_000))))
         gh, gw = viewer_grid_dims(h, w, stride)
@@ -1328,7 +1345,6 @@ class SLAMSystem:
             kf_segments=type(self.viewer).frustum_segments(T),
             normals=np.concatenate(nrm), radii=np.concatenate(rad), grid=(gh, gw),
         )
-        self.prof.setdefault("viewer_push", []).append((time.perf_counter() - t0) * 1e3)
 
     # ------------------------------------------------------------------
     # Export

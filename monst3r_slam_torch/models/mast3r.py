@@ -16,6 +16,7 @@ import torch
 
 from monst3r_slam_torch.models import croco, heads
 from monst3r_slam_torch.models.config import ModelConfig
+from monst3r_slam_torch.utils import timing
 
 
 class PairOutput(NamedTuple):
@@ -35,7 +36,9 @@ class PairOutput(NamedTuple):
 
 @torch.no_grad()
 def encode(params, cfg: ModelConfig, img: torch.Tensor, dtype=torch.bfloat16):
-    """img (B, H, W, 3) -> (feat (B, N, enc_dim) float32, pos (B, N, 2))."""
+    """img (B, H, W, 3) -> (feat (B, N, enc_dim) float32, pos (B, N, 2));
+    the recorder's `model.encodes` counts the images (utils/timing)."""
+    timing.count("model.encodes", img.shape[0])
     return croco.encode_image(params, cfg, img, dtype)
 
 
@@ -58,7 +61,9 @@ def _fused_heads(params, cfg: ModelConfig, dec1, dec2, n_h: int, n_w: int):
 @torch.no_grad()
 def decode(params, cfg: ModelConfig, feat1, pos1, feat2, pos2, shape,
            dtype=torch.bfloat16, fused_heads: bool = False) -> PairOutput:
-    """Decoder + both heads for the ordered pair (1, 2); `shape` is (H, W)."""
+    """Decoder + both heads for the ordered pair (1, 2); `shape` is (H, W).
+    The recorder's `model.decode_rows` counts the pairs (utils/timing)."""
+    timing.count("model.decode_rows", feat1.shape[0])
     h, w = shape
     n_h, n_w = h // cfg.patch_size, w // cfg.patch_size
     dec1, dec2 = croco.decode_pair(params, cfg, feat1, pos1, feat2, pos2, dtype)

@@ -21,6 +21,7 @@ from typing import NamedTuple
 import torch
 
 from monst3r_slam_torch.core import geometry, lie, robust
+from monst3r_slam_torch.utils import timing
 
 
 class TrackingConfig(NamedTuple):
@@ -82,7 +83,10 @@ def _solve_7x7(sqrt_info, r, J, huber_k: float):
 
 def _gn_loop(cfg: TrackingConfig, system, T_init: torch.Tensor, fixed_iters: bool = False):
     """GN driver with the reference's stop rule. `system(T)` returns the
-    normal equations (H (7, 7), g (7,), cost). Returns (T, iters, ok)."""
+    normal equations (H (7, 7), g (7,), cost). Returns (T, iters, ok); the
+    iterations also go to the recorder's `track.gn_iters` (utils/timing),
+    and each stop test's host read is a `wait` span. With `fixed_iters`
+    nothing is read or counted here: chunked tracking counts at its read."""
     T = T_init
     old_cost = torch.full((), torch.inf, dtype=T.dtype, device=T.device)
     if fixed_iters:
@@ -95,8 +99,14 @@ def _gn_loop(cfg: TrackingConfig, system, T_init: torch.Tensor, fixed_iters: boo
         done = robust.converged(cfg.rel_error, cfg.delta_norm, old_cost, new_cost, tau)
         old_cost = new_cost
         it += 1
-        if it >= cfg.max_iters or bool(done | ~ok):
-            return T, it, ok
+        if it >= cfg.max_iters:
+            break
+        with timing.span("wait"):
+            stop = bool(done | ~ok)
+        if stop:
+            break
+    timing.count("track.gn_iters", it)
+    return T, it, ok
 
 
 def _gn_loop_masked(cfg: TrackingConfig, system, T, old_cost):

@@ -35,6 +35,7 @@ from monst3r_slam_torch.models import croco, heads
 from monst3r_slam_torch.models.config import ModelConfig
 from monst3r_slam_torch.parallel.mesh import Mesh, Sharded, row_params, sum_home
 from monst3r_slam_torch.train.loss import conf_regression_terms
+from monst3r_slam_torch.utils import timing
 
 
 class TrainState(NamedTuple):
@@ -123,10 +124,17 @@ def train_step(state: TrainState, cfg: ModelConfig, batch, dtype=torch.bfloat16,
     """One AdamW step on `batch`, in place; on a `mesh`, the state's weights
     from `shard_params` and the batch from `batch_sharding` (`loss_fn`).
     Returns (state, loss), the loss a tensor on the (home) device (no host
-    read)."""
+    read). The recorder (utils/timing) holds the step as a `train_step`
+    span (request id: the step) over `forward`, `backward` and `optimizer`,
+    each with its device time on a card."""
     opt = state.opt_state
-    opt.zero_grad(set_to_none=True)
-    loss = loss_fn(state.params, cfg, batch, dtype=dtype, mesh=mesh)
-    backward(loss, opt)
-    opt.step()
+    on_card = opt.param_groups[0]["params"][0].is_cuda
+    with timing.span("train_step", rid=state.step):
+        opt.zero_grad(set_to_none=True)
+        with timing.span("forward", device=on_card):
+            loss = loss_fn(state.params, cfg, batch, dtype=dtype, mesh=mesh)
+        with timing.span("backward", device=on_card):
+            backward(loss, opt)
+        with timing.span("optimizer", device=on_card):
+            opt.step()
     return TrainState(state.params, opt, state.step + 1), loss.detach()

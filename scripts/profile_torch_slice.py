@@ -4,13 +4,24 @@
 Builds the slice that `chip_smoke.py` drives (the synchronous SLAMSystem at
 MAST3R_512 full width, random tied bf16 weights, 384x512 frames), tracks a
 few warm-up frames, then profiles `--frames` steady frames, the middle one
-a keyframe event, with torch.profiler (CUDA activity). Prints the per-frame
-wall time, the device-busy share (kernel time over wall time), device time
-per kernel group (the two ported kernels, GEMMs, convolutions, the rest)
-per frame, the Gauss-Newton iterations per frame, the top kernels, and the
-host stage times SLAMSystem.prof keeps, then the script's own seconds by
-stage. The full kernel table goes to logs/profile_torch_slice.txt
-(`_async.txt`). The trace is read once, as the profiler's raw events
+a keyframe event, with torch.profiler (CPU and CUDA activity) through the
+port's exporter, `utils/timing.profile_trace`: the trace, with the
+program's own spans (`frame`, `encode`, `decode`, `match_track`, `wait`,
+`kf_event`, ...) on rows of their own above the host's calls and the
+kernels, on the trace's time base, goes to logs/profile_torch_slice[_async]
+[_dynamic]/trace.json (open it in Perfetto or chrome://tracing). Prints the
+per-frame wall time, the device-busy share (kernel time over wall time),
+device time per kernel group (the two ported kernels, GEMMs, convolutions,
+the rest) per frame, the Gauss-Newton iterations per frame, the top
+kernels, the host stage times SLAMSystem.prof keeps and the recorder's
+table of spans and counters (`timing.summary`), then the clock check: each
+launch of kernels A and B, by the program span around its launch call on
+the launching thread (the stage that enqueues it: `encode` or `decode` for
+A, `match_track` for B, the backend's spans for the keyframe's edges), and
+the share inside its stage, which is at least 99% when program spans and
+the trace share one clock. Then the script's own seconds by stage. The full
+kernel table goes to logs/profile_torch_slice.txt (`_async.txt`). The
+trace is read once, as the profiler's raw events
 (`chip_smoke.trace_totals`).
 
 With `--dynamic`, the frames run through the dynamic pipeline of
@@ -36,8 +47,10 @@ synchronization in between ("pipelined"), the steady rate a user sees.
 from __future__ import annotations
 
 import argparse
+import json
 import pathlib
 import sys
+import threading
 import time
 
 import numpy as np
@@ -61,6 +74,59 @@ def group_of(name: str) -> str:
     return "other"
 
 
+KERNELS = (("A", "attn_fwd"), ("B", "tile_match"))
+# The spans a kernel's launch belongs in: the stages of the tracked frame
+# that enqueue it, or the backend's work on a keyframe's edges.
+STAGES = {"A": ("encode", "decode"), "B": ("match_track",)}
+BACKEND = ("backend_stall", "backend_job")
+
+
+def launch_spans(trace_json, aliases=None) -> dict:
+    """{kernel: {span: launches}}: for each launch of kernels A and B in a
+    trace that `timing.profile_trace` wrote, the innermost program span on
+    the launching thread around its launch call (the CUDA API call with
+    the kernel's correlation id). `aliases` maps other ids the trace may
+    give a thread (its `threading.get_ident()`) to its native id. A
+    call on a thread the trace names by neither is matched by time against
+    the spans of the recorder's threads that the trace does not name, and
+    counted under the span's name with " (by time)"."""
+    from monst3r_slam_torch.utils import timing
+
+    events = json.loads(pathlib.Path(trace_json).read_text())["traceEvents"]
+    calls = {e["args"]["correlation"]: e for e in events
+             if e.get("cat") in ("cuda_runtime", "cuda_driver")
+             and "correlation" in e.get("args", {})}
+    rows: dict = {}
+    for e in events:
+        if e.get("cat") == "program_span":
+            rows.setdefault(e["tid"] - timing.SPAN_ROW, []).append(
+                (e["ts"], e["ts"] + e["dur"], e["name"]))
+    aliases = aliases or {}
+    named = {aliases.get(e.get("tid"), e.get("tid")) for e in events
+             if e.get("cat") in ("cpu_op", "cuda_runtime", "cuda_driver")}
+    unnamed = [r for tid, rs in rows.items() if tid not in named for r in rs]
+    out: dict = {}
+    for e in events:
+        if e.get("cat") != "kernel":
+            continue
+        k = next((k for k, key in KERNELS if key in e["name"]), None)
+        if k is None:
+            continue
+        call = calls.get(e.get("args", {}).get("correlation"))
+        where = "no launch call"
+        if call is not None:
+            t0, t1 = call["ts"], call["ts"] + call.get("dur", 0)
+            tid = aliases.get(call["tid"], call["tid"])
+            mine = rows.get(tid)
+            inside = [r for r in (unnamed if mine is None else mine) if r[0] <= t0 and t1 <= r[1]]
+            where = min(inside, key=lambda r: r[1] - r[0])[2] if inside else "outside every span"
+            if inside and mine is None:
+                where += " (by time)"
+        out.setdefault(k, {})
+        out[k][where] = out[k].get(where, 0) + 1
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--frames", type=int, default=6)
@@ -72,7 +138,6 @@ def main() -> int:
     args = ap.parse_args()
 
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
@@ -81,6 +146,7 @@ def main() -> int:
     from monst3r_slam_torch.app.pipeline import SLAMSystem
     from monst3r_slam_torch.models.config import MAST3R_512
     from monst3r_slam_torch.slam import retrieval
+    from monst3r_slam_torch.utils import timing
 
     stage_s, t_stage = {}, time.perf_counter()
 
@@ -138,7 +204,7 @@ def main() -> int:
         torch.cuda.synchronize()
         unprofiled.append((time.perf_counter() - t0) * 1e3)
     warm += args.frames
-    host_unprofiled = {k: np.median(v) for k, v in slam.prof.items()}
+    host_unprofiled = {k: np.median(v) for k, v in slam.prof.items() if v}
     t0 = time.perf_counter()
     for i in range(warm, warm + args.frames):
         slam.process_frame(i, i / 30.0, img, uimg=uimg, force_kf=False)
@@ -152,7 +218,11 @@ def main() -> int:
 
     kf_at = warm + args.frames // 2
     wall = []
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    tag = ("profile_torch_slice" + ("_async" if args.async_ else "")
+           + ("_dynamic" if args.dynamic else ""))
+    out = ROOT / "logs"
+    timing.reset()
+    with timing.profile_trace(out / tag) as prof:
         for i in range(warm, warm + args.frames):
             t0 = time.perf_counter()
             slam.process_frame(i, i / 30.0, img, uimg=uimg, force_kf=i == kf_at)
@@ -213,14 +283,29 @@ def main() -> int:
           f"{(slam.backend_stall_s - stall0) * 1e3:.2f} ms (with the profiler)")
     print("host stages (median ms; without / with the profiler):")
     for k, v in slam.prof.items():
-        print(f"  {k:18s} {host_unprofiled.get(k, float('nan')):9.2f} {np.median(v):9.2f}  "
-              f"(n={len(v)})")
+        if v:
+            print(f"  {k:18s} {host_unprofiled.get(k, float('nan')):9.2f} {np.median(v):9.2f}  "
+                  f"(n={len(v)})")
+    print("the recorder's spans and counters over the profiled frames (utils/timing):")
+    print(timing.summary())
 
-    out = ROOT / "logs"
-    out.mkdir(exist_ok=True)
+    aliases = {}
+    for t in threading.enumerate():
+        for ident in (t.ident & 0xFFFFFFFF, (t.ident & 0xFFFFFFFF) - (1 << 32), t.ident):
+            aliases[ident] = t.native_id
+    found = launch_spans(out / tag / "trace.json", aliases)
+    for k, where in sorted(found.items()):
+        n_all = sum(where.values())
+        inside = sum(v for s, v in where.items()
+                     if s.removesuffix(" (by time)") in STAGES[k] + BACKEND)
+        print(f"clock check, kernel {k}: {n_all} launches by the span around the launch call "
+              f"{dict(sorted(where.items()))}; inside their stage's span "
+              f"{inside}/{n_all} = {inside / max(n_all, 1):.4f}"
+              f" ({'ok' if inside >= 0.99 * n_all and n_all else 'FAILS: under 99%'})")
+    stage("clock check")
+
     table = "\n".join(f"{ms:12.3f} {count:8d}  {name}" for ms, count, name in rows[:60])
-    name = "profile_torch_slice" + ("_async" if args.async_ else "") + ("_dynamic" if args.dynamic else "")
-    (out / f"{name}.txt").write_text(f"card: {card}\ndevice ms over the window, launches, kernel\n"
+    (out / f"{tag}.txt").write_text(f"card: {card}\ndevice ms over the window, launches, kernel\n"
                                     f"{table}\n")
     stage("report")
     print(f"script seconds by stage: {stage_s}")

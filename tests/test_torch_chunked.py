@@ -10,7 +10,9 @@ TINY tied weights from the port's own draw, f32, 32x48 frames, the gates
 open. Each scenario asserts the same decisions (modes, keyframes at the same
 frames, relocalization attempts, the same number of poses) and the poses,
 keyframe poses and keyframe pointmaps within 1e-6 (measured equal: both
-paths run the same operations in the same order on the CPU):
+paths run the same operations in the same order on the CPU), and the same
+Gauss-Newton iterations frame by frame in the recorder's `track.gn_iters`
+(counted at the chunk's read, and in the per-frame loop):
 
 * no event: two chunks of 4, one host read each;
 * a keyframe at every second frame (each synthetic frame twice, gate 0.9):
@@ -36,6 +38,7 @@ from monst3r_slam_torch.models.config import TINY
 from monst3r_slam_torch.models.init import init_params
 from monst3r_slam_torch.slam import tracker
 from monst3r_slam_torch.slam.frame import Mode
+from monst3r_slam_torch.utils import timing
 from tests.test_pipeline import synth_video
 from tests.test_torch_slam import one_torch_thread  # noqa: F401
 
@@ -118,8 +121,12 @@ def test_chunked_decides_as_the_perframe_path(params, name):
     host = frames
     if frames[0].dtype == np.uint8:  # the per-frame path takes the host's normalization
         host = [(u.astype(np.float32) / 255.0 - 0.5) / 0.5 for u in frames]
+    timing.reset()
     ref, ref_modes = _run_perframe(params, _cfg(**tracking), host)
+    ref_iters = [c.n for c in timing.counts("track.gn_iters")]
+    timing.reset()
     got, got_modes = _run_chunked(params, _cfg(**tracking), frames, chunk)
+    assert [c.n for c in timing.counts("track.gn_iters")] == ref_iters and ref_iters
     assert got_modes == ref_modes[chunk - 1 :: chunk] + ([ref_modes[-1]] if len(frames) % chunk
                                                          else [])
     assert got.frame_ids == ref.frame_ids == list(range(len(frames)))

@@ -1,5 +1,5 @@
 """The port's training path (`monst3r_slam_torch/train/`, `utils/flops.py`,
-`utils/timing.py`, `train_torch.py`) against the JAX package's, on the CPU:
+`train_torch.py`) against the JAX package's, on the CPU:
 TINY config, 32x32 images (4 tokens a view), batch 2, inputs from a numpy
 seed, the JAX weights carried over by `params_from_jax`. The port's
 attention on the CPU is its plain version; the backward that kernel A's
@@ -48,7 +48,6 @@ from monst3r_slam_torch.train import checkpoint as tckpt
 from monst3r_slam_torch.train import loss as tloss
 from monst3r_slam_torch.train import step as tstep
 from monst3r_slam_torch.utils import flops as tflops
-from monst3r_slam_torch.utils import timing
 from tests.test_torch_slam import one_torch_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -364,21 +363,6 @@ def test_chip_peak_raises_without_a_card():
         tflops.chip_peak_flops()
     with pytest.raises(RuntimeError):
         tflops.mfu(1e12, 1.0)
-
-
-def test_timing_on_the_cpu(tmp_path, capsys):
-    timing.stats.clear()
-    timing.tic("a")
-    assert timing.toc() >= 0
-    with timing.timer("b"):
-        pass
-    assert "a: " in capsys.readouterr().out
-    assert sorted(timing.stats) == ["a", "b"]
-    assert "a: n=1" in timing.summary()
-    with timing.profile_trace(tmp_path / "trace"):
-        torch.ones(4).sum()
-    assert (tmp_path / "trace" / "trace.json").stat().st_size > 0
-    timing.stats.clear()
 
 
 # --- the entry point --------------------------------------------------------
