@@ -180,15 +180,20 @@ phase printing one line:
      in a subprocess at MAST3R_512 (8 steps, batch 4, 224x224, with
      `--save` and `--ckpt-dir`), and beside its file writes, which use
      the card only to copy the weights out: kernel A's autograd
-     Function (kernel A forward, plain backward) on both routes at every
-     (B, heads, N, 64) of the timed steps below, encoder and decoder, and
-     at (1,16,768,64), against the f32 plain
-     autograd; steps timed in-process at 224x224 batch 4 and 384x512 batch
+     Function (kernel A forward; backward kernels in bf16, the plain
+     backward in f32) on both routes at every (B, heads, N, 64) of the
+     timed steps below, encoder and decoder, at (1,16,768,64) and at the
+     benchmark's (12, 16|12, 768, 64), against the f32 plain autograd, the
+     backward kernels' calls counted at their launch site and the
+     backward's device time beside its bound, the plain backward's and
+     SDPA's; steps
+     timed in-process at 224x224 batch 4 and 384x512 batch
      2 (back to back, synchronized, device time from torch.profiler,
      launches, peak memory, MFU against 989 TFLOP/s; the host's launch cost
      here and in a fresh process beside them), the launch counters zeroed
-     just before and read just after (96 kernel A launches a step,
-     asserted); one step at batch 1 on the card against the CPU path; and
+     just before and read just after (96 kernel A launches and 96 calls
+     of the backward kernels a step, asserted; the kernels line's
+     `attention_backward` entry); one step at batch 1 on the card against the CPU path; and
      a resumed run against an uninterrupted one under deterministic
      algorithms, in a subprocess, which must match bit for bit; and the
      sharded step (`phase_train_mesh`; alone with `--only-train-mesh`) on a
@@ -196,7 +201,8 @@ phase printing one line:
      them): MAST3R_512 from one seed, 224x224, batch 4, 3 sharded steps
      against 3 one-device ones from the same weights and batches, in f32
      (losses, gathered weights) and in bf16 (losses), kernel A launched 96
-     dp tp times a step at (2, 8, 196, 64) and (2, 6, 196, 64), each shape
+     dp tp times a step (and the backward kernels as often in bf16, never
+     in f32) at (2, 8, 196, 64) and (2, 6, 196, 64), each shape
      held to its plain version, two planted faults the f32 check must
      reject, the bf16 sharded step timed beside the one-device one, and the
      edge decode on the stepped split weights equal to the decode on their
@@ -422,7 +428,8 @@ def ptxas_usage(log: str) -> dict:
 
     usage, entry, spill = {}, None, 0
     for ln in log.splitlines():
-        m = re.search(r"Compiling entry function '\S*?(attn_fwd_[a-z0-9_]+?|tile_match_[a-z]+)"
+        m = re.search(r"Compiling entry function '\S*?(attn_fwd_[a-z0-9_]+?|attn_bwd_[a-z]+|"
+                      r"tile_match_[a-z]+)"
                       r"(?:I((?:L[ib]\d+E)+)E|E)", ln)
         if m:
             entry = m.group(1) + (f"<{','.join(re.findall(r'L[ib](\d+)E', m.group(2)))}>"
@@ -2149,9 +2156,11 @@ def zero_counts() -> None:
     """Every launch counter to 0, after the work queued before."""
     import torch
 
+    from monst3r_slam_torch.ops.attention import attention_backward
+
     torch.cuda.synchronize()
     attn = _counters()[0]
-    for fn in _counters():
+    for fn in _counters() + (attention_backward,):
         fn.launches = 0
     for fn in _counters()[1:]:
         fn.variant_launches.update(whole=0, banded=0)
@@ -2162,7 +2171,12 @@ def zero_counts() -> None:
 
 
 def read_counts() -> dict:
-    return {fn.__name__: fn.launches for fn in _counters()}
+    """Launches of kernel A, kernel B (whole and phase-split) and calls of
+    the attention backward kernels (`attention_backward`, three launches
+    each)."""
+    from monst3r_slam_torch.ops.attention import attention_backward
+
+    return {fn.__name__: fn.launches for fn in _counters() + (attention_backward,)}
 
 
 def rest_config(**tracking) -> dict:
@@ -3221,11 +3235,47 @@ TRAIN_CHECK_SIZE = 112  # the card-vs-CPU step: 49 tokens, a ragged tile, CPU-af
 def train_attention_shapes(cfg) -> list:
     """The (B, heads, N, 64) of every kernel A call on the training path at
     TRAIN_SHAPES (encoder and decoder heads; 196 tokens a ragged last tile),
-    then one pair at 384x512."""
+    then one pair at 384x512 and the benchmark's training cell (batch 12
+    at 384x512, encoder and decoder heads)."""
     shapes = [(b, heads, (h // cfg.patch_size) * (w // cfg.patch_size), d)
               for b, h, w in TRAIN_SHAPES
               for heads, d in ((cfg.enc_heads, cfg.head_dim), (cfg.dec_heads, cfg.dec_head_dim))]
-    return shapes + [(1, cfg.enc_heads, 768, cfg.head_dim)]
+    return shapes + [(1, cfg.enc_heads, 768, cfg.head_dim), (12, cfg.enc_heads, 768, cfg.head_dim),
+                     (12, cfg.dec_heads, 768, cfg.dec_head_dim)]
+
+
+def backward_kernel_row(train_run: dict) -> dict:
+    """The backward kernels' entry of the `kernels` line, from the train
+    phase's own runs: `attention_backward`'s calls (three launches each) in
+    the timed one-device steps and the sharded steps, each count zeroed
+    just before its run (`zero_counts`) and held there against the calls a
+    step wants (96 at MAST3R_512, one a kernel A call; none in f32); and
+    `train_gradient_check`'s rows at the benchmark's training shapes."""
+    from monst3r_slam_torch.models.config import MAST3R_512 as cfg
+
+    calls = dict(train=train_run["launches"]["attention_backward"],
+                 train_mesh=train_run["mesh"]["launches"]["attention_backward"])
+    keys = [f"bf16_tc {(12, heads, 768, d)}"
+            for heads, d in ((cfg.enc_heads, cfg.head_dim), (cfg.dec_heads, cfg.dec_head_dim))]
+    bench = {key: train_run["gradient"][key] for key in keys}
+    enc = next(iter(bench.values()))
+    return dict(name="attention_backward", route="cuda",
+                source="monst3r_slam_torch/csrc/attention_bwd.cu", replaces=None,
+                why="no TPU kernel: the reference's Pallas kernel has no backward; written for "
+                    "the plain backward's (B, H, N, N) tensors in device memory",
+                kernel="attn_bwd_prep, attn_bwd_dkdv, attn_bwd_dq (mma.sync bf16, f32 "
+                       "accumulators, cp.async two-stage ring)",
+                launches=3 * sum(calls.values()),
+                launches_by_path={path: 3 * n for path, n in calls.items()},
+                calls_by_path=calls,
+                calls_per_step=dict(want=2 * cfg.enc_depth + 4 * cfg.dec_depth,
+                                    train=[r["launches_per_step"]["attention_backward"]
+                                           for r in train_run["steps"]]),
+                shape=[12, cfg.enc_heads, 768, cfg.head_dim],
+                grad_bound_ratio=enc["grad_bound_ratio"], device_ms=enc["bwd_device_ms"],
+                plain_device_ms=enc["bwd_plain_device_ms"],
+                library_device_ms=enc["bwd_library_device_ms"], bound_ms=enc["bwd_bound_ms"],
+                bound_by=f"five bf16 products at {PEAK_BF16 / 1e12:.0f} TFLOP/s", rows=bench)
 
 
 def train_gradient_check(seed: int) -> dict:
@@ -3233,8 +3283,14 @@ def train_gradient_check(seed: int) -> dict:
     routes at each shape of `train_attention_shapes(MAST3R_512)`: the forward
     within `attention.error_bound` of the f32 plain version and dq, dk, dv
     within `attention.backward_error_bound` of the f32 plain autograd; one
-    kernel A launch forward, none backward. Times of a forward and backward
-    (`ms`, back to back) beside the plain version's and SDPA's."""
+    kernel A launch forward, none backward; in bf16 (width 64, which the
+    backward kernels take) one call of the backward kernels (one launch
+    of each, counted by `attention_backward.launches`), in f32 none.
+    Times of a forward and backward (`ms`, back to back) beside the plain
+    version's and SDPA's; and the backward alone on the device
+    (`device_ms`): the Function's (`sdpa_backward`: the kernels in bf16),
+    `sdpa_backward_plain`'s and SDPA's, beside the bound of its five
+    products at the bf16 peak."""
     import torch
     import torch.nn.functional as F
 
@@ -3252,13 +3308,19 @@ def train_gradient_check(seed: int) -> dict:
             n0 = fa.route_launches[route]
             out = attention.sdpa(*leaves)
             n1 = fa.route_launches[route]
+            c0 = attention.attention_backward.launches
             out.backward(dout)
             torch.cuda.synchronize()
+            bwd = attention.attention_backward.launches - c0
             n2 = fa.route_launches[route]
             backward_fn = type(out.grad_fn).__name__
+            want = int(attention.backward_route(dtype, shape[-1], q.device) == "kernel")
             if backward_fn != "KernelAttentionBackward" or (n1 - n0, n2 - n1) != (1, 0):
                 fail(f"attention gradient {route} {shape}: grad_fn {backward_fn}, "
                      f"{n1 - n0} forward and {n2 - n1} backward launches (want 1 and 0)")
+            if bwd != want:
+                fail(f"attention gradient {route} {shape}: {bwd} calls of the backward kernels "
+                     f"(want {want})")
             ref = [t.float().clone().requires_grad_() for t in (q, k, v)]
             ref_out = attention.sdpa_plain(*ref)
             ref_out.backward(dout.float())
@@ -3278,17 +3340,30 @@ def train_gradient_check(seed: int) -> dict:
                 ls = [t.detach().requires_grad_() for t in (q, k, v)]
                 fn(*ls).backward(dout)
 
+            ls = [t.detach().requires_grad_() for t in (q, k, v)]
+            lib_out = F.scaled_dot_product_attention(*ls)
             ms = time_ms(lambda: fwd_bwd(attention.sdpa), iters=10)
             plain = time_ms(lambda: fwd_bwd(attention.sdpa_plain), iters=10)
             lib = time_ms(lambda: fwd_bwd(F.scaled_dot_product_attention), iters=10)
+            dev = device_ms(lambda: attention.sdpa_backward(q, k, v, dout), iters=10)
+            plain_dev = device_ms(lambda: attention.sdpa_backward_plain(q, k, v, dout), iters=10)
+            lib_dev = device_ms(lambda: torch.autograd.grad(lib_out, ls, dout, retain_graph=True),
+                                iters=10)
+            del ls, lib_out
+            b, h, n, d = shape
+            b_ms = 10.0 * b * h * n * n * d / PEAK_BF16 * 1e3  # five products
             rows[route, shape] = dict(fwd_err=fwd_err, fwd_tol=fwd_tol, grad_err=grad_err,
-                                      grad_bound_ratio=ratio, ms=ms, plain_ms=plain,
-                                      library_ms=lib)
+                                      grad_bound_ratio=ratio, backward_calls=bwd, ms=ms,
+                                      plain_ms=plain, library_ms=lib, bwd_device_ms=dev,
+                                      bwd_plain_device_ms=plain_dev,
+                                      bwd_library_device_ms=lib_dev, bwd_bound_ms=b_ms)
             print(f"attention gradient {route} {shape}: forward err {fwd_err:.3e} <= "
                   f"{fwd_tol:.3e}; dq/dk/dv err {grad_err['q']:.3e}/{grad_err['k']:.3e}/"
                   f"{grad_err['v']:.3e}, at most {ratio:.3f} of the bound; 1 kernel A launch "
-                  f"forward, 0 backward; forward+backward ms: Function {ms:.4f}, plain "
-                  f"{plain:.4f}, sdpa {lib:.4f}", flush=True)
+                  f"forward, 0 backward, {bwd} call of the backward kernels; forward+backward ms: Function "
+                  f"{ms:.4f}, plain {plain:.4f}, sdpa {lib:.4f}; backward device ms: Function "
+                  f"{dev:.4f}, plain {plain_dev:.4f}, sdpa {lib_dev:.4f}, bound {b_ms:.4f} "
+                  f"(five products at {PEAK_BF16 / 1e12:.0f} TFLOP/s)", flush=True)
     return {f"{route} {tuple(shape)}": r for (route, shape), r in rows.items()}
 
 
@@ -3421,8 +3496,10 @@ def train_timing(state, cfg, b: int, h: int, w: int, card: str, held: int):
     if not all(np.isfinite(losses)):
         fail(f"train step at batch {b} {h}x{w}: a loss is not finite: {losses}")
     want = 2 * cfg.enc_depth + 4 * cfg.dec_depth
-    if per_step["fused_attention"] != want or per_step["tile_match_kernel"] != 0:
-        fail(f"a train step launched {per_step} (want {want} kernel A, no kernel B)")
+    if (per_step["fused_attention"] != want or per_step["attention_backward"] != want
+            or per_step["tile_match_kernel"] != 0):
+        fail(f"a train step launched {per_step} (want {want} kernel A and {want} backward "
+             "kernel calls, no kernel B)")
     return state, row
 
 
@@ -3957,6 +4034,11 @@ def phase_train_mesh(seed: int, card: str, one_device: dict | None = None) -> di
                 fail(f"{TRAIN_MESH_STEPS} sharded {route} steps on {dict(mesh.shape)} launched "
                      f"kernel A {n} times ({row['route_launches']} on its route), not {want} a "
                      "step")
+            # the backward kernels take the bf16 steps' every call, none of the f32 steps'
+            n_bwd = row["launches"]["attention_backward"]
+            if n_bwd != (want if route == "bf16_tc" else 0) * TRAIN_MESH_STEPS:
+                fail(f"{TRAIN_MESH_STEPS} sharded {route} steps on {dict(mesh.shape)} called the "
+                     f"backward kernels {n_bwd} times")
         b = TRAIN_MESH_SHAPE[0] // dp
         n = (TRAIN_MESH_SHAPE[1] // cfg.patch_size) * (TRAIN_MESH_SHAPE[2] // cfg.patch_size)
         if not f32["shapes"] == bf16["shapes"] == sorted({(b, cfg.enc_heads // tp, n, cfg.head_dim),
@@ -3964,9 +4046,10 @@ def phase_train_mesh(seed: int, card: str, one_device: dict | None = None) -> di
                                                            cfg.dec_head_dim)}):
             fail(f"kernel A ran the sharded step at {f32['shapes']} / {bf16['shapes']}")
         timing = train_mesh_timing(sharded, mesh, card, held)
-        if timing["launches"]["fused_attention"] != want * timing["steps"]:
+        if (timing["launches"]["fused_attention"] != want * timing["steps"]
+                or timing["launches"]["attention_backward"] != want * timing["steps"]):
             fail(f"{timing['steps']} timed sharded steps launched {timing['launches']}, not "
-                 f"{want} kernel A a step")
+                 f"{want} kernel A and {want} backward kernel calls a step")
         for counts in (f32["launches"], bf16["launches"], timing["launches"]):
             for name, k in counts.items():
                 launches[name] += k
@@ -4107,9 +4190,9 @@ def phase_train(seed: int, card: str) -> dict:
             state = train_device_time(state, MAST3R_512, row, card)
         launches = read_counts()
         n_steps = sum(r["steps"] for r in rows)
-        if launches["fused_attention"] != n_steps * 96:
+        if not launches["fused_attention"] == launches["attention_backward"] == n_steps * 96:
             fail(f"the timed training steps launched {launches} over {n_steps} steps "
-                 "(want 96 kernel A a step)")
+                 "(want 96 kernel A and 96 backward kernel calls a step)")
         del state
         torch.cuda.empty_cache()
         timed_s = time.perf_counter() - t0
@@ -5072,6 +5155,7 @@ def main() -> int:
     if args.only_train:
         train_run = phase_train(args.seed, card)
         print(json.dumps({"train_run": train_run}), flush=True)
+        print(json.dumps({"kernels": [backward_kernel_row(train_run)]}), flush=True)
         print(f"card: {card}; only the train phase ran", flush=True)
         return 0
     phase_s = {"build": round(time.perf_counter() - t_smoke, 1)}  # wall seconds per phase
@@ -5151,8 +5235,10 @@ def main() -> int:
                  train_shapes=[attn["f32", f"train {shape}"] for shape in F32_TRAIN_SHAPES],
                  launches_by_path=dict(train_mesh=sum(row["f32"]["route_launches"]
                                                       for row in train_run["mesh"]["rows"]))),
-             backward="plain PyTorch, attention.sdpa_backward_plain (the reference has no "
-                      "backward kernel)", gradient=train_run["gradient"],
+             backward="bf16 heads up to 64 columns: attn_bwd_prep, attn_bwd_dkdv, attn_bwd_dq "
+                      "(csrc/attention_bwd.cu; the reference has no backward kernel); f32 and "
+                      "other widths: plain PyTorch, attention.sdpa_backward_plain",
+             gradient=train_run["gradient"],
              widths=dict(
                  checked=list(HEAD_WIDTHS) + [d for d, _ in WIDE_HEAD_SHAPES],
                  instantiations=[16, 32, 64, 128, 256], wide_variant="every width above 256",
@@ -5162,6 +5248,7 @@ def main() -> int:
                  rows=heads_run["attention"] + wide_run["attention"],
                  launches_by_width=dict(train=heads_run["train"]["width_launches"],
                                         wide=wide_widths))),
+        backward_kernel_row(train_run),
         dict(name="tile_match", route="cuda", source="monst3r_slam_torch/csrc/tile_match.cu",
              replaces="monst3r_slam_tpu/ops/matching_pallas.py:213",
              launches=total["tile_match_kernel"], launches_by_path=by_path["tile_match_kernel"],

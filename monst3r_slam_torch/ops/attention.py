@@ -32,11 +32,19 @@ a plain-PyTorch copy around the kernel), the output sliced back, the
 logits scaled by the true width's d^-1/2. So kernel A takes every head
 width, as the reference's kernel does.
 
-Kernel A has no backward, and neither has the reference's Pallas kernel
-(training there differentiates its einsum attention). For training on the
-card, `sdpa` wraps kernel A in an autograd Function whose backward is
-`sdpa_backward_plain`: P recomputed from q and k, rounded where the
-autograd of `sdpa_plain` rounds.
+The reference's Pallas kernel has no backward (training there
+differentiates its einsum attention). For training on the card, `sdpa`
+wraps kernel A in an autograd Function (`KernelAttention`) whose backward
+is `sdpa_backward`: bf16 heads of a width the backward kernels take
+(`backward_route`: a multiple of 8 up to `BWD_WIDTH`, every shipped
+model's) go to three hand-written kernels (`csrc/attention_bwd.cu`,
+`attention_backward`) that recompute P tile by tile and never write an
+N x N tensor to device memory; f32 inputs, other widths and CPU tensors go
+to `sdpa_backward_plain`, P recomputed from q and k and rounded where the
+autograd of `sdpa_plain` rounds. Both stay within `backward_error_bound`.
+The backward kernels were added for the cost of the plain backward, whose
+(B, H, N, N) tensors in device memory took 334 of the 708 kernel ms of a
+batch-12 384x512 training step on an H100 (the kernels: 41).
 """
 
 from __future__ import annotations
@@ -47,6 +55,7 @@ import struct
 import torch
 
 from monst3r_slam_torch.ops import build
+from monst3r_slam_torch.utils import timing
 
 HEAD_DIMS = (16, 32, 64, 128, 256)  # the bf16 route's instantiations
 # Above HEAD_DIMS the bf16 wide variant stages d in chunks of WIDE_CHUNK
@@ -65,6 +74,15 @@ _SIGNATURES = {"attn_forward": ([ctypes.c_char_p], ctypes.c_int)}
 # head width, the type and the stream, 28 int64 values in one buffer (one
 # foreign argument).
 _PACK = struct.Struct("=28q").pack
+# The backward kernels' one instantiated head width; they read every
+# narrower multiple of 8 in place.
+BWD_WIDTH = 64
+_BWD_ROWS = 64  # rows of a CTA's block; the row statistics are padded to it
+_BWD_SIGNATURES = {"attn_backward": ([ctypes.c_char_p], ctypes.c_int)}
+# One backward call's arguments as the C entry's `BwdArgs`: 9 pointers (q,
+# k, v, dout, dq, dk, dv, the row statistics lse and delta), the (batch,
+# head, row, dim) strides of the seven tensors, the 5 sizes and the stream.
+_PACK_BWD = struct.Struct("=43q").pack
 
 
 def sdpa_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -155,7 +173,14 @@ def backward_error_bound(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     sum_k P |dP|), which the product with k (with q) carries into dq (dk),
     whose own rounding adds 2^-9 |dS| |k| at most. Each bound is twice its
     sum, which leaves as much again for the f32 summation order. f32
-    inputs: 2^-20 of the same terms, for the summation order alone."""
+    inputs: 2^-20 of the same terms, for the summation order alone.
+
+    The same bounds hold for the backward kernels (`attention_backward`),
+    which round the dS path elsewhere: they keep dP in f32 and round dS
+    itself to bf16 before its products, which moves dS by at most 2^-9
+    |dS| = 2^-9 P |dP - sum_k P dP| <= 2^-9 P (|dP| + sum_k P |dP|), the
+    dP term above. On an H100 the card tests' inputs put both backwards at
+    0.13-0.89 of these bounds, the largest on peaked logits."""
     u = 2.0**-8 if q.dtype == torch.bfloat16 else 2.0**-20
     qf, kf, vf, df = (t.float() for t in (q, k, v, dout))
     scale = q.shape[-1] ** -0.5
@@ -311,9 +336,90 @@ fused_attention.route_launches = {"bf16_tc": 0, "f32": 0, "f32_tc": 0}  # launch
 fused_attention.width_launches = {}  # launches per true head width
 
 
+def backward_route(dtype: torch.dtype, d: int, device: torch.device) -> str:
+    """The backward `sdpa_backward` takes for inputs of type `dtype`, head
+    width `d` on `device`: "kernel" (`attention_backward`) for bf16 CUDA
+    tensors of a width the kernels read in place, a multiple of 8 up to
+    `BWD_WIDTH`; "plain" (`sdpa_backward_plain`) for f32 inputs, other
+    widths and CPU tensors."""
+    if (device.type == "cuda" and dtype == torch.bfloat16 and d % 8 == 0
+            and 8 <= d <= BWD_WIDTH):
+        return "kernel"
+    return "plain"
+
+
+def attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       dout: torch.Tensor) -> tuple:
+    """(dq, dk, dv) of softmax attention on the card: the backward kernels of
+    `csrc/attention_bwd.cu` (`attn_bwd_prep`, `attn_bwd_dkdv`, `attn_bwd_dq`)
+    on bf16 CUDA tensors q, dout (B, H, Nq, d), k, v (B, H, Nk, d) of a width
+    `backward_route` sends to them, read through their strides (last
+    dimension contiguous, starts 16-byte aligned, other strides multiples of
+    8 elements; the C entry checks, and this raises on a layout it
+    refuses). Rounds P to bf16 before dV = P^T dout, as
+    `sdpa_backward_plain` does, but keeps dP in f32 where that rounds it to
+    bf16, and rounds dS to bf16 before dK = dS^T q and dQ = dS k where that
+    keeps it in f32 (`backward_error_bound` says why the same bound holds);
+    the outputs to bf16.
+    Each gradient is the (B, H, N, d) view of a contiguous (B, N, H, d)
+    buffer. A launch that fails raises."""
+    dev = q.get_device()
+    if dev < 0 or any(t.get_device() != dev for t in (k, v, dout)):
+        raise ValueError("attention_backward takes CUDA tensors on one device")
+    if any(t.dtype != torch.bfloat16 for t in (q, k, v, dout)):
+        raise ValueError(f"attention_backward takes bfloat16, got {q.dtype}")
+    b, h, nq, d = q.shape
+    nk = k.shape[2]
+    if k.shape != (b, h, nk, d) or v.shape != k.shape or dout.shape != q.shape:
+        raise ValueError(f"k/v/dout shapes {tuple(k.shape)}/{tuple(v.shape)}/"
+                         f"{tuple(dout.shape)} do not fit q {tuple(q.shape)}")
+    if backward_route(q.dtype, d, q.device) != "kernel":
+        raise ValueError(f"attention_backward takes head widths that are multiples of 8 up "
+                         f"to {BWD_WIDTH}, got {d}")
+    grads = [torch.empty_strided((b, h, n, d), (n * h * d, d, h * d, 1), dtype=q.dtype,
+                                 device=q.device) for n in (nq, nk, nk)]
+    rows = -(-nq // _BWD_ROWS) * _BWD_ROWS
+    lse, delta = torch.empty((2, b * h * rows), dtype=torch.float32, device=q.device)
+    ts = (q, k, v, dout, *grads)
+    args = _PACK_BWD(*(t.data_ptr() for t in ts), lse.data_ptr(), delta.data_ptr(),
+                     *(s for t in ts for s in t.stride()), b, h, nq, nk, d,
+                     torch._C._cuda_getCurrentRawStream(dev))
+    lib = build.load("attention_bwd", _BWD_SIGNATURES)
+    with build.on_card(dev):
+        err = lib.attn_backward(args)
+    if err == 1000:
+        raise ValueError(
+            f"attention_backward cannot read this layout: strides "
+            f"{[t.stride() for t in ts[:4]]}, starts {[t.data_ptr() % 16 for t in ts[:4]]} "
+            "bytes past 16-byte alignment")
+    if err != 0:
+        raise RuntimeError(f"attention backward kernel launch failed: error {err}")
+    attention_backward.launches += 1
+    return tuple(grads)
+
+
+attention_backward.launches = 0  # calls (of three kernel launches each)
+
+
+def sdpa_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  dout: torch.Tensor) -> tuple:
+    """(dq, dk, dv) of `sdpa` on the route `backward_route` gives:
+    `attention_backward` (dout copied first where the kernels cannot read
+    its layout) or `sdpa_backward_plain`. Counts the call as
+    `attn.bwd_kernel` or `attn.bwd_plain` in `utils.timing`."""
+    path = backward_route(q.dtype, q.shape[-1], q.device)
+    timing.count(f"attn.bwd_{path}")
+    if path == "plain":
+        return sdpa_backward_plain(q, k, v, dout)
+    if not readable(dout):
+        dout = dout.clone(memory_format=torch.contiguous_format)
+    return attention_backward(q, k, v, dout)
+
+
+
 class KernelAttention(torch.autograd.Function):
-    """Kernel A forward, `sdpa_backward_plain` backward. Saves q, k and v,
-    not P: the backward recomputes P, never the forward's output."""
+    """Kernel A forward, `sdpa_backward` backward. Saves q, k and v, not P:
+    the backward recomputes P, never the forward's output."""
 
     @staticmethod
     def forward(ctx, q, k, v):
@@ -322,7 +428,7 @@ class KernelAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dout):
-        return sdpa_backward_plain(*ctx.saved_tensors, dout)
+        return sdpa_backward(*ctx.saved_tensors, dout)
 
 
 def readable(t: torch.Tensor) -> bool:

@@ -1,7 +1,7 @@
-"""Kernels A (attention, both routes, and its autograd Function with the
-plain backward) and B (tile matcher, and its phase instantiations) on the
-card against their plain versions, through the dispatch the model and the
-matcher call; and the dynamic pipeline's parts
+"""Kernels A (attention, both routes, its backward kernels, and its
+autograd Function with their routing) and B (tile matcher, and its phase
+instantiations) on the card against their plain versions, through the
+dispatch the model and the matcher call; and the dynamic pipeline's parts
 on the card: RAFT against its CPU path, the fused flow program's readback
 ordering around `overlap_cb`, and the dual decode's kernel A launches; the
 LM matcher against its CPU run; chunked tracking against the per-frame
@@ -24,6 +24,7 @@ import torch
 
 import monst3r_slam_torch  # noqa: F401  (TF32 off for the plain versions)
 from monst3r_slam_torch.ops import attention, matching_pallas
+from monst3r_slam_torch.utils import timing
 
 
 @pytest.fixture
@@ -405,10 +406,13 @@ def test_sdpa_copies_the_layouts_kernel_a_cannot_read(cuda, dtype, d):
                                       ((2, 3, 130, 64), 7), ((2, 4, 196, 16), 196),
                                       ((2, 4, 196, 12), 196), ((1, 4, 196, 256), 196),
                                       ((1, 4, 196, 160), 196), ((1, 2, 196, 512), 196)])
-def test_attention_function_gradient_matches_the_plain_autograd(cuda, dtype, shape, nk):
+def test_attention_function_gradient_matches_the_plain_autograd(cuda, dtype, shape, nk,
+                                                                monkeypatch):
     """Kernel A's autograd Function, as the training forward reaches it
     through `sdpa` with grad enabled: one kernel A launch forward and none
-    backward; the forward within `attention.error_bound` of
+    backward, the backward on `backward_route`'s route (the backward
+    kernels for bf16 at widths 64 and 16, the plain backward for f32 and
+    the other widths); the forward within `attention.error_bound` of
     `attention.reference` and dq, dk, dv within
     `attention.backward_error_bound` of the f32 plain autograd, at the
     224x224 training shape, at 768 tokens, at a ragged count, at the TINY
@@ -423,6 +427,9 @@ def test_attention_function_gradient_matches_the_plain_autograd(cuda, dtype, sha
     k, v = (torch.from_numpy(rng.standard_normal((b, h, nk, d), dtype=np.float32)).to(cuda, dtype)
             for _ in range(2))
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    route = attention.backward_route(dtype, d, cuda)
+    monkeypatch.setattr(timing, "enabled", True)
+    calls = {r: len(timing.counts(f"attn.bwd_{r}")) for r in ("kernel", "plain")}
     n0 = attention.fused_attention.launches
     out = attention.sdpa(*leaves)
     n1 = attention.fused_attention.launches
@@ -430,6 +437,9 @@ def test_attention_function_gradient_matches_the_plain_autograd(cuda, dtype, sha
     torch.cuda.synchronize()
     assert (n1 - n0, attention.fused_attention.launches - n1) == (1, 0)
     assert type(out.grad_fn).__name__ == "KernelAttentionBackward"
+    assert route == ("kernel" if dtype == torch.bfloat16 and d in (64, 16) else "plain")
+    calls[route] += 1
+    assert {r: len(timing.counts(f"attn.bwd_{r}")) for r in calls} == calls
     ref = [t.float().clone().requires_grad_() for t in (q, k, v)]
     ref_out = attention.sdpa_plain(*ref)
     ref_out.backward(dout.float())
@@ -441,6 +451,126 @@ def test_attention_function_gradient_matches_the_plain_autograd(cuda, dtype, sha
     with torch.no_grad():
         assert attention.sdpa(*leaves).grad_fn is None
     assert attention.fused_attention.launches == n1 + 1
+
+
+def _backward_inputs(cuda, shape, nk, seed, logit_scale=1.0):
+    rng = np.random.default_rng(seed)
+    b, h, nq, d = shape
+
+    def draw(n, scale=1.0):
+        return torch.from_numpy(rng.standard_normal((b, h, n, d), dtype=np.float32) * scale).to(
+            cuda, torch.bfloat16)
+
+    return draw(nq, logit_scale), draw(nk, logit_scale), draw(nk), draw(nq)
+
+
+def _check_backward(q, k, v, dout, name=""):
+    """The backward kernels' (dq, dk, dv) against the f32 autograd of
+    `sdpa_plain`, every element within `backward_error_bound`; a second
+    run equal bit for bit; one call of the kernels each."""
+    n0 = attention.attention_backward.launches
+    got = attention.attention_backward(q, k, v, dout)
+    again = attention.attention_backward(q, k, v, dout)
+    torch.cuda.synchronize()
+    assert attention.attention_backward.launches == n0 + 2, name
+    ref = [t.float().clone().requires_grad_() for t in (q, k, v)]
+    attention.sdpa_plain(*ref).backward(dout.float())
+    for g, g2, r, bound, t in zip(got, again, ref, attention.backward_error_bound(q, k, v, dout),
+                                  (q, k, v)):
+        assert g.dtype == torch.bfloat16 and g.shape == t.shape, name
+        assert torch.equal(g, g2), name
+        assert bool(((g.float() - r.grad).abs() <= bound).all()), name
+
+
+# (shape of q, nk) of the backward kernels: the training cell's encoder and
+# decoder calls (384x512, batch 12), the 224x224 training shape, ragged
+# counts below one 64-row tile and across tiles, unequal counts, and widths
+# below 64 that the kernels read in place.
+BACKWARD_CASES = [((12, 16, 768, 64), 768), ((12, 12, 768, 64), 768), ((2, 8, 196, 64), 196),
+                  ((2, 3, 37, 64), 37), ((2, 3, 130, 64), 7), ((2, 3, 65, 64), 129),
+                  ((1, 2, 1, 64), 1), ((2, 4, 196, 16), 196), ((2, 3, 50, 40), 90),
+                  ((2, 3, 64, 8), 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,nk", BACKWARD_CASES)
+@pytest.mark.parametrize("logit_scale", [1, 3])
+def test_attention_backward_kernels_match_the_f32_autograd(cuda, shape, nk, logit_scale):
+    """The backward kernels (csrc/attention_bwd.cu) within
+    `attention.backward_error_bound` of the f32 autograd of `sdpa_plain`
+    at every element, on logits of unit spread and on peaked ones (q and k
+    3x larger); two runs give the same bits (no atomics)."""
+    _check_backward(*_backward_inputs(cuda, shape, nk, shape[2] * nk + logit_scale, logit_scale))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 32])
+def test_attention_backward_kernels_read_and_write_through_strides(cuda, d):
+    """q, k and v as the model hands them (transposed views of one fused
+    qkv projection, (B, N, 3 H d)), dout as the transposed view of a
+    (B, N, H, d) buffer, and through rows padded past the head (a row
+    stride of 3 d, the batch stride padded too): read in place and the
+    gradients equal those of contiguous copies bit for bit."""
+    rng = np.random.default_rng(d)
+    b, n, h = 2, 196, 8
+    qkv = torch.from_numpy(rng.standard_normal((b, n, 3 * h * d), dtype=np.float32)).to(
+        cuda, torch.bfloat16)
+    q, k, v = (t.reshape(b, n, h, d).transpose(1, 2) for t in qkv.chunk(3, dim=-1))
+    dout = torch.from_numpy(rng.standard_normal((b, n, h, d), dtype=np.float32)).to(
+        cuda, torch.bfloat16).transpose(1, 2)
+    _check_backward(q, k, v, dout, "qkv views")
+    contiguous = [t.contiguous() for t in (q, k, v, dout)]
+    for g, c in zip(attention.attention_backward(q, k, v, dout),
+                    attention.attention_backward(*contiguous)):
+        assert torch.equal(g, c)
+    padded = torch.zeros((b, h, n + 3, 3 * d), device=cuda, dtype=torch.bfloat16)
+    padded[:, :, :n, :d] = dout
+    _check_backward(q, k, v, padded[:, :, :n, :d], "padded rows")
+
+
+@pytest.mark.cuda
+def test_attention_backward_routes_and_counts(cuda):
+    """`sdpa_backward` (the Function's backward) sends bf16 heads of width
+    64 to the kernels and f32 heads, bf16 heads of width 12 or 128 to the
+    plain backward, counting each call as `attn.bwd_kernel` or
+    `attn.bwd_plain` in `utils.timing`, and the
+    kernels' calls in `attention_backward.launches`; a dout the kernels
+    cannot read (its last dimension strided) is copied first. The wrapper
+    refuses f32, widths above 64 and misaligned starts."""
+    enabled, timing.enabled = timing.enabled, True
+    try:
+        for dtype, d, route in ((torch.bfloat16, 64, "kernel"), (torch.float32, 64, "plain"),
+                                (torch.bfloat16, 12, "plain"), (torch.bfloat16, 128, "plain")):
+            q, k, v, dout = (t.to(dtype) for t in _backward_inputs(cuda, (2, 3, 70, d), 70, d))
+            counted = {r: len(timing.counts(f"attn.bwd_{r}")) for r in ("kernel", "plain")}
+            n0 = attention.attention_backward.launches
+            grads = attention.sdpa_backward(q, k, v, dout)
+            torch.cuda.synchronize()
+            counted[route] += 1
+            assert {r: len(timing.counts(f"attn.bwd_{r}")) for r in counted} == counted, (dtype, d)
+            assert attention.attention_backward.launches == n0 + (route == "kernel")
+            if route == "plain":
+                for g, r in zip(grads, attention.sdpa_backward_plain(q, k, v, dout)):
+                    assert torch.equal(g, r)
+        q, k, v, _ = _backward_inputs(cuda, (2, 3, 70, 64), 70, 1)
+        columns = torch.from_numpy(np.random.default_rng(2).standard_normal(
+            (2, 3, 64, 70), dtype=np.float32)).to(cuda, torch.bfloat16).transpose(-1, -2)
+        assert not attention.readable(columns)
+        for g, c in zip(attention.sdpa_backward(q, k, v, columns),
+                        attention.attention_backward(q, k, v, columns.contiguous())):
+            assert torch.equal(g, c)
+    finally:
+        timing.enabled = enabled
+    q, k, v, dout = _backward_inputs(cuda, (2, 3, 70, 64), 70, 3)
+    with pytest.raises(ValueError, match="bfloat16"):
+        attention.attention_backward(q.float(), k.float(), v.float(), dout.float())
+    wide = _backward_inputs(cuda, (2, 3, 70, 128), 70, 4)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        attention.attention_backward(*wide)
+    flat = torch.zeros(2 * 3 * 70 * 64 + 1, device=cuda, dtype=torch.bfloat16)
+    shifted = flat[1:].view(2, 3, 70, 64)
+    with pytest.raises(ValueError, match="cannot read this layout"):
+        attention.attention_backward(shifted, k, v, dout)
 
 
 def _tile_args(cuda, seed, fd, T, desc=None, qd=None, tsz=256, w=80):

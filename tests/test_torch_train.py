@@ -3,8 +3,10 @@
 TINY config, 32x32 images (4 tokens a view), batch 2, inputs from a numpy
 seed, the JAX weights carried over by `params_from_jax`. The port's
 attention on the CPU is its plain version; the backward that kernel A's
-autograd Function runs on the card, `sdpa_backward_plain`, is held here to
-torch's autograd of the plain version and to JAX's.
+autograd Function runs on the card for f32 inputs and the widths its
+backward kernels do not take, `sdpa_backward_plain`, is held here to
+torch's autograd of the plain version and to JAX's, and the route
+(`backward_route`) that picks it or the kernels is checked.
 
 Tolerances, each from where it comes:
   * f32 against f32 (losses, gradients, AdamW steps): the two sides sum in
@@ -233,6 +235,39 @@ def test_sdpa_on_the_cpu_stays_the_plain_version():
     assert type(out.grad_fn) is not tattn.KernelAttention._backward_cls
     assert type(out.grad_fn) is type(plain.grad_fn)
     assert torch.equal(out, plain)
+
+
+@pytest.mark.parametrize("dtype,d,device,route", [
+    (torch.bfloat16, 64, "cuda", "kernel"), (torch.bfloat16, 8, "cuda", "kernel"),
+    (torch.bfloat16, 16, "cuda", "kernel"), (torch.bfloat16, 40, "cuda", "kernel"),
+    (torch.float32, 64, "cuda", "plain"), (torch.float32, 16, "cuda", "plain"),
+    (torch.bfloat16, 12, "cuda", "plain"), (torch.bfloat16, 4, "cuda", "plain"),
+    (torch.bfloat16, 72, "cuda", "plain"), (torch.bfloat16, 128, "cuda", "plain"),
+    (torch.bfloat16, 64, "cpu", "plain"), (torch.float32, 64, "cpu", "plain")])
+def test_backward_route_sends_bf16_card_heads_up_to_64_to_the_kernels(dtype, d, device, route):
+    """bf16 CUDA heads of a width the backward kernels read in place (a
+    multiple of 8 up to `BWD_WIDTH`, the shipped models' 64 and TINY's 16)
+    take the kernels; f32 (f32 training, the f32 checks), other widths
+    (TINY's 12, above 64) and CPU tensors take `sdpa_backward_plain`."""
+    assert tattn.backward_route(dtype, d, torch.device(device)) == route
+
+
+def test_sdpa_backward_on_the_cpu_is_the_plain_backward_and_is_counted(monkeypatch):
+    """On CPU tensors `sdpa_backward` returns `sdpa_backward_plain`'s
+    gradients bit for bit and counts the call on the plain route, as
+    `attn.bwd_plain` in `utils.timing`; the kernels' wrapper refuses CPU
+    tensors."""
+    from monst3r_slam_torch.utils import timing
+
+    monkeypatch.setattr(timing, "enabled", True)
+    q, k, v, dout = _qkvd(5, (2, 3, 13, 64), 19, torch.bfloat16)
+    counted = len(timing.counts("attn.bwd_plain")), len(timing.counts("attn.bwd_kernel"))
+    for g, r in zip(tattn.sdpa_backward(q, k, v, dout), tattn.sdpa_backward_plain(q, k, v, dout)):
+        assert torch.equal(g, r)
+    assert (len(timing.counts("attn.bwd_plain")),
+            len(timing.counts("attn.bwd_kernel"))) == (counted[0] + 1, counted[1])
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tattn.attention_backward(q, k, v, dout)
 
 
 # --- the step ---------------------------------------------------------------
