@@ -1094,17 +1094,17 @@ class SLAMSystem:
         zeroed on the frame's masked pixels and on the keyframe's stored
         mask. Returns (PairOutput, mask (h, w) bool)."""
         dual = self.dual
-        with self._stage("decode_monst3r"):
+        with self._stage("decode_monst3r", device=True):
             out_m = model_api.decode(dual.monst3r, dual.monst3r_cfg, frame.feat, frame.pos,
                                      kf_feat, kf_pos, self.img_size, self.dtype)
         # the flow program's host work until it calls back, and the mask's
         # refinement after the MASt3R half is enqueued: spans whose ends
         # fall inside get_dynamic_mask
-        box = {"flow": self._stage("flow_program").start()}
+        box = {"flow": self._stage("flow_program", device=True).start()}
 
         def dispatch_mast3r():
             box["flow"].stop()
-            with self._stage("decode_mast3r"):
+            with self._stage("decode_mast3r", device=True):
                 box["out_a"] = model_api.decode(dual.mast3r, dual.mast3r_cfg, frame.feat,
                                                 frame.pos, kf_feat, kf_pos, self.img_size,
                                                 self.dtype)
@@ -1129,6 +1129,7 @@ class SLAMSystem:
                                "get_dynamic_mask returned without invoking the callback "
                                "(see dynamic/mask.py set_flow_error_program)")
         self.prof.setdefault("mask_share", []).append(float(m.mean()))
+        timing.count("dyn.mask_px", int(m.sum()))
         self._last_dyn_mask = m
         out = combine(out_m, box["out_a"])
         if self.cfg.get("debug_save_dynamic_mask", True):

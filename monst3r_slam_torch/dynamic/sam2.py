@@ -41,6 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from monst3r_slam_torch.dynamic.raft import _same_pad
+from monst3r_slam_torch.utils import timing
 
 
 class SAM2Config(NamedTuple):
@@ -477,7 +478,10 @@ class Sam2Refiner:
     the static set because the prompt budget ran out.
 
     `calls`, `replaced` and `rejected` count the refiner's calls and the
-    components it replaced or rejected."""
+    components it replaced or rejected; the recorder (utils/timing) counts
+    them too, as `sam2.calls`, `sam2.replaced` and `sam2.rejected`, and
+    holds the encode, the decode and their read-back in a `sam2` span with
+    its device time on a card."""
 
     def __init__(self, params, cfg: SAM2Config = SAM2_BASE_PLUS, max_objects: int = 8,
                  iou_floor: float = 0.3):
@@ -491,6 +495,7 @@ class Sam2Refiner:
         import cv2
 
         self.calls += 1
+        timing.count("sam2.calls")
         h, w = raw_mask.shape
         raw_mask = np.asarray(raw_mask, bool)
         n_lbl, labels, stats, cents = cv2.connectedComponentsWithStats(
@@ -514,20 +519,24 @@ class Sam2Refiner:
             pts[i, 0] = (cx / w, cy / h)
             lbs[i, 0] = 1
         dev = _device_of(self.params)
-        emb = sam2_encode(self.params, self.cfg, torch.from_numpy(img01)[None].to(dev))
-        sel, iou = sam2_decode_select(self.params, self.cfg, *emb, torch.from_numpy(pts).to(dev),
-                                      torch.from_numpy(lbs).to(dev))
-        sel, iou = sel.cpu().numpy(), iou.cpu().numpy()
+        with timing.span("sam2", device=dev.type == "cuda"):
+            emb = sam2_encode(self.params, self.cfg, torch.from_numpy(img01)[None].to(dev))
+            sel, iou = sam2_decode_select(self.params, self.cfg, *emb,
+                                          torch.from_numpy(pts).to(dev),
+                                          torch.from_numpy(lbs).to(dev))
+            sel, iou = sel.cpu().numpy(), iou.cpu().numpy()
         out = raw_mask.copy()
         for i, (_, comp_id, _) in enumerate(comp[:B]):
             if iou[i] < self.iou_floor:
                 self.rejected += 1
+                timing.count("sam2.rejected")
                 continue  # the component keeps its raw pixels
             m = cv2.resize(sel[i].astype(np.uint8), (w, h),
                            interpolation=cv2.INTER_NEAREST).astype(bool)
             out &= labels != comp_id  # replace this component
             out |= m  # by its SAM2 segmentation
             self.replaced += 1
+            timing.count("sam2.replaced")
         return out
 
 

@@ -6,7 +6,11 @@ tensors updated IN PLACE (`kf_set`, `kf_append`, `kf_update_pointmap`,
 `kf_update_poses` and the tracking step's keyframe fusion write into the
 buffers). Readers that must keep a value across such an update take a copy.
 Pointmap fusion (`fuse_pointmap`) covers the six filtering modes, each
-branch-free on the first-observation predicate.
+branch-free on the first-observation predicate. The two weighted modes
+leave a pixel that neither observation weighs (a dynamic pixel whose
+confidence the mask zeroed in both) at its old point, where the JAX
+package's means divide 0 by 0 and the NaN then fails every later solve
+that reads the keyframe.
 
 Poses are Sim(3) 8-vectors (core.lie).
 """
@@ -103,6 +107,14 @@ def _to_cart(s: torch.Tensor) -> torch.Tensor:
                      dim=-1)
 
 
+def _weighted(C_old, X_old, C_new, X_new):
+    """The confidence-weighted mean of two observations; a pixel that
+    neither weighs (both confidences 0, as on a dynamic pixel the mask
+    zeroed in both) keeps its old value, where the mean would be 0/0."""
+    C = C_old + C_new
+    return torch.where(C > 0, (C_old * X_old + C_new * X_new) / torch.where(C > 0, C, 1.0), X_old)
+
+
 def fuse_pointmap(X_old, C_old, N_old, X_new, C_new, mode: str = "weighted_pointmap",
                   score_old=None, filtering_score: str = "median"):
     """Fuse a new pointmap observation into the canonical one; returns
@@ -133,12 +145,12 @@ def fuse_pointmap(X_old, C_old, N_old, X_new, C_new, mode: str = "weighted_point
         C = torch.where(first, C_new, torch.where(better, C_new, C_old))
         N = one
     elif mode == "weighted_pointmap":
-        X_f = (C_old * X_old + C_new * X_new) / (C_old + C_new)
+        X_f = _weighted(C_old, X_old, C_new, X_new)
         X = torch.where(first, X_new, X_f)
         C = torch.where(first, C_new, C_old + C_new)
         N = torch.where(first, one, N_old + 1)
     elif mode == "weighted_spherical":
-        sph = (C_old * _to_sph(X_old) + C_new * _to_sph(X_new)) / (C_old + C_new)
+        sph = _weighted(C_old, _to_sph(X_old), C_new, _to_sph(X_new))
         X = torch.where(first, X_new, _to_cart(sph))
         C = torch.where(first, C_new, C_old + C_new)
         N = torch.where(first, one, N_old + 1)

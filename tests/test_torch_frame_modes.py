@@ -86,6 +86,23 @@ def test_weighted_spherical_at_the_origin_and_the_poles():
     np.testing.assert_allclose(tX[:3], [[0, 0, 0], [0, 0, 1.5], [0, 0, -2]], atol=1e-6)
 
 
+@pytest.mark.parametrize("mode", ["weighted_pointmap", "weighted_spherical"])
+def test_weighted_modes_keep_a_pixel_that_neither_observation_weighs(mode):
+    """A pixel whose confidence is 0 in both observations (a dynamic pixel
+    the mask zeroed in the keyframe and again in the frame) keeps its old
+    point, where JAX's mean divides 0 by 0; the other pixels match JAX."""
+    X_old, C_old = _obs(0)
+    X_new, C_new = _obs(1)
+    C_old[:5] = 0
+    C_new[:5] = 0
+    (jX, jC, jN, _), (tX, tC, tN, _) = _both(X_old, C_old, 3, X_new, C_new, mode, 0.0, "median")
+    assert np.isnan(jX[:5]).all() and np.isfinite(tX).all()
+    np.testing.assert_allclose(tX[:5], X_old[:5], atol=2e-6 * np.abs(X_old).max())
+    np.testing.assert_allclose(tX[5:], jX[5:], atol=2e-6 * np.abs(jX[5:]).max())
+    np.testing.assert_array_equal(tC, jC)
+    np.testing.assert_array_equal(tN, jN)
+
+
 def test_unknown_mode_or_score_raises():
     X, C = _obs(0)
     with pytest.raises(ValueError):

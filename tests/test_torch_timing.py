@@ -10,20 +10,30 @@ timing.py`) and the spans and counters the program records, on the CPU:
   equal what the run did, and `prof` is filled from the spans;
 * the TINY training step: `forward`, `backward` and `optimizer` under
   `train_step`;
+* the TINY dual pipeline with RAFT's program and SAM2's refiner: each
+  masked frame's two decodes and flow program asked for device time, the
+  `sam2` span of each SAM2 decode, the `sam2.*` and `dyn.mask_px` counters;
 * `profile_trace` writes the region's program spans into its `trace.json`.
 """
 
+import dataclasses
 import json
 import sys
 import threading
 import time
 
+import numpy as np
 import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
 import chip_smoke
+from monst3r_slam_torch.app.config import load_config
 from monst3r_slam_torch.app.pipeline import SLAMSystem
+from monst3r_slam_torch.dynamic import mask as dyn_mask
+from monst3r_slam_torch.dynamic import raft as raft_mod
+from monst3r_slam_torch.dynamic import sam2 as sam2_mod
+from monst3r_slam_torch.dynamic.inference import DualParams
 from monst3r_slam_torch.models.config import TINY
 from monst3r_slam_torch.models.init import init_params
 from monst3r_slam_torch.slam import retrieval
@@ -290,3 +300,82 @@ def test_profile_trace_writes_the_program_spans(tmp_path):
     assert region["tid"] != mm[0]["tid"] and region["pid"] == mm[0]["pid"]
     names = [e for e in ev if e.get("ph") == "M" and e.get("tid") == region["tid"]]
     assert names and "program spans" in names[0]["args"]["name"]
+
+
+def test_masked_frames_record_device_spans_and_counters(monkeypatch):
+    """The dual pipeline at TINY with the flow-error program (RAFT at 2
+    iterations) and SAM2's refiner (SAM2_TEST) installed: each masked
+    frame's `decode` holds one `decode_monst3r`, one `flow_program` and one
+    `decode_mast3r`, each asked for device time (with `_on_cuda` set, the
+    spans themselves kept on the host here), and one host `mask_refine`;
+    each SAM2 decode lies in one `sam2` span under a `mask_refine`; the
+    `sam2.*` counters add up to the refiner's own counts, and `dyn.mask_px`
+    counts each masked frame's mask."""
+    asked: dict = {}
+    real_span = timing.span
+
+    def spy(name, rid=None, device=False, log=None):
+        asked.setdefault(name, []).append(device)
+        return real_span(name, rid, False, log)
+
+    monkeypatch.setattr(timing, "span", spy)
+    rp = raft_mod.init_raft_params(torch.Generator().manual_seed(3))
+    monkeypatch.setattr(dyn_mask, "_flow_error_program", (None, False))
+    monkeypatch.setattr(dyn_mask, "_mask_refiner", None)
+    dyn_mask.set_flow_error_program(raft_mod.make_fused_flow_error_program(
+        rp, raft_mod.RAFTConfig(iters=2)))
+    refiner = sam2_mod.Sam2Refiner(sam2_mod.init_sam2_params(torch.Generator().manual_seed(4),
+                                                             sam2_mod.SAM2_TEST),
+                                   sam2_mod.SAM2_TEST)
+    dyn_mask.set_mask_refiner(refiner)
+    selects = []
+    select = sam2_mod.sam2_decode_select
+    monkeypatch.setattr(sam2_mod, "sam2_decode_select",
+                        lambda *a, **k: selects.append(1) or select(*a, **k))
+
+    nodesc = dataclasses.replace(TINY, desc_dim=None, two_confs=False)
+    mast3r = init_params(torch.Generator().manual_seed(0), TINY)
+    monst3r = init_params(torch.Generator().manual_seed(1), nodesc)
+    cfg = load_config("config/base.yaml", set_global=False)
+    cfg.update(single_thread=True, parallel={"mesh": "off"}, use_dynamic_mask=True)
+    cfg["tracking"].update(Q_conf=-1e9, C_conf=-1e9, min_match_frac=0.0)
+    cfg["local_opt"].update(Q_conf=-1e9, min_match_frac=0.0, solver="device")
+    K = torch.tensor([[60.0, 0, W / 2], [0, 60.0, H / 2], [0, 0, 1.0]])
+    rpar = retrieval.init_retrieval_params(torch.Generator().manual_seed(2), TINY.enc_dim)
+    slam = SLAMSystem(params=mast3r, model_cfg=TINY, cfg=cfg, img_size=(H, W), K=K,
+                      kf_capacity=8, device="cpu", dtype=torch.float32, retrieval_params=rpar,
+                      retrieval_db=retrieval.ASMKDatabase.from_config(cfg),
+                      dual=DualParams(monst3r, nodesc, mast3r, TINY))
+    slam._on_cuda = True  # ask for device spans; `spy` keeps them on the host
+    for i in range(4):
+        img = chip_smoke.synthetic_frame(0, H, W)
+        img = np.roll(img, 2 * i, axis=1)
+        uimg = np.uint8(np.clip((img + 1) / 2, 0, 1) * 255)
+        slam.process_frame(i, i / 30.0, img, uimg=uimg)
+    slam.finalize()
+
+    rows = timing.spans()
+    by_sid = {s.sid: s for s in rows}
+    masked = [s for s in rows if s.name == "decode"
+              and any(c.name == "decode_monst3r" and c.parent == s.sid for c in rows)]
+    assert masked
+    for d in masked:
+        names = [c.name for c in rows if c.parent == d.sid]
+        for stage in ("decode_monst3r", "flow_program", "decode_mast3r", "mask_refine"):
+            assert names.count(stage) == 1, names
+    for stage in ("decode_monst3r", "flow_program", "decode_mast3r"):
+        assert asked[stage] == [True] * len(masked), stage
+    assert asked["mask_refine"] == [False] * len(masked)
+    sam2_spans = [s for s in rows if s.name == "sam2"]
+    assert len(sam2_spans) == len(selects) >= 1
+    assert all(by_sid[s.parent].name == "mask_refine" for s in sam2_spans)
+
+    totals: dict = {}
+    for c in timing.counts():
+        totals[c.name] = totals.get(c.name, 0) + c.n
+    assert totals["sam2.calls"] == refiner.calls >= len(sam2_spans)
+    assert totals.get("sam2.replaced", 0) == refiner.replaced
+    assert totals.get("sam2.rejected", 0) == refiner.rejected
+    assert refiner.replaced + refiner.rejected >= 1
+    px = [c.n for c in timing.counts("dyn.mask_px")]
+    assert px == [round(s * H * W) for s in slam.prof["mask_share"]] and len(px) == len(masked)
